@@ -1,0 +1,161 @@
+"""ViT — Vision Transformer (port of ``sav_tpu/models/vit.py``).
+
+Pre-LN encoder, learned absolute position embeddings, zero-init CLS token
+and head, with every self-attention core on the backend-dispatched seam of
+:mod:`sav_tpu_torch.ops.attention`. Inputs are NHWC, as in ``sav_tpu``.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Optional
+
+import torch
+from torch import nn
+
+from sav_tpu_torch.models.layers import (
+    AddAbsPosEmbed,
+    FFBlock,
+    PatchEmbedBlock,
+    SelfAttentionBlock,
+)
+
+# flax.linen.LayerNorm's epsilon (torch's default is 1e-5).
+LN_EPS = 1e-6
+
+# sav_tpu ViT options this port does not carry yet, and the ROADMAP item
+# each waits on. Setting one raises NotImplementedError.
+_NOT_PORTED = {
+    "moe_num_experts": "queue A7.7 (MoE)",
+    "remat": "queue A4 (training slice)",
+    "attn_dropout_rate": "queue A4 (training slice)",
+    "dropout_rate": "queue A4 (training slice)",
+    "seq_parallel": "queue A9 (parallelism)",
+    "seq_mesh": "queue A9 (parallelism)",
+    "layout": "queue A9 (parallelism)",
+    "quant": "queue A8 (int8)",
+}
+
+
+class EncoderBlock(nn.Module):
+    """Pre-LN transformer block: LN→MHSA→res, LN→FF→res."""
+
+    def __init__(self, dim: int, num_heads: int, *, expand_ratio: float = 4.0,
+                 backend: Optional[str] = None, logits_dtype=None):
+        super().__init__()
+        self.norm1 = nn.LayerNorm(dim, eps=LN_EPS)
+        self.attn = SelfAttentionBlock(
+            dim, num_heads, backend=backend, logits_dtype=logits_dtype
+        )
+        self.norm2 = nn.LayerNorm(dim, eps=LN_EPS)
+        self.ff = FFBlock(dim, expand_ratio=expand_ratio)
+
+    def forward(self, inputs: torch.Tensor) -> torch.Tensor:
+        x = self.attn(self.norm1(inputs)) + inputs
+        return x + self.ff(self.norm2(x))
+
+
+class Encoder(nn.Module):
+    """Learned abs pos-emb, N pre-LN blocks, final LN."""
+
+    def __init__(self, length: int, dim: int, num_layers: int, num_heads: int, *,
+                 expand_ratio: float = 4.0, backend: Optional[str] = None,
+                 logits_dtype=None):
+        super().__init__()
+        self.pos_embed = AddAbsPosEmbed(length, dim)
+        self.blocks = nn.ModuleList(
+            EncoderBlock(dim, num_heads, expand_ratio=expand_ratio,
+                         backend=backend, logits_dtype=logits_dtype)
+            for _ in range(num_layers)
+        )
+        self.norm = nn.LayerNorm(dim, eps=LN_EPS)
+
+    def forward(self, inputs: torch.Tensor) -> torch.Tensor:
+        x = self.pos_embed(inputs)
+        for block in self.blocks:
+            x = block(x)
+        return self.norm(x)
+
+
+class ViT(nn.Module):
+    """inputs ``[B, H, W, C]`` NHWC → logits ``[B, num_classes]``.
+
+    ``image_size`` fixes the position table's length at construction (flax
+    reads it from the init input).
+    """
+
+    def __init__(
+        self,
+        num_classes: int,
+        embed_dim: int,
+        num_layers: int,
+        num_heads: int,
+        patch_shape,
+        *,
+        image_size: int = 224,
+        expand_ratio: float = 4.0,
+        pos_embed: str = "learned",
+        backend: Optional[str] = None,
+        logits_dtype=None,
+        **unported,
+    ):
+        super().__init__()
+        for name, value in unported.items():
+            if name not in _NOT_PORTED:
+                raise TypeError(f"ViT got an unexpected option {name!r}")
+            if value:
+                raise NotImplementedError(
+                    f"ViT option {name}={value!r} is not ported yet: ROADMAP "
+                    f"{_NOT_PORTED[name]}"
+                )
+        if pos_embed != "learned":
+            raise NotImplementedError(
+                f"pos_embed={pos_embed!r} is not ported yet (sincos and rotary "
+                "come with ops/rotary.py, ROADMAP queue A2); only 'learned' is"
+            )
+        ph, pw = patch_shape
+        if image_size % ph or image_size % pw:
+            raise ValueError(f"image {image_size} not divisible by patch {patch_shape}")
+        length = 1 + (image_size // ph) * (image_size // pw)
+        self.patch_embed = PatchEmbedBlock(patch_shape, embed_dim)
+        self.cls = nn.Parameter(torch.empty(1, 1, embed_dim))
+        self.encoder = Encoder(
+            length, embed_dim, num_layers, num_heads,
+            expand_ratio=expand_ratio, backend=backend, logits_dtype=logits_dtype,
+        )
+        self.head = nn.Linear(embed_dim, num_classes)
+
+    def reset_parameters(self, generator: torch.Generator) -> None:
+        """flax's initialisers from an explicit generator: lecun-normal
+        (truncated) kernels, zero biases, unit LayerNorm scales, normal(0.02)
+        position table, zero CLS token and zero head."""
+        for module in self.modules():
+            if isinstance(module, (nn.Linear, nn.Conv2d)):
+                _lecun_normal(module.weight, module.weight[0].numel(), generator)
+                if module.bias is not None:
+                    nn.init.zeros_(module.bias)
+            elif isinstance(module, nn.LayerNorm):
+                nn.init.ones_(module.weight)
+                nn.init.zeros_(module.bias)
+            elif isinstance(module, SelfAttentionBlock):
+                _lecun_normal(module.to_qkv, module.to_qkv.shape[0], generator)
+                h, d, _ = module.to_out.shape
+                _lecun_normal(module.to_out, h * d, generator)
+            elif isinstance(module, AddAbsPosEmbed):
+                module.reset_parameters(generator)
+        nn.init.zeros_(self.cls)
+        nn.init.zeros_(self.head.weight)
+        nn.init.zeros_(self.head.bias)
+
+    def forward(self, inputs: torch.Tensor) -> torch.Tensor:
+        x = self.patch_embed(inputs)
+        cls = self.cls.to(x.dtype).expand(x.shape[0], 1, -1)
+        x = self.encoder(torch.cat([cls, x], dim=1))
+        return self.head(x[:, 0])
+
+
+def _lecun_normal(param: torch.Tensor, fan_in: int, generator: torch.Generator) -> None:
+    # flax variance_scaling(1.0, "fan_in", "truncated_normal"): the stddev is
+    # corrected for the truncation at two standard deviations.
+    std = math.sqrt(1.0 / fan_in) / 0.87962566103423978
+    nn.init.trunc_normal_(param, std=std, a=-2 * std, b=2 * std, generator=generator)

@@ -1,0 +1,122 @@
+"""Scaled dot-product attention cores and the port's dispatch rule.
+
+Port of :mod:`sav_tpu.ops.attention`. Layout everywhere:
+``[batch, length, heads, head_dim]``.
+
+``backend``:
+  - ``'fused'`` — the single-pass kernel (:mod:`sav_tpu_torch.ops.fused_attention`);
+    raises when the shape exceeds the kernel's shared-memory budget.
+  - ``'xla'``   — :func:`dense_attention`, plain PyTorch ops; the counterpart
+    of ``sav_tpu``'s ``xla_attention``. Opt-in only: ``auto`` never picks it.
+  - ``'pallas'`` — the blocked flash kernel, not ported yet (ROADMAP queue
+    B3): raises ``NotImplementedError``.
+  - ``'auto'``/``None`` — :func:`resolve_attention_backend`: the fused kernel
+    wherever it is eligible, on CPU (its plain version) and on CUDA alike.
+    The TPU tune cache and the TPU's dense-logits threshold are not carried
+    over: they record TPU measurements.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from sav_tpu_torch.ops import fused_attention as _fused
+
+_FLASH_TODO = (
+    "the blocked flash-attention kernel is not ported yet (ROADMAP queue B3)"
+)
+
+
+def _as_dtype(dtype) -> torch.dtype:
+    if isinstance(dtype, torch.dtype):
+        return dtype
+    return {"float32": torch.float32, "bfloat16": torch.bfloat16}[str(dtype)]
+
+
+def dense_attention(
+    query: torch.Tensor,
+    key: torch.Tensor,
+    value: torch.Tensor,
+    bias: Optional[torch.Tensor] = None,
+    *,
+    scale: Optional[float] = None,
+    logits_dtype=None,
+) -> torch.Tensor:
+    """Attention in plain PyTorch ops, with ``xla_attention``'s numerics: q
+    is scaled in its own dtype first, the logits and softmax are in
+    ``logits_dtype`` (None = float32), the probabilities are cast to the
+    value dtype before PV.
+
+    Args:
+      query: ``[..., q_len, heads, head_dim]``.
+      key, value: ``[..., kv_len, heads, head_dim]``.
+      bias: optional bias broadcastable to ``[..., heads, q_len, kv_len]``.
+    """
+    if scale is None:
+        scale = query.shape[-1] ** -0.5
+    logits_dtype = torch.float32 if logits_dtype is None else _as_dtype(logits_dtype)
+    qs = query * torch.tensor(scale, dtype=query.dtype, device=query.device)
+    compute = torch.promote_types(query.dtype, logits_dtype)
+    logits = torch.einsum(
+        "...qhd,...khd->...hqk", qs.to(compute), key.to(compute)
+    ).to(logits_dtype)
+    if bias is not None:
+        logits = logits + bias.to(logits_dtype)
+    probs = torch.softmax(logits, dim=-1).to(value.dtype)
+    return torch.einsum("...hqk,...khd->...qhd", probs, value)
+
+
+def resolve_attention_backend(
+    q_len: int,
+    kv_len: int,
+    dim: int,
+    *,
+    dtype=torch.bfloat16,
+    requested: Optional[str] = None,
+) -> str:
+    """The port's rule on static shapes, returning ``'fused'`` or ``'xla'``:
+    ``auto`` means the fused kernel inside its band and raises outside it;
+    ``fused`` and ``xla`` pass through; ``pallas`` raises until the flash
+    kernel is ported."""
+    requested = requested or "auto"
+    if requested in ("fused", "xla"):
+        return requested
+    if requested == "pallas":
+        raise NotImplementedError(f"backend='pallas': {_FLASH_TODO}")
+    if requested != "auto":
+        raise ValueError(f"unknown attention backend: {requested!r}")
+    itemsize = torch.empty((), dtype=_as_dtype(dtype)).element_size()
+    if _fused.fused_eligible(q_len, kv_len, dim, itemsize=itemsize):
+        return "fused"
+    raise NotImplementedError(
+        f"auto attention at q_len={q_len}, kv_len={kv_len}, head_dim={dim} "
+        f"is outside the fused kernel's band, and {_FLASH_TODO}"
+    )
+
+
+def dot_product_attention(
+    query: torch.Tensor,
+    key: torch.Tensor,
+    value: torch.Tensor,
+    bias: Optional[torch.Tensor] = None,
+    *,
+    scale: Optional[float] = None,
+    backend: Optional[str] = None,
+    logits_dtype=None,
+) -> torch.Tensor:
+    """Backend-dispatched attention on ``[B, L, H, D]`` inputs (see the module
+    docstring). ``logits_dtype`` applies to the ``xla`` path only; the
+    kernel always takes its softmax in f32."""
+    if query.ndim != 4:
+        raise ValueError(f"attention expects [B, L, H, D] inputs, got {tuple(query.shape)}")
+    backend = resolve_attention_backend(
+        query.shape[1], key.shape[1], query.shape[-1],
+        dtype=query.dtype, requested=backend,
+    )
+    if backend == "fused":
+        return _fused.fused_attention(query, key, value, bias, scale=scale)
+    return dense_attention(
+        query, key, value, bias, scale=scale, logits_dtype=logits_dtype
+    )

@@ -1,0 +1,176 @@
+"""The port's fused attention (sav_tpu_torch.ops.fused_attention) against
+sav_tpu's, on the CPU.
+
+On CPU tensors the port's wrapper runs its plain version
+(``fused_attention_reference``), so these tests hold the kernel's arithmetic
+against sav_tpu's ``fused_attention`` (the Pallas kernel in interpret mode)
+from the same numpy inputs. The CUDA kernel itself is checked against the
+same plain version on the card by ``chip_smoke.py``.
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from sav_tpu.ops.fused_attention import DEFAULT_BLOCK_Q, _fused_forward
+from sav_tpu.ops.fused_attention import fused_attention as jax_fused_attention
+from sav_tpu_torch.ops import attention as port_attention
+from sav_tpu_torch.ops import fused_attention as port_fused
+
+torch.set_num_threads(2)
+
+# tests/test_fused_attention.py:47-49 (f32) and :132-135 (bf16).
+F32_TOL = 2e-5
+BF16_TOL = 3e-2
+
+
+def _qkv(b, lq, lk, h, d, seed=0):
+    rng = np.random.default_rng(seed)
+    return tuple(
+        rng.standard_normal(shape).astype(np.float32)
+        for shape in ((b, lq, h, d), (b, lk, h, d), (b, lk, h, d))
+    )
+
+
+def _port(arrays, dtype=torch.float32):
+    return [torch.from_numpy(a).to(dtype) for a in arrays]
+
+
+@pytest.mark.parametrize(
+    "b,lq,lk,h,d",
+    [
+        (2, 197, 197, 2, 64),  # DeiT/ViT-S @ 224
+        (2, 50, 50, 2, 32),  # ragged
+        (2, 1, 197, 2, 64),  # one query row (class attention)
+        (2, 196, 49, 2, 64),  # short kv
+    ],
+)
+def test_fused_matches_sav_tpu_f32(b, lq, lk, h, d):
+    q, k, v = _qkv(b, lq, lk, h, d)
+    ref = np.asarray(jax_fused_attention(*map(jnp.asarray, (q, k, v))))
+    out = port_fused.fused_attention(*_port((q, k, v)))
+    assert out.dtype == torch.float32 and out.shape == (b, lq, h, d)
+    np.testing.assert_allclose(out.numpy(), ref, atol=F32_TOL, rtol=F32_TOL)
+
+
+@pytest.mark.parametrize(
+    "bias_shape", [(2, 4, 50, 50), (1, 1, 50, 50), (1, 4, 50, 50), (2, 1, 50, 50)]
+)
+def test_fused_bias_patterns_match_sav_tpu(bias_shape):
+    q, k, v = _qkv(2, 50, 50, 4, 32, seed=1)
+    bias = np.random.default_rng(9).standard_normal(bias_shape).astype(np.float32)
+    ref = np.asarray(
+        jax_fused_attention(*map(jnp.asarray, (q, k, v, bias)))
+    )
+    out = port_fused.fused_attention(*_port((q, k, v, bias)))
+    np.testing.assert_allclose(out.numpy(), ref, atol=F32_TOL, rtol=F32_TOL)
+
+
+def test_fused_lse_matches_sav_tpu():
+    b, l, h, d = 2, 50, 2, 32
+    q, k, v = _qkv(b, l, l, h, d, seed=2)
+    scale = d ** -0.5
+    ref_out, ref_lse = _fused_forward(
+        *map(jnp.asarray, (q, k, v)), None, scale,
+        DEFAULT_BLOCK_Q, None, None, with_lse=True,
+    )
+    # sav_tpu stores lse as [B·H, Lq_p, 128] (the row repeated across lanes).
+    ref_lse = np.asarray(ref_lse)[:, :l, 0].reshape(b, h, l)
+    out, lse = port_fused.fused_attention(*_port((q, k, v)), with_lse=True)
+    assert lse.dtype == torch.float32 and lse.shape == (b, h, l)
+    np.testing.assert_allclose(lse.numpy(), ref_lse, atol=F32_TOL, rtol=F32_TOL)
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref_out), atol=F32_TOL, rtol=F32_TOL)
+
+
+def test_fused_bf16_matches_sav_tpu():
+    q, k, v = _qkv(2, 197, 197, 2, 64, seed=3)
+    ref = jax_fused_attention(
+        *(jnp.asarray(a, jnp.bfloat16) for a in (q, k, v))
+    )
+    out = port_fused.fused_attention(*_port((q, k, v), torch.bfloat16))
+    assert out.dtype == torch.bfloat16
+    np.testing.assert_allclose(
+        out.float().numpy(), np.asarray(ref, np.float32), atol=BF16_TOL, rtol=BF16_TOL
+    )
+
+
+def test_scale_is_applied_to_the_f32_product():
+    """bf16 inputs: the scores are the exact f32 product, scaled afterwards
+    (sav_tpu's fused kernel), not q scaled in bf16 first (xla_attention)."""
+    q, k, v = _port(_qkv(1, 8, 8, 1, 32, seed=4), torch.bfloat16)
+    _, lse = port_fused.fused_attention(q, k, v, with_lse=True)
+    s = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * 32 ** -0.5
+    torch.testing.assert_close(lse, torch.logsumexp(s, dim=-1), atol=1e-6, rtol=1e-6)
+
+
+def test_fused_eligible_band_and_budget_error():
+    assert port_fused.fused_eligible(197, 197, 64, itemsize=2)
+    assert port_fused.fused_eligible(197, 197, 64, itemsize=4)
+    assert not port_fused.fused_eligible(197, 197, 60)  # D not a multiple of 8
+    assert not port_fused.fused_eligible(197, 197, 512)  # D over 256
+    assert not port_fused.fused_eligible(4096, 4096, 64)  # K/V over 227 KB
+    assert port_fused.fused_smem_bytes(197, 64, 2) == 70480
+    q, k, v = _port(_qkv(1, 8, 4096, 1, 64))
+    with pytest.raises(ValueError, match="shared memory"):
+        port_fused.fused_attention(q, k, v)
+
+
+def test_wrapper_rejects_bad_inputs():
+    q, k, v = _port(_qkv(1, 8, 8, 2, 32))
+    with pytest.raises(ValueError, match=r"\[B, L, H, D\]"):
+        port_fused.fused_attention(q[0], k[0], v[0])
+    with pytest.raises(ValueError, match="mismatched"):
+        port_fused.fused_attention(q, k[:, :, :1], v[:, :, :1])
+    with pytest.raises(ValueError, match="4-D"):
+        port_fused.fused_attention(q, k, v, torch.zeros(8, 8))
+
+
+def test_cpu_path_counts_no_launch():
+    """LAUNCHES counts kernel launches only; the CPU plain path is none."""
+    port_fused.reset_launches()
+    port_fused.fused_attention(*_port(_qkv(1, 8, 8, 1, 32)))
+    assert port_fused.LAUNCHES == 0
+
+
+def test_dense_attention_matches_xla_attention_logits_dtypes():
+    from sav_tpu.ops.attention import xla_attention
+
+    q, k, v = _qkv(2, 17, 17, 2, 32, seed=5)
+    ref = np.asarray(xla_attention(*map(jnp.asarray, (q, k, v)), logits_dtype=jnp.float32))
+    out = port_attention.dense_attention(*_port((q, k, v)), logits_dtype="float32")
+    np.testing.assert_allclose(out.numpy(), ref, atol=F32_TOL, rtol=F32_TOL)
+    # bf16 compute with the block default (logits in the compute dtype).
+    ref16 = xla_attention(
+        *(jnp.asarray(a, jnp.bfloat16) for a in (q, k, v)), logits_dtype=jnp.bfloat16
+    )
+    out16 = port_attention.dense_attention(
+        *_port((q, k, v), torch.bfloat16), logits_dtype=torch.bfloat16
+    )
+    np.testing.assert_allclose(
+        out16.float().numpy(), np.asarray(ref16, np.float32), atol=BF16_TOL, rtol=BF16_TOL
+    )
+
+
+def test_resolve_attention_backend_rule():
+    resolve = port_attention.resolve_attention_backend
+    assert resolve(197, 197, 64) == "fused"
+    assert resolve(197, 197, 64, dtype="float32", requested="auto") == "fused"
+    assert resolve(197, 197, 64, requested="xla") == "xla"
+    assert resolve(8, 4096, 64, requested="fused") == "fused"
+    with pytest.raises(NotImplementedError, match="B3"):
+        resolve(4096, 4096, 64)
+    with pytest.raises(NotImplementedError, match="B3"):
+        resolve(197, 197, 64, requested="pallas")
+    with pytest.raises(ValueError, match="unknown"):
+        resolve(197, 197, 64, requested="cudnn")
+
+
+def test_dot_product_attention_dispatches():
+    q, k, v = _port(_qkv(2, 17, 17, 2, 32, seed=6))
+    fused = port_attention.dot_product_attention(q, k, v)
+    torch.testing.assert_close(fused, port_fused.fused_attention_reference(q, k, v))
+    dense = port_attention.dot_product_attention(q, k, v, backend="xla")
+    torch.testing.assert_close(dense, port_attention.dense_attention(q, k, v))
+    with pytest.raises(ValueError, match=r"\[B, L, H, D\]"):
+        port_attention.dot_product_attention(q[0], k[0], v[0])

@@ -1,0 +1,164 @@
+"""The port's ViT (sav_tpu_torch.models) against sav_tpu's, on the CPU.
+
+Both sides take the same flax parameters (the port's through
+``params_from_flax``) and the same numpy inputs. The f32 tolerance is 1e-4:
+XLA:CPU and torch sum the conv and the matmuls in different orders across
+two layers.
+"""
+
+import flax.linen as fnn
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from sav_tpu.models import create_model as jax_create_model
+from sav_tpu.models.layers.feedforward import FFBlock as JaxFFBlock
+from sav_tpu.models.layers.stems import PatchEmbedBlock as JaxPatchEmbed
+from sav_tpu_torch.interop import params_from_flax
+from sav_tpu_torch.models import create_model, model_names
+from sav_tpu_torch.models.layers import FFBlock, PatchEmbedBlock
+from sav_tpu_torch.models.vit import ViT
+
+torch.set_num_threads(2)
+
+TOL = 1e-4
+# embed 64, 2 layers, 2 heads of 32, patch 8 at 32x32: L = 1 + 16 = 17 (ragged).
+SMALL = dict(embed_dim=64, num_layers=2, num_heads=2, patch_shape=(8, 8))
+
+
+def small_flax_params(num_classes=10, image_size=32, seed=0):
+    """sav_tpu's init of the small ViT as numpy, with a random head (a fresh
+    head is zero, which would make logit comparisons vacuous)."""
+    model = jax_create_model("vit_ti_patch16", num_classes=num_classes, **SMALL)
+    variables = model.init(
+        {"params": jax.random.PRNGKey(seed)},
+        jnp.zeros((1, image_size, image_size, 3)), is_training=False,
+    )
+    params = jax.tree.map(np.asarray, variables["params"])
+    params["head"]["kernel"] = (
+        np.random.default_rng(seed + 1)
+        .normal(0.0, 0.5, params["head"]["kernel"].shape)
+        .astype(np.float32)
+    )
+    return params
+
+
+def small_port_model(params, **kw):
+    model = create_model("vit_ti_patch16", num_classes=10, image_size=32, **SMALL, **kw)
+    model.load_state_dict(params_from_flax(params), strict=True)
+    return model.eval()
+
+
+@pytest.mark.parametrize("backend", ["fused", "xla"])
+def test_small_vit_logits_match_sav_tpu(backend):
+    params = small_flax_params()
+    x = np.random.default_rng(3).standard_normal((3, 32, 32, 3)).astype(np.float32)
+    jax_model = jax_create_model(
+        "vit_ti_patch16", num_classes=10, dtype=jnp.float32, backend=backend, **SMALL
+    )
+    ref = np.asarray(
+        jax.jit(lambda p, x: jax_model.apply({"params": p}, x, is_training=False))(params, x)
+    )
+    model = small_port_model(params, backend=backend)
+    with torch.inference_mode():
+        out = model(torch.from_numpy(x)).numpy()
+    assert np.abs(ref).max() > 1.0  # the random head makes the check non-vacuous
+    np.testing.assert_allclose(out, ref, atol=TOL, rtol=TOL)
+
+
+def test_deit_s_state_dict_matches_flax_tree_at_full_width():
+    jax_model = jax_create_model("deit_s_patch16", num_classes=1000)
+    shapes = jax.eval_shape(
+        lambda r: jax_model.init({"params": r}, jnp.zeros((1, 224, 224, 3)), is_training=False),
+        jax.random.PRNGKey(0),
+    )
+    flax_tree = jax.tree.map(lambda s: np.zeros(s.shape, np.float32), shapes["params"])
+    assert len(jax.tree.leaves(flax_tree)) == 128
+    converted = params_from_flax(flax_tree)
+    ours = create_model("deit_s_patch16").state_dict()
+    assert set(converted) == set(ours)
+    for key, value in ours.items():
+        assert tuple(converted[key].shape) == tuple(value.shape), key
+    assert tuple(ours["encoder.blocks.11.attn.to_qkv"].shape) == (384, 3, 6, 64)
+
+
+def test_params_from_flax_refuses_unknown_keys():
+    params = small_flax_params()
+    params["Encoder_0"]["block_0"]["MoEFFBlock_0"] = {"router": np.zeros((64, 8), np.float32)}
+    with pytest.raises(KeyError, match="MoEFFBlock_0"):
+        params_from_flax({"params": params})
+
+
+def test_patch_embed_token_order_matches_flax():
+    """NHWC input, HWIO kernel: tokens come out row-major over patches."""
+    x = np.random.default_rng(0).standard_normal((2, 16, 24, 3)).astype(np.float32)
+    block = JaxPatchEmbed(patch_shape=(8, 8), embed_dim=16)
+    variables = block.init(jax.random.PRNGKey(0), jnp.asarray(x))
+    ref = np.asarray(block.apply(variables, jnp.asarray(x)))
+    ours = PatchEmbedBlock((8, 8), 16)
+    kernel = np.asarray(variables["params"]["proj"]["kernel"])
+    with torch.no_grad():
+        ours.proj.weight.copy_(torch.tensor(kernel.transpose(3, 2, 0, 1)))
+        ours.proj.bias.copy_(torch.tensor(np.asarray(variables["params"]["proj"]["bias"])))
+        out = ours(torch.from_numpy(x)).numpy()
+    assert out.shape == (2, 6, 16)
+    np.testing.assert_allclose(out, ref, atol=1e-5, rtol=1e-5)
+
+
+def test_ffblock_uses_flax_tanh_gelu():
+    x = np.random.default_rng(1).standard_normal((2, 5, 32)).astype(np.float32) * 3
+    block = JaxFFBlock()
+    variables = block.init(jax.random.PRNGKey(0), jnp.asarray(x), is_training=False)
+    ref = np.asarray(block.apply(variables, jnp.asarray(x), is_training=False))
+    p = variables["params"]
+    ours = FFBlock(32)
+    with torch.no_grad():
+        for name in ("fc1", "fc2"):
+            layer = getattr(ours, name)
+            layer.weight.copy_(torch.tensor(np.asarray(p[name]["kernel"]).T))
+            layer.bias.copy_(torch.tensor(np.asarray(p[name]["bias"])))
+        out = ours(torch.from_numpy(x)).numpy()
+    np.testing.assert_allclose(out, ref, atol=1e-5, rtol=1e-5)
+
+
+def test_layernorm_eps_is_flax_default():
+    model = create_model("vit_ti_patch16", image_size=32, **SMALL)
+    norms = [m for m in model.modules() if isinstance(m, torch.nn.LayerNorm)]
+    assert len(norms) == 5
+    assert all(n.eps == fnn.LayerNorm().epsilon == 1e-6 for n in norms)
+
+
+def test_registry_names_and_unported_entries():
+    assert "deit_s_patch16" in model_names()
+    assert "cait_xxs_24" not in model_names()
+    for name, item in (("cait_xxs_24", "A7.1"), ("botnet_t3", "A7.6"), ("vit_s_patch16_rope", "A2")):
+        with pytest.raises(NotImplementedError, match=item):
+            create_model(name)
+    with pytest.raises(ValueError, match="unknown model"):
+        create_model("vit_xxl")
+
+
+@pytest.mark.parametrize(
+    "option,item",
+    [
+        ({"moe_num_experts": 8}, "A7.7"),
+        ({"remat": True}, "A4"),
+        ({"quant": "int8"}, "A8"),
+        ({"seq_parallel": "ring"}, "A9"),
+        ({"pos_embed": "sincos"}, "A2"),
+    ],
+)
+def test_unported_vit_options_raise(option, item):
+    with pytest.raises(NotImplementedError, match=item):
+        ViT(10, 64, 1, 2, (8, 8), image_size=32, **option)
+
+
+def test_create_model_is_deterministic_in_seed():
+    a = create_model("vit_ti_patch16", image_size=32, seed=3, **SMALL).state_dict()
+    b = create_model("vit_ti_patch16", image_size=32, seed=3, **SMALL).state_dict()
+    c = create_model("vit_ti_patch16", image_size=32, seed=4, **SMALL).state_dict()
+    assert all(torch.equal(a[k], b[k]) for k in a)
+    assert not torch.equal(a["encoder.blocks.0.attn.to_qkv"], c["encoder.blocks.0.attn.to_qkv"])
+    assert torch.count_nonzero(a["head.weight"]) == 0 and torch.count_nonzero(a["cls"]) == 0
