@@ -9,15 +9,28 @@ Phases, each of which exits non-zero on failure:
 
 1. device: refuse to run without CUDA; print the card's name and power limit
    (nvidia-smi); turn TF32 off for every f32 comparison.
-2. build: compile every kernel in sav_tpu_torch/csrc with nvcc.
-3. kernels: each kernel against its plain PyTorch version on the card, at
-   the serve shape and at small, ragged, biased and strided shapes.
-4. timing: the kernel, its plain version and one PyTorch library call
-   (yardstick only) at the serve shape, beside the card's bound.
+2. build: compile every kernel in sav_tpu_torch/csrc with nvcc, one process
+   per source, all at once; check each kernel's shared-memory rule against
+   the Python eligibility rule.
+3. kernels: each kernel against its plain PyTorch version on the card: the
+   forward at the serve and train shapes and at small, ragged, biased and
+   strided shapes; the backward at the train shape (bf16), the serve shape
+   (f32), ragged, one-query, short-kv and strided shapes, and twice on the
+   same inputs (it must be deterministic).
+4. timing: each kernel, its plain version and one PyTorch library call
+   (yardstick only) at the shapes the main paths give it, beside the card's
+   bound.
 5. serve: ServeEngine serves deit_s_patch16 (bf16, random weights from a
    seed) to concurrent clients; every attention core must have gone through
-   the kernel (12 launches per batch), and 8 rows must agree with the same
-   weights served on the dense attention path.
+   the forward kernel (12 launches per batch, no backward launch), and 8 rows
+   must agree with the same weights served on the dense attention path.
+6. train: Trainer trains deit_s_patch16 (bf16 over f32 parameters, global
+   batch 256) for 6 steps on synthetic learnable batches through fit(); every
+   step must launch the forward and the backward kernel 12 times each, every
+   loss must be finite, the loss must fall, and the first step's loss and
+   grad norm must agree with the same step on the dense attention path
+   (f32 softmax). After the counted run, one more step under torch.profiler
+   gives the device's busy time by kernel group and its idle share.
 
 The line before the last is the ``{"kernels": [...]}`` record; the last line
 is ``{"ok": true, "device": {...}}``.
@@ -44,13 +57,23 @@ sys.path.insert(0, ROOT)
 HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
 
-# The DeiT-S/16 serve shape at the top bucket: B=32, L=197, H=6, D=64.
+# The DeiT-S/16 serve shape at the top bucket: B=32, L=197, H=6, D=64; and
+# its train shape at global batch 256.
 SERVE_SHAPE = (32, 197, 197, 6, 64)
+TRAIN_SHAPE = (256, 197, 197, 6, 64)
 SERVE_REQUESTS = 96
 CLIENTS = 4
+TRAIN_BATCH = 256
+TRAIN_STEPS = 6
+TRAIN_DISTINCT_BATCHES = 3  # each seen twice, so the loss can fall on it
+# atol = rtol: bf16 allows a few roundings of p, ds and the outputs; f32
+# different summation orders.
 TOL = {torch.bfloat16: 2e-2, torch.float32: 2e-5}
 LSE_TOL = 2e-5
 SERVE_TOL = 3e-2
+# First train step, fused kernels vs dense attention with f32 softmax, both
+# bf16 over 12 layers: relative to the loss (~ln 1000) and to the grad norm.
+TRAIN_REL_TOL = {"loss": 1e-2, "grad_norm": 5e-2}
 
 
 def log(msg: str) -> None:
@@ -86,15 +109,23 @@ def phase_build() -> None:
     for name, text in _build.BUILD_LOGS.items():
         for line in text.splitlines():
             log(f"  nvcc {name}: {line.strip()}")
-    lib = fa._lib()
-    for kv_len, dim, itemsize in ((197, 64, 2), (197, 64, 4), (50, 32, 4), (1, 8, 2)):
-        c_bytes = lib.sav_fused_attention_smem_bytes(kv_len, dim, itemsize)
-        py_bytes = fa.fused_smem_bytes(kv_len, dim, itemsize)
-        if c_bytes != py_bytes:
-            raise AssertionError(
-                f"shared-memory rule differs at kv={kv_len} d={dim} itemsize={itemsize}: "
-                f"kernel {c_bytes}, fused_eligible {py_bytes}"
-            )
+    lib, bwd = fa._lib(), fa._bwd_lib()
+    for kv_len, dim, itemsize in ((197, 64, 2), (197, 64, 4), (50, 32, 4), (1, 8, 2), (264, 64, 2)):
+        rules = [
+            ("forward", lib.sav_fused_attention_smem_bytes(kv_len, dim, itemsize),
+             fa.fused_smem_bytes(kv_len, dim, itemsize)),
+            ("backward rows", bwd.sav_fused_attention_bwd_rows(kv_len, dim, itemsize),
+             fa.fused_bwd_rows(kv_len, dim, itemsize)),
+            *[(f"backward at {rows} rows",
+               bwd.sav_fused_attention_bwd_smem_bytes(kv_len, dim, itemsize, rows),
+               fa.fused_bwd_smem_bytes(kv_len, dim, itemsize, rows)) for rows in (1, 2, 4)],
+        ]
+        for what, c_value, py_value in rules:
+            if c_value != py_value:
+                raise AssertionError(
+                    f"{what} shared-memory rule differs at kv={kv_len} d={dim} "
+                    f"itemsize={itemsize}: kernel {c_value}, fused_eligible {py_value}"
+                )
 
 
 def _inputs(shape, dtype, seed, device, *, bias_shape=None, packed=False):
@@ -143,10 +174,12 @@ def check_kernel(name, shape, dtype, device, *, bias_shape=None, with_lse=False,
     return err
 
 
-def phase_kernels(device="cuda", serve_shape=SERVE_SHAPE) -> float:
-    """All cases; returns the max abs error at the serve shape in bf16."""
+def phase_kernels(device="cuda", serve_shape=SERVE_SHAPE, train_shape=TRAIN_SHAPE) -> dict:
+    """All forward cases; returns the max abs error at the serve and the
+    train shape in bf16."""
     bf16, f32 = torch.bfloat16, torch.float32
     b, lq, lk, h, d = serve_shape
+    train_err = check_kernel("train+lse", train_shape, bf16, device, with_lse=True)
     serve_err = check_kernel("serve", serve_shape, bf16, device)
     serve_err = max(serve_err, check_kernel("serve+lse", serve_shape, bf16, device, with_lse=True))
     check_kernel("serve-f32+lse", serve_shape, f32, device, with_lse=True)
@@ -157,7 +190,52 @@ def phase_kernels(device="cuda", serve_shape=SERVE_SHAPE) -> float:
     check_kernel("ragged-50", (2, 50, 50, 2, 32), f32, device)
     check_kernel("one-query", (2, 1, lk, 2, d), f32, device)
     check_kernel("short-kv", (2, 196, 49, 2, 64), f32, device)
-    return serve_err
+    return {"serve": serve_err, "train": train_err}
+
+
+def check_bwd_kernel(name, shape, dtype, device, *, packed=False):
+    """The backward kernel against its plain version on the same inputs (q,
+    k, v, the forward kernel's output and lse, and dO), which repeats its
+    casts; then once more on the same inputs, which must give the same bits
+    (no atomics). ``packed``: q/k/v strided views of one [B, L, 3, H, D]
+    tensor and a dO with a row stride of 2·H·D."""
+    from sav_tpu_torch.ops import fused_attention as fa
+
+    q, k, v, _ = _inputs(shape, dtype, 13, device, packed=packed)
+    b, lq, _, h, d = shape
+    gen = torch.Generator(device=device).manual_seed(17)
+    if packed:
+        g = torch.randn((b, lq, h, 2 * d), generator=gen, device=device).to(dtype)[..., :d]
+    else:
+        g = torch.randn((b, lq, h, d), generator=gen, device=device).to(dtype)
+    with torch.no_grad():
+        out, lse = fa.fused_attention(q, k, v, with_lse=True)
+        got = fa.fused_attention_bwd(q, k, v, out, lse, g)
+        again = fa.fused_attention_bwd(q, k, v, out, lse, g)
+        ref = fa.fused_attention_bwd_reference(q, k, v, out, lse, g)
+    errs = {n: _within(a, r, TOL[dtype]) for n, a, r in zip(("dq", "dk", "dv"), got, ref)}
+    if not all(torch.equal(a, b) for a, b in zip(got, again)):
+        raise AssertionError(f"backward kernel {name}: two runs on the same inputs differ")
+    log(
+        f"backward kernel {name} {shape} {str(dtype)[6:]}: max abs err "
+        + ", ".join(f"{n} {e:.3e}" for n, e in errs.items())
+        + f" (tol {TOL[dtype]}); deterministic"
+    )
+    return max(errs.values())
+
+
+def phase_bwd_kernels(device="cuda", serve_shape=SERVE_SHAPE, train_shape=TRAIN_SHAPE) -> float:
+    """All backward cases; returns the max abs error at the train shape."""
+    bf16, f32 = torch.bfloat16, torch.float32
+    lk, d = serve_shape[2], serve_shape[4]
+    train_err = check_bwd_kernel("train", train_shape, bf16, device)
+    check_bwd_kernel("serve-f32", serve_shape, f32, device)
+    check_bwd_kernel("packed-qkv+strided-dO", serve_shape, bf16, device, packed=True)
+    check_bwd_kernel("ragged-50", (2, 50, 50, 2, 32), bf16, device)
+    check_bwd_kernel("ragged-50", (2, 50, 50, 2, 32), f32, device)
+    check_bwd_kernel("one-query", (2, 1, lk, 2, d), f32, device)
+    check_bwd_kernel("short-kv", (2, 196, 49, 2, 64), f32, device)
+    return train_err
 
 
 def _median_ms(fn, iters=30, warmup=5) -> float:
@@ -180,34 +258,91 @@ def _median_ms(fn, iters=30, warmup=5) -> float:
     return statistics.median(s.elapsed_time(e) for s, e in pairs)
 
 
-def phase_timing() -> dict:
+def _bound(nbytes: int, flops: int, dtype) -> dict:
+    """The least time the card could take: bytes over HBM bandwidth or
+    operations over the inputs' peak rate, whichever is larger."""
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    flops_ms = flops / PEAK_FLOPS[dtype] * 1e3
+    return {
+        "bound_ms": max(bytes_ms, flops_ms),
+        "bound_by": "bytes" if bytes_ms >= flops_ms else "operations",
+    }
+
+
+def time_fwd(shape, *, with_lse: bool) -> dict:
+    """The forward kernel, its plain version and SDPA (yardstick) in bf16."""
     import torch.nn.functional as F
 
     from sav_tpu_torch.ops import fused_attention as fa
 
     dtype = torch.bfloat16
-    b, lq, lk, h, d = SERVE_SHAPE
-    q, k, v, _ = _inputs(SERVE_SHAPE, dtype, 11, "cuda")
+    b, lq, lk, h, d = shape
+    q, k, v, _ = _inputs(shape, dtype, 11, "cuda")
     qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))  # [B, H, L, D] views
     with torch.inference_mode():
         times = {
-            "ms": _median_ms(lambda: fa.fused_attention(q, k, v)),
-            "plain_ms": _median_ms(lambda: fa.fused_attention_reference(q, k, v)),
+            "ms": _median_ms(lambda: fa.fused_attention(q, k, v, with_lse=with_lse)),
+            "plain_ms": _median_ms(lambda: fa.fused_attention_reference(q, k, v, with_lse=with_lse)),
             "library_ms": _median_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt)),
         }
-    nbytes = (q.numel() + k.numel() + v.numel() + q.numel()) * q.element_size()
+    nbytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
+    nbytes += b * h * lq * 4 if with_lse else 0
     flops = 4 * b * h * lq * lk * d
-    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
-    flops_ms = flops / PEAK_FLOPS[dtype] * 1e3
-    times["bound_ms"] = max(bytes_ms, flops_ms)
-    times["bound_by"] = "bytes" if bytes_ms >= flops_ms else "operations"
+    times.update(_bound(nbytes, flops, dtype))
     log(
-        f"timing {SERVE_SHAPE} bf16, median of 30, cold L2: kernel {times['ms']:.4f} ms, "
-        f"plain {times['plain_ms']:.4f} ms, scaled_dot_product_attention "
+        f"timing forward {shape} bf16{' +lse' if with_lse else ''}, median of 30, cold L2: "
+        f"kernel {times['ms']:.4f} ms, plain {times['plain_ms']:.4f} ms, "
+        f"scaled_dot_product_attention {times['library_ms']:.4f} ms; bound "
+        f"{times['bound_ms']:.4f} ms by {times['bound_by']} ({nbytes / 1e6:.1f} MB, "
+        f"{flops / 1e9:.2f} GFLOP)"
+    )
+    return times
+
+
+def time_bwd(shape) -> dict:
+    """The backward kernel, its plain version and, as yardstick, the backward
+    of scaled_dot_product_attention through torch.autograd.grad, in bf16."""
+    import torch.nn.functional as F
+
+    from sav_tpu_torch.ops import fused_attention as fa
+
+    dtype = torch.bfloat16
+    b, lq, lk, h, d = shape
+    q, k, v, _ = _inputs(shape, dtype, 12, "cuda")
+    g = torch.randn((b, lq, h, d), generator=torch.Generator(device="cuda").manual_seed(14),
+                    device="cuda").to(dtype)
+    with torch.no_grad():
+        out, lse = fa.fused_attention(q, k, v, with_lse=True)
+        times = {
+            "ms": _median_ms(lambda: fa.fused_attention_bwd(q, k, v, out, lse, g)),
+            "plain_ms": _median_ms(lambda: fa.fused_attention_bwd_reference(q, k, v, out, lse, g)),
+        }
+    qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_() for t in (q, k, v))
+    ot = F.scaled_dot_product_attention(qt, kt, vt)
+    gt = g.transpose(1, 2)
+    times["library_ms"] = _median_ms(
+        lambda: torch.autograd.grad(ot, (qt, kt, vt), gt, retain_graph=True)
+    )
+    # In: q, k, v, o, dO and the f32 lse; out: dq, dk, dv. Five products.
+    nbytes = (2 * q.numel() + k.numel() + v.numel() + g.numel()) * q.element_size()
+    nbytes += b * h * lq * 4 + (q.numel() + k.numel() + v.numel()) * q.element_size()
+    flops = 10 * b * h * lq * lk * d
+    times.update(_bound(nbytes, flops, dtype))
+    log(
+        f"timing backward {shape} bf16, median of 30, cold L2: kernel {times['ms']:.4f} ms, "
+        f"plain {times['plain_ms']:.4f} ms, scaled_dot_product_attention backward "
         f"{times['library_ms']:.4f} ms; bound {times['bound_ms']:.4f} ms by "
         f"{times['bound_by']} ({nbytes / 1e6:.1f} MB, {flops / 1e9:.2f} GFLOP)"
     )
     return times
+
+
+def phase_timing() -> dict:
+    return {
+        "fwd_serve": time_fwd(SERVE_SHAPE, with_lse=False),
+        "fwd_train": time_fwd(TRAIN_SHAPE, with_lse=True),
+        "bwd_train": time_bwd(TRAIN_SHAPE),
+    }
 
 
 def _serve(engine, images, clients) -> list:
@@ -266,17 +401,18 @@ def phase_serve(device="cuda", model_name="deit_s_patch16", requests=SERVE_REQUE
     fa.reset_launches()
     with engine:
         logits = np.stack(_serve(engine, images, CLIENTS))
-    launches = fa.LAUNCHES
+    launches, bwd_launches = fa.LAUNCHES, fa.BWD_LAUNCHES
     summary = engine.stats()
     ledger = summary["ledger"]
     if summary["errors"] or ledger["requests"] != requests:
         raise AssertionError(f"serving incomplete: {json.dumps(summary)}")
     if logits.shape != (requests, model.head.out_features) or not np.isfinite(logits).all():
         raise AssertionError(f"bad logits: shape {logits.shape}, finite {np.isfinite(logits).all()}")
-    if launches != layers * ledger["batches"]:
+    if launches != layers * ledger["batches"] or bwd_launches:
         raise AssertionError(
-            f"fused kernel launched {launches} times for {ledger['batches']} batches; "
-            f"expected {layers} per batch"
+            f"fused kernel launched {launches} times for {ledger['batches']} batches "
+            f"(expected {layers} per batch), the backward kernel {bwd_launches} times "
+            "(expected none while serving)"
         )
     log(
         f"serve {model_name} bf16: {requests} requests from {CLIENTS} clients in "
@@ -299,25 +435,192 @@ def phase_serve(device="cuda", model_name="deit_s_patch16", requests=SERVE_REQUE
     return launches
 
 
+def phase_train(device="cuda", model_name="deit_s_patch16", batch_size=TRAIN_BATCH,
+                steps=TRAIN_STEPS, image_size=224, num_classes=1000, overrides=None) -> dict:
+    """Train ``steps`` steps through Trainer.fit; returns the launches and
+    the step time."""
+    from sav_tpu_torch import TrainConfig, Trainer, create_model
+    from sav_tpu_torch.data.synthetic import synthetic_data_iterator
+    from sav_tpu_torch.ops import fused_attention as fa
+
+    overrides = overrides or {}
+    model = create_model(model_name, num_classes=num_classes, image_size=image_size,
+                         seed=0, **overrides)
+    # The head is zero at init: draw it (std 0.02), or no gradient reaches
+    # the attention cores in the first step.
+    torch.nn.init.normal_(model.head.weight, std=0.02, generator=torch.Generator().manual_seed(1))
+    dense = create_model(model_name, num_classes=num_classes, image_size=image_size,
+                         backend="xla", logits_dtype=torch.float32, **overrides)
+    dense.load_state_dict(model.state_dict())
+    layers = len(model.encoder.blocks)
+    common = dict(
+        model_name=model_name, num_classes=num_classes, image_size=image_size,
+        compute_dtype="bfloat16", global_batch_size=batch_size,
+        num_train_images=batch_size * steps, num_epochs=300, warmup_epochs=0,
+        base_lr=2e-3, transpose_images=False, log_every_steps=steps // 2, seed=0,
+    )
+    batches = [
+        {"images": torch.from_numpy(b["images"]).to(device),
+         "labels": torch.from_numpy(b["labels"]).to(device)}
+        for b in synthetic_data_iterator(batch_size=batch_size, image_size=image_size,
+                                         num_classes=num_classes, seed=0,
+                                         num_batches=TRAIN_DISTINCT_BATCHES)
+    ]
+
+    # The same first step on the dense attention path with f32 softmax.
+    ref_trainer = Trainer(
+        TrainConfig(attention_backend="xla", attention_logits_dtype="float32", **common),
+        model=dense, device=device,
+    )
+    fa.reset_launches()
+    _, ref_metrics = ref_trainer.train_step(ref_trainer.init_state(), batches[0])
+    ref = {k: float(v) for k, v in ref_metrics.items()}
+    if fa.LAUNCHES or fa.BWD_LAUNCHES:
+        raise AssertionError("the dense reference trainer launched a fused kernel")
+    del ref_trainer, dense, ref_metrics
+    torch.cuda.empty_cache()
+
+    trainer = Trainer(TrainConfig(**common), model=model, device=device)
+    state = trainer.init_state()
+    torch.cuda.reset_peak_memory_stats()
+    windows = []
+    fa.reset_launches()
+    state, history = trainer.fit(
+        iter(batches * (steps // len(batches))), num_steps=steps, state=state,
+        log_fn=windows.append,
+    )
+    launches, bwd_launches = fa.LAUNCHES, fa.BWD_LAUNCHES
+    peak_gb = torch.cuda.max_memory_allocated() / 2**30
+    for record in history:
+        log(f"train step {record['step']}: " + json.dumps(
+            {k: round(v, 6) for k, v in record.items() if k != "step"}))
+    losses = [r["loss"] for r in history]
+    if len(history) != steps or not np.isfinite(losses).all():
+        raise AssertionError(f"train losses not all finite over {steps} steps: {losses}")
+    n = len(batches)
+    if not all(losses[i + n] < losses[i] for i in range(steps - n)):
+        raise AssertionError(f"the loss did not fall on a batch seen again: {losses}")
+    if launches != layers * steps or bwd_launches != layers * steps:
+        raise AssertionError(
+            f"{steps} train steps launched the forward kernel {launches} and the "
+            f"backward kernel {bwd_launches} times; expected {layers} each per step"
+        )
+    first = history[0]
+    for key, tol in TRAIN_REL_TOL.items():
+        rel = abs(first[key] - ref[key]) / abs(ref[key])
+        log(f"train step 1 {key}: fused {first[key]:.6f}, dense {ref[key]:.6f}, "
+            f"relative difference {rel:.3e} (tol {tol})")
+        if rel > tol:
+            raise AssertionError(f"train step 1 {key} disagrees with the dense path")
+    steady = windows[-1]
+    try:
+        profile_step(trainer, state, batches[0])
+    except Exception as e:  # noqa: BLE001 — a measurement, not a check of the port
+        log(f"train step profile: not measured ({type(e).__name__}: {e})")
+    log(
+        f"train {model_name} bf16 batch {batch_size}: {steps} steps via fit(), losses "
+        f"{[round(x, 4) for x in losses]}; launches fwd {launches} bwd {bwd_launches} = "
+        f"{layers} x {steps} each; steady window (steps {steps - steps // 2 + 1}-{steps}) "
+        f"{steady['step_s'] * 1e3:.2f} ms/step, {steady['images_per_sec']:.1f} images/s; "
+        f"first window {windows[0]['step_s'] * 1e3:.2f} ms/step; peak memory {peak_gb:.2f} GiB"
+    )
+    return {
+        "launches": launches,
+        "bwd_launches": bwd_launches,
+        "step_ms": steady["step_s"] * 1e3,
+        "images_per_sec": steady["images_per_sec"],
+    }
+
+
+# Kernel-name fragments → the group a device kernel is counted under.
+KERNEL_GROUPS = (
+    ("attention backward (fused_attention_bwd.cu)", ("fused_attention_bwd_kernel",)),
+    ("attention forward (fused_attention.cu)", ("fused_attention_fwd_kernel",)),
+    ("matmul (cuBLAS)", ("gemm", "xmma", "nvjet", "cutlass", "splitk", "Kernel2")),
+    ("convolution (cuDNN)", ("conv", "cudnn", "implicit", "wgrad", "dgrad")),
+    ("optimizer (multi-tensor)", ("multi_tensor", "foreach")),
+    ("layer norm", ("layer_norm", "LayerNorm")),
+    ("reductions", ("reduce",)),
+    ("elementwise and copies", ("elementwise", "vectorized", "copy", "Memcpy", "Memset",
+                                "fill", "cat", "index")),
+)
+
+
+def profile_step(trainer, state, batch) -> dict:
+    """One train step under torch.profiler: device busy time per kernel group
+    (summed kernel self time) against the step's wall time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    trainer.train_step(state, batch)  # warm, outside the window
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        trainer.train_step(state, batch)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    # Device-side events only (kernels, copies, fills): an operator's row
+    # in key_averages would count its kernels a second time.
+    kernels = {}
+    for event in prof.events():
+        if event.device_type == DeviceType.CUDA:
+            kernels[event.name] = kernels.get(event.name, 0.0) + event.time_range.elapsed_us() / 1e3
+    busy = sum(kernels.values())
+    if busy == 0.0:
+        raise RuntimeError("the profiler recorded no device time")
+    groups = {}
+    for name, ms in kernels.items():
+        group = next((g for g, keys in KERNEL_GROUPS if any(k in name for k in keys)), "other")
+        groups[group] = groups.get(group, 0.0) + ms
+    top = sorted(kernels.items(), key=lambda kv: -kv[1])[:8]
+    log(
+        f"train step profile (one step, torch.profiler): wall {wall_ms:.2f} ms, device busy "
+        f"{busy:.2f} ms, idle {100 * (1 - busy / wall_ms):.1f} %; by group "
+        + json.dumps({g: round(ms, 3) for g, ms in sorted(groups.items(), key=lambda kv: -kv[1])})
+    )
+    for name, ms in top:
+        log(f"  {ms:8.3f} ms  {name[:110]}")
+    return {"wall_ms": wall_ms, "busy_ms": busy, "groups": groups}
+
+
 def main() -> None:
     smi = phase_device()
     phase_build()
-    serve_err = phase_kernels()
+    fwd_err = phase_kernels()
+    bwd_err = phase_bwd_kernels()
     times = phase_timing()
-    launches = phase_serve()
-    record = {
+    serve_launches = phase_serve()
+    train = phase_train()
+    fwd = {
         "name": "fused_attention_fwd",
         "route": "cuda",
         "source": "sav_tpu_torch/csrc/fused_attention.cu",
         "replaces": "sav_tpu/ops/fused_attention.py:146",
         "tpu_kernel": "_fused_kernel",
         "checked": True,
-        "launches": launches,
-        "max_abs_err": serve_err,
-        **times,
+        "launches": serve_launches + train["launches"],
+        "launches_by_path": {"serve": serve_launches, "train": train["launches"]},
+        "max_abs_err": fwd_err["train"],
+        "shape": list(TRAIN_SHAPE),
+        **times["fwd_train"],
+        "at_serve_shape": {"shape": list(SERVE_SHAPE), "max_abs_err": fwd_err["serve"],
+                           **times["fwd_serve"]},
+    }
+    bwd = {
+        "name": "fused_attention_bwd",
+        "route": "cuda",
+        "source": "sav_tpu_torch/csrc/fused_attention_bwd.cu",
+        "replaces": "sav_tpu/ops/fused_attention.py:351",
+        "tpu_kernel": "_fused_bwd_kernel",
+        "checked": True,
+        "launches": train["bwd_launches"],
+        "launches_by_path": {"serve": 0, "train": train["bwd_launches"]},
+        "max_abs_err": bwd_err,
+        "shape": list(TRAIN_SHAPE),
+        **times["bwd_train"],
     }
     log(f"card: {smi}")
-    log(json.dumps({"kernels": [record]}))
+    log(json.dumps({"kernels": [fwd, bwd]}))
     log(json.dumps({
         "ok": True,
         "device": {

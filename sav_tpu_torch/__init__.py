@@ -8,5 +8,6 @@ Entry points run on the card unless the caller passes ``device="cpu"``.
 
 from sav_tpu_torch.models.registry import create_model
 from sav_tpu_torch.serve.engine import ServeConfig, ServeEngine
+from sav_tpu_torch.train import TrainConfig, Trainer
 
-__all__ = ["ServeConfig", "ServeEngine", "create_model"]
+__all__ = ["ServeConfig", "ServeEngine", "TrainConfig", "Trainer", "create_model"]

@@ -9,9 +9,20 @@ import torch.nn.functional as F
 from torch import nn
 
 
+class Dense(nn.Linear):
+    """``nn.Linear`` that computes in the input's dtype: the weight and bias
+    are cast at use, so f32 parameters serve bf16 activations as flax's
+    ``Dense(dtype=bf16)`` does, and their gradients stay f32."""
+
+    def forward(self, inputs: torch.Tensor) -> torch.Tensor:
+        bias = None if self.bias is None else self.bias.to(inputs.dtype)
+        return F.linear(inputs, self.weight.to(inputs.dtype), bias)
+
+
 class FFBlock(nn.Module):
-    """Linear(expand) → GELU (tanh approximation, flax's ``nn.gelu``) →
-    Linear(in_ch). Dropout is not ported (inference slice)."""
+    """Dense(expand) → GELU (tanh approximation, flax's ``nn.gelu``) →
+    Dense(in_ch), in the input's dtype. Dropout is not ported (ROADMAP
+    queue A4)."""
 
     def __init__(
         self,
@@ -22,8 +33,8 @@ class FFBlock(nn.Module):
     ):
         super().__init__()
         hidden = hidden_ch or int(in_ch * expand_ratio)
-        self.fc1 = nn.Linear(in_ch, hidden, bias=use_bias)
-        self.fc2 = nn.Linear(hidden, in_ch, bias=use_bias)
+        self.fc1 = Dense(in_ch, hidden, bias=use_bias)
+        self.fc2 = Dense(hidden, in_ch, bias=use_bias)
 
     def forward(self, inputs: torch.Tensor) -> torch.Tensor:
         return self.fc2(F.gelu(self.fc1(inputs), approximate="tanh"))

@@ -3,13 +3,15 @@
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 
 class PatchEmbedBlock(nn.Module):
     """Non-overlapping patch embedding: NHWC ``[B, H, W, C]`` →
     ``[B, (H/ph)(W/pw), D]``, tokens in row-major patch order as in
-    ``sav_tpu`` (a strided conv; its weight is OIHW where flax's is HWIO)."""
+    ``sav_tpu`` (a strided conv; its weight is OIHW where flax's is HWIO),
+    computed in the input's dtype with the weight cast at use."""
 
     def __init__(self, patch_shape, embed_dim: int, in_ch: int = 3, use_bias: bool = True):
         super().__init__()
@@ -24,5 +26,10 @@ class PatchEmbedBlock(nn.Module):
         _, h, w, _ = inputs.shape
         if h % ph or w % pw:
             raise ValueError(f"image {h}x{w} not divisible by patch {self.patch_shape}")
-        x = self.proj(inputs.permute(0, 3, 1, 2))
+        proj = self.proj
+        bias = None if proj.bias is None else proj.bias.to(inputs.dtype)
+        x = F.conv2d(
+            inputs.permute(0, 3, 1, 2), proj.weight.to(inputs.dtype), bias,
+            stride=proj.stride,
+        )
         return x.flatten(2).transpose(1, 2)

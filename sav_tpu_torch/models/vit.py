@@ -3,6 +3,11 @@
 Pre-LN encoder, learned absolute position embeddings, zero-init CLS token
 and head, with every self-attention core on the backend-dispatched seam of
 :mod:`sav_tpu_torch.ops.attention`. Inputs are NHWC, as in ``sav_tpu``.
+
+Parameters stay in their own dtype (f32 for training) and every layer
+computes in the dtype of its input, casting its weights at use: the
+counterpart of flax's ``dtype=bf16`` over f32 ``param_dtype``. Cast the
+images to the compute dtype; the logits come out in it.
 """
 
 from __future__ import annotations
@@ -11,10 +16,12 @@ import math
 from typing import Optional
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from sav_tpu_torch.models.layers import (
     AddAbsPosEmbed,
+    Dense,
     FFBlock,
     PatchEmbedBlock,
     SelfAttentionBlock,
@@ -27,14 +34,28 @@ LN_EPS = 1e-6
 # each waits on. Setting one raises NotImplementedError.
 _NOT_PORTED = {
     "moe_num_experts": "queue A7.7 (MoE)",
-    "remat": "queue A4 (training slice)",
-    "attn_dropout_rate": "queue A4 (training slice)",
-    "dropout_rate": "queue A4 (training slice)",
+    "remat": "queue A4 (training: remat)",
+    "attn_dropout_rate": "queue A4 (training: dropout and stochastic depth)",
+    "dropout_rate": "queue A4 (training: dropout and stochastic depth)",
     "seq_parallel": "queue A9 (parallelism)",
     "seq_mesh": "queue A9 (parallelism)",
     "layout": "queue A9 (parallelism)",
     "quant": "queue A8 (int8)",
 }
+
+
+class LayerNorm(nn.LayerNorm):
+    """``nn.LayerNorm`` with flax's epsilon, in the input's dtype: scale and
+    bias are cast at use."""
+
+    def __init__(self, dim: int):
+        super().__init__(dim, eps=LN_EPS)
+
+    def forward(self, inputs: torch.Tensor) -> torch.Tensor:
+        return F.layer_norm(
+            inputs, self.normalized_shape, self.weight.to(inputs.dtype),
+            self.bias.to(inputs.dtype), self.eps,
+        )
 
 
 class EncoderBlock(nn.Module):
@@ -43,11 +64,11 @@ class EncoderBlock(nn.Module):
     def __init__(self, dim: int, num_heads: int, *, expand_ratio: float = 4.0,
                  backend: Optional[str] = None, logits_dtype=None):
         super().__init__()
-        self.norm1 = nn.LayerNorm(dim, eps=LN_EPS)
+        self.norm1 = LayerNorm(dim)
         self.attn = SelfAttentionBlock(
             dim, num_heads, backend=backend, logits_dtype=logits_dtype
         )
-        self.norm2 = nn.LayerNorm(dim, eps=LN_EPS)
+        self.norm2 = LayerNorm(dim)
         self.ff = FFBlock(dim, expand_ratio=expand_ratio)
 
     def forward(self, inputs: torch.Tensor) -> torch.Tensor:
@@ -68,7 +89,7 @@ class Encoder(nn.Module):
                          backend=backend, logits_dtype=logits_dtype)
             for _ in range(num_layers)
         )
-        self.norm = nn.LayerNorm(dim, eps=LN_EPS)
+        self.norm = LayerNorm(dim)
 
     def forward(self, inputs: torch.Tensor) -> torch.Tensor:
         x = self.pos_embed(inputs)
@@ -123,7 +144,7 @@ class ViT(nn.Module):
             length, embed_dim, num_layers, num_heads,
             expand_ratio=expand_ratio, backend=backend, logits_dtype=logits_dtype,
         )
-        self.head = nn.Linear(embed_dim, num_classes)
+        self.head = Dense(embed_dim, num_classes)
 
     def reset_parameters(self, generator: torch.Generator) -> None:
         """flax's initialisers from an explicit generator: lecun-normal

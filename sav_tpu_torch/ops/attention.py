@@ -11,9 +11,14 @@ Port of :mod:`sav_tpu.ops.attention`. Layout everywhere:
   - ``'pallas'`` — the blocked flash kernel, not ported yet (ROADMAP queue
     B3): raises ``NotImplementedError``.
   - ``'auto'``/``None`` — :func:`resolve_attention_backend`: the fused kernel
-    wherever it is eligible, on CPU (its plain version) and on CUDA alike.
+    wherever it is eligible, on CPU (its plain version) and on CUDA alike;
+    when an input requires grad the backward kernel's band counts too.
     The TPU tune cache and the TPU's dense-logits threshold are not carried
     over: they record TPU measurements.
+
+Gradients: the ``fused`` path differentiates through the backward kernel
+(or, with a bias, :func:`dense_recompute_bwd`); the ``xla`` path through
+PyTorch autograd of its plain ops.
 """
 
 from __future__ import annotations
@@ -68,6 +73,42 @@ def dense_attention(
     return torch.einsum("...hqk,...khd->...qhd", probs, value)
 
 
+def dense_recompute_bwd(
+    query: torch.Tensor,
+    key: torch.Tensor,
+    value: torch.Tensor,
+    bias: Optional[torch.Tensor],
+    grad: torch.Tensor,
+    scale: float,
+):
+    """Backward of biased attention by dense recompute (port of
+    ``_dense_recompute_bwd``, ``sav_tpu/ops/flash_attention.py:547``): f32
+    scores plus the f32 bias, f32 softmax; P, dO and V cast to the query
+    dtype before their products, ``ds = P·(dP − Σ P·dP)`` in f32 and cast
+    before ``dq``/``dk``. The bias gradient is ``ds`` summed over the bias's
+    broadcast axes. Returns ``(dq, dk, dv, dbias)``; dbias is None without a
+    bias."""
+    mm = query.dtype
+
+    def product(spec, a, b):
+        return torch.einsum(spec, a.to(mm).float(), b.to(mm).float())
+
+    s = product("bqhd,bkhd->bhqk", query, key) * scale
+    if bias is not None:
+        s = s + bias.float()
+    p = torch.softmax(s, dim=-1)
+    dv = product("bhqk,bqhd->bkhd", p, grad)
+    dp = product("bqhd,bkhd->bhqk", grad, value)
+    ds = p * (dp - (p * dp).sum(dim=-1, keepdim=True))
+    dq = product("bhqk,bkhd->bqhd", ds, key) * scale
+    dk = product("bhqk,bqhd->bkhd", ds, query) * scale
+    dbias = None
+    if bias is not None:
+        axes = [a for a in range(ds.ndim) if bias.shape[a] == 1 and ds.shape[a] != 1]
+        dbias = (ds.sum(dim=axes, keepdim=True) if axes else ds).to(bias.dtype)
+    return dq.to(query.dtype), dk.to(key.dtype), dv.to(value.dtype), dbias
+
+
 def resolve_attention_backend(
     q_len: int,
     kv_len: int,
@@ -75,11 +116,13 @@ def resolve_attention_backend(
     *,
     dtype=torch.bfloat16,
     requested: Optional[str] = None,
+    backward: bool = False,
 ) -> str:
     """The port's rule on static shapes, returning ``'fused'`` or ``'xla'``:
-    ``auto`` means the fused kernel inside its band and raises outside it;
-    ``fused`` and ``xla`` pass through; ``pallas`` raises until the flash
-    kernel is ported."""
+    ``auto`` means the fused kernel inside its band (with ``backward=True``,
+    the backward kernel's band too) and raises outside it; ``fused`` and
+    ``xla`` pass through; ``pallas`` raises until the flash kernel is
+    ported."""
     requested = requested or "auto"
     if requested in ("fused", "xla"):
         return requested
@@ -88,11 +131,12 @@ def resolve_attention_backend(
     if requested != "auto":
         raise ValueError(f"unknown attention backend: {requested!r}")
     itemsize = torch.empty((), dtype=_as_dtype(dtype)).element_size()
-    if _fused.fused_eligible(q_len, kv_len, dim, itemsize=itemsize):
+    if _fused.fused_eligible(q_len, kv_len, dim, itemsize=itemsize, backward=backward):
         return "fused"
     raise NotImplementedError(
         f"auto attention at q_len={q_len}, kv_len={kv_len}, head_dim={dim} "
-        f"is outside the fused kernel's band, and {_FLASH_TODO}"
+        f"is outside the fused kernel's band{' for training' if backward else ''}, "
+        f"and {_FLASH_TODO}"
     )
 
 
@@ -114,6 +158,7 @@ def dot_product_attention(
     backend = resolve_attention_backend(
         query.shape[1], key.shape[1], query.shape[-1],
         dtype=query.dtype, requested=backend,
+        backward=_fused.requires_backward(query, key, value, bias),
     )
     if backend == "fused":
         return _fused.fused_attention(query, key, value, bias, scale=scale)

@@ -1,17 +1,28 @@
 """Single-pass fused attention for sequences whose whole K/V fits on chip.
 
-Port of :mod:`sav_tpu.ops.fused_attention`'s forward. The kernel is
-``sav_tpu_torch/csrc/fused_attention.cu`` (CUDA C++ for sm_90a, built by
-:mod:`sav_tpu_torch.ops._build`); it replaces the TPU kernel
-``_fused_kernel`` (``sav_tpu/ops/fused_attention.py:146``). This module holds
-its wrapper :func:`fused_attention`, its plain PyTorch version
-:func:`fused_attention_reference`, the eligibility rule :func:`fused_eligible`
-and the launch counter :data:`LAUNCHES`.
+Port of :mod:`sav_tpu.ops.fused_attention`. Two kernels, CUDA C++ for
+sm_90a built by :mod:`sav_tpu_torch.ops._build`:
 
-The wrapper runs the plain version on CPU tensors, and only there; on CUDA
-tensors it launches the kernel or raises. There is no backward yet: the
-training slice brings the ``torch.autograd.Function`` with a backward kernel,
-so CUDA inputs that require grad are refused.
+- ``csrc/fused_attention.cu``, the forward; it replaces the TPU kernel
+  ``_fused_kernel`` (``sav_tpu/ops/fused_attention.py:146``). Wrapper
+  :func:`fused_attention`, plain version :func:`fused_attention_reference`,
+  launch counter :data:`LAUNCHES`.
+- ``csrc/fused_attention_bwd.cu``, the backward; it replaces
+  ``_fused_bwd_kernel`` (``sav_tpu/ops/fused_attention.py:351``) and forms
+  ``delta = Σ_d dO·O`` itself. Wrapper :func:`fused_attention_bwd`, plain
+  version :func:`fused_attention_bwd_reference`, launch counter
+  :data:`BWD_LAUNCHES`.
+
+When an input requires grad, :func:`fused_attention` runs through
+:class:`FusedAttentionFunction`, the counterpart of ``sav_tpu``'s
+``custom_vjp``: without a bias the forward keeps the f32 row logsumexp and
+the backward is the kernel; with a bias the forward keeps no lse and the
+backward is the dense recompute
+(:func:`sav_tpu_torch.ops.attention.dense_recompute_bwd`), which also gives
+the bias gradient.
+
+Every wrapper runs its plain version on CPU tensors, and only there; on CUDA
+tensors it launches its kernel or raises.
 """
 
 from __future__ import annotations
@@ -25,30 +36,42 @@ import torch
 
 from sav_tpu_torch.ops import _build
 
-# Mirrors kWarps, kRows and kMaxDim in csrc/fused_attention.cu.
+# Mirrors kWarps, kRows and kMaxDim in csrc/fused_attention.cu, and kWarps
+# in csrc/fused_attention_bwd.cu.
 _WARPS = 4
 _ROWS = 4
+_BWD_WARPS = 8
 MAX_DIM = 256
 # Dynamic shared memory one block may use on Hopper (227 KB).
 SMEM_LIMIT = 232448
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
-# Kernel launches since the last reset; the wrapper adds one per launch.
+# Kernel launches since the last reset, forward and backward; each wrapper
+# adds one per launch of its kernel.
 LAUNCHES = 0
+BWD_LAUNCHES = 0
 _LAUNCH_LOCK = threading.Lock()
 
 
 def reset_launches() -> None:
-    global LAUNCHES
+    """Set both launch counters to 0."""
+    global LAUNCHES, BWD_LAUNCHES
     with _LAUNCH_LOCK:
         LAUNCHES = 0
+        BWD_LAUNCHES = 0
 
 
 def _count_launch() -> None:
     global LAUNCHES
     with _LAUNCH_LOCK:
         LAUNCHES += 1
+
+
+def _count_bwd_launch() -> None:
+    global BWD_LAUNCHES
+    with _LAUNCH_LOCK:
+        BWD_LAUNCHES += 1
 
 
 def fused_smem_bytes(kv_len: int, dim: int, itemsize: int) -> int:
@@ -60,16 +83,45 @@ def fused_smem_bytes(kv_len: int, dim: int, itemsize: int) -> int:
     return kv_len * (2 * dim + vec) * itemsize + per_warp_rows
 
 
-def fused_eligible(q_len: int, kv_len: int, dim: int, *, itemsize: int = 2) -> bool:
+def fused_bwd_smem_bytes(kv_len: int, dim: int, itemsize: int, rows: int) -> int:
+    """Shared memory of one backward block at ``rows`` query rows per warp:
+    K and V (rows padded by 16 bytes), f32 dK and dV, and for a tile of
+    ``8 * rows`` query rows its f32 q, dO, p and ds rows. Same formula as
+    ``smem_bytes`` in ``csrc/fused_attention_bwd.cu``."""
+    vec = 16 // itemsize
+    tile = _BWD_WARPS * rows
+    return (
+        2 * kv_len * (dim + vec) * itemsize
+        + 2 * kv_len * dim * 4
+        + 2 * tile * dim * 4
+        + 2 * tile * (-(-kv_len // 4) * 4) * 4
+    )
+
+
+def fused_bwd_rows(kv_len: int, dim: int, itemsize: int) -> int:
+    """Query rows per warp the backward launcher picks: the largest of 4, 2
+    and 1 that fits shared memory, 0 when none does (``pick_rows``)."""
+    for rows in (4, 2, 1):
+        if fused_bwd_smem_bytes(kv_len, dim, itemsize, rows) <= SMEM_LIMIT:
+            return rows
+    return 0
+
+
+def fused_eligible(
+    q_len: int, kv_len: int, dim: int, *, itemsize: int = 2, backward: bool = False
+) -> bool:
     """True when the kernel takes the shape: a head dim that is a multiple of
     8 up to 256, and the whole kv sequence within one block's shared memory
-    (replaces the TPU's 8 MiB VMEM estimate)."""
+    (replaces the TPU's 8 MiB VMEM estimate). ``backward=True`` also counts
+    the backward kernel's bytes (f32 dK/dV stay in shared memory, so its band
+    is narrower: kv_len up to 264 at head dim 64 in bf16)."""
     return (
         q_len >= 1
         and kv_len >= 1
         and dim % 8 == 0
         and 0 < dim <= MAX_DIM
         and fused_smem_bytes(kv_len, dim, itemsize) <= SMEM_LIMIT
+        and (not backward or fused_bwd_rows(kv_len, dim, itemsize) > 0)
     )
 
 
@@ -100,6 +152,35 @@ def fused_attention_reference(
     return out
 
 
+def fused_attention_bwd_reference(
+    query: torch.Tensor,
+    key: torch.Tensor,
+    value: torch.Tensor,
+    out: torch.Tensor,
+    lse: torch.Tensor,
+    grad: torch.Tensor,
+    *,
+    scale: Optional[float] = None,
+):
+    """Plain PyTorch version of the backward kernel, same arithmetic
+    (``_fused_bwd_kernel``): P recomputed from the f32 lse ``[B, H, Lq]``,
+    ``delta = Σ_d dO·O`` in f32, ``ds = P·(dO·Vᵀ − delta)``; ds is cast to
+    the key/query dtype before ``dq = ds·K·scale`` and ``dk = dsᵀ·Q·scale``,
+    P to the dO dtype before ``dv = Pᵀ·dO``, every product summed in f32.
+    Returns ``(dq, dk, dv)`` in the dtypes of q, k, v."""
+    if scale is None:
+        scale = query.shape[-1] ** -0.5
+    s = torch.einsum("bqhd,bkhd->bhqk", query.float(), key.float()) * scale
+    p = torch.exp(s - lse.float()[..., None])
+    dp = torch.einsum("bqhd,bkhd->bhqk", grad.float(), value.float())
+    delta = (grad.float() * out.float()).sum(-1).permute(0, 2, 1)
+    ds = p * (dp - delta[..., None])
+    dq = torch.einsum("bhqk,bkhd->bqhd", ds.to(key.dtype).float(), key.float()) * scale
+    dv = torch.einsum("bhqk,bqhd->bkhd", p.to(grad.dtype).float(), grad.float())
+    dk = torch.einsum("bhqk,bqhd->bkhd", ds.to(query.dtype).float(), query.float()) * scale
+    return dq.to(query.dtype), dk.to(key.dtype), dv.to(value.dtype)
+
+
 @functools.cache
 def _lib() -> ctypes.CDLL:
     lib = _build.load("fused_attention")
@@ -120,32 +201,69 @@ def _lib() -> ctypes.CDLL:
     return lib
 
 
-def _launch(query, key, value, bias, scale, with_lse):
-    batch, q_len, heads, dim = query.shape
-    kv_len = key.shape[1]
-    dtype = query.dtype
-    if dtype not in _DTYPE_CODES or key.dtype != dtype or value.dtype != dtype:
+@functools.cache
+def _bwd_lib() -> ctypes.CDLL:
+    lib = _build.load("fused_attention_bwd")
+    lib.sav_fused_attention_bwd.argtypes = [
+        ctypes.c_int,  # dtype
+        *[ctypes.c_void_p] * 6,  # q, k, v, o, dO, lse
+        *[ctypes.c_void_p] * 3,  # dq, dk, dv
+        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+        ctypes.POINTER(ctypes.c_int64),  # 24 strides
+        ctypes.c_float,  # scale
+        ctypes.c_void_p,  # stream
+    ]
+    lib.sav_fused_attention_bwd.restype = ctypes.c_int
+    lib.sav_fused_attention_bwd_smem_bytes.argtypes = [ctypes.c_int] * 4
+    lib.sav_fused_attention_bwd_smem_bytes.restype = ctypes.c_size_t
+    lib.sav_fused_attention_bwd_rows.argtypes = [ctypes.c_int] * 3
+    lib.sav_fused_attention_bwd_rows.restype = ctypes.c_int
+    lib.sav_cuda_error_string.argtypes = [ctypes.c_int]
+    lib.sav_cuda_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def _check_dtypes(*tensors) -> torch.dtype:
+    dtype = tensors[0].dtype
+    if dtype not in _DTYPE_CODES or any(t.dtype != dtype for t in tensors):
         raise ValueError(
-            "fused attention kernel takes q/k/v all float32 or all bfloat16, "
-            f"got {query.dtype}/{key.dtype}/{value.dtype}"
+            "fused attention kernels take q/k/v all float32 or all bfloat16, "
+            f"got {'/'.join(str(t.dtype) for t in tensors)}"
         )
-    if torch.is_grad_enabled() and any(
-        t is not None and t.requires_grad for t in (query, key, value, bias)
-    ):
-        raise NotImplementedError(
-            "fused attention on CUDA has no backward kernel yet (ROADMAP "
-            "queue B2); run under torch.inference_mode() or no_grad()"
-        )
-    vec = 16 // query.element_size()
-    for name, t in (("query", query), ("key", key), ("value", value)):
+    return dtype
+
+
+def _check_strides(named_rows, named_chunked) -> None:
+    """Unit stride on D for every operand; 16-byte aligned pointers and B/L/H
+    strides for the operands the kernel reads in 16-byte chunks."""
+    for name, t in named_rows:
         if t.stride(-1) != 1:
             raise ValueError(f"fused attention needs unit stride on D, {name} has {t.stride()}")
-    for name, t in (("key", key), ("value", value)):
+    for name, t in named_chunked:
+        vec = 16 // t.element_size()
         if t.data_ptr() % 16 or any(s % vec for s in t.stride()[:3]):
             raise ValueError(
                 f"fused attention reads {name} in 16-byte chunks: its pointer "
                 f"and its B/L/H strides {t.stride()[:3]} must be 16-byte aligned"
             )
+
+
+def _raise_on_error(lib, rc: int, what: str) -> None:
+    if rc != 0:
+        raise RuntimeError(
+            f"{what} kernel launch failed: "
+            f"{lib.sav_cuda_error_string(rc).decode()} (cudaError {rc})"
+        )
+
+
+def _launch(query, key, value, bias, scale, with_lse):
+    batch, q_len, heads, dim = query.shape
+    kv_len = key.shape[1]
+    dtype = _check_dtypes(query, key, value)
+    _check_strides(
+        (("query", query), ("key", key), ("value", value)),
+        (("key", key), ("value", value)),
+    )
     out = torch.empty((batch, q_len, heads, dim), dtype=dtype, device=query.device)
     lse = (
         torch.empty((batch, heads, q_len), dtype=torch.float32, device=query.device)
@@ -174,13 +292,144 @@ def _launch(query, key, value, bias, scale, with_lse):
             float(scale),
             stream,
         )
-    if rc != 0:
-        raise RuntimeError(
-            "fused attention kernel launch failed: "
-            f"{lib.sav_cuda_error_string(rc).decode()} (cudaError {rc})"
-        )
+    _raise_on_error(lib, rc, "fused attention")
     _count_launch()
     return (out, lse) if with_lse else out
+
+
+def _launch_bwd(query, key, value, out, lse, grad, scale):
+    batch, q_len, heads, dim = query.shape
+    kv_len = key.shape[1]
+    dtype = _check_dtypes(query, key, value, out)
+    # The incoming gradient may arrive in another layout or dtype; the
+    # kernel reads it strided but needs unit stride on D, so only then is
+    # it copied.
+    grad = grad.to(dtype)
+    if grad.stride(-1) != 1:
+        grad = grad.contiguous()
+    _check_strides(
+        (("query", query), ("key", key), ("value", value), ("out", out), ("grad", grad)),
+        (("key", key), ("value", value)),
+    )
+    if lse.shape != (batch, heads, q_len) or lse.dtype != torch.float32:
+        raise ValueError(f"lse must be f32 [B, H, Lq], got {lse.dtype} {tuple(lse.shape)}")
+    lse = lse.contiguous()
+    dq = torch.empty((batch, q_len, heads, dim), dtype=dtype, device=query.device)
+    dk = torch.empty((batch, kv_len, heads, dim), dtype=dtype, device=query.device)
+    dv = torch.empty_like(dk)
+    strides = tuple(
+        s for t in (query, key, value, out, grad, dq, dk, dv) for s in t.stride()[:3]
+    )
+    lib = _bwd_lib()
+    with torch.cuda.device(query.device):
+        stream = torch.cuda.current_stream(query.device).cuda_stream
+        rc = lib.sav_fused_attention_bwd(
+            _DTYPE_CODES[dtype],
+            query.data_ptr(), key.data_ptr(), value.data_ptr(),
+            out.data_ptr(), grad.data_ptr(), lse.data_ptr(),
+            dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+            batch, heads, q_len, kv_len, dim,
+            (ctypes.c_int64 * 24)(*strides),
+            float(scale),
+            stream,
+        )
+    _raise_on_error(lib, rc, "fused attention backward")
+    _count_bwd_launch()
+    return dq, dk, dv
+
+
+def requires_backward(*tensors) -> bool:
+    """True when autograd will differentiate through a call on ``tensors``
+    (grad mode on and some input requires grad)."""
+    return torch.is_grad_enabled() and any(t is not None and t.requires_grad for t in tensors)
+
+
+def _check_bwd_band(q_len: int, kv_len: int, dim: int, itemsize: int) -> None:
+    if not fused_eligible(q_len, kv_len, dim, itemsize=itemsize, backward=True):
+        raise ValueError(
+            f"kv_len={kv_len}, head_dim={dim} does not fit the fused backward "
+            f"kernel: f32 dK/dV stay in shared memory, and one block would need "
+            f"{fused_bwd_smem_bytes(kv_len, dim, itemsize, 1)} bytes against "
+            f"{SMEM_LIMIT}; longer sequences need the flash backward (ROADMAP "
+            "queue B4)"
+        )
+
+
+def _device_of(*tensors) -> str:
+    devices = {t.device for t in tensors if t is not None}
+    if len(devices) != 1:
+        raise ValueError(f"fused attention inputs on several devices: {devices}")
+    device = devices.pop().type
+    if device not in ("cpu", "cuda"):
+        raise ValueError(f"fused attention runs on CPU or CUDA tensors, got {device}")
+    return device
+
+
+def _forward(query, key, value, bias, scale, with_lse):
+    """The plain version on CPU tensors, the kernel on CUDA tensors."""
+    if query.device.type == "cpu":
+        return fused_attention_reference(
+            query, key, value, bias, scale=scale, with_lse=with_lse
+        )
+    return _launch(query, key, value, bias, scale, with_lse)
+
+
+def fused_attention_bwd(
+    query: torch.Tensor,
+    key: torch.Tensor,
+    value: torch.Tensor,
+    out: torch.Tensor,
+    lse: torch.Tensor,
+    grad: torch.Tensor,
+    *,
+    scale: Optional[float] = None,
+):
+    """Gradients of :func:`fused_attention` (no bias) from its saved output
+    and f32 row logsumexp ``[B, H, Lq]``: returns ``(dq, dk, dv)``, each in
+    ``[B, L, H, D]`` and the dtype of its input. The plain version on CPU
+    tensors, the backward kernel on CUDA tensors."""
+    if scale is None:
+        scale = query.shape[-1] ** -0.5
+    _check_bwd_band(query.shape[1], key.shape[1], query.shape[-1], query.element_size())
+    if _device_of(query, key, value, out, lse, grad) == "cpu":
+        return fused_attention_bwd_reference(
+            query, key, value, out, lse, grad, scale=scale
+        )
+    return _launch_bwd(query, key, value, out, lse, grad, scale)
+
+
+class FusedAttentionFunction(torch.autograd.Function):
+    """Fused attention with a backward (``sav_tpu``'s ``_fused`` custom_vjp):
+    without a bias the forward keeps the f32 lse and the backward runs
+    :func:`fused_attention_bwd`; with a bias the forward keeps no lse and
+    the backward is the dense recompute, which also gives the bias
+    gradient (un-broadcast to the bias's shape)."""
+
+    @staticmethod
+    def forward(ctx, query, key, value, bias, scale):
+        ctx.scale = scale
+        if bias is None:
+            out, lse = _forward(query, key, value, None, scale, True)
+            ctx.save_for_backward(query, key, value, out, lse)
+        else:
+            out = _forward(query, key, value, bias, scale, False)
+            ctx.save_for_backward(query, key, value, bias)
+        ctx.has_bias = bias is not None
+        return out
+
+    @staticmethod
+    def backward(ctx, grad):
+        if not ctx.has_bias:
+            query, key, value, out, lse = ctx.saved_tensors
+            dq, dk, dv = fused_attention_bwd(
+                query, key, value, out, lse, grad, scale=ctx.scale
+            )
+            return dq, dk, dv, None, None
+        from sav_tpu_torch.ops.attention import dense_recompute_bwd
+
+        query, key, value, bias = ctx.saved_tensors
+        dq, dk, dv, dbias = dense_recompute_bwd(query, key, value, bias, grad, ctx.scale)
+        return dq, dk, dv, dbias if ctx.needs_input_grad[3] else None, None
 
 
 def fused_attention(
@@ -197,12 +446,14 @@ def fused_attention(
     Args:
       query: ``[B, q_len, heads, head_dim]``.
       key, value: ``[B, kv_len, heads, head_dim]``; the whole kv sequence
-        must fit one block's shared memory (:func:`fused_eligible`).
+        must fit one block's shared memory (:func:`fused_eligible`, with
+        ``backward=True`` when an input requires grad).
       bias: optional additive bias broadcastable to
         ``[B, heads, q_len, kv_len]``; read through its broadcast strides.
       scale: logit scale, default ``head_dim ** -0.5``, applied to the f32
         product.
-      with_lse: also return the f32 row logsumexp ``[B, heads, q_len]``.
+      with_lse: also return the f32 row logsumexp ``[B, heads, q_len]``
+        (forward only: not with inputs that require grad).
 
     Returns:
       ``[B, q_len, heads, head_dim]`` in the query dtype (and the lse).
@@ -218,9 +469,7 @@ def fused_attention(
         )
     if bias is not None and bias.ndim != 4:
         raise ValueError(f"bias must be 4-D broadcastable, got {tuple(bias.shape)}")
-    devices = {t.device for t in (query, key, value, bias) if t is not None}
-    if len(devices) != 1:
-        raise ValueError(f"fused attention inputs on several devices: {devices}")
+    _device_of(query, key, value, bias)
     q_len, kv_len, dim = query.shape[1], key.shape[1], query.shape[-1]
     itemsize = query.element_size()
     if not fused_eligible(q_len, kv_len, dim, itemsize=itemsize):
@@ -233,11 +482,10 @@ def fused_attention(
         )
     if scale is None:
         scale = dim ** -0.5
-    device = query.device.type
-    if device == "cpu":
-        return fused_attention_reference(
-            query, key, value, bias, scale=scale, with_lse=with_lse
-        )
-    if device != "cuda":
-        raise ValueError(f"fused attention runs on CPU or CUDA tensors, got {device}")
-    return _launch(query, key, value, bias, scale, with_lse)
+    if not requires_backward(query, key, value, bias):
+        return _forward(query, key, value, bias, scale, with_lse)
+    if with_lse:
+        raise ValueError("with_lse=True is forward-only; the lse of a differentiated call stays internal")
+    if bias is None:
+        _check_bwd_band(q_len, kv_len, dim, itemsize)
+    return FusedAttentionFunction.apply(query, key, value, bias, float(scale))

@@ -41,22 +41,7 @@ from sav_tpu_torch.serve.batcher import (
 )
 from sav_tpu_torch.serve.bucketing import BucketLadder, default_ladder
 from sav_tpu_torch.serve.latency import LatencyLedger
-
-_DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
-
-
-def require_device(device: str) -> torch.device:
-    """The serving device, refusing a missing card instead of falling back."""
-    dev = torch.device(device)
-    if dev.type == "cuda":
-        if not torch.cuda.is_available():
-            raise RuntimeError(
-                f"device={device!r} but no CUDA device is available; pass "
-                "device='cpu' to serve on the CPU"
-            )
-    elif dev.type != "cpu":
-        raise ValueError(f"serving runs on 'cuda' or 'cpu', got {device!r}")
-    return dev
+from sav_tpu_torch.utils.device import COMPUTE_DTYPES, require_device
 
 
 @dataclasses.dataclass
@@ -81,9 +66,9 @@ class ServeConfig:
 
     def __post_init__(self):
         require_device(self.device)
-        if self.compute_dtype not in _DTYPES:
+        if self.compute_dtype not in COMPUTE_DTYPES:
             raise ValueError(
-                f"compute_dtype must be one of {sorted(_DTYPES)}, got {self.compute_dtype!r}"
+                f"compute_dtype must be one of {sorted(COMPUTE_DTYPES)}, got {self.compute_dtype!r}"
             )
 
     def ladder(self) -> BucketLadder:
@@ -129,7 +114,7 @@ class ServeEngine:
         self.config = config
         self.device = require_device(config.device)
         self.ladder = config.ladder()
-        self.compute_dtype = _DTYPES[config.compute_dtype]
+        self.compute_dtype = COMPUTE_DTYPES[config.compute_dtype]
         t0 = time.perf_counter()
         source = "passed"
         if model is None:

@@ -1,0 +1,167 @@
+"""Typed training configuration (the port's own copy of
+``sav_tpu/train/config.py``).
+
+Every field of ``sav_tpu``'s ``TrainConfig`` exists here with its name and
+default, so a config serialised by either side loads in the other. The
+fields this slice carries take any value; every other field is accepted
+only at its default, and any other value raises ``NotImplementedError``
+naming the ROADMAP item that will carry it.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import json
+from typing import Optional
+
+from sav_tpu_torch.utils.device import COMPUTE_DTYPES
+
+# Fields the port does not carry yet, and the ROADMAP item each waits on.
+_NOT_CARRIED = {
+    "attention_tune_cache": "queue A2 (the port's dispatch rule has no tune cache)",
+    "quant": "queue A8 (int8)",
+    "device_preprocess": "queue A6 (device feed and on-device mixing)",
+    "async_feed": "queue A6 (device feed and on-device mixing)",
+    "feed_depth": "queue A6 (device feed and on-device mixing)",
+    "compilation_cache_dir": "queue A10 (infra)",
+    "grad_accum_steps": "queue A4 (training: gradient accumulation)",
+    "mesh_axes": "queue A9 (parallelism)",
+    "layout_preset": "queue A9 (parallelism)",
+    "sequence_parallel": "queue A9 (parallelism)",
+    "pipeline_parallel": "queue A9 (parallelism)",
+    "pipeline_microbatches": "queue A9 (parallelism)",
+    "eval_every_epochs": "queue A4 (training: evaluation inside fit)",
+    "checkpoint_every_epochs": "queue A4 (training: checkpoint)",
+    "checkpoint_every_steps": "queue A4 (training: checkpoint)",
+    "checkpoint_every_secs": "queue A4 (training: checkpoint)",
+    "checkpoint_dir": "queue A4 (training: checkpoint)",
+    "checkpoint_keep": "queue A4 (training: checkpoint)",
+    **{
+        name: "queue A10 (observability)"
+        for name in (
+            "profile_dir", "profile_start_step", "profile_num_steps",
+            "debug_nans", "log_dir", "diagnostics", "trace_spans",
+            "watchdog_secs", "watchdog_soft_secs", "fleet", "autoprof",
+            "autoprof_steps", "autoprof_max", "peak_flops", "record",
+            "record_depth", "record_batches", "record_snapshot_every",
+            "spike_sigma", "memdump", "sanitize",
+        )
+    },
+}
+
+
+@dataclasses.dataclass
+class TrainConfig:
+    # Model
+    model_name: str = "deit_s_patch16"
+    num_classes: int = 1000
+    image_size: int = 224
+    compute_dtype: str = "bfloat16"
+    # None = the port's auto rule (the fused kernels wherever the forward
+    # and the backward fit) | 'fused' | 'xla'.
+    attention_backend: Optional[str] = None
+    attention_tune_cache: Optional[str] = None
+    # Softmax dtype of the 'xla' attention path; None = the compute dtype.
+    attention_logits_dtype: Optional[str] = None
+    quant: Optional[str] = None
+    # Extra create_model arguments (e.g. {'num_layers': 2}).
+    model_overrides: Optional[dict] = None
+    device_preprocess: bool = False
+    async_feed: bool = True
+    feed_depth: int = 2
+    compilation_cache_dir: Optional[str] = None
+
+    # Data. ``augment`` names the host pipeline's augmentation, which the
+    # trainer never reads: it takes batches as given.
+    global_batch_size: int = 1024
+    num_train_images: int = 1_281_167  # ImageNet-1k train
+    augment: str = "cutmix_mixup_randaugment_405"
+    transpose_images: bool = True  # batches arrive HWCN; the trainer permutes
+
+    # Optimization
+    num_epochs: int = 300
+    base_lr: float = 5e-4  # scaled by global_batch / lr_scaling_divisor
+    lr_scaling_divisor: int = 512
+    end_lr: float = 1e-5
+    warmup_epochs: int = 5
+    weight_decay: float = 0.05
+    clip_grad_norm: Optional[float] = 1.0
+    # optax.flatten in sav_tpu; numerically nothing, so any value is taken.
+    fused_optimizer: Optional[bool] = None
+    label_smoothing: float = 0.1
+    ema_decay: Optional[float] = None
+    aux_loss_weight: float = 0.01  # ViT sows no auxiliary loss
+    grad_accum_steps: int = 1
+    seed: int = 42
+
+    # Mesh and parallelism
+    mesh_axes: Optional[dict] = None
+    layout_preset: Optional[str] = None
+    sequence_parallel: Optional[str] = None
+    pipeline_parallel: Optional[int] = None
+    pipeline_microbatches: int = 8
+
+    # Logging and checkpointing
+    eval_every_epochs: int = 5
+    checkpoint_every_epochs: int = 10
+    checkpoint_every_steps: Optional[int] = None
+    checkpoint_every_secs: Optional[float] = None
+    checkpoint_dir: Optional[str] = None
+    checkpoint_keep: int = 3
+    log_every_steps: int = 100
+
+    # Observability
+    profile_dir: Optional[str] = None
+    profile_start_step: int = 10
+    profile_num_steps: int = 5
+    debug_nans: bool = False
+    log_dir: Optional[str] = None
+    diagnostics: bool = False
+    trace_spans: bool = False
+    watchdog_secs: Optional[float] = None
+    watchdog_soft_secs: Optional[float] = None
+    fleet: bool = True
+    autoprof: bool = False
+    autoprof_steps: int = 4
+    autoprof_max: int = 2
+    peak_flops: Optional[float] = None
+    record: bool = False
+    record_depth: int = 16
+    record_batches: int = 4
+    record_snapshot_every: Optional[int] = None
+    spike_sigma: float = 6.0
+    memdump: bool = True
+    sanitize: bool = False
+
+    def __post_init__(self):
+        defaults = {f.name: f.default for f in dataclasses.fields(self)}
+        for name, item in _NOT_CARRIED.items():
+            value = getattr(self, name)
+            if value != defaults[name]:
+                raise NotImplementedError(
+                    f"TrainConfig.{name}={value!r} is not ported yet (only its "
+                    f"default {defaults[name]!r} is): ROADMAP {item}"
+                )
+        if self.compute_dtype not in COMPUTE_DTYPES:
+            raise ValueError(
+                f"compute_dtype must be one of {sorted(COMPUTE_DTYPES)}, got {self.compute_dtype!r}"
+            )
+
+    @property
+    def steps_per_epoch(self) -> int:
+        return self.num_train_images // self.global_batch_size
+
+    @property
+    def total_steps(self) -> int:
+        return self.steps_per_epoch * self.num_epochs
+
+    @property
+    def learning_rate(self) -> float:
+        return self.base_lr * self.global_batch_size / self.lr_scaling_divisor
+
+    def to_json(self) -> str:
+        return json.dumps(dataclasses.asdict(self), indent=2)
+
+    @classmethod
+    def from_json(cls, text: str) -> "TrainConfig":
+        return cls(**json.loads(text))

@@ -174,3 +174,173 @@ def test_dot_product_attention_dispatches():
     torch.testing.assert_close(dense, port_attention.dense_attention(q, k, v))
     with pytest.raises(ValueError, match=r"\[B, L, H, D\]"):
         port_attention.dot_product_attention(q[0], k[0], v[0])
+
+
+# ---------------------------------------------------------------- backward
+
+# tests/test_fused_attention.py:52-55 (f32 grads) and :132-135 (bf16).
+GRAD_ATOL, GRAD_RTOL = 1e-4, 5e-4
+
+
+def _jax_grads(fn, arrays):
+    """jax.grad of sum(out²) w.r.t. every input, as numpy."""
+    import jax
+
+    argnums = tuple(range(len(arrays)))
+    grads = jax.grad(lambda *a: jnp.sum(jnp.square(fn(*a).astype(jnp.float32))), argnums)(
+        *map(jnp.asarray, arrays)
+    )
+    return [np.asarray(g, np.float32) for g in grads]
+
+
+def _port_grads(arrays, dtype=torch.float32, **kw):
+    """Gradients of sum(out²) through the port's fused_attention (on CPU
+    tensors: the autograd Function's plain forward and plain backward)."""
+    tensors = [torch.from_numpy(a).to(dtype).requires_grad_() for a in arrays]
+    out = port_fused.fused_attention(*tensors, **kw)
+    out.float().square().sum().backward()
+    return [t.grad.float().numpy() for t in tensors]
+
+
+@pytest.mark.parametrize(
+    "b,lq,lk,h,d",
+    [
+        (2, 197, 197, 2, 64),  # DeiT/ViT-S @ 224
+        (2, 50, 50, 2, 32),  # ragged
+        (2, 1, 197, 2, 64),  # one query row (class attention)
+        (2, 196, 49, 2, 64),  # short kv
+    ],
+)
+def test_fused_grads_match_sav_tpu_f32(b, lq, lk, h, d):
+    arrays = _qkv(b, lq, lk, h, d, seed=20)
+    ref = _jax_grads(jax_fused_attention, arrays)
+    port_fused.reset_launches()
+    got = _port_grads(arrays)
+    assert port_fused.BWD_LAUNCHES == 0  # the CPU path launches no kernel
+    for name, g, r in zip("qkv", got, ref):
+        assert np.abs(r).max() > 1e-3, name  # non-vacuous
+        np.testing.assert_allclose(g, r, atol=GRAD_ATOL, rtol=GRAD_RTOL, err_msg=name)
+
+
+def test_fused_grads_match_sav_tpu_bf16():
+    arrays = _qkv(2, 197, 197, 2, 64, seed=21)
+    ref = _jax_grads(
+        jax_fused_attention, [np.asarray(jnp.asarray(a, jnp.bfloat16)) for a in arrays]
+    )
+    got = _port_grads(arrays, torch.bfloat16)
+    for name, g, r in zip("qkv", got, ref):
+        np.testing.assert_allclose(g, r, atol=BF16_TOL, rtol=BF16_TOL, err_msg=name)
+
+
+@pytest.mark.parametrize(
+    "bias_shape", [(2, 4, 50, 50), (1, 1, 50, 50), (1, 4, 50, 50), (2, 1, 50, 50)]
+)
+def test_fused_bias_grads_match_dense_recompute(bias_shape):
+    """With a bias the backward is the dense recompute, with the bias
+    gradient summed over its broadcast axes: against sav_tpu's
+    ``_dense_recompute_bwd`` and against jax.grad through its fused kernel."""
+    from sav_tpu.ops.flash_attention import _dense_recompute_bwd
+
+    q, k, v = _qkv(2, 50, 50, 4, 32, seed=22)
+    bias = np.random.default_rng(23).standard_normal(bias_shape).astype(np.float32)
+    g = np.random.default_rng(24).standard_normal(q.shape).astype(np.float32)
+    scale = 32 ** -0.5
+    ref = _dense_recompute_bwd(*map(jnp.asarray, (q, k, v, bias, g)), scale)
+    got = port_attention.dense_recompute_bwd(*_port((q, k, v, bias, g)), scale)
+    for name, a, r in zip(("dq", "dk", "dv", "dbias"), got, ref):
+        assert tuple(a.shape) == r.shape, name
+        np.testing.assert_allclose(a.numpy(), np.asarray(r), atol=GRAD_ATOL, rtol=GRAD_RTOL, err_msg=name)
+
+    jax_grads = _jax_grads(jax_fused_attention, (q, k, v, bias))
+    port_grads = _port_grads((q, k, v, bias))
+    for name, a, r in zip(("dq", "dk", "dv", "dbias"), port_grads, jax_grads):
+        np.testing.assert_allclose(a, r, atol=GRAD_ATOL, rtol=GRAD_RTOL, err_msg=name)
+
+
+@pytest.mark.parametrize(
+    "b,lq,lk,h,d", [(2, 197, 197, 2, 64), (2, 50, 50, 2, 32), (2, 1, 197, 2, 64), (2, 196, 49, 2, 64)]
+)
+def test_bwd_reference_matches_autograd_of_fwd_reference(b, lq, lk, h, d):
+    """The backward kernel's plain version is the exact derivative of the
+    forward's plain version (f32, where the casts are no-ops)."""
+    q, k, v = (t.requires_grad_() for t in _port(_qkv(b, lq, lk, h, d, seed=25)))
+    out, lse = port_fused.fused_attention_reference(q, k, v, with_lse=True)
+    g = torch.from_numpy(np.random.default_rng(26).standard_normal(out.shape).astype(np.float32))
+    ref = torch.autograd.grad(out, (q, k, v), g)
+    got = port_fused.fused_attention_bwd_reference(
+        q.detach(), k.detach(), v.detach(), out.detach(), lse.detach(), g
+    )
+    for a, r in zip(got, ref):
+        torch.testing.assert_close(a, r, atol=2e-5, rtol=2e-5)
+
+
+def test_bwd_reference_casts_like_the_tpu_kernel():
+    """bf16: ds is rounded to the k/q dtype before dq/dk and p to the dO
+    dtype before dv, all products summed in f32 (``_fused_bwd_kernel``)."""
+    q, k, v = _port(_qkv(1, 8, 8, 1, 32, seed=27), torch.bfloat16)
+    out, lse = port_fused.fused_attention_reference(q, k, v, with_lse=True)
+    g = torch.from_numpy(np.random.default_rng(28).standard_normal(out.shape).astype(np.float32)).bfloat16()
+    dq, dk, dv = port_fused.fused_attention_bwd_reference(q, k, v, out, lse, g)
+    scale = 32 ** -0.5
+    s = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * scale
+    p = torch.exp(s - lse[..., None])
+    delta = (g.float() * out.float()).sum(-1).permute(0, 2, 1)[..., None]
+    ds = p * (torch.einsum("bqhd,bkhd->bhqk", g.float(), v.float()) - delta)
+    want_dv = torch.einsum("bhqk,bqhd->bkhd", p.bfloat16().float(), g.float()).bfloat16()
+    want_dq = (torch.einsum("bhqk,bkhd->bqhd", ds.bfloat16().float(), k.float()) * scale).bfloat16()
+    assert dq.dtype == dk.dtype == dv.dtype == torch.bfloat16
+    assert torch.equal(dv, want_dv) and torch.equal(dq, want_dq)
+
+
+def test_bwd_wrapper_runs_plain_version_on_cpu_and_counts_no_launch():
+    q, k, v = _port(_qkv(2, 17, 17, 2, 32, seed=29))
+    out, lse = port_fused.fused_attention(q, k, v, with_lse=True)
+    g = torch.ones_like(out)
+    port_fused.reset_launches()
+    got = port_fused.fused_attention_bwd(q, k, v, out, lse, g)
+    want = port_fused.fused_attention_bwd_reference(q, k, v, out, lse, g)
+    assert port_fused.LAUNCHES == port_fused.BWD_LAUNCHES == 0
+    for a, r in zip(got, want):
+        assert torch.equal(a, r)
+
+
+def test_backward_band_counts_the_backward_bytes():
+    # bf16 at L=197, D=64 takes 4 rows per warp (225,184 bytes); f32 only 1.
+    assert port_fused.fused_bwd_smem_bytes(197, 64, 2, 4) == 225184
+    assert port_fused.fused_bwd_rows(197, 64, 2) == 4
+    assert port_fused.fused_bwd_smem_bytes(197, 64, 4, 1) == 224928
+    assert port_fused.fused_bwd_rows(197, 64, 4) == 1
+    assert port_fused.fused_eligible(197, 197, 64, itemsize=4, backward=True)
+    assert port_fused.fused_eligible(264, 264, 64, backward=True)
+    assert not port_fused.fused_eligible(268, 268, 64, backward=True)
+    assert port_fused.fused_eligible(577, 577, 64)  # ViT at 384: forward only
+    resolve = port_attention.resolve_attention_backend
+    assert resolve(577, 577, 64) == "fused"
+    with pytest.raises(NotImplementedError, match="for training"):
+        resolve(577, 577, 64, backward=True)
+    q, k, v = (t.requires_grad_() for t in _port(_qkv(1, 8, 577, 1, 64), torch.bfloat16))
+    with pytest.raises(ValueError, match="B4"):
+        port_fused.fused_attention(q, k, v)
+    with torch.no_grad():  # the forward alone still takes the shape
+        assert port_fused.fused_attention(q, k, v).shape == (1, 8, 1, 64)
+
+
+def test_with_lse_is_forward_only():
+    q, k, v = (t.requires_grad_() for t in _port(_qkv(1, 8, 8, 1, 32)))
+    with pytest.raises(ValueError, match="forward-only"):
+        port_fused.fused_attention(q, k, v, with_lse=True)
+
+
+@pytest.mark.parametrize("backend", ["fused", "xla"])
+def test_dot_product_attention_grads_match_sav_tpu(backend):
+    """The seam is differentiable on both backends: against jax.grad of
+    sav_tpu's dispatched attention on the same backend (f32)."""
+    from sav_tpu.ops.attention import dot_product_attention as jax_dpa
+
+    arrays = _qkv(2, 17, 17, 2, 32, seed=30)
+    ref = _jax_grads(lambda q, k, v: jax_dpa(q, k, v, backend=backend, logits_dtype=jnp.float32), arrays)
+    tensors = [torch.from_numpy(a).requires_grad_() for a in arrays]
+    out = port_attention.dot_product_attention(*tensors, backend=backend, logits_dtype="float32")
+    out.square().sum().backward()
+    for name, t, r in zip("qkv", tensors, ref):
+        np.testing.assert_allclose(t.grad.numpy(), r, atol=GRAD_ATOL, rtol=GRAD_RTOL, err_msg=name)

@@ -162,3 +162,20 @@ def test_create_model_is_deterministic_in_seed():
     assert all(torch.equal(a[k], b[k]) for k in a)
     assert not torch.equal(a["encoder.blocks.0.attn.to_qkv"], c["encoder.blocks.0.attn.to_qkv"])
     assert torch.count_nonzero(a["head.weight"]) == 0 and torch.count_nonzero(a["cls"]) == 0
+
+
+def test_f32_parameters_compute_in_the_input_dtype():
+    """Every layer casts its weights to the activation dtype at use (flax's
+    dtype=bf16 over f32 params): f32 parameters on bf16 images give exactly
+    the logits of the module cast to bf16, which is what serving runs, and
+    their gradients stay f32."""
+    params = small_flax_params()
+    x = torch.from_numpy(np.random.default_rng(4).standard_normal((2, 32, 32, 3)).astype(np.float32))
+    model = small_port_model(params)
+    cast = small_port_model(params).to(torch.bfloat16)
+    with torch.inference_mode():
+        want = cast(x.bfloat16())
+        got = model(x.bfloat16())
+    assert got.dtype == torch.bfloat16 and torch.equal(got, want)
+    model(x.bfloat16()).float().sum().backward()
+    assert all(p.dtype == p.grad.dtype == torch.float32 for p in model.parameters())
