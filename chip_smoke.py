@@ -10,28 +10,39 @@ Phases, each of which exits non-zero on failure:
 1. device: refuse to run without CUDA; print the card's name and power limit
    (nvidia-smi); turn TF32 off for every f32 comparison.
 2. build: compile every kernel in sav_tpu_torch/csrc with nvcc, one process
-   per source, all at once; check each kernel's shared-memory rule against
-   the Python eligibility rule.
-3. kernels: each kernel against its plain PyTorch version on the card: the
-   forward at the serve and train shapes and at small, ragged, biased and
-   strided shapes; the backward at the train shape (bf16), the serve shape
-   (f32), ragged, one-query, short-kv and strided shapes, and twice on the
-   same inputs (it must be deterministic).
-4. timing: each kernel, its plain version and one PyTorch library call
-   (yardstick only) at the shapes the main paths give it, beside the card's
-   bound.
-5. serve: ServeEngine serves deit_s_patch16 (bf16, random weights from a
-   seed) to concurrent clients; every attention core must have gone through
-   the forward kernel (12 launches per batch, no backward launch), and 8 rows
-   must agree with the same weights served on the dense attention path.
-6. train: Trainer trains deit_s_patch16 (bf16 over f32 parameters, global
-   batch 256) for 6 steps on synthetic learnable batches through fit(); every
-   step must launch the forward and the backward kernel 12 times each, every
-   loss must be finite, the loss must fall, and the first step's loss and
-   grad norm must agree with the same step on the dense attention path
-   (f32 softmax). After the counted run, one more step under torch.profiler
-   gives the device's busy time by kernel group and its idle share.
+   per source, all at once; check each kernel's shared-memory rules and the
+   talking-heads kernels' head counts against the Python eligibility rules.
+3. kernels: each kernel against its plain PyTorch version on the card. The
+   fused forward at the DeiT serve and train shapes, CaiT's class-attention
+   shape and small, ragged, biased and strided shapes; the fused backward at
+   the DeiT train shape (bf16), the serve shape (f32), CaiT's class
+   attention, ragged, one-query, short-kv and strided shapes; the
+   talking-heads forward and backward (dq, dk, dv, dW_pre, dW_post) at the
+   CaiT-XXS train and serve shapes, in f32, ragged, on strided views and at
+   every other head count they are built for (2, 3, 6, 8; 16 forward only).
+   Each backward runs twice on the same inputs and must give the same bits.
+4. timing: each kernel, its plain version and, where one exists, one PyTorch
+   library call (yardstick only) at the shapes the main paths give it,
+   beside the card's bound; the talking-heads kernels also beside the port's
+   dense talking-heads path.
+5. serve: ServeEngine serves deit_s_patch16, then cait_xxs_24 (bf16, random
+   weights from a seed) to concurrent clients; every attention core must
+   have gone through its forward kernel (the launches per batch are counted
+   from the model's attention modules: DeiT 12 fused; CaiT 24 talking-heads
+   and 2 fused; no backward launch), and 8 rows must agree with the same
+   weights served on the dense attention paths.
+6. train: Trainer trains deit_s_patch16, then cait_xxs_24 (bf16 over f32
+   parameters, global batch 256, CaiT at its recipe's stochastic depth 0.05)
+   for 6 steps on synthetic learnable batches through fit(); every step must
+   launch each forward and backward kernel once per attention module that
+   takes it, every loss must be finite, the loss must fall, and the first
+   step's loss and grad norm must agree with the same step on the dense
+   attention paths (f32 softmax, the same stochastic-depth masks). After
+   each counted run, one more step under torch.profiler gives the device's
+   busy time by kernel group and its idle share.
 
+Before each agreement check the head is drawn at std 0.02 and every
+LayerScale scale at 0.05-0.15 (CaiT's init of 1e-5 would hide a wrong trunk).
 The line before the last is the ``{"kernels": [...]}`` record; the last line
 is ``{"ok": true, "device": {...}}``.
 """
@@ -61,6 +72,12 @@ PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
 # its train shape at global batch 256.
 SERVE_SHAPE = (32, 197, 197, 6, 64)
 TRAIN_SHAPE = (256, 197, 197, 6, 64)
+# CaiT-XXS/16 at 224²: the class attention (one query over [CLS; 196
+# tokens], 4 heads of 48) and the talking-heads trunk (B, L, H, D).
+CLASS_SERVE_SHAPE = (32, 1, 197, 4, 48)
+CLASS_TRAIN_SHAPE = (256, 1, 197, 4, 48)
+TH_SERVE_SHAPE = (32, 196, 4, 48)
+TH_TRAIN_SHAPE = (256, 196, 4, 48)
 SERVE_REQUESTS = 96
 CLIENTS = 4
 TRAIN_BATCH = 256
@@ -72,8 +89,11 @@ TOL = {torch.bfloat16: 2e-2, torch.float32: 2e-5}
 LSE_TOL = 2e-5
 SERVE_TOL = 3e-2
 # First train step, fused kernels vs dense attention with f32 softmax, both
-# bf16 over 12 layers: relative to the loss (~ln 1000) and to the grad norm.
+# bf16 over 12 (DeiT) or 26 (CaiT) layers: relative to the loss (~ln 1000)
+# and to the grad norm.
 TRAIN_REL_TOL = {"loss": 1e-2, "grad_norm": 5e-2}
+# LayerScale scales drawn for the agreement checks.
+LAYERSCALE_DRAW = (0.05, 0.15)
 
 
 def log(msg: str) -> None:
@@ -99,6 +119,7 @@ def phase_device() -> str:
 def phase_build() -> None:
     from sav_tpu_torch.ops import _build
     from sav_tpu_torch.ops import fused_attention as fa
+    from sav_tpu_torch.ops import talking_heads as th
 
     t0 = time.perf_counter()
     built = _build.build_all()
@@ -126,6 +147,43 @@ def phase_build() -> None:
                     f"{what} shared-memory rule differs at kv={kv_len} d={dim} "
                     f"itemsize={itemsize}: kernel {c_value}, fused_eligible {py_value}"
                 )
+    th_lib, th_bwd = th._lib(), th._bwd_lib()
+    for kv_len, heads, dim, itemsize in ((196, 4, 48, 2), (196, 4, 48, 4), (196, 6, 48, 2),
+                                         (196, 8, 48, 2), (196, 8, 48, 4), (196, 16, 48, 2),
+                                         (50, 3, 32, 4), (577, 4, 64, 2), (2000, 4, 48, 2)):
+        rules = [
+            ("talking-heads rows", th_lib.sav_talking_heads_rows(kv_len, heads, dim, itemsize),
+             th.th_rows(kv_len, heads, dim, itemsize)),
+            ("talking-heads backward rows",
+             th_bwd.sav_talking_heads_bwd_rows(kv_len, heads, dim, itemsize),
+             th.th_bwd_rows(kv_len, heads, dim, itemsize)),
+            *[(f"talking-heads at {rows} rows",
+               th_lib.sav_talking_heads_smem_bytes(kv_len, heads, dim, itemsize, rows),
+               th.th_smem_bytes(kv_len, heads, dim, itemsize, rows)) for rows in (1, 2)],
+            *[(f"talking-heads backward at {rows} rows",
+               th_bwd.sav_talking_heads_bwd_smem_bytes(kv_len, heads, dim, itemsize, rows),
+               th.th_bwd_smem_bytes(kv_len, heads, dim, itemsize, rows)) for rows in (1, 2)],
+        ]
+        for what, c_value, py_value in rules:
+            if c_value != py_value:
+                raise AssertionError(
+                    f"{what} shared-memory rule differs at kv={kv_len} h={heads} d={dim} "
+                    f"itemsize={itemsize}: kernel {c_value}, Python {py_value}"
+                )
+    for heads in range(1, 33):
+        for what, c_value, py_value in (
+            ("forward", th_lib.sav_talking_heads_has_heads(heads), heads in th.HEADS),
+            ("backward", th_bwd.sav_talking_heads_bwd_has_heads(heads), heads in th.BWD_HEADS),
+        ):
+            if bool(c_value) != py_value:
+                raise AssertionError(f"talking-heads {what}: the kernel is built for {heads} "
+                                     f"heads: {bool(c_value)}; the Python rule says {py_value}")
+    for name, heads in (("CaiT-XXS", 4), ("CaiT-XS", 6), ("CaiT-S", 8)):
+        for itemsize in (2, 4):
+            if not (th.fused_eligible(heads, 196, 48, itemsize=itemsize)
+                    and th.fused_bwd_eligible(heads, 196, 196, 48, itemsize=itemsize)):
+                raise AssertionError(f"{name} at 224² (itemsize {itemsize}) is outside the "
+                                     "talking-heads band")
 
 
 def _inputs(shape, dtype, seed, device, *, bias_shape=None, packed=False):
@@ -176,7 +234,7 @@ def check_kernel(name, shape, dtype, device, *, bias_shape=None, with_lse=False,
 
 def phase_kernels(device="cuda", serve_shape=SERVE_SHAPE, train_shape=TRAIN_SHAPE) -> dict:
     """All forward cases; returns the max abs error at the serve and the
-    train shape in bf16."""
+    train shape and at CaiT's class-attention shapes, in bf16."""
     bf16, f32 = torch.bfloat16, torch.float32
     b, lq, lk, h, d = serve_shape
     train_err = check_kernel("train+lse", train_shape, bf16, device, with_lse=True)
@@ -190,7 +248,9 @@ def phase_kernels(device="cuda", serve_shape=SERVE_SHAPE, train_shape=TRAIN_SHAP
     check_kernel("ragged-50", (2, 50, 50, 2, 32), f32, device)
     check_kernel("one-query", (2, 1, lk, 2, d), f32, device)
     check_kernel("short-kv", (2, 196, 49, 2, 64), f32, device)
-    return {"serve": serve_err, "train": train_err}
+    class_err = check_kernel("cait-class-attention+lse", CLASS_TRAIN_SHAPE, bf16, device, with_lse=True)
+    class_err = max(class_err, check_kernel("cait-class-attention", CLASS_SERVE_SHAPE, bf16, device))
+    return {"serve": serve_err, "train": train_err, "cait_class": class_err}
 
 
 def check_bwd_kernel(name, shape, dtype, device, *, packed=False):
@@ -224,8 +284,9 @@ def check_bwd_kernel(name, shape, dtype, device, *, packed=False):
     return max(errs.values())
 
 
-def phase_bwd_kernels(device="cuda", serve_shape=SERVE_SHAPE, train_shape=TRAIN_SHAPE) -> float:
-    """All backward cases; returns the max abs error at the train shape."""
+def phase_bwd_kernels(device="cuda", serve_shape=SERVE_SHAPE, train_shape=TRAIN_SHAPE) -> dict:
+    """All backward cases; returns the max abs error at the DeiT train shape
+    and at CaiT's class-attention shape."""
     bf16, f32 = torch.bfloat16, torch.float32
     lk, d = serve_shape[2], serve_shape[4]
     train_err = check_bwd_kernel("train", train_shape, bf16, device)
@@ -235,7 +296,100 @@ def phase_bwd_kernels(device="cuda", serve_shape=SERVE_SHAPE, train_shape=TRAIN_
     check_bwd_kernel("ragged-50", (2, 50, 50, 2, 32), f32, device)
     check_bwd_kernel("one-query", (2, 1, lk, 2, d), f32, device)
     check_bwd_kernel("short-kv", (2, 196, 49, 2, 64), f32, device)
-    return train_err
+    class_err = check_bwd_kernel("cait-class-attention", CLASS_TRAIN_SHAPE, bf16, device)
+    return {"train": train_err, "cait_class": class_err}
+
+
+def _th_inputs(shape, dtype, seed, device, *, packed=False):
+    """q, k, v, orthogonal f32 w_pre and w_post (TalkingHeadsBlock's init)
+    and dO. ``packed``: q/k/v strided views of one [B, L, 3, H, D] tensor
+    and a dO with a row stride of 2·H·D."""
+    b, length, h, d = shape
+    gen = torch.Generator(device=device).manual_seed(seed)
+
+    def randn(*s):
+        return torch.randn(s, generator=gen, device=device)
+
+    if packed:
+        q, k, v = randn(b, length, 3, h, d).to(dtype).unbind(2)
+        g = randn(b, length, h, 2 * d).to(dtype)[..., :d]
+    else:
+        q, k, v, g = (randn(b, length, h, d).to(dtype) for _ in range(4))
+    w_pre, w_post = (torch.linalg.qr(randn(h, h))[0].contiguous() for _ in range(2))
+    return q, k, v, w_pre, w_post, g
+
+
+def _within_largest(got, ref, tol) -> float:
+    """For the [H, H] weight gradients, each a sum over B·L·L products:
+    the error relative to the largest entry (an entry near 0 is the
+    difference of large partial sums)."""
+    err = (got.float() - ref.float()).abs().max().item()
+    if err > tol * (1.0 + ref.float().abs().max().item()):
+        raise AssertionError(f"max abs err {err:.3e} against largest |ref| "
+                             f"{ref.float().abs().max().item():.3e}")
+    return err
+
+
+def check_th_kernel(name, shape, dtype, device, *, packed=False, backward=True) -> dict:
+    """The talking-heads forward and backward kernels against their plain
+    versions on the same inputs; the backward once more on the same inputs,
+    which must give the same bits (no atomics). ``backward=False``: the
+    forward alone, for a head count the backward is not built for."""
+    from sav_tpu_torch.ops import talking_heads as th
+
+    q, k, v, w_pre, w_post, g = _th_inputs(shape, dtype, 31, device, packed=packed)
+    tol = TOL[dtype]
+    with torch.no_grad():
+        out = th.flash_talking_heads_attention(q, k, v, w_pre, w_post)
+        ref = th.talking_heads_reference(q, k, v, w_pre, w_post)
+    fwd_err = _within(out, ref, tol)
+    if not backward:
+        log(f"talking-heads kernel {name} {shape} {str(dtype)[6:]}: forward max abs err "
+            f"{fwd_err:.3e} (tol {tol}; forward only)")
+        return {"fwd": fwd_err}
+    with torch.no_grad():
+        got = th.talking_heads_bwd(q, k, v, w_pre, w_post, g)
+        again = th.talking_heads_bwd(q, k, v, w_pre, w_post, g)
+        want = th.talking_heads_bwd_reference(q, k, v, w_pre, w_post, g)
+    names = ("dq", "dk", "dv", "dw_pre", "dw_post")
+    errs = {n: _within(a, r, tol) for n, a, r in zip(names[:3], got, want)}
+    errs.update({n: _within_largest(a, r, tol) for n, a, r in zip(names[3:], got[3:], want[3:])})
+    if not all(torch.equal(a, b) for a, b in zip(got, again)):
+        raise AssertionError(f"talking-heads backward {name}: two runs on the same inputs differ")
+    log(
+        f"talking-heads kernels {name} {shape} {str(dtype)[6:]}: forward max abs err "
+        f"{fwd_err:.3e}; backward " + ", ".join(f"{n} {e:.3e}" for n, e in errs.items())
+        + f" (tol {tol}; dW relative to its largest entry); deterministic"
+    )
+    return {"fwd": fwd_err, "bwd": max(errs.values())}
+
+
+def phase_th_kernels(device="cuda") -> dict:
+    """All talking-heads cases, every head count the kernels are built for
+    among them; returns the max abs errors at the CaiT-XXS serve and train
+    shapes in bf16."""
+    from sav_tpu_torch.ops import talking_heads as th
+
+    bf16, f32 = torch.bfloat16, torch.float32
+    train = check_th_kernel("train", TH_TRAIN_SHAPE, bf16, device)
+    serve = check_th_kernel("serve", TH_SERVE_SHAPE, bf16, device)
+    check_th_kernel("serve-f32", TH_SERVE_SHAPE, f32, device)
+    check_th_kernel("ragged-50", (2, 50, 3, 32), bf16, device)
+    check_th_kernel("ragged-50", (2, 50, 3, 32), f32, device)
+    check_th_kernel("6-heads", (8, 196, 6, 48), bf16, device)  # CaiT-XS
+    check_th_kernel("8-heads", (8, 196, 8, 48), bf16, device)  # CaiT-S
+    check_th_kernel("8-heads", (8, 196, 8, 48), f32, device)
+    # CaiT-M: forward only (its backward is the dense recompute); in f32 the
+    # forward takes 1 row per warp.
+    if th.fused_bwd_eligible(16, 196, 196, 48):
+        raise AssertionError("CaiT-M's backward is in the talking-heads band")
+    check_th_kernel("16-heads", (8, 196, 16, 48), bf16, device, backward=False)
+    check_th_kernel("16-heads", (8, 196, 16, 48), f32, device, backward=False)
+    # The small CaiT of the CPU parity tests: 16 tokens, 2 heads of 16.
+    check_th_kernel("2-heads", (2, 16, 2, 16), bf16, device)
+    check_th_kernel("2-heads", (2, 16, 2, 16), f32, device)
+    check_th_kernel("packed-qkv+strided-dO", TH_SERVE_SHAPE, bf16, device, packed=True)
+    return {"fwd_train": train["fwd"], "fwd_serve": serve["fwd"], "bwd_train": train["bwd"]}
 
 
 def _median_ms(fn, iters=30, warmup=5) -> float:
@@ -258,11 +412,13 @@ def _median_ms(fn, iters=30, warmup=5) -> float:
     return statistics.median(s.elapsed_time(e) for s, e in pairs)
 
 
-def _bound(nbytes: int, flops: int, dtype) -> dict:
-    """The least time the card could take: bytes over HBM bandwidth or
-    operations over the inputs' peak rate, whichever is larger."""
+def _bound(nbytes: int, flops: dict) -> dict:
+    """The least time the card could take: the largest of the bytes over HBM
+    bandwidth and the operations of each type over that type's peak rate
+    (``{dtype: flops}``). The types are not summed: bf16 products run on the
+    tensor cores and f32 on the FMA pipes, which work at the same time."""
     bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
-    flops_ms = flops / PEAK_FLOPS[dtype] * 1e3
+    flops_ms = max(n / PEAK_FLOPS[dtype] for dtype, n in flops.items()) * 1e3
     return {
         "bound_ms": max(bytes_ms, flops_ms),
         "bound_by": "bytes" if bytes_ms >= flops_ms else "operations",
@@ -288,7 +444,7 @@ def time_fwd(shape, *, with_lse: bool) -> dict:
     nbytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
     nbytes += b * h * lq * 4 if with_lse else 0
     flops = 4 * b * h * lq * lk * d
-    times.update(_bound(nbytes, flops, dtype))
+    times.update(_bound(nbytes, {dtype: flops}))
     log(
         f"timing forward {shape} bf16{' +lse' if with_lse else ''}, median of 30, cold L2: "
         f"kernel {times['ms']:.4f} ms, plain {times['plain_ms']:.4f} ms, "
@@ -327,7 +483,7 @@ def time_bwd(shape) -> dict:
     nbytes = (2 * q.numel() + k.numel() + v.numel() + g.numel()) * q.element_size()
     nbytes += b * h * lq * 4 + (q.numel() + k.numel() + v.numel()) * q.element_size()
     flops = 10 * b * h * lq * lk * d
-    times.update(_bound(nbytes, flops, dtype))
+    times.update(_bound(nbytes, {dtype: flops}))
     log(
         f"timing backward {shape} bf16, median of 30, cold L2: kernel {times['ms']:.4f} ms, "
         f"plain {times['plain_ms']:.4f} ms, scaled_dot_product_attention backward "
@@ -337,11 +493,82 @@ def time_bwd(shape) -> dict:
     return times
 
 
+def time_th_fwd(shape) -> dict:
+    """The talking-heads forward kernel, its plain version and the port's
+    dense talking-heads path, in bf16. No single PyTorch call computes
+    talking-heads attention, so there is no library yardstick."""
+    from sav_tpu_torch.ops import talking_heads as th
+
+    dtype = torch.bfloat16
+    b, length, h, d = shape
+    q, k, v, w_pre, w_post, _ = _th_inputs(shape, dtype, 21, "cuda")
+    with torch.inference_mode():
+        times = {
+            "ms": _median_ms(lambda: th.flash_talking_heads_attention(q, k, v, w_pre, w_post)),
+            "plain_ms": _median_ms(lambda: th.talking_heads_reference(q, k, v, w_pre, w_post)),
+            "dense_ms": _median_ms(lambda: th.dense_talking_heads(q, k, v, w_pre, w_post)),
+            "library_ms": None,
+        }
+    # In: q, k, v and the two f32 weights; out: o. QKᵀ and PV on the inputs'
+    # type, the two head mixes (2·H multiply-adds per mixed score) in f32.
+    nbytes = 4 * q.numel() * q.element_size() + 2 * h * h * 4
+    flops = {dtype: 4 * b * h * length * length * d, torch.float32: 2 * 2 * h * h * b * length * length}
+    times.update(_bound(nbytes, flops))
+    log(
+        f"timing talking-heads forward {shape} bf16, median of 30, cold L2: kernel "
+        f"{times['ms']:.4f} ms, plain {times['plain_ms']:.4f} ms, dense path "
+        f"{times['dense_ms']:.4f} ms; bound {times['bound_ms']:.4f} ms by {times['bound_by']} "
+        f"({nbytes / 1e6:.1f} MB, {flops[dtype] / 1e9:.2f} GFLOP bf16 + "
+        f"{flops[torch.float32] / 1e9:.2f} GFLOP f32)"
+    )
+    return times
+
+
+def time_th_bwd(shape) -> dict:
+    """The talking-heads backward kernel, its plain version and the backward
+    of the dense path through torch.autograd.grad, in bf16."""
+    from sav_tpu_torch.ops import talking_heads as th
+
+    dtype = torch.bfloat16
+    b, length, h, d = shape
+    q, k, v, w_pre, w_post, g = _th_inputs(shape, dtype, 22, "cuda")
+    with torch.no_grad():
+        times = {
+            "ms": _median_ms(lambda: th.talking_heads_bwd(q, k, v, w_pre, w_post, g)),
+            "plain_ms": _median_ms(lambda: th.talking_heads_bwd_reference(q, k, v, w_pre, w_post, g)),
+        }
+    inputs = [t.detach().requires_grad_() for t in (q, k, v, w_pre, w_post)]
+    out = th.dense_talking_heads(*inputs)
+    times["dense_ms"] = _median_ms(lambda: torch.autograd.grad(out, inputs, g, retain_graph=True))
+    times["library_ms"] = None
+    del out, inputs
+    # In: q, k, v, dO and the weights; out: dq, dk, dv and the dW. Five
+    # products on the inputs' type; in f32 the pre- and post-mix recompute,
+    # the dP and dS mixes and the two dW reductions (2·H² per score each).
+    nbytes = 7 * q.numel() * q.element_size() + 4 * h * h * 4
+    flops = {dtype: 10 * b * h * length * length * d, torch.float32: 6 * 2 * h * h * b * length * length}
+    times.update(_bound(nbytes, flops))
+    log(
+        f"timing talking-heads backward {shape} bf16, median of 30, cold L2: kernel "
+        f"{times['ms']:.4f} ms, plain {times['plain_ms']:.4f} ms, dense path backward "
+        f"{times['dense_ms']:.4f} ms; bound {times['bound_ms']:.4f} ms by {times['bound_by']} "
+        f"({nbytes / 1e6:.1f} MB, {flops[dtype] / 1e9:.2f} GFLOP bf16 + "
+        f"{flops[torch.float32] / 1e9:.2f} GFLOP f32)"
+    )
+    return times
+
+
 def phase_timing() -> dict:
     return {
         "fwd_serve": time_fwd(SERVE_SHAPE, with_lse=False),
         "fwd_train": time_fwd(TRAIN_SHAPE, with_lse=True),
         "bwd_train": time_bwd(TRAIN_SHAPE),
+        "fwd_class_serve": time_fwd(CLASS_SERVE_SHAPE, with_lse=False),
+        "fwd_class_train": time_fwd(CLASS_TRAIN_SHAPE, with_lse=True),
+        "bwd_class_train": time_bwd(CLASS_TRAIN_SHAPE),
+        "th_fwd_serve": time_th_fwd(TH_SERVE_SHAPE),
+        "th_fwd_train": time_th_fwd(TH_TRAIN_SHAPE),
+        "th_bwd_train": time_th_bwd(TH_TRAIN_SHAPE),
     }
 
 
@@ -370,22 +597,61 @@ def _serve(engine, images, clients) -> list:
     return results
 
 
-def phase_serve(device="cuda", model_name="deit_s_patch16", requests=SERVE_REQUESTS,
-                max_batch=32, overrides=None, image_size=224) -> int:
-    """Serve ``requests`` seeded images; returns the kernel's launches."""
-    from sav_tpu_torch import ServeConfig, ServeEngine, create_model
+def attention_launches(model) -> dict:
+    """Kernel launches one forward of ``model`` makes, and one backward
+    again: one per attention module, by the kernel family it takes (the
+    fused kernels, or the talking-heads kernels)."""
+    from sav_tpu_torch.models.layers import AttentionBlock
+
+    blocks = [m for m in model.modules() if isinstance(m, AttentionBlock)]
+    talking = sum(1 for m in blocks if m.talking_heads)
+    return {"fused": len(blocks) - talking, "talking_heads": talking}
+
+
+def _reset_launches() -> None:
     from sav_tpu_torch.ops import fused_attention as fa
+    from sav_tpu_torch.ops import talking_heads as th
+
+    fa.reset_launches()
+    th.reset_launches()
+
+
+def _launches() -> dict:
+    from sav_tpu_torch.ops import fused_attention as fa
+    from sav_tpu_torch.ops import talking_heads as th
+
+    return {"fused": fa.LAUNCHES, "fused_bwd": fa.BWD_LAUNCHES,
+            "talking_heads": th.LAUNCHES, "talking_heads_bwd": th.BWD_LAUNCHES}
+
+
+def _draw_for_agreement(model) -> None:
+    """The head at std 0.02 (DeiT's init for linear layers) and every
+    LayerScale scale in LAYERSCALE_DRAW, from one generator: a zero head
+    makes every logit 0, and CaiT's LayerScale init (1e-5) scales every
+    residual branch to almost nothing, so either would make an agreement
+    check vacuous."""
+    from sav_tpu_torch.models.layers import LayerScaleBlock
+
+    gen = torch.Generator().manual_seed(1)
+    torch.nn.init.normal_(model.head.weight, std=0.02, generator=gen)
+    for module in model.modules():
+        if isinstance(module, LayerScaleBlock):
+            torch.nn.init.uniform_(module.scale, *LAYERSCALE_DRAW, generator=gen)
+
+
+def phase_serve(device="cuda", model_name="deit_s_patch16", requests=SERVE_REQUESTS,
+                max_batch=32, overrides=None, image_size=224) -> dict:
+    """Serve ``requests`` seeded images; returns the kernels' launches."""
+    from sav_tpu_torch import ServeConfig, ServeEngine, create_model
 
     overrides = overrides or {}
     model = create_model(model_name, image_size=image_size, seed=0, **overrides)
-    # The head is zero at init: draw it (std 0.02, DeiT's init for linear
-    # layers), or every logit is 0 and the agreement check is vacuous.
-    torch.nn.init.normal_(model.head.weight, std=0.02, generator=torch.Generator().manual_seed(1))
+    _draw_for_agreement(model)
     dense = create_model(
         model_name, image_size=image_size, backend="xla", logits_dtype=torch.float32, **overrides
     )
     dense.load_state_dict(model.state_dict())
-    layers = len(model.encoder.blocks)
+    per_batch = attention_launches(model)
 
     def config(**kw):
         # A generous deadline: admission must not shed in a smoke run.
@@ -398,61 +664,63 @@ def phase_serve(device="cuda", model_name="deit_s_patch16", requests=SERVE_REQUE
     )
     engine = ServeEngine(config(max_batch=max_batch), model=model)
     log(f"serve startup: {json.dumps(engine.startup_report)}")
-    fa.reset_launches()
+    _reset_launches()
     with engine:
         logits = np.stack(_serve(engine, images, CLIENTS))
-    launches, bwd_launches = fa.LAUNCHES, fa.BWD_LAUNCHES
+    launches = _launches()
     summary = engine.stats()
     ledger = summary["ledger"]
     if summary["errors"] or ledger["requests"] != requests:
         raise AssertionError(f"serving incomplete: {json.dumps(summary)}")
     if logits.shape != (requests, model.head.out_features) or not np.isfinite(logits).all():
         raise AssertionError(f"bad logits: shape {logits.shape}, finite {np.isfinite(logits).all()}")
-    if launches != layers * ledger["batches"] or bwd_launches:
+    batches = ledger["batches"]
+    expected = {"fused": per_batch["fused"] * batches, "fused_bwd": 0,
+                "talking_heads": per_batch["talking_heads"] * batches, "talking_heads_bwd": 0}
+    if launches != expected:
         raise AssertionError(
-            f"fused kernel launched {launches} times for {ledger['batches']} batches "
-            f"(expected {layers} per batch), the backward kernel {bwd_launches} times "
-            "(expected none while serving)"
+            f"serving {batches} batches launched {json.dumps(launches)}; expected "
+            f"{json.dumps(expected)} ({json.dumps(per_batch)} per batch, no backward launch)"
         )
     log(
         f"serve {model_name} bf16: {requests} requests from {CLIENTS} clients in "
-        f"{ledger['batches']} batches {json.dumps(ledger['bucket_occupancy'])}; "
-        f"kernel launches {launches} = {layers} x {ledger['batches']}; "
+        f"{batches} batches {json.dumps(ledger['bucket_occupancy'])}; kernel launches "
+        f"{json.dumps(launches)} = {json.dumps(per_batch)} x {batches}; "
         f"p50 {ledger['latency_ms']['p50']} ms, p99 {ledger['latency_ms']['p99']} ms, "
         f"{ledger['throughput_rps']} images/s"
     )
 
-    fa.reset_launches()
+    _reset_launches()
     with ServeEngine(config(max_batch=8, attention_backend="xla"), model=dense) as ref_engine:
         ref = np.stack(_serve(ref_engine, images[:8], 1))
-    if fa.LAUNCHES:
-        raise AssertionError("the dense reference engine launched the fused kernel")
+    if any(_launches().values()):
+        raise AssertionError("the dense reference engine launched a kernel")
     err = _within(torch.from_numpy(logits[:8]), torch.from_numpy(ref), SERVE_TOL)
     log(
-        f"serve agreement, fused kernel vs dense attention (f32 softmax), 8 rows: "
-        f"max abs err {err:.3e} (tol {SERVE_TOL}), logits max |x| {np.abs(ref).max():.3f}"
+        f"serve agreement {model_name}, kernels vs dense attention (f32 softmax), 8 rows: "
+        f"max abs err {err:.3e} (tol {SERVE_TOL}), logits max |x| {np.abs(ref).max():.3f}, "
+        f"std {ref.std():.3f}"
     )
     return launches
 
 
 def phase_train(device="cuda", model_name="deit_s_patch16", batch_size=TRAIN_BATCH,
                 steps=TRAIN_STEPS, image_size=224, num_classes=1000, overrides=None) -> dict:
-    """Train ``steps`` steps through Trainer.fit; returns the launches and
-    the step time."""
+    """Train ``steps`` steps through Trainer.fit, then profile one step;
+    returns the launches, the step time and the profile."""
     from sav_tpu_torch import TrainConfig, Trainer, create_model
     from sav_tpu_torch.data.synthetic import synthetic_data_iterator
-    from sav_tpu_torch.ops import fused_attention as fa
 
+    torch.cuda.empty_cache()
     overrides = overrides or {}
     model = create_model(model_name, num_classes=num_classes, image_size=image_size,
                          seed=0, **overrides)
-    # The head is zero at init: draw it (std 0.02), or no gradient reaches
-    # the attention cores in the first step.
-    torch.nn.init.normal_(model.head.weight, std=0.02, generator=torch.Generator().manual_seed(1))
+    # A zero head passes no gradient to the attention cores in the first step.
+    _draw_for_agreement(model)
     dense = create_model(model_name, num_classes=num_classes, image_size=image_size,
                          backend="xla", logits_dtype=torch.float32, **overrides)
     dense.load_state_dict(model.state_dict())
-    layers = len(model.encoder.blocks)
+    per_step = attention_launches(model)
     common = dict(
         model_name=model_name, num_classes=num_classes, image_size=image_size,
         compute_dtype="bfloat16", global_batch_size=batch_size,
@@ -467,16 +735,18 @@ def phase_train(device="cuda", model_name="deit_s_patch16", batch_size=TRAIN_BAT
                                          num_batches=TRAIN_DISTINCT_BATCHES)
     ]
 
-    # The same first step on the dense attention path with f32 softmax.
+    # The same first step on the dense attention paths with f32 softmax; the
+    # stochastic-depth masks come from a generator seeded from config.seed
+    # on both sides, drawn in the same order, so they are the same masks.
     ref_trainer = Trainer(
         TrainConfig(attention_backend="xla", attention_logits_dtype="float32", **common),
         model=dense, device=device,
     )
-    fa.reset_launches()
+    _reset_launches()
     _, ref_metrics = ref_trainer.train_step(ref_trainer.init_state(), batches[0])
     ref = {k: float(v) for k, v in ref_metrics.items()}
-    if fa.LAUNCHES or fa.BWD_LAUNCHES:
-        raise AssertionError("the dense reference trainer launched a fused kernel")
+    if any(_launches().values()):
+        raise AssertionError("the dense reference trainer launched a kernel")
     del ref_trainer, dense, ref_metrics
     torch.cuda.empty_cache()
 
@@ -484,12 +754,12 @@ def phase_train(device="cuda", model_name="deit_s_patch16", batch_size=TRAIN_BAT
     state = trainer.init_state()
     torch.cuda.reset_peak_memory_stats()
     windows = []
-    fa.reset_launches()
+    _reset_launches()
     state, history = trainer.fit(
         iter(batches * (steps // len(batches))), num_steps=steps, state=state,
         log_fn=windows.append,
     )
-    launches, bwd_launches = fa.LAUNCHES, fa.BWD_LAUNCHES
+    launches = _launches()
     peak_gb = torch.cuda.max_memory_allocated() / 2**30
     for record in history:
         log(f"train step {record['step']}: " + json.dumps(
@@ -500,35 +770,36 @@ def phase_train(device="cuda", model_name="deit_s_patch16", batch_size=TRAIN_BAT
     n = len(batches)
     if not all(losses[i + n] < losses[i] for i in range(steps - n)):
         raise AssertionError(f"the loss did not fall on a batch seen again: {losses}")
-    if launches != layers * steps or bwd_launches != layers * steps:
+    expected = {"fused": per_step["fused"] * steps, "fused_bwd": per_step["fused"] * steps,
+                "talking_heads": per_step["talking_heads"] * steps,
+                "talking_heads_bwd": per_step["talking_heads"] * steps}
+    if launches != expected:
         raise AssertionError(
-            f"{steps} train steps launched the forward kernel {launches} and the "
-            f"backward kernel {bwd_launches} times; expected {layers} each per step"
+            f"{steps} train steps launched {json.dumps(launches)}; expected "
+            f"{json.dumps(expected)} ({json.dumps(per_step)} forward and backward per step)"
         )
     first = history[0]
     for key, tol in TRAIN_REL_TOL.items():
         rel = abs(first[key] - ref[key]) / abs(ref[key])
-        log(f"train step 1 {key}: fused {first[key]:.6f}, dense {ref[key]:.6f}, "
+        log(f"train step 1 {model_name} {key}: kernels {first[key]:.6f}, dense {ref[key]:.6f}, "
             f"relative difference {rel:.3e} (tol {tol})")
         if rel > tol:
             raise AssertionError(f"train step 1 {key} disagrees with the dense path")
     steady = windows[-1]
-    try:
-        profile_step(trainer, state, batches[0])
-    except Exception as e:  # noqa: BLE001 — a measurement, not a check of the port
-        log(f"train step profile: not measured ({type(e).__name__}: {e})")
+    profile = profile_step(trainer, state, batches[0])
     log(
         f"train {model_name} bf16 batch {batch_size}: {steps} steps via fit(), losses "
-        f"{[round(x, 4) for x in losses]}; launches fwd {launches} bwd {bwd_launches} = "
-        f"{layers} x {steps} each; steady window (steps {steps - steps // 2 + 1}-{steps}) "
-        f"{steady['step_s'] * 1e3:.2f} ms/step, {steady['images_per_sec']:.1f} images/s; "
-        f"first window {windows[0]['step_s'] * 1e3:.2f} ms/step; peak memory {peak_gb:.2f} GiB"
+        f"{[round(x, 4) for x in losses]}; launches {json.dumps(launches)} = "
+        f"{json.dumps(per_step)} x {steps} each way; steady window (steps "
+        f"{steps - steps // 2 + 1}-{steps}) {steady['step_s'] * 1e3:.2f} ms/step, "
+        f"{steady['images_per_sec']:.1f} images/s; first window "
+        f"{windows[0]['step_s'] * 1e3:.2f} ms/step; peak memory {peak_gb:.2f} GiB"
     )
     return {
         "launches": launches,
-        "bwd_launches": bwd_launches,
         "step_ms": steady["step_s"] * 1e3,
         "images_per_sec": steady["images_per_sec"],
+        "profile": profile,
     }
 
 
@@ -536,6 +807,8 @@ def phase_train(device="cuda", model_name="deit_s_patch16", batch_size=TRAIN_BAT
 KERNEL_GROUPS = (
     ("attention backward (fused_attention_bwd.cu)", ("fused_attention_bwd_kernel",)),
     ("attention forward (fused_attention.cu)", ("fused_attention_fwd_kernel",)),
+    ("talking-heads backward (talking_heads_bwd.cu)", ("talking_heads_bwd_kernel",)),
+    ("talking-heads forward (talking_heads.cu)", ("talking_heads_fwd_kernel",)),
     ("matmul (cuBLAS)", ("gemm", "xmma", "nvjet", "cutlass", "splitk", "Kernel2")),
     ("convolution (cuDNN)", ("conv", "cudnn", "implicit", "wgrad", "dgrad")),
     ("optimizer (multi-tensor)", ("multi_tensor", "foreach")),
@@ -583,14 +856,32 @@ def profile_step(trainer, state, batch) -> dict:
     return {"wall_ms": wall_ms, "busy_ms": busy, "groups": groups}
 
 
+def _timed(entry: dict) -> dict:
+    """A timing record, its yardstick kept as ``library_ms`` (None where no
+    single PyTorch call computes the function)."""
+    return {k: entry[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "dense_ms")
+            if k in entry}
+
+
 def main() -> None:
     smi = phase_device()
     phase_build()
     fwd_err = phase_kernels()
     bwd_err = phase_bwd_kernels()
+    th_err = phase_th_kernels()
     times = phase_timing()
-    serve_launches = phase_serve()
-    train = phase_train()
+    serve = {"deit": phase_serve(), "cait": phase_serve(model_name="cait_xxs_24")}
+    train = {"deit": phase_train(), "cait": phase_train(model_name="cait_xxs_24")}
+
+    def by_path(kind):
+        return {
+            "serve": serve["deit"][kind], "train": train["deit"]["launches"][kind],
+            "serve_cait": serve["cait"][kind], "train_cait": train["cait"]["launches"][kind],
+        }
+
+    def total(kind):
+        return sum(by_path(kind).values())
+
     fwd = {
         "name": "fused_attention_fwd",
         "route": "cuda",
@@ -598,13 +889,18 @@ def main() -> None:
         "replaces": "sav_tpu/ops/fused_attention.py:146",
         "tpu_kernel": "_fused_kernel",
         "checked": True,
-        "launches": serve_launches + train["launches"],
-        "launches_by_path": {"serve": serve_launches, "train": train["launches"]},
+        "launches": total("fused"),
+        "launches_by_path": by_path("fused"),
         "max_abs_err": fwd_err["train"],
         "shape": list(TRAIN_SHAPE),
-        **times["fwd_train"],
+        **_timed(times["fwd_train"]),
         "at_serve_shape": {"shape": list(SERVE_SHAPE), "max_abs_err": fwd_err["serve"],
-                           **times["fwd_serve"]},
+                           **_timed(times["fwd_serve"])},
+        "at_cait_class_attention": {
+            "shape": list(CLASS_TRAIN_SHAPE), "max_abs_err": fwd_err["cait_class"],
+            **_timed(times["fwd_class_train"]),
+            "at_serve_shape": {"shape": list(CLASS_SERVE_SHAPE), **_timed(times["fwd_class_serve"])},
+        },
     }
     bwd = {
         "name": "fused_attention_bwd",
@@ -613,14 +909,50 @@ def main() -> None:
         "replaces": "sav_tpu/ops/fused_attention.py:351",
         "tpu_kernel": "_fused_bwd_kernel",
         "checked": True,
-        "launches": train["bwd_launches"],
-        "launches_by_path": {"serve": 0, "train": train["bwd_launches"]},
-        "max_abs_err": bwd_err,
+        "launches": total("fused_bwd"),
+        "launches_by_path": by_path("fused_bwd"),
+        "max_abs_err": bwd_err["train"],
         "shape": list(TRAIN_SHAPE),
-        **times["bwd_train"],
+        **_timed(times["bwd_train"]),
+        "at_cait_class_attention": {
+            "shape": list(CLASS_TRAIN_SHAPE), "max_abs_err": bwd_err["cait_class"],
+            **_timed(times["bwd_class_train"]),
+        },
     }
+    th_fwd = {
+        "name": "talking_heads_fwd",
+        "route": "cuda",
+        "source": "sav_tpu_torch/csrc/talking_heads.cu",
+        "replaces": "sav_tpu/ops/talking_heads.py:67",
+        "tpu_kernel": "_th_kernel",
+        "checked": True,
+        "launches": total("talking_heads"),
+        "launches_by_path": by_path("talking_heads"),
+        "max_abs_err": th_err["fwd_train"],
+        "shape": list(TH_TRAIN_SHAPE),
+        **_timed(times["th_fwd_train"]),
+        "at_serve_shape": {"shape": list(TH_SERVE_SHAPE), "max_abs_err": th_err["fwd_serve"],
+                           **_timed(times["th_fwd_serve"])},
+    }
+    th_bwd = {
+        "name": "talking_heads_bwd",
+        "route": "cuda",
+        "source": "sav_tpu_torch/csrc/talking_heads_bwd.cu",
+        "replaces": "sav_tpu/ops/talking_heads.py:183",
+        "tpu_kernel": "_th_bwd_kernel",
+        "checked": True,
+        "launches": total("talking_heads_bwd"),
+        "launches_by_path": by_path("talking_heads_bwd"),
+        "max_abs_err": th_err["bwd_train"],
+        "shape": list(TH_TRAIN_SHAPE),
+        **_timed(times["th_bwd_train"]),
+    }
+    steps = {name: {"step_ms": round(r["step_ms"], 3), "images_per_sec": round(r["images_per_sec"], 1),
+                    "device_idle_pct": round(100 * (1 - r["profile"]["busy_ms"] / r["profile"]["wall_ms"]), 2)}
+             for name, r in train.items()}
+    log(f"train summary: {json.dumps(steps)}")
     log(f"card: {smi}")
-    log(json.dumps({"kernels": [fwd, bwd]}))
+    log(json.dumps({"kernels": [fwd, bwd, th_fwd, th_bwd]}))
     log(json.dumps({
         "ok": True,
         "device": {

@@ -32,11 +32,9 @@
 //   axis has stride 0, so (1,1), (1,H), (B,1) and (B,H) biases are never
 //   materialised to [B, H, Lq, Lk].
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
 #include <math.h>
-#include <stddef.h>
-#include <stdint.h>
+
+#include "common.cuh"
 
 namespace {
 
@@ -46,53 +44,6 @@ constexpr int kRows = 4;                  // query rows a warp carries at once
 constexpr int kBlockQ = 64;               // query rows per block
 constexpr int kMaxDim = 256;              // largest head dim
 constexpr int kMaxPairs = kMaxDim / 64;   // output column pairs per lane
-
-template <typename T>
-struct Elem;
-
-template <>
-struct Elem<float> {
-  static constexpr int kVec = 4;  // elements per 16-byte load
-  __device__ static float load(const float* p) { return *p; }
-  __device__ static float2 load2(const float* p) {
-    return *reinterpret_cast<const float2*>(p);
-  }
-  __device__ static float round(float x) { return x; }
-  __device__ static void store(float* p, float x) { *p = x; }
-  __device__ static void unpack(const uint4& u, float* out) {
-    out[0] = __uint_as_float(u.x);
-    out[1] = __uint_as_float(u.y);
-    out[2] = __uint_as_float(u.z);
-    out[3] = __uint_as_float(u.w);
-  }
-};
-
-template <>
-struct Elem<__nv_bfloat16> {
-  static constexpr int kVec = 8;
-  __device__ static float load(const __nv_bfloat16* p) {
-    return __bfloat162float(*p);
-  }
-  __device__ static float2 load2(const __nv_bfloat16* p) {
-    return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
-  }
-  // p is cast to the value dtype before the PV product, as in the TPU kernel.
-  __device__ static float round(float x) {
-    return __bfloat162float(__float2bfloat16(x));
-  }
-  __device__ static void store(__nv_bfloat16* p, float x) {
-    *p = __float2bfloat16(x);
-  }
-  __device__ static void unpack(const uint4& u, float* out) {
-    const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&u);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const float2 f = __bfloat1622float2(h[i]);
-      out[2 * i] = f.x;
-      out[2 * i + 1] = f.y;
-    }
-  }
-};
 
 struct Params {
   const void* q;
@@ -109,28 +60,12 @@ struct Params {
   float scale;
 };
 
-__host__ __device__ inline int round_up4(int x) { return (x + 3) & ~3; }
-
 // Dynamic shared memory of one block: K (rows padded by 16 bytes), V, and
 // per warp kRows f32 query rows and kRows f32 probability rows.
 __host__ __device__ inline size_t smem_bytes(int lk, int d, int itemsize) {
   const int vec = 16 / itemsize;
   return (size_t)lk * (2 * d + vec) * itemsize +
          (size_t)kWarps * kRows * (d + round_up4(lk)) * sizeof(float);
-}
-
-__device__ __forceinline__ float warp_max(float x) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1)
-    x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, off));
-  return x;
-}
-
-__device__ __forceinline__ float warp_sum(float x) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1)
-    x += __shfl_xor_sync(0xffffffffu, x, off);
-  return x;
 }
 
 template <typename T>

@@ -53,11 +53,9 @@
 //   D) and dq/dk/dv written the same way; rows past Lq and columns past Lk
 //   do not exist in the loops, so padding needs no mask.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
 #include <math.h>
-#include <stddef.h>
-#include <stdint.h>
+
+#include "common.cuh"
 
 namespace {
 
@@ -66,53 +64,6 @@ constexpr int kThreads = kWarps * 32;
 constexpr int kMaxDim = 256;              // largest head dim
 constexpr int kMaxPairs = kMaxDim / 64;   // output column pairs per lane
 constexpr int kSmemLimit = 232448;        // dynamic shared memory per block
-
-template <typename T>
-struct Elem;
-
-template <>
-struct Elem<float> {
-  static constexpr int kVec = 4;  // elements per 16-byte load
-  __device__ static float load(const float* p) { return *p; }
-  __device__ static float2 load2(const float* p) {
-    return *reinterpret_cast<const float2*>(p);
-  }
-  __device__ static float round(float x) { return x; }
-  __device__ static void store(float* p, float x) { *p = x; }
-  __device__ static void unpack(const uint4& u, float* out) {
-    out[0] = __uint_as_float(u.x);
-    out[1] = __uint_as_float(u.y);
-    out[2] = __uint_as_float(u.z);
-    out[3] = __uint_as_float(u.w);
-  }
-};
-
-template <>
-struct Elem<__nv_bfloat16> {
-  static constexpr int kVec = 8;
-  __device__ static float load(const __nv_bfloat16* p) {
-    return __bfloat162float(*p);
-  }
-  __device__ static float2 load2(const __nv_bfloat16* p) {
-    return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
-  }
-  // p and ds are cast to the input dtype before their products.
-  __device__ static float round(float x) {
-    return __bfloat162float(__float2bfloat16(x));
-  }
-  __device__ static void store(__nv_bfloat16* p, float x) {
-    *p = __float2bfloat16(x);
-  }
-  __device__ static void unpack(const uint4& u, float* out) {
-    const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&u);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const float2 f = __bfloat1622float2(h[i]);
-      out[2 * i] = f.x;
-      out[2 * i + 1] = f.y;
-    }
-  }
-};
 
 struct Params {
   const void* q;
@@ -129,8 +80,6 @@ struct Params {
   int64_t sq[3], sk[3], sv[3], so[3], sdo[3], sdq[3], sdk[3], sdv[3];
   float scale;
 };
-
-__host__ __device__ inline int round_up4(int x) { return (x + 3) & ~3; }
 
 // Dynamic shared memory of one block with `rows` query rows per warp: K and
 // V (rows padded by 16 bytes), f32 dK and dV, and for the tile of
@@ -150,13 +99,6 @@ inline int pick_rows(int lk, int d, int itemsize) {
   for (int rows = 4; rows >= 1; rows >>= 1)
     if (smem_bytes(lk, d, itemsize, rows) <= (size_t)kSmemLimit) return rows;
   return 0;
-}
-
-__device__ __forceinline__ float warp_sum(float x) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1)
-    x += __shfl_xor_sync(0xffffffffu, x, off);
-  return x;
 }
 
 template <typename T, int R>

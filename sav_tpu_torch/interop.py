@@ -1,8 +1,12 @@
-"""Convert ``sav_tpu`` (flax) ViT parameters into the port's ``state_dict``.
+"""Convert ``sav_tpu`` (flax) ViT and CaiT parameters into the port's ``state_dict``.
 
 The tree comes as nested dicts of arrays (numpy, or anything
 ``numpy.asarray`` takes), with or without the outer ``{"params": ...}``.
-Every leaf must be consumed; an unknown key raises.
+The family is read off the tree's top level (``Encoder_0``: ViT;
+``block_i``/``ca_block_i``: CaiT) and only that family's rules apply. Every
+leaf must be consumed; an unknown key raises.
+
+ViT:
 
 ======================================================  =======================================  ==========
 flax key                                                port key                                 conversion
@@ -17,6 +21,26 @@ flax key                                                port key                
 ``Encoder_0/LayerNorm_0/{scale,bias}``                  ``encoder.norm.*``                       scale → weight
 ``head/{kernel,bias}``                                  ``head.{weight,bias}``                   ``[in, out]`` → ``[out, in]``
 ======================================================  =======================================  ==========
+
+CaiT (``B`` = ``block_i/``, ``CA`` = ``ca_block_i/``; ``X`` = ``B`` or ``CA``):
+
+=======================================================  ==========================================  ==========
+flax key                                                 port key                                    conversion
+=======================================================  ==========================================  ==========
+``PatchEmbedBlock_0/proj/{kernel,bias}``                 ``patch_embed.proj.{weight,bias}``          HWIO → OIHW
+``AddAbsPosEmbed_0/pos_embed``                           ``pos_embed.pos_embed``                     as is
+``cls``                                                  ``cls``                                     as is
+``X LayerNorm_{0,1}/{scale,bias}``                       ``{blocks,ca_blocks}.i.norm{1,2}.*``        scale → weight
+``X LayerScaleBlock_{0,1}/scale``                        ``{blocks,ca_blocks}.i.ls{1,2}.scale``      as is
+``X FFBlock_0/fc{1,2}/{kernel,bias}``                    ``{blocks,ca_blocks}.i.ff.fc{1,2}.*``       ``[in, out]`` → ``[out, in]``
+``B SelfAttentionBlock_0/to_qkv/kernel``                 ``blocks.i.attn.to_qkv``                    as is, ``[in, 3, H, D]``
+``B SelfAttentionBlock_0/{pre,post}_softmax/kernel``     ``blocks.i.attn.{pre,post}_softmax.kernel``  as is, ``[H, H]``
+``B SelfAttentionBlock_0/to_out/kernel``                 ``blocks.i.attn.to_out``                    as is, ``[H, D, out]``
+``CA ClassSelfAttentionBlock_0/to_{q,k,v}/kernel``       ``ca_blocks.i.attn.to_{q,k,v}``             as is, ``[in, H, D]``
+``CA ClassSelfAttentionBlock_0/to_out/kernel``           ``ca_blocks.i.attn.to_out``                 as is, ``[H, D, out]``
+``LayerNorm_0/{scale,bias}``                             ``norm.*``                                  scale → weight
+``head/{kernel,bias}``                                   ``head.{weight,bias}``                      ``[in, out]`` → ``[out, in]``
+=======================================================  ==========================================  ==========
 """
 
 from __future__ import annotations
@@ -46,11 +70,17 @@ def _norm_rule(flax_prefix: str, port_prefix: str) -> list:
     ]
 
 
-_BLOCK = r"Encoder_0/block_(\d+)"
-_RULES = [
+_COMMON = [
     (r"PatchEmbedBlock_0/proj/kernel", "patch_embed.proj.weight", _conv),
     (r"PatchEmbedBlock_0/proj/bias", "patch_embed.proj.bias", _as_is),
     (r"cls", "cls", _as_is),
+    (r"head/kernel", "head.weight", _dense),
+    (r"head/bias", "head.bias", _as_is),
+]
+
+_BLOCK = r"Encoder_0/block_(\d+)"
+_VIT_RULES = [
+    *_COMMON,
     (r"Encoder_0/AddAbsPosEmbed_0/pos_embed", "encoder.pos_embed.pos_embed", _as_is),
     *_norm_rule(rf"{_BLOCK}/LayerNorm_0", r"encoder.blocks.\1.norm1"),
     *_norm_rule(rf"{_BLOCK}/LayerNorm_1", r"encoder.blocks.\1.norm2"),
@@ -59,9 +89,45 @@ _RULES = [
     (rf"{_BLOCK}/FFBlock_0/fc(1|2)/kernel", r"encoder.blocks.\1.ff.fc\2.weight", _dense),
     (rf"{_BLOCK}/FFBlock_0/fc(1|2)/bias", r"encoder.blocks.\1.ff.fc\2.bias", _as_is),
     *_norm_rule(r"Encoder_0/LayerNorm_0", "encoder.norm"),
-    (r"head/kernel", "head.weight", _dense),
-    (r"head/bias", "head.bias", _as_is),
 ]
+
+
+def _cait_block_rules(flax_block: str, port_block: str) -> list:
+    """LayerNorms, LayerScales and FF of a CaiT trunk or class-attention block."""
+    return [
+        *_norm_rule(rf"{flax_block}/LayerNorm_0", rf"{port_block}.norm1"),
+        *_norm_rule(rf"{flax_block}/LayerNorm_1", rf"{port_block}.norm2"),
+        (rf"{flax_block}/LayerScaleBlock_0/scale", rf"{port_block}.ls1.scale", _as_is),
+        (rf"{flax_block}/LayerScaleBlock_1/scale", rf"{port_block}.ls2.scale", _as_is),
+        (rf"{flax_block}/FFBlock_0/fc(1|2)/kernel", rf"{port_block}.ff.fc\2.weight", _dense),
+        (rf"{flax_block}/FFBlock_0/fc(1|2)/bias", rf"{port_block}.ff.fc\2.bias", _as_is),
+    ]
+
+
+_SA = r"block_(\d+)/SelfAttentionBlock_0"
+_CA = r"ca_block_(\d+)/ClassSelfAttentionBlock_0"
+_CAIT_RULES = [
+    *_COMMON,
+    (r"AddAbsPosEmbed_0/pos_embed", "pos_embed.pos_embed", _as_is),
+    *_norm_rule(r"LayerNorm_0", "norm"),
+    *_cait_block_rules(r"block_(\d+)", r"blocks.\1"),
+    (rf"{_SA}/to_qkv/kernel", r"blocks.\1.attn.to_qkv", _as_is),
+    (rf"{_SA}/(pre|post)_softmax/kernel", r"blocks.\1.attn.\2_softmax.kernel", _as_is),
+    (rf"{_SA}/to_out/kernel", r"blocks.\1.attn.to_out", _as_is),
+    *_cait_block_rules(r"ca_block_(\d+)", r"ca_blocks.\1"),
+    (rf"{_CA}/to_(q|k|v|out)/kernel", r"ca_blocks.\1.attn.to_\2", _as_is),
+]
+
+
+def _family_rules(tree) -> tuple:
+    if "Encoder_0" in tree:
+        return "ViT", _VIT_RULES
+    if any(re.fullmatch(r"(ca_)?block_\d+", str(name)) for name in tree):
+        return "CaiT", _CAIT_RULES
+    raise KeyError(
+        f"not a ViT or CaiT parameter tree (top-level keys {sorted(map(str, tree))}); "
+        "the port converts those two families"
+    )
 
 
 def _flatten(tree, prefix=""):
@@ -74,12 +140,14 @@ def _flatten(tree, prefix=""):
 
 
 def params_from_flax(tree) -> dict:
-    """flax ViT params → a ``state_dict`` for ``load_state_dict(strict=True)``."""
+    """flax ViT or CaiT params → a ``state_dict`` for
+    ``load_state_dict(strict=True)``."""
     if set(tree) == {"params"}:
         tree = tree["params"]
+    family, rules = _family_rules(tree)
     state, unknown = {}, []
     for path, leaf in _flatten(dict(tree)):
-        for pattern, target, convert in _RULES:
+        for pattern, target, convert in rules:
             match = re.fullmatch(pattern, path)
             if match:
                 array = convert(np.asarray(leaf, dtype=np.float32))
@@ -88,5 +156,5 @@ def params_from_flax(tree) -> dict:
         else:
             unknown.append(path)
     if unknown:
-        raise KeyError(f"flax parameters the ViT port does not consume: {unknown}")
+        raise KeyError(f"flax parameters the {family} port does not consume: {unknown}")
     return state

@@ -1,12 +1,19 @@
-"""Multi-head self-attention blocks (port of the dense self-attention branch
-of ``sav_tpu/models/layers/attention.py``).
+"""Multi-head attention blocks (port of ``sav_tpu/models/layers/attention.py``).
 
-The QKV parameter keeps ``_FusedQKVProj``'s stacked flax shape
-``[in, 3, H, D]`` and the output merge keeps ``DenseGeneral``'s
-``[H, D, out]``, so a flax tree converts by copying (``sav_tpu_torch.interop``).
-Each projection is one matmul against a slice of the parameter, which keeps
-q, k and v in their natural ``[B, L, H, D]`` layout, the layout the fused
-kernel reads.
+Self-attention keeps ``_FusedQKVProj``'s stacked flax shape ``[in, 3, H, D]``;
+cross-attention (``fused_qkv=False``: Q from another input than K/V, as in
+class attention) keeps ``DenseGeneral``'s three ``[in, H, D]`` kernels
+``to_q/to_k/to_v``; the output merge keeps ``[H, D, out]``. So a flax tree
+converts by copying (``sav_tpu_torch.interop``). Each projection is one
+matmul against a slice of the parameter, which keeps q, k and v in their
+natural ``[B, L, H, D]`` layout, the layout the kernels read.
+
+With ``talking_heads=True`` (CaiT's trunk) the core mixes the logits and the
+probabilities across heads through two ``[H, H]`` kernels
+(``pre_softmax``/``post_softmax``), on the port's rule
+(:func:`sav_tpu_torch.ops.talking_heads.resolve_talking_heads_backend`): the
+talking-heads kernels, or the dense path for ``backend='xla'``. Otherwise
+the core is the seam of :mod:`sav_tpu_torch.ops.attention`.
 """
 
 from __future__ import annotations
@@ -16,14 +23,27 @@ from typing import Optional
 import torch
 from torch import nn
 
+from sav_tpu_torch.models.layers.initializers import lecun_normal_
+from sav_tpu_torch.ops import talking_heads as _th
 from sav_tpu_torch.ops.attention import dot_product_attention
 
 
+class TalkingHeadsBlock(nn.Module):
+    """The learned ``[H, H]`` head-mixing kernel (orthogonal init);
+    ``mixed_i = Σ_h kernel[h, i] · head_h``. The attention core reads it
+    uncast: the mixes run in f32 whatever the activations' dtype."""
+
+    def __init__(self, num_heads: int):
+        super().__init__()
+        self.kernel = nn.Parameter(torch.empty(num_heads, num_heads))
+
+    def reset_parameters(self, generator: torch.Generator) -> None:
+        nn.init.orthogonal_(self.kernel, generator=generator)
+
+
 class AttentionBlock(nn.Module):
-    """Multi-head attention with the stacked QKV projection, no biases;
-    logits scale ``head_ch ** -0.5``. Self-attention only in this port:
-    cross-attention (``fused_qkv=False`` in ``sav_tpu``) comes with the
-    families that use it."""
+    """Multi-head (cross-)attention with optional talking heads, no biases;
+    logits scale ``head_ch ** -0.5``."""
 
     def __init__(
         self,
@@ -32,39 +52,91 @@ class AttentionBlock(nn.Module):
         *,
         head_ch: Optional[int] = None,
         out_ch: Optional[int] = None,
+        talking_heads: bool = False,
+        fused_qkv: bool = True,
         backend: Optional[str] = None,
         logits_dtype=None,
     ):
         super().__init__()
         self.num_heads = num_heads
         self.head_ch = head_ch or in_ch // num_heads
+        self.talking_heads = talking_heads
+        self.fused_qkv = fused_qkv
         self.backend = backend
-        # None = the block's compute dtype, resolved per call (sav_tpu's rule).
+        # None = the block's compute dtype, resolved per call (sav_tpu's
+        # rule); the talking-heads core always mixes in f32.
         self.logits_dtype = logits_dtype
-        self.to_qkv = nn.Parameter(torch.empty(in_ch, 3, num_heads, self.head_ch))
-        self.to_out = nn.Parameter(torch.empty(num_heads, self.head_ch, out_ch or in_ch))
+        h, d = num_heads, self.head_ch
+        if fused_qkv:
+            self.to_qkv = nn.Parameter(torch.empty(in_ch, 3, h, d))
+        else:
+            self.to_q = nn.Parameter(torch.empty(in_ch, h, d))
+            self.to_k = nn.Parameter(torch.empty(in_ch, h, d))
+            self.to_v = nn.Parameter(torch.empty(in_ch, h, d))
+        if talking_heads:
+            self.pre_softmax = TalkingHeadsBlock(h)
+            self.post_softmax = TalkingHeadsBlock(h)
+        self.to_out = nn.Parameter(torch.empty(h, d, out_ch or in_ch))
+
+    def reset_parameters(self, generator: torch.Generator) -> None:
+        """flax's initialisers: lecun-normal projections (fan-in ``in_ch``,
+        and ``H·D`` for the merge) and orthogonal mixing kernels."""
+        if self.fused_qkv:
+            lecun_normal_(self.to_qkv, self.to_qkv.shape[0], generator)
+        else:
+            for param in (self.to_q, self.to_k, self.to_v):
+                lecun_normal_(param, param.shape[0], generator)
+        if self.talking_heads:
+            self.pre_softmax.reset_parameters(generator)
+            self.post_softmax.reset_parameters(generator)
+        h, d, _ = self.to_out.shape
+        lecun_normal_(self.to_out, h * d, generator)
+
+    def _core(self, query, key, value):
+        scale = self.head_ch ** -0.5
+        if not self.talking_heads:
+            return dot_product_attention(
+                query, key, value,
+                scale=scale,
+                backend=self.backend,
+                logits_dtype=self.logits_dtype or query.dtype,
+            )
+        w_pre, w_post = self.pre_softmax.kernel, self.post_softmax.kernel
+        backend = _th.resolve_talking_heads_backend(
+            self.num_heads, key.shape[1], self.head_ch,
+            dtype=query.dtype, requested=self.backend,
+        )
+        if backend == "fused":
+            return _th.flash_talking_heads_attention(
+                query, key, value, w_pre, w_post, scale=scale
+            )
+        return _th.dense_talking_heads(query, key, value, w_pre, w_post, scale=scale)
 
     def forward(self, inputs_q: torch.Tensor, inputs_kv: torch.Tensor) -> torch.Tensor:
-        if inputs_q is not inputs_kv:
-            raise NotImplementedError(
-                "cross-attention (separate to_q/to_k/to_v projections) is not "
-                "ported yet; it comes with CaiT and CvT (ROADMAP queue A7)"
-            )
-        b, length, in_ch = inputs_q.shape
+        b, q_len, in_ch = inputs_q.shape
+        kv_len = inputs_kv.shape[1]
         h, d = self.num_heads, self.head_ch
-        w = self.to_qkv.to(inputs_q.dtype)
+        dtype = inputs_q.dtype
 
-        def proj(t):
-            return torch.matmul(inputs_q, w[:, t].reshape(in_ch, h * d)).view(b, length, h, d)
+        def proj(inputs, w, length):
+            return torch.matmul(inputs, w.reshape(in_ch, h * d)).view(b, length, h, d)
 
-        out = dot_product_attention(
-            proj(0), proj(1), proj(2),
-            scale=d ** -0.5,
-            backend=self.backend,
-            logits_dtype=self.logits_dtype or inputs_q.dtype,
-        )
+        if self.fused_qkv:
+            if inputs_q is not inputs_kv:
+                raise ValueError(
+                    "fused_qkv=True projects Q, K and V from one input and is "
+                    "only valid for self-attention; pass fused_qkv=False for "
+                    "cross-attention"
+                )
+            w = self.to_qkv.to(dtype)
+            query, key, value = (proj(inputs_q, w[:, t], q_len) for t in range(3))
+        else:
+            query = proj(inputs_q, self.to_q.to(dtype), q_len)
+            key = proj(inputs_kv, self.to_k.to(dtype), kv_len)
+            value = proj(inputs_kv, self.to_v.to(dtype), kv_len)
+        out = self._core(query, key, value)
         w_out = self.to_out.to(out.dtype).reshape(h * d, -1)
-        return torch.matmul(out.reshape(b, length, h * d), w_out)
+        return torch.matmul(out.reshape(b, q_len, h * d), w_out)
 
 
 class SelfAttentionBlock(AttentionBlock):

@@ -1,0 +1,23 @@
+"""Single-query class attention (port of the CaiT block of
+``sav_tpu/models/layers/class_attention.py``).
+
+``LCSelfAttentionBlock`` (CeiT) comes with CeiT (ROADMAP queue A7.4).
+"""
+
+from __future__ import annotations
+
+import torch
+
+from sav_tpu_torch.models.layers.attention import AttentionBlock
+
+
+class ClassSelfAttentionBlock(AttentionBlock):
+    """The query is the first (CLS) token only; K/V span the whole sequence.
+    Q comes from another tensor than K/V, so the projections are the three
+    separate ``to_q/to_k/to_v`` of ``fused_qkv=False``."""
+
+    def __init__(self, in_ch: int, num_heads: int, **kwargs):
+        super().__init__(in_ch, num_heads, fused_qkv=False, **kwargs)
+
+    def forward(self, inputs: torch.Tensor) -> torch.Tensor:  # type: ignore[override]
+        return super().forward(inputs[:, 0:1], inputs)

@@ -1,7 +1,8 @@
 """Named model registry (port of ``sav_tpu/models/registry.py``).
 
-The plain ViT entries are ported. Every other ``sav_tpu`` name is known here
-and raises ``NotImplementedError`` naming the ROADMAP queue item it waits on.
+The plain ViT and the ten CaiT entries are ported. Every other ``sav_tpu``
+name is known here and raises ``NotImplementedError`` naming the ROADMAP
+queue item it waits on.
 """
 
 from __future__ import annotations
@@ -9,7 +10,9 @@ from __future__ import annotations
 from typing import Optional
 
 import torch
+from torch import nn
 
+from sav_tpu_torch.models.cait import CaiT
 from sav_tpu_torch.models.vit import ViT
 
 # name -> (embed_dim, num_layers, num_heads, patch)
@@ -24,19 +27,27 @@ _VIT = {
     "vit_l_patch16": (1024, 24, 16, 16),
 }
 
+# name -> (embed_dim, num_layers, num_heads, stoch_depth_rate, layerscale_eps);
+# two class-attention layers and patch 16 each (sav_tpu/models/registry.py:93-114).
+_CAIT = {
+    "cait_xxs_24": (192, 24, 4, 0.05, 1e-5),
+    "cait_xxs_36": (192, 36, 4, 0.1, 1e-6),
+    "cait_xs_24": (288, 24, 6, 0.05, 1e-5),
+    "cait_xs_36": (288, 36, 6, 0.1, 1e-6),
+    "cait_s_24": (384, 24, 8, 0.1, 1e-5),
+    "cait_s_36": (384, 36, 8, 0.2, 1e-6),
+    "cait_s_48": (384, 48, 8, 0.3, 1e-6),
+    "cait_m_24": (768, 24, 16, 0.2, 1e-5),
+    "cait_m_36": (768, 36, 16, 0.3, 1e-6),
+    "cait_m_48": (768, 48, 16, 0.4, 1e-6),
+}
+
 _NOT_PORTED = {
     "vit_s_patch16_rope": "queue A2 (ops/rotary.py)",
     "vit_moe_s_patch16_e8": "queue A7.7 (MoE)",
     **{n: "queue A7.6 (BoTNet)" for n in ("botnet_t3", "botnet_t4", "botnet_t5")},
     **{n: "queue A7.2 (TNT)" for n in ("tnt_s_patch16", "tnt_b_patch16")},
     **{n: "queue A7.4 (CeiT)" for n in ("ceit_t", "ceit_s", "ceit_b")},
-    **{
-        f"cait_{size}_{depth}": "queue A7.1 (CaiT)"
-        for size, depth in (
-            ("xxs", 24), ("xxs", 36), ("xs", 24), ("xs", 36), ("s", 24),
-            ("s", 36), ("s", 48), ("m", 24), ("m", 36), ("m", 48),
-        )
-    },
     **{n: "queue A7.5 (CvT)" for n in ("cvt-13", "cvt-21", "cvt-w24")},
     **{
         f"mixer_{size}_patch{p}": "queue A7.3 (MLP-Mixer)"
@@ -48,7 +59,7 @@ _NOT_PORTED = {
 
 def model_names() -> list:
     """The names :func:`create_model` can build."""
-    return sorted(_VIT)
+    return sorted([*_VIT, *_CAIT])
 
 
 def create_model(
@@ -60,29 +71,37 @@ def create_model(
     logits_dtype=None,
     seed: int = 0,
     **overrides,
-) -> ViT:
+) -> nn.Module:
     """Instantiate a named config with weights drawn from ``seed``.
 
     The module is built on the CPU in float32; move it with
     ``.to(device, dtype)``. ``backend`` ('fused' | 'xla' | None = auto) and
     ``logits_dtype`` (the xla path's softmax dtype; None = the compute dtype)
     reach every attention block. ``overrides`` replace config fields
-    (``embed_dim``, ``num_layers``, ``num_heads``, ``patch_shape``, ...).
+    (``embed_dim``, ``num_layers``, ``num_heads``, ``patch_shape``, and for
+    CaiT ``num_layers_token_only``, ``stoch_depth_rate``, ...).
     """
     if model_name in _NOT_PORTED:
         raise NotImplementedError(
             f"{model_name!r} is not ported yet: ROADMAP {_NOT_PORTED[model_name]}"
         )
-    if model_name not in _VIT:
+    if model_name in _VIT:
+        cls = ViT
+        embed_dim, num_layers, num_heads, patch = _VIT[model_name]
+        kwargs = dict(patch_shape=(patch, patch))
+    elif model_name in _CAIT:
+        cls = CaiT
+        embed_dim, num_layers, num_heads, sd_rate, ls_eps = _CAIT[model_name]
+        kwargs = dict(num_layers_token_only=2, patch_shape=(16, 16),
+                      stoch_depth_rate=sd_rate, layerscale_eps=ls_eps)
+    else:
         raise ValueError(
             f"unknown model {model_name!r}; available: {', '.join(model_names())}"
         )
-    embed_dim, num_layers, num_heads, patch = _VIT[model_name]
-    kwargs = dict(
+    kwargs.update(
         embed_dim=embed_dim,
         num_layers=num_layers,
         num_heads=num_heads,
-        patch_shape=(patch, patch),
         image_size=image_size,
         backend=backend,
         logits_dtype=logits_dtype,
@@ -91,7 +110,7 @@ def create_model(
     # Built on the meta device so that no global RNG draw or throw-away
     # init happens; the weights come from the explicit generator only.
     with torch.device("meta"):
-        model = ViT(num_classes, **kwargs)
+        model = cls(num_classes, **kwargs)
     model = model.to_empty(device="cpu")
     model.reset_parameters(torch.Generator().manual_seed(seed))
     return model

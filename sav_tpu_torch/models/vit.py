@@ -12,7 +12,6 @@ images to the compute dtype; the logits come out in it.
 
 from __future__ import annotations
 
-import math
 from typing import Optional
 
 import torch
@@ -26,6 +25,7 @@ from sav_tpu_torch.models.layers import (
     PatchEmbedBlock,
     SelfAttentionBlock,
 )
+from sav_tpu_torch.models.layers.initializers import lecun_normal_
 
 # flax.linen.LayerNorm's epsilon (torch's default is 1e-5).
 LN_EPS = 1e-6
@@ -35,13 +35,26 @@ LN_EPS = 1e-6
 _NOT_PORTED = {
     "moe_num_experts": "queue A7.7 (MoE)",
     "remat": "queue A4 (training: remat)",
-    "attn_dropout_rate": "queue A4 (training: dropout and stochastic depth)",
-    "dropout_rate": "queue A4 (training: dropout and stochastic depth)",
+    "attn_dropout_rate": "queue A4 (training: dropout)",
+    "dropout_rate": "queue A4 (training: dropout)",
     "seq_parallel": "queue A9 (parallelism)",
     "seq_mesh": "queue A9 (parallelism)",
     "layout": "queue A9 (parallelism)",
     "quant": "queue A8 (int8)",
 }
+
+
+def refuse_unported(family: str, options: dict, table: dict) -> None:
+    """Raise on an option the port does not carry: ``TypeError`` for a name
+    ``table`` does not know, ``NotImplementedError`` naming the ROADMAP item
+    for a known one set to anything but its off value."""
+    for name, value in options.items():
+        if name not in table:
+            raise TypeError(f"{family} got an unexpected option {name!r}")
+        if value:
+            raise NotImplementedError(
+                f"{family} option {name}={value!r} is not ported yet: ROADMAP {table[name]}"
+            )
 
 
 class LayerNorm(nn.LayerNorm):
@@ -121,14 +134,7 @@ class ViT(nn.Module):
         **unported,
     ):
         super().__init__()
-        for name, value in unported.items():
-            if name not in _NOT_PORTED:
-                raise TypeError(f"ViT got an unexpected option {name!r}")
-            if value:
-                raise NotImplementedError(
-                    f"ViT option {name}={value!r} is not ported yet: ROADMAP "
-                    f"{_NOT_PORTED[name]}"
-                )
+        refuse_unported("ViT", unported, _NOT_PORTED)
         if pos_embed != "learned":
             raise NotImplementedError(
                 f"pos_embed={pos_embed!r} is not ported yet (sincos and rotary "
@@ -152,16 +158,14 @@ class ViT(nn.Module):
         position table, zero CLS token and zero head."""
         for module in self.modules():
             if isinstance(module, (nn.Linear, nn.Conv2d)):
-                _lecun_normal(module.weight, module.weight[0].numel(), generator)
+                lecun_normal_(module.weight, module.weight[0].numel(), generator)
                 if module.bias is not None:
                     nn.init.zeros_(module.bias)
             elif isinstance(module, nn.LayerNorm):
                 nn.init.ones_(module.weight)
                 nn.init.zeros_(module.bias)
             elif isinstance(module, SelfAttentionBlock):
-                _lecun_normal(module.to_qkv, module.to_qkv.shape[0], generator)
-                h, d, _ = module.to_out.shape
-                _lecun_normal(module.to_out, h * d, generator)
+                module.reset_parameters(generator)
             elif isinstance(module, AddAbsPosEmbed):
                 module.reset_parameters(generator)
         nn.init.zeros_(self.cls)
@@ -174,9 +178,3 @@ class ViT(nn.Module):
         x = self.encoder(torch.cat([cls, x], dim=1))
         return self.head(x[:, 0])
 
-
-def _lecun_normal(param: torch.Tensor, fan_in: int, generator: torch.Generator) -> None:
-    # flax variance_scaling(1.0, "fan_in", "truncated_normal"): the stddev is
-    # corrected for the truncation at two standard deviations.
-    std = math.sqrt(1.0 / fan_in) / 0.87962566103423978
-    nn.init.trunc_normal_(param, std=std, a=-2 * std, b=2 * std, generator=generator)

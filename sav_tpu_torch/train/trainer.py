@@ -1,9 +1,12 @@
 """Single-device trainer (port of the step core of ``sav_tpu/train/trainer.py``).
 
 One model on one device, f32 parameters with the forward and backward in
-the compute dtype (bf16 by default): each attention core runs the fused
-forward kernel and, in the backward, the fused backward kernel
-(:mod:`sav_tpu_torch.ops.fused_attention`). The step is ``sav_tpu``'s
+the compute dtype (bf16 by default): each attention core runs its forward
+kernel and, in the backward, its backward kernel
+(:mod:`sav_tpu_torch.ops.fused_attention`, and for CaiT's talking-heads
+trunk :mod:`sav_tpu_torch.ops.talking_heads`). Stochastic depth draws its
+masks from a generator on the device seeded from ``config.seed`` and used by
+nothing else (``sav_tpu``'s ``'stochastic_depth'`` stream). The step is ``sav_tpu``'s
 ``_train_step_impl`` for ``grad_accum_steps == 1``: one-hot f32 labels
 (mixed by ``mix_labels``/``ratio`` when the batch has them), label smoothing,
 f32 cross entropy, backward, the masked AdamW of
@@ -14,7 +17,7 @@ window's metrics to the host in one copy. Without a card the trainer
 refuses to run unless the caller passes ``device="cpu"``.
 
 Not ported yet (ROADMAP queue A4/A6/A9/A10): checkpointing, remat,
-dropout and stochastic depth, gradient accumulation, the async device feed,
+dropout, gradient accumulation, the async device feed,
 on-device mixing, meshes, evaluation inside ``fit`` and the telemetry.
 """
 
@@ -30,6 +33,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from sav_tpu_torch.models import create_model
+from sav_tpu_torch.models.layers import set_stochastic_depth_generator
 from sav_tpu_torch.train.config import TrainConfig
 from sav_tpu_torch.train.optimizer import (
     global_norm,
@@ -67,6 +71,8 @@ class Trainer:
                 **(config.model_overrides or {}),
             )
         self.model = model.to(device=self.device, dtype=torch.float32)
+        self.sd_generator = torch.Generator(device=self.device).manual_seed(config.seed)
+        set_stochastic_depth_generator(self.model, self.sd_generator)
         self.schedule = warmup_cosine_schedule(
             config.learning_rate,
             steps_per_epoch=config.steps_per_epoch,
@@ -91,7 +97,8 @@ class Trainer:
         """A fresh state at step 0 with a fresh optimizer. The parameters are
         drawn from ``seed`` (default ``config.seed``) when the trainer built
         the model or a seed is given; a passed model otherwise keeps its
-        parameters."""
+        parameters. The stochastic-depth generator restarts from
+        ``config.seed``."""
         if seed is not None or not self._model_passed:
             seed = self.config.seed if seed is None else seed
             generator = torch.Generator().manual_seed(seed)
@@ -99,6 +106,7 @@ class Trainer:
                 cpu = self.model.to("cpu")
                 cpu.reset_parameters(generator)
                 self.model = cpu.to(self.device)
+        self.sd_generator.manual_seed(self.config.seed)
         params = list(self.model.parameters())
         return TrainState(step=0, model=self.model, opt_state=self.tx.init(params))
 

@@ -84,6 +84,29 @@ def test_engine_matches_sav_tpu_across_buckets(flax_params):
     np.testing.assert_allclose(np.stack(out), ref, atol=TOL, rtol=TOL)
 
 
+def test_engine_serves_a_tiny_cait_on_the_cpu():
+    """A CaiT (talking-heads trunk, class attention) through the same engine:
+    its logits match sav_tpu's build_infer_fn on the same flax tree."""
+    from test_torch_cait import SMALL as CAIT_SMALL
+    from test_torch_cait import small_flax_params
+
+    params = small_flax_params(seed=2)
+    images = _images(5, seed=3)
+    jax_model = jax_create_model(
+        "cait_xxs_24", num_classes=10, dtype=jnp.float32, backend="fused", **CAIT_SMALL
+    )
+    infer = jax.jit(jax_build_infer_fn(jax_model, jnp.float32))
+    ref = np.asarray(infer(params, {}, {"images": images, "valid": np.ones(5, np.float32)}))
+    config = _config(model_name="cait_xxs_24", model_overrides=CAIT_SMALL, max_batch=4,
+                     deadline_ms=300.0)
+    with ServeEngine(config, params=params) as engine:
+        out = [f.result(timeout=60) for f in [engine.submit(image) for image in images]]
+    assert engine.stats()["ledger"]["requests"] == 5
+    assert engine.startup_report["model"] == "cait_xxs_24"
+    assert np.abs(ref).max() > 1.0
+    np.testing.assert_allclose(np.stack(out), ref, atol=TOL, rtol=TOL)
+
+
 def test_padded_rows_are_exactly_zero(flax_params):
     images = _images(4, seed=1)
     valid = np.array([1, 1, 0, 0], np.float32)

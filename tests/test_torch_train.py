@@ -271,28 +271,27 @@ def test_hwcn_batches_are_transposed():
 # ------------------------------------------------------------------ slice
 
 
-def test_four_train_steps_match_sav_tpu():
-    """The slice as a whole: 4 f32 steps of a 2-layer, width-64, 4-head ViT
-    with backend 'fused', from one parameter tree and one batch stream, on
-    sav_tpu's Trainer (8-device CPU mesh, Pallas in interpret mode) and the
-    port's. Per-step loss, grad norm and lr, then every parameter and the
-    eval sums, agree within f32 tolerances (different summation orders over
-    4 Adam steps; Adam divides by √v, which keeps relative errors relative)."""
+def _four_steps_against_sav_tpu(model_name, overrides, params):
+    """4 f32 steps with backend 'fused' from one parameter tree and one batch
+    stream, on sav_tpu's Trainer (8-device CPU mesh, Pallas in interpret
+    mode) and the port's. Per-step loss, grad norm and lr, then every
+    parameter and the eval sums, agree within f32 tolerances (different
+    summation orders over 4 Adam steps; Adam divides by √v, which keeps
+    relative errors relative)."""
     from sav_tpu.train.trainer import Trainer as JaxTrainer
 
     common = dict(
-        model_name="vit_ti_patch16", num_classes=10, image_size=32,
+        model_name=model_name, num_classes=10, image_size=32,
         compute_dtype="float32", attention_backend="fused",
         global_batch_size=16, num_train_images=64, num_epochs=2,
         warmup_epochs=0, transpose_images=False, base_lr=0.05, seed=0,
     )
-    params = _flax_params()
     batches = list(synthetic.synthetic_data_iterator(
         batch_size=16, image_size=32, num_classes=10, seed=11, num_batches=4
     ))
 
     jax_model = jax_create_model(
-        "vit_ti_patch16", num_classes=10, dtype=jnp.float32, backend="fused", **SMALL
+        model_name, num_classes=10, dtype=jnp.float32, backend="fused", **overrides
     )
     jax_trainer = JaxTrainer(JaxTrainConfig(**common), model=jax_model)
     jstate = jax_trainer.init_state()
@@ -304,7 +303,7 @@ def test_four_train_steps_match_sav_tpu():
         jax_metrics_per_step.append({k: float(v) for k, v in jax.device_get(m).items()})
     jax_eval = {k: float(v) for k, v in jax.device_get(jax_trainer.eval_step(jstate, batches[0])).items()}
 
-    model = create_model("vit_ti_patch16", num_classes=10, image_size=32, backend="fused", **SMALL)
+    model = create_model(model_name, num_classes=10, image_size=32, backend="fused", **overrides)
     model.load_state_dict(params_from_flax(params), strict=True)
     trainer = Trainer(TrainConfig(**common), model=model, device="cpu")
     state = trainer.init_state()
@@ -325,6 +324,42 @@ def test_four_train_steps_match_sav_tpu():
     ours_eval = {k: float(v) for k, v in trainer.eval_step(state, batches[0]).items()}
     for key in ("loss_sum", "top_1_sum", "top_5_sum", "count"):
         np.testing.assert_allclose(ours_eval[key], jax_eval[key], atol=1e-4, rtol=1e-5, err_msg=key)
+
+
+def test_four_train_steps_match_sav_tpu():
+    """The ViT slice as a whole: 4 f32 steps of a 2-layer, width-64, 4-head
+    ViT (see _four_steps_against_sav_tpu)."""
+    _four_steps_against_sav_tpu("vit_ti_patch16", SMALL, _flax_params())
+
+
+def test_four_cait_train_steps_match_sav_tpu():
+    """The CaiT slice as a whole: 4 f32 steps of the small CaiT (2
+    talking-heads layers, 1 class-attention layer) at stochastic depth 0
+    (jax.random draws cannot be matched), LayerScale and head drawn so that
+    the trunk's gradients count."""
+    from test_torch_cait import SMALL as CAIT_SMALL
+    from test_torch_cait import small_flax_params
+
+    _four_steps_against_sav_tpu("cait_xxs_24", CAIT_SMALL, small_flax_params())
+
+
+def test_weight_decay_mask_on_the_cait_tree_matches_sav_tpu():
+    """By flax path and by port name the same leaves decay: the [H, H]
+    mixing kernels (rank 2) and the class-attention projections do, the
+    LayerScale scales (rank 1) and the CLS token do not."""
+    from test_torch_cait import SMALL as CAIT_SMALL
+    from test_torch_cait import small_flax_params
+
+    params = small_flax_params()
+    flax_mask = jax_optimizer.weight_decay_mask(params)
+    shaped = jax.tree.map(lambda m, p: np.full(p.shape, float(m), np.float32), flax_mask, params)
+    want = {name: bool(arr.reshape(-1)[0]) for name, arr in params_from_flax(shaped).items()}
+    model = create_model("cait_xxs_24", num_classes=10, image_size=32, **CAIT_SMALL)
+    got = port_optimizer.weight_decay_mask(model.named_parameters())
+    assert got == want
+    assert got["blocks.0.attn.pre_softmax.kernel"] and got["blocks.0.attn.post_softmax.kernel"]
+    assert all(got[f"ca_blocks.0.attn.to_{p}"] for p in ("q", "k", "v", "out"))
+    assert not got["blocks.0.ls1.scale"] and not got["ca_blocks.0.ls2.scale"] and not got["cls"]
 
 
 def test_eval_step_runs_on_the_parameter_ema():
