@@ -19,12 +19,17 @@ Phases, each of which exits non-zero on failure:
    attention, ragged, one-query, short-kv and strided shapes; the
    talking-heads forward and backward (dq, dk, dv, dW_pre, dW_post) at the
    CaiT-XXS train and serve shapes, in f32, ragged, on strided views and at
-   every other head count they are built for (2, 3, 6, 8; 16 forward only).
-   Each backward runs twice on the same inputs and must give the same bits.
+   every other head count they are built for (2, 3, 6, 8; 16 forward only);
+   the flash forward, dq and dk/dv kernels at the ViT-B/16@384 train shape
+   (bf16, with the lse) and in f32, ragged, multi-tile at head dim 40, at
+   head dim 128, at CaiT's class attention at 384², short-kv, biased
+   (forward) and on strided views. Each backward runs twice on the same
+   inputs and must give the same bits.
 4. timing: each kernel, its plain version and, where one exists, one PyTorch
    library call (yardstick only) at the shapes the main paths give it,
    beside the card's bound; the talking-heads kernels also beside the port's
-   dense talking-heads path.
+   dense talking-heads path; the flash forward also at DeiT's train shape,
+   beside #1.
 5. serve: ServeEngine serves deit_s_patch16, then cait_xxs_24 (bf16, random
    weights from a seed) to concurrent clients; every attention core must
    have gone through its forward kernel (the launches per batch are counted
@@ -40,6 +45,13 @@ Phases, each of which exits non-zero on failure:
    attention paths (f32 softmax, the same stochastic-depth masks). After
    each counted run, one more step under torch.profiler gives the device's
    busy time by kernel group and its idle share.
+7. fine-tune: vit_b_patch16 built at 224² has its position table resized by
+   the port's surgery (197 -> 577 rows, every other tensor unchanged) and
+   trains at 384² with remat for 6 steps at global batch 128, as in 6: 24
+   flash forward launches per step (12 blocks, each recomputed once), 12
+   dq and 12 dk/dv, no fused launch; the dense reference runs with remat
+   too. Then one step with remat and one without give the same loss, and
+   their peak memories.
 
 Before each agreement check the head is drawn at std 0.02 and every
 LayerScale scale at 0.05-0.15 (CaiT's init of 1e-5 would hide a wrong trunk).
@@ -78,6 +90,13 @@ CLASS_SERVE_SHAPE = (32, 1, 197, 4, 48)
 CLASS_TRAIN_SHAPE = (256, 1, 197, 4, 48)
 TH_SERVE_SHAPE = (32, 196, 4, 48)
 TH_TRAIN_SHAPE = (256, 196, 4, 48)
+# ViT-B/16 fine-tuned at 384²: L = 1 + 24² = 577, 12 heads of 64, at the
+# batch the fine-tune phase trains with; and CaiT's class attention at 384²
+# (one query over [CLS; 576 tokens]), which trains outside #2's band.
+VIT384_MODEL = "vit_b_patch16"
+VIT384_SHAPE = (128, 577, 577, 12, 64)
+VIT384_BATCH = 128
+CLASS384_SHAPE = (128, 1, 577, 4, 48)
 SERVE_REQUESTS = 96
 CLIENTS = 4
 TRAIN_BATCH = 256
@@ -86,12 +105,21 @@ TRAIN_DISTINCT_BATCHES = 3  # each seen twice, so the loss can fall on it
 # atol = rtol: bf16 allows a few roundings of p, ds and the outputs; f32
 # different summation orders.
 TOL = {torch.bfloat16: 2e-2, torch.float32: 2e-5}
+# The flash kernels in bf16, absolute: twice the largest error each output
+# showed over every bf16 case of phase_flash_kernels on the H100 (fwd
+# 1.95e-3 at the ViT-B/16@384 train shape, dq 1.95e-3 at head dim 128, dk
+# and dv 9.8e-4 at multi-tile-d40), so a cast point the kernel moved away
+# from its plain version's shows as a failure, not a pass within TOL.
+FLASH_BF16_TOL = {"fwd": 4e-3, "dq": 4e-3, "dk": 2e-3, "dv": 2e-3}
 LSE_TOL = 2e-5
 SERVE_TOL = 3e-2
-# First train step, fused kernels vs dense attention with f32 softmax, both
-# bf16 over 12 (DeiT) or 26 (CaiT) layers: relative to the loss (~ln 1000)
+# First train step, kernels vs dense attention with f32 softmax, both bf16
+# over 12 (DeiT, ViT-B) or 26 (CaiT) layers: relative to the loss (~ln 1000)
 # and to the grad norm.
 TRAIN_REL_TOL = {"loss": 1e-2, "grad_norm": 5e-2}
+# One step with remat and one without, same weights and batch: remat only
+# changes what the backward recomputes, and the kernels are deterministic.
+REMAT_REL_TOL = 1e-6
 # LayerScale scales drawn for the agreement checks.
 LAYERSCALE_DRAW = (0.05, 0.15)
 
@@ -118,6 +146,7 @@ def phase_device() -> str:
 
 def phase_build() -> None:
     from sav_tpu_torch.ops import _build
+    from sav_tpu_torch.ops import flash_attention as flash
     from sav_tpu_torch.ops import fused_attention as fa
     from sav_tpu_torch.ops import talking_heads as th
 
@@ -178,6 +207,19 @@ def phase_build() -> None:
             if bool(c_value) != py_value:
                 raise AssertionError(f"talking-heads {what}: the kernel is built for {heads} "
                                      f"heads: {bool(c_value)}; the Python rule says {py_value}")
+    fl, fl_bwd = flash._lib(), flash._bwd_lib()
+    for dim in (8, 32, 40, 48, 64, 128):
+        want = flash.flash_smem_bytes(dim)
+        for what, c_value in (
+            ("fwd", fl.sav_flash_attention_smem_bytes(dim)),
+            ("bwd_dq", fl_bwd.sav_flash_attention_bwd_dq_smem_bytes(dim)),
+            ("bwd_dkv", fl_bwd.sav_flash_attention_bwd_dkv_smem_bytes(dim)),
+        ):
+            # flash_eligible takes every such dim, so each block must fit.
+            if c_value != want[what] or c_value > fa.SMEM_LIMIT or not flash.flash_eligible(dim):
+                raise AssertionError(f"flash {what} shared-memory rule differs at d={dim}: "
+                                     f"kernel {c_value}, flash_smem_bytes {want[what]}, "
+                                     f"limit {fa.SMEM_LIMIT}")
     for name, heads in (("CaiT-XXS", 4), ("CaiT-XS", 6), ("CaiT-S", 8)):
         for itemsize in (2, 4):
             if not (th.fused_eligible(heads, 196, 48, itemsize=itemsize)
@@ -203,9 +245,11 @@ def _inputs(shape, dtype, seed, device, *, bias_shape=None, packed=False):
     return q, k, v, bias
 
 
-def _within(got, ref, tol) -> float:
+def _within(got, ref, tol, rtol=None) -> float:
+    """Max abs error; fails where it passes ``tol + rtol·|ref|`` (rtol
+    defaults to tol)."""
     err = (got.float() - ref.float()).abs()
-    bad = err > tol + tol * ref.float().abs()
+    bad = err > tol + (tol if rtol is None else rtol) * ref.float().abs()
     if bool(bad.any()):
         raise AssertionError(f"{int(bad.sum())} elements off, max abs err {err.max().item():.3e}")
     return err.max().item()
@@ -392,6 +436,76 @@ def phase_th_kernels(device="cuda") -> dict:
     return {"fwd_train": train["fwd"], "fwd_serve": serve["fwd"], "bwd_train": train["bwd"]}
 
 
+def check_flash_kernels(name, shape, dtype, device, *, bias_shape=None, packed=False,
+                        backward=True) -> dict:
+    """The flash forward against its plain version at the kernel's kv tile on
+    the same inputs, output and lse; then the dq and dk/dv kernels against
+    theirs, from the kernel's output and lse, each run twice on the same
+    inputs, which must give the same bits (no atomics). ``packed``: q/k/v
+    strided views of one [B, L, 3, H, D] tensor and a dO with a row stride
+    of 2·H·D."""
+    from sav_tpu_torch.ops import flash_attention as flash
+
+    q, k, v, bias = _inputs(shape, dtype, 41, device, bias_shape=bias_shape, packed=packed)
+    # bf16: absolute limits per output; f32: TOL.
+    if dtype == torch.bfloat16:
+        tols, rtol = FLASH_BF16_TOL, 0.0
+    else:
+        tols, rtol = dict.fromkeys(FLASH_BF16_TOL, TOL[dtype]), None
+    with torch.no_grad():
+        out, lse = flash.flash_attention(q, k, v, bias, with_lse=True)
+        ref, ref_lse = flash.flash_attention_reference(q, k, v, bias, with_lse=True)
+    errs = {"fwd": _within(out, ref, tols["fwd"], rtol), "lse": _within(lse, ref_lse, LSE_TOL)}
+    scales = {"fwd": ref.float().abs().max().item()}
+    note = "forward only (a biased backward is the dense recompute)"
+    if backward:
+        b, lq, _, h, d = shape
+        gen = torch.Generator(device=device).manual_seed(43)
+        width = 2 * d if packed else d
+        g = torch.randn((b, lq, h, width), generator=gen, device=device).to(dtype)[..., :d]
+        scale = d ** -0.5
+        with torch.no_grad():
+            delta = flash.bwd_delta(out, g)
+            runs = [
+                (flash.flash_attention_bwd_dq(q, k, v, g, lse, delta, scale=scale),
+                 *flash.flash_attention_bwd_dkv(q, k, v, g, lse, delta, scale=scale))
+                for _ in range(2)
+            ]
+            want = (flash.flash_bwd_dq_reference(q, k, v, g, lse, delta, scale=scale),
+                    *flash.flash_bwd_dkv_reference(q, k, v, g, lse, delta, scale=scale))
+        errs.update({n: _within(a, r, tols[n], rtol)
+                     for n, a, r in zip(("dq", "dk", "dv"), runs[0], want)})
+        scales.update({n: r.float().abs().max().item() for n, r in zip(("dq", "dk", "dv"), want)})
+        if not all(torch.equal(a, b) for a, b in zip(*runs)):
+            raise AssertionError(f"flash backward {name}: two runs on the same inputs differ")
+        note = "backward deterministic"
+    log(f"flash kernels {name} {shape} {str(dtype)[6:]}: max abs err "
+        + ", ".join(f"{n} {e:.3e}" for n, e in errs.items())
+        + f" (tol {json.dumps(tols)}{'' if rtol is None else ' absolute'}, lse {LSE_TOL});"
+        + " largest |plain| "
+        + ", ".join(f"{n} {x:.3f}" for n, x in scales.items()) + f"; {note}")
+    return errs
+
+
+def phase_flash_kernels(device="cuda") -> dict:
+    """All flash cases; returns the max abs errors at the ViT-B/16@384 train
+    shape in bf16."""
+    bf16, f32 = torch.bfloat16, torch.float32
+    train = check_flash_kernels("vit-b/16@384 train", VIT384_SHAPE, bf16, device)
+    check_flash_kernels("vit-b/16@384", (2, 577, 577, 12, 64), f32, device)
+    for dtype in (f32, bf16):
+        check_flash_kernels("ragged-50", (2, 50, 50, 2, 32), dtype, device)
+        check_flash_kernels("multi-tile-d40", (2, 320, 256, 2, 40), dtype, device)
+        check_flash_kernels("d128", (2, 200, 200, 2, 128), dtype, device)
+    check_flash_kernels("cait-class-attention@384", CLASS384_SHAPE, bf16, device)
+    check_flash_kernels("short-kv", (2, 196, 49, 2, 64), f32, device)
+    for bias_shape in ((2, 4, 130, 150), (1, 1, 130, 150)):
+        check_flash_kernels(f"bias{bias_shape[:2]}", (2, 130, 150, 4, 32), f32, device,
+                            bias_shape=bias_shape, backward=False)
+    check_flash_kernels("packed-qkv+strided-dO", (8, 577, 577, 12, 64), bf16, device, packed=True)
+    return {"fwd": train["fwd"], "dq": train["dq"], "dkv": max(train["dk"], train["dv"])}
+
+
 def _median_ms(fn, iters=30, warmup=5) -> float:
     """Median device time of ``fn`` over ``iters`` launches, each after an
     L2 flush (64 MB > the 50 MB L2) and a device-side spin that keeps the
@@ -558,6 +672,72 @@ def time_th_bwd(shape) -> dict:
     return times
 
 
+def time_flash(shape, *, backward=True) -> dict:
+    """#3 (with lse) and, with ``backward``, #4 and #5 in bf16, each beside
+    its plain version and as yardstick scaled_dot_product_attention: its
+    forward for #3, its backward (dq, dk and dv in one call, through
+    torch.autograd.grad) for #4 and #5."""
+    import torch.nn.functional as F
+
+    from sav_tpu_torch.ops import flash_attention as flash
+
+    dtype = torch.bfloat16
+    b, lq, lk, h, d = shape
+    scale = d ** -0.5
+    q, k, v, _ = _inputs(shape, dtype, 51, "cuda")
+    g = torch.randn((b, lq, h, d), generator=torch.Generator(device="cuda").manual_seed(53),
+                    device="cuda").to(dtype)
+    qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_() for t in (q, k, v))
+    with torch.no_grad():
+        out, lse = flash.flash_attention(q, k, v, with_lse=True)
+        delta = flash.bwd_delta(out, g)
+        times = {"fwd": {
+            "ms": _median_ms(lambda: flash.flash_attention(q, k, v, with_lse=True)),
+            "plain_ms": _median_ms(lambda: flash.flash_attention_reference(q, k, v, with_lse=True)),
+            "library_ms": _median_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt)),
+        }}
+        if backward:
+            times["dq"] = {
+                "ms": _median_ms(lambda: flash.flash_attention_bwd_dq(
+                    q, k, v, g, lse, delta, scale=scale)),
+                "plain_ms": _median_ms(lambda: flash.flash_bwd_dq_reference(
+                    q, k, v, g, lse, delta, scale=scale)),
+            }
+            times["dkv"] = {
+                "ms": _median_ms(lambda: flash.flash_attention_bwd_dkv(
+                    q, k, v, g, lse, delta, scale=scale)),
+                "plain_ms": _median_ms(lambda: flash.flash_bwd_dkv_reference(
+                    q, k, v, g, lse, delta, scale=scale)),
+            }
+    if backward:
+        ot = F.scaled_dot_product_attention(qt, kt, vt)
+        gt = g.transpose(1, 2)
+        sdpa_bwd = _median_ms(lambda: torch.autograd.grad(ot, (qt, kt, vt), gt, retain_graph=True))
+        times["dq"]["library_ms"] = times["dkv"]["library_ms"] = sdpa_bwd
+        del ot
+    # Each input read once, each output written once; lse and delta are f32
+    # rows. Products: forward QKᵀ, PV; dq QKᵀ, dO·Vᵀ, dS·K; dk/dv those two
+    # and Pᵀ·dO, dSᵀ·Q, each 2·B·H·Lq·Lk·D.
+    tensor = q.numel() * q.element_size()
+    kv = k.numel() * k.element_size()
+    rows = b * h * lq * 4
+    product = 2 * b * h * lq * lk * d
+    work = {"fwd": (2 * tensor + 2 * kv + rows, 2 * product),
+            "dq": (3 * tensor + 2 * kv + 2 * rows, 3 * product),
+            "dkv": (2 * tensor + 4 * kv + 2 * rows, 4 * product)}
+    for name, entry in times.items():
+        nbytes, flops = work[name]
+        entry.update(_bound(nbytes, {dtype: flops}))
+        log(
+            f"timing flash {name} {shape} bf16, median of 30, cold L2: kernel {entry['ms']:.4f} ms, "
+            f"plain {entry['plain_ms']:.4f} ms, scaled_dot_product_attention "
+            f"{'backward ' if name != 'fwd' else ''}{entry['library_ms']:.4f} ms; bound "
+            f"{entry['bound_ms']:.4f} ms by {entry['bound_by']} ({nbytes / 1e6:.1f} MB, "
+            f"{flops / 1e9:.2f} GFLOP)"
+        )
+    return times
+
+
 def phase_timing() -> dict:
     return {
         "fwd_serve": time_fwd(SERVE_SHAPE, with_lse=False),
@@ -569,6 +749,8 @@ def phase_timing() -> dict:
         "th_fwd_serve": time_th_fwd(TH_SERVE_SHAPE),
         "th_fwd_train": time_th_fwd(TH_TRAIN_SHAPE),
         "th_bwd_train": time_th_bwd(TH_TRAIN_SHAPE),
+        "flash_vit384": time_flash(VIT384_SHAPE),
+        "flash_fwd_deit_train": time_flash(TRAIN_SHAPE, backward=False)["fwd"],
     }
 
 
@@ -597,31 +779,67 @@ def _serve(engine, images, clients) -> list:
     return results
 
 
-def attention_launches(model) -> dict:
-    """Kernel launches one forward of ``model`` makes, and one backward
-    again: one per attention module, by the kernel family it takes (the
-    fused kernels, or the talking-heads kernels)."""
+# Launch counters, as _launches() names them.
+COUNTERS = ("fused", "fused_bwd", "talking_heads", "talking_heads_bwd",
+            "flash", "flash_dq", "flash_dkv")
+
+
+# The counters a plain (not talking-heads) attention core adds to in the
+# forward and in the backward, by the kernel family it takes.
+FAMILIES = {"fused": ("fused", ("fused_bwd",)), "flash": ("flash", ("flash_dq", "flash_dkv"))}
+
+
+def attention_launches(model, *, train: bool, family: str) -> dict:
+    """Kernel launches, by counter, that one forward (``train=False``) or one
+    train step (``train=True``) of ``model`` in bf16 makes: one forward and,
+    in training, one backward per attention module. Talking-heads cores take
+    the talking-heads kernels; every other core takes ``family``, which each
+    path states (DeiT and CaiT at 224² the fused kernels, ViT-B/16@384 in
+    training the flash ones) rather than asks of the port's dispatch rule,
+    so a change of that rule that moves a path to other kernels fails the
+    run. With remat each encoder block's forward runs again in the backward
+    pass."""
     from sav_tpu_torch.models.layers import AttentionBlock
 
-    blocks = [m for m in model.modules() if isinstance(m, AttentionBlock)]
-    talking = sum(1 for m in blocks if m.talking_heads)
-    return {"fused": len(blocks) - talking, "talking_heads": talking}
+    counts = dict.fromkeys(COUNTERS, 0)
+    encoder = getattr(model, "encoder", None)
+    forwards = 2 if train and encoder is not None and encoder.remat else 1
+    for m in model.modules():
+        if not isinstance(m, AttentionBlock):
+            continue
+        if m.talking_heads:
+            fwd, bwd = "talking_heads", ("talking_heads_bwd",)
+        else:
+            fwd, bwd = FAMILIES[family]
+        counts[fwd] += forwards
+        for kind in bwd if train else ():
+            counts[kind] += 1
+    return counts
 
 
 def _reset_launches() -> None:
+    from sav_tpu_torch.ops import flash_attention as flash
     from sav_tpu_torch.ops import fused_attention as fa
     from sav_tpu_torch.ops import talking_heads as th
 
     fa.reset_launches()
     th.reset_launches()
+    flash.reset_launches()
 
 
 def _launches() -> dict:
+    from sav_tpu_torch.ops import flash_attention as flash
     from sav_tpu_torch.ops import fused_attention as fa
     from sav_tpu_torch.ops import talking_heads as th
 
     return {"fused": fa.LAUNCHES, "fused_bwd": fa.BWD_LAUNCHES,
-            "talking_heads": th.LAUNCHES, "talking_heads_bwd": th.BWD_LAUNCHES}
+            "talking_heads": th.LAUNCHES, "talking_heads_bwd": th.BWD_LAUNCHES,
+            "flash": flash.LAUNCHES, "flash_dq": flash.BWD_DQ_LAUNCHES,
+            "flash_dkv": flash.BWD_DKV_LAUNCHES}
+
+
+def _times(per: dict, n: int) -> dict:
+    return {k: v * n for k, v in per.items()}
 
 
 def _draw_for_agreement(model) -> None:
@@ -651,7 +869,8 @@ def phase_serve(device="cuda", model_name="deit_s_patch16", requests=SERVE_REQUE
         model_name, image_size=image_size, backend="xla", logits_dtype=torch.float32, **overrides
     )
     dense.load_state_dict(model.state_dict())
-    per_batch = attention_launches(model)
+    # Served at 224², every plain attention core is in #1's forward band.
+    per_batch = attention_launches(model, train=False, family="fused")
 
     def config(**kw):
         # A generous deadline: admission must not shed in a smoke run.
@@ -675,8 +894,7 @@ def phase_serve(device="cuda", model_name="deit_s_patch16", requests=SERVE_REQUE
     if logits.shape != (requests, model.head.out_features) or not np.isfinite(logits).all():
         raise AssertionError(f"bad logits: shape {logits.shape}, finite {np.isfinite(logits).all()}")
     batches = ledger["batches"]
-    expected = {"fused": per_batch["fused"] * batches, "fused_bwd": 0,
-                "talking_heads": per_batch["talking_heads"] * batches, "talking_heads_bwd": 0}
+    expected = _times(per_batch, batches)
     if launches != expected:
         raise AssertionError(
             f"serving {batches} batches launched {json.dumps(launches)}; expected "
@@ -704,36 +922,51 @@ def phase_serve(device="cuda", model_name="deit_s_patch16", requests=SERVE_REQUE
     return launches
 
 
-def phase_train(device="cuda", model_name="deit_s_patch16", batch_size=TRAIN_BATCH,
-                steps=TRAIN_STEPS, image_size=224, num_classes=1000, overrides=None) -> dict:
-    """Train ``steps`` steps through Trainer.fit, then profile one step;
-    returns the launches, the step time and the profile."""
-    from sav_tpu_torch import TrainConfig, Trainer, create_model
+def _train_common(model_name, batch_size, steps, image_size, num_classes, overrides) -> dict:
+    return dict(
+        model_name=model_name, num_classes=num_classes, image_size=image_size,
+        compute_dtype="bfloat16", global_batch_size=batch_size,
+        num_train_images=batch_size * steps, num_epochs=300, warmup_epochs=0,
+        base_lr=2e-3, transpose_images=False, log_every_steps=steps // 2, seed=0,
+        model_overrides=overrides or None,
+    )
+
+
+def _train_batches(batch_size, image_size, num_classes, device, num_batches) -> list:
     from sav_tpu_torch.data.synthetic import synthetic_data_iterator
+
+    return [
+        {"images": torch.from_numpy(b["images"]).to(device),
+         "labels": torch.from_numpy(b["labels"]).to(device)}
+        for b in synthetic_data_iterator(batch_size=batch_size, image_size=image_size,
+                                         num_classes=num_classes, seed=0,
+                                         num_batches=num_batches)
+    ]
+
+
+def phase_train(device="cuda", model_name="deit_s_patch16", batch_size=TRAIN_BATCH,
+                steps=TRAIN_STEPS, image_size=224, num_classes=1000, overrides=None,
+                state_dict=None, family="fused") -> dict:
+    """Train ``steps`` steps through Trainer.fit from seed-0 weights (or from
+    ``state_dict``), then profile one step; returns the launches, the first
+    loss, the step time, the peak memory and the profile."""
+    from sav_tpu_torch import TrainConfig, Trainer, create_model
 
     torch.cuda.empty_cache()
     overrides = overrides or {}
     model = create_model(model_name, num_classes=num_classes, image_size=image_size,
                          seed=0, **overrides)
-    # A zero head passes no gradient to the attention cores in the first step.
-    _draw_for_agreement(model)
+    if state_dict is not None:
+        model.load_state_dict(state_dict, strict=True)
+    else:
+        # A zero head passes no gradient to the attention cores in the first step.
+        _draw_for_agreement(model)
     dense = create_model(model_name, num_classes=num_classes, image_size=image_size,
                          backend="xla", logits_dtype=torch.float32, **overrides)
     dense.load_state_dict(model.state_dict())
-    per_step = attention_launches(model)
-    common = dict(
-        model_name=model_name, num_classes=num_classes, image_size=image_size,
-        compute_dtype="bfloat16", global_batch_size=batch_size,
-        num_train_images=batch_size * steps, num_epochs=300, warmup_epochs=0,
-        base_lr=2e-3, transpose_images=False, log_every_steps=steps // 2, seed=0,
-    )
-    batches = [
-        {"images": torch.from_numpy(b["images"]).to(device),
-         "labels": torch.from_numpy(b["labels"]).to(device)}
-        for b in synthetic_data_iterator(batch_size=batch_size, image_size=image_size,
-                                         num_classes=num_classes, seed=0,
-                                         num_batches=TRAIN_DISTINCT_BATCHES)
-    ]
+    per_step = attention_launches(model, train=True, family=family)
+    common = _train_common(model_name, batch_size, steps, image_size, num_classes, overrides)
+    batches = _train_batches(batch_size, image_size, num_classes, device, TRAIN_DISTINCT_BATCHES)
 
     # The same first step on the dense attention paths with f32 softmax; the
     # stochastic-depth masks come from a generator seeded from config.seed
@@ -770,13 +1003,11 @@ def phase_train(device="cuda", model_name="deit_s_patch16", batch_size=TRAIN_BAT
     n = len(batches)
     if not all(losses[i + n] < losses[i] for i in range(steps - n)):
         raise AssertionError(f"the loss did not fall on a batch seen again: {losses}")
-    expected = {"fused": per_step["fused"] * steps, "fused_bwd": per_step["fused"] * steps,
-                "talking_heads": per_step["talking_heads"] * steps,
-                "talking_heads_bwd": per_step["talking_heads"] * steps}
+    expected = _times(per_step, steps)
     if launches != expected:
         raise AssertionError(
             f"{steps} train steps launched {json.dumps(launches)}; expected "
-            f"{json.dumps(expected)} ({json.dumps(per_step)} forward and backward per step)"
+            f"{json.dumps(expected)} ({json.dumps(per_step)} per step)"
         )
     first = history[0]
     for key, tol in TRAIN_REL_TOL.items():
@@ -790,21 +1021,103 @@ def phase_train(device="cuda", model_name="deit_s_patch16", batch_size=TRAIN_BAT
     log(
         f"train {model_name} bf16 batch {batch_size}: {steps} steps via fit(), losses "
         f"{[round(x, 4) for x in losses]}; launches {json.dumps(launches)} = "
-        f"{json.dumps(per_step)} x {steps} each way; steady window (steps "
+        f"{json.dumps(per_step)} x {steps}; steady window (steps "
         f"{steps - steps // 2 + 1}-{steps}) {steady['step_s'] * 1e3:.2f} ms/step, "
         f"{steady['images_per_sec']:.1f} images/s; first window "
         f"{windows[0]['step_s'] * 1e3:.2f} ms/step; peak memory {peak_gb:.2f} GiB"
     )
     return {
         "launches": launches,
+        "first_loss": first["loss"],
         "step_ms": steady["step_s"] * 1e3,
         "images_per_sec": steady["images_per_sec"],
+        "peak_gb": peak_gb,
         "profile": profile,
     }
 
 
+def phase_surgery() -> dict:
+    """The fine-tune recipe's start: ViT-B/16 built at 224² from seed 0 (head
+    drawn at std 0.02), its state dict resized by the port's surgery to the
+    384² model's. Every tensor but the position table is carried unchanged;
+    the table goes from 197 to 577 rows. Returns the 384² state dict."""
+    from sav_tpu_torch import create_model
+    from sav_tpu_torch.models.surgery import adapt_pos_embeds
+
+    source = create_model(VIT384_MODEL, image_size=224, seed=0)
+    _draw_for_agreement(source)
+    source = source.state_dict()
+    target = create_model(VIT384_MODEL, image_size=384, seed=1).state_dict()
+    adapted = adapt_pos_embeds(source, target)
+    key = "encoder.pos_embed.pos_embed"
+    if set(adapted) != set(target) or any(
+        tuple(adapted[k].shape) != tuple(target[k].shape) for k in target
+    ):
+        raise AssertionError("the adapted state dict does not fit the 384² model")
+    changed = [k for k in source if k != key and not torch.equal(adapted[k], source[k])]
+    if changed or source[key].shape[1] != 197 or adapted[key].shape[1] != 577:
+        raise AssertionError(f"surgery changed {changed} or resized the table wrongly: "
+                             f"{tuple(source[key].shape)} -> {tuple(adapted[key].shape)}")
+    if not torch.equal(adapted[key][:, 0], source[key][:, 0]):
+        raise AssertionError("surgery moved the CLS position")
+    log(f"surgery {VIT384_MODEL} 224² -> 384²: {len(adapted) - 1} tensors carried unchanged, "
+        f"{key} {tuple(source[key].shape)} -> {tuple(adapted[key].shape)} (bicubic, antialiased)")
+    return adapted
+
+
+def phase_remat_trade(state_dict, first_loss, device="cuda") -> dict:
+    """One train step of the 384² ViT-B/16 from ``state_dict`` with remat on
+    and one with it off, on the fine-tune run's first batch: the same loss
+    (within REMAT_REL_TOL of each other and of the run's first loss), the
+    flash forward launched twice per block with remat and once without, and
+    each step's peak device memory."""
+    from sav_tpu_torch import TrainConfig, Trainer, create_model
+
+    batch = _train_batches(VIT384_BATCH, 384, 1000, device, 1)[0]
+    out = {}
+    for remat in (True, False):
+        torch.cuda.empty_cache()
+        model = create_model(VIT384_MODEL, image_size=384, seed=0, remat=remat)
+        model.load_state_dict(state_dict, strict=True)
+        blocks = len(model.encoder.blocks)
+        common = _train_common(VIT384_MODEL, VIT384_BATCH, TRAIN_STEPS, 384, 1000,
+                               {"remat": remat})
+        trainer = Trainer(TrainConfig(**common), model=model, device=device)
+        state = trainer.init_state()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _reset_launches()
+        _, metrics = trainer.train_step(state, batch)
+        loss = float(metrics["loss"])
+        launches = _launches()
+        want = {**dict.fromkeys(COUNTERS, 0), "flash": blocks * (2 if remat else 1),
+                "flash_dq": blocks, "flash_dkv": blocks}
+        if launches != want:
+            raise AssertionError(f"remat={remat}: one step launched {json.dumps(launches)}, "
+                                 f"expected {json.dumps(want)}")
+        out[remat] = {"loss": loss, "peak_gb": torch.cuda.max_memory_allocated() / 2**30}
+        del trainer, model, state, metrics
+    for name, other in (("the step without remat", out[False]["loss"]),
+                        ("fit's first step", first_loss)):
+        if abs(out[True]["loss"] - other) > REMAT_REL_TOL * abs(other):
+            raise AssertionError(f"the step with remat has loss {out[True]['loss']}, "
+                                 f"{name} {other}")
+    log(
+        f"remat trade {VIT384_MODEL}@384 bf16 batch {VIT384_BATCH}, one step: loss with remat "
+        f"{out[True]['loss']:.7f}, without {out[False]['loss']:.7f}, fit's first step "
+        f"{first_loss:.7f} (tol {REMAT_REL_TOL} relative); flash forward launches "
+        f"{2 * blocks} vs {blocks}; "
+        f"peak memory {out[True]['peak_gb']:.2f} GiB with remat, {out[False]['peak_gb']:.2f} "
+        f"GiB without"
+    )
+    return {"peak_gb_remat": out[True]["peak_gb"], "peak_gb_no_remat": out[False]["peak_gb"]}
+
+
 # Kernel-name fragments → the group a device kernel is counted under.
 KERNEL_GROUPS = (
+    ("flash backward dq (flash_attention_bwd.cu)", ("flash_attention_bwd_dq_kernel",)),
+    ("flash backward dk/dv (flash_attention_bwd.cu)", ("flash_attention_bwd_dkv_kernel",)),
+    ("flash forward (flash_attention.cu)", ("flash_attention_fwd_kernel",)),
     ("attention backward (fused_attention_bwd.cu)", ("fused_attention_bwd_kernel",)),
     ("attention forward (fused_attention.cu)", ("fused_attention_fwd_kernel",)),
     ("talking-heads backward (talking_heads_bwd.cu)", ("talking_heads_bwd_kernel",)),
@@ -869,14 +1182,22 @@ def main() -> None:
     fwd_err = phase_kernels()
     bwd_err = phase_bwd_kernels()
     th_err = phase_th_kernels()
+    flash_err = phase_flash_kernels()
     times = phase_timing()
     serve = {"deit": phase_serve(), "cait": phase_serve(model_name="cait_xxs_24")}
     train = {"deit": phase_train(), "cait": phase_train(model_name="cait_xxs_24")}
+    adapted = phase_surgery()
+    train["vit384"] = phase_train(model_name=VIT384_MODEL, batch_size=VIT384_BATCH,
+                                  image_size=384, overrides={"remat": True},
+                                  state_dict=adapted, family="flash")
+    remat = phase_remat_trade(adapted, train["vit384"]["first_loss"])
+    del adapted
 
     def by_path(kind):
         return {
             "serve": serve["deit"][kind], "train": train["deit"]["launches"][kind],
             "serve_cait": serve["cait"][kind], "train_cait": train["cait"]["launches"][kind],
+            "train_vit384": train["vit384"]["launches"][kind],
         }
 
     def total(kind):
@@ -947,12 +1268,50 @@ def main() -> None:
         "shape": list(TH_TRAIN_SHAPE),
         **_timed(times["th_bwd_train"]),
     }
+    flash_times = times["flash_vit384"]
+    flash_common = {"route": "cuda", "checked": True, "shape": list(VIT384_SHAPE)}
+    flash_fwd = {
+        "name": "flash_attention_fwd",
+        **flash_common,
+        "source": "sav_tpu_torch/csrc/flash_attention.cu",
+        "replaces": "sav_tpu/ops/flash_attention.py:86",
+        "tpu_kernel": "_kernel",
+        "launches": total("flash"),
+        "launches_by_path": by_path("flash"),
+        "max_abs_err": flash_err["fwd"],
+        **_timed(flash_times["fwd"]),
+        "at_deit_train_shape": {"shape": list(TRAIN_SHAPE), **_timed(times["flash_fwd_deit_train"])},
+    }
+    flash_dq = {
+        "name": "flash_attention_bwd_dq",
+        **flash_common,
+        "source": "sav_tpu_torch/csrc/flash_attention_bwd.cu",
+        "replaces": "sav_tpu/ops/flash_attention.py:360",
+        "tpu_kernel": "_bwd_dq_kernel",
+        "launches": total("flash_dq"),
+        "launches_by_path": by_path("flash_dq"),
+        "max_abs_err": flash_err["dq"],
+        **_timed(flash_times["dq"]),
+    }
+    flash_dkv = {
+        "name": "flash_attention_bwd_dkv",
+        **flash_common,
+        "source": "sav_tpu_torch/csrc/flash_attention_bwd.cu",
+        "replaces": "sav_tpu/ops/flash_attention.py:405",
+        "tpu_kernel": "_bwd_dkv_kernel",
+        "launches": total("flash_dkv"),
+        "launches_by_path": by_path("flash_dkv"),
+        "max_abs_err": flash_err["dkv"],
+        **_timed(flash_times["dkv"]),
+    }
     steps = {name: {"step_ms": round(r["step_ms"], 3), "images_per_sec": round(r["images_per_sec"], 1),
+                    "peak_gb": round(r["peak_gb"], 2),
                     "device_idle_pct": round(100 * (1 - r["profile"]["busy_ms"] / r["profile"]["wall_ms"]), 2)}
              for name, r in train.items()}
+    steps["vit384"].update({k: round(v, 2) for k, v in remat.items()})
     log(f"train summary: {json.dumps(steps)}")
     log(f"card: {smi}")
-    log(json.dumps({"kernels": [fwd, bwd, th_fwd, th_bwd]}))
+    log(json.dumps({"kernels": [fwd, bwd, th_fwd, th_bwd, flash_fwd, flash_dq, flash_dkv]}))
     log(json.dumps({
         "ok": True,
         "device": {

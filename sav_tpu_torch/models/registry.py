@@ -75,11 +75,13 @@ def create_model(
     """Instantiate a named config with weights drawn from ``seed``.
 
     The module is built on the CPU in float32; move it with
-    ``.to(device, dtype)``. ``backend`` ('fused' | 'xla' | None = auto) and
+    ``.to(device, dtype)``. ``backend`` ('fused' | 'pallas' | 'xla' | None =
+    auto) and
     ``logits_dtype`` (the xla path's softmax dtype; None = the compute dtype)
     reach every attention block. ``overrides`` replace config fields
     (``embed_dim``, ``num_layers``, ``num_heads``, ``patch_shape``, and for
-    CaiT ``num_layers_token_only``, ``stoch_depth_rate``, ...).
+    CaiT ``num_layers_token_only``, ``stoch_depth_rate``, ...; for ViT
+    ``remat``).
     """
     if model_name in _NOT_PORTED:
         raise NotImplementedError(

@@ -3,6 +3,10 @@
 Pre-LN encoder, learned absolute position embeddings, zero-init CLS token
 and head, with every self-attention core on the backend-dispatched seam of
 :mod:`sav_tpu_torch.ops.attention`. Inputs are NHWC, as in ``sav_tpu``.
+``remat=True`` recomputes each encoder block in the backward pass (flax's
+``nn.remat``): activation memory drops to the blocks' boundaries for one
+more forward of every block, so each attention core's forward kernel runs
+twice per train step.
 
 Parameters stay in their own dtype (f32 for training) and every layer
 computes in the dtype of its input, casting its weights at use: the
@@ -17,6 +21,7 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from sav_tpu_torch.models.layers import (
     AddAbsPosEmbed,
@@ -34,7 +39,6 @@ LN_EPS = 1e-6
 # each waits on. Setting one raises NotImplementedError.
 _NOT_PORTED = {
     "moe_num_experts": "queue A7.7 (MoE)",
-    "remat": "queue A4 (training: remat)",
     "attn_dropout_rate": "queue A4 (training: dropout)",
     "dropout_rate": "queue A4 (training: dropout)",
     "seq_parallel": "queue A9 (parallelism)",
@@ -90,12 +94,16 @@ class EncoderBlock(nn.Module):
 
 
 class Encoder(nn.Module):
-    """Learned abs pos-emb, N pre-LN blocks, final LN."""
+    """Learned abs pos-emb, N pre-LN blocks, final LN. With ``remat``, each
+    block runs under non-reentrant activation checkpointing whenever grad
+    is enabled; the parameter names stay ``blocks.i``, as flax's
+    ``nn.remat`` keeps ``block_i``."""
 
     def __init__(self, length: int, dim: int, num_layers: int, num_heads: int, *,
                  expand_ratio: float = 4.0, backend: Optional[str] = None,
-                 logits_dtype=None):
+                 logits_dtype=None, remat: bool = False):
         super().__init__()
+        self.remat = remat
         self.pos_embed = AddAbsPosEmbed(length, dim)
         self.blocks = nn.ModuleList(
             EncoderBlock(dim, num_heads, expand_ratio=expand_ratio,
@@ -107,7 +115,10 @@ class Encoder(nn.Module):
     def forward(self, inputs: torch.Tensor) -> torch.Tensor:
         x = self.pos_embed(inputs)
         for block in self.blocks:
-            x = block(x)
+            if self.remat and torch.is_grad_enabled():
+                x = checkpoint(block, x, use_reentrant=False)
+            else:
+                x = block(x)
         return self.norm(x)
 
 
@@ -131,6 +142,7 @@ class ViT(nn.Module):
         pos_embed: str = "learned",
         backend: Optional[str] = None,
         logits_dtype=None,
+        remat: bool = False,
         **unported,
     ):
         super().__init__()
@@ -149,6 +161,7 @@ class ViT(nn.Module):
         self.encoder = Encoder(
             length, embed_dim, num_layers, num_heads,
             expand_ratio=expand_ratio, backend=backend, logits_dtype=logits_dtype,
+            remat=remat,
         )
         self.head = Dense(embed_dim, num_classes)
 

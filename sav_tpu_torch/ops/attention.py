@@ -8,17 +8,19 @@ Port of :mod:`sav_tpu.ops.attention`. Layout everywhere:
     raises when the shape exceeds the kernel's shared-memory budget.
   - ``'xla'``   — :func:`dense_attention`, plain PyTorch ops; the counterpart
     of ``sav_tpu``'s ``xla_attention``. Opt-in only: ``auto`` never picks it.
-  - ``'pallas'`` — the blocked flash kernel, not ported yet (ROADMAP queue
-    B3): raises ``NotImplementedError``.
+  - ``'pallas'`` — the blocked flash kernels
+    (:mod:`sav_tpu_torch.ops.flash_attention`): any sequence length, head
+    dims that are multiples of 8 up to 128.
   - ``'auto'``/``None`` — :func:`resolve_attention_backend`: the fused kernel
-    wherever it is eligible, on CPU (its plain version) and on CUDA alike;
-    when an input requires grad the backward kernel's band counts too.
-    The TPU tune cache and the TPU's dense-logits threshold are not carried
-    over: they record TPU measurements.
+    wherever it is eligible (when an input requires grad, the backward
+    kernel's band counts too), else the flash kernels, on CPU (their plain
+    versions) and on CUDA alike. The TPU tune cache and the TPU's
+    dense-logits threshold are not carried over: they record TPU
+    measurements.
 
-Gradients: the ``fused`` path differentiates through the backward kernel
-(or, with a bias, :func:`dense_recompute_bwd`); the ``xla`` path through
-PyTorch autograd of its plain ops.
+Gradients: the ``fused`` and ``pallas`` paths differentiate through their
+backward kernels (or, with a bias, :func:`dense_recompute_bwd`); the ``xla``
+path through PyTorch autograd of its plain ops.
 """
 
 from __future__ import annotations
@@ -27,11 +29,8 @@ from typing import Optional
 
 import torch
 
+from sav_tpu_torch.ops import flash_attention as _flash
 from sav_tpu_torch.ops import fused_attention as _fused
-
-_FLASH_TODO = (
-    "the blocked flash-attention kernel is not ported yet (ROADMAP queue B3)"
-)
 
 
 def _as_dtype(dtype) -> torch.dtype:
@@ -118,25 +117,25 @@ def resolve_attention_backend(
     requested: Optional[str] = None,
     backward: bool = False,
 ) -> str:
-    """The port's rule on static shapes, returning ``'fused'`` or ``'xla'``:
-    ``auto`` means the fused kernel inside its band (with ``backward=True``,
-    the backward kernel's band too) and raises outside it; ``fused`` and
-    ``xla`` pass through; ``pallas`` raises until the flash kernel is
-    ported."""
+    """The port's rule on static shapes, returning ``'fused'``, ``'pallas'``
+    or ``'xla'``: ``auto`` means the fused kernel inside its band (with
+    ``backward=True``, the backward kernel's band too), else the flash
+    kernels, and raises only where those do not take the head dim;
+    ``fused``, ``pallas`` and ``xla`` pass through."""
     requested = requested or "auto"
-    if requested in ("fused", "xla"):
+    if requested in ("fused", "pallas", "xla"):
         return requested
-    if requested == "pallas":
-        raise NotImplementedError(f"backend='pallas': {_FLASH_TODO}")
     if requested != "auto":
         raise ValueError(f"unknown attention backend: {requested!r}")
     itemsize = torch.empty((), dtype=_as_dtype(dtype)).element_size()
     if _fused.fused_eligible(q_len, kv_len, dim, itemsize=itemsize, backward=backward):
         return "fused"
+    if _flash.flash_eligible(dim):
+        return "pallas"
     raise NotImplementedError(
-        f"auto attention at q_len={q_len}, kv_len={kv_len}, head_dim={dim} "
-        f"is outside the fused kernel's band{' for training' if backward else ''}, "
-        f"and {_FLASH_TODO}"
+        f"auto attention at q_len={q_len}, kv_len={kv_len}, head_dim={dim} is "
+        f"outside the fused kernel's band{' for training' if backward else ''}, and "
+        f"the flash kernels take head dims that are multiples of 8 up to {_flash.MAX_DIM}"
     )
 
 
@@ -162,6 +161,8 @@ def dot_product_attention(
     )
     if backend == "fused":
         return _fused.fused_attention(query, key, value, bias, scale=scale)
+    if backend == "pallas":
+        return _flash.flash_attention(query, key, value, bias, scale=scale)
     return dense_attention(
         query, key, value, bias, scale=scale, logits_dtype=logits_dtype
     )

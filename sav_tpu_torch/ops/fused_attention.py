@@ -227,7 +227,7 @@ def _check_dtypes(*tensors) -> torch.dtype:
     dtype = tensors[0].dtype
     if dtype not in _DTYPE_CODES or any(t.dtype != dtype for t in tensors):
         raise ValueError(
-            "fused attention kernels take q/k/v all float32 or all bfloat16, "
+            "the attention kernels take q/k/v all float32 or all bfloat16, "
             f"got {'/'.join(str(t.dtype) for t in tensors)}"
         )
     return dtype
@@ -238,12 +238,12 @@ def _check_strides(named_rows, named_chunked) -> None:
     strides for the operands the kernel reads in 16-byte chunks."""
     for name, t in named_rows:
         if t.stride(-1) != 1:
-            raise ValueError(f"fused attention needs unit stride on D, {name} has {t.stride()}")
+            raise ValueError(f"the attention kernels need unit stride on D, {name} has {t.stride()}")
     for name, t in named_chunked:
         vec = 16 // t.element_size()
         if t.data_ptr() % 16 or any(s % vec for s in t.stride()[:3]):
             raise ValueError(
-                f"fused attention reads {name} in 16-byte chunks: its pointer "
+                f"the attention kernels read {name} in 16-byte chunks: its pointer "
                 f"and its B/L/H strides {t.stride()[:3]} must be 16-byte aligned"
             )
 
@@ -350,18 +350,18 @@ def _check_bwd_band(q_len: int, kv_len: int, dim: int, itemsize: int) -> None:
             f"kv_len={kv_len}, head_dim={dim} does not fit the fused backward "
             f"kernel: f32 dK/dV stay in shared memory, and one block would need "
             f"{fused_bwd_smem_bytes(kv_len, dim, itemsize, 1)} bytes against "
-            f"{SMEM_LIMIT}; longer sequences need the flash backward (ROADMAP "
-            "queue B4)"
+            f"{SMEM_LIMIT}; longer sequences train through the flash kernels "
+            "(sav_tpu_torch.ops.flash_attention, backend='pallas')"
         )
 
 
 def _device_of(*tensors) -> str:
     devices = {t.device for t in tensors if t is not None}
     if len(devices) != 1:
-        raise ValueError(f"fused attention inputs on several devices: {devices}")
+        raise ValueError(f"attention inputs on several devices: {devices}")
     device = devices.pop().type
     if device not in ("cpu", "cuda"):
-        raise ValueError(f"fused attention runs on CPU or CUDA tensors, got {device}")
+        raise ValueError(f"the attention kernels run on CPU or CUDA tensors, got {device}")
     return device
 
 
@@ -477,8 +477,8 @@ def fused_attention(
             f"kv_len={kv_len}, head_dim={dim} does not fit the fused kernel: it "
             f"needs head_dim % 8 == 0 and <= {MAX_DIM}, and "
             f"{fused_smem_bytes(kv_len, dim, itemsize)} bytes of shared memory "
-            f"against {SMEM_LIMIT}; longer sequences need the flash kernel "
-            "(ROADMAP queue B3)"
+            f"against {SMEM_LIMIT}; longer sequences run through the flash "
+            "kernels (sav_tpu_torch.ops.flash_attention, backend='pallas')"
         )
     if scale is None:
         scale = dim ** -0.5

@@ -58,7 +58,8 @@ class TrainConfig:
     image_size: int = 224
     compute_dtype: str = "bfloat16"
     # None = the port's auto rule (the fused kernels wherever the forward
-    # and the backward fit) | 'fused' | 'xla'.
+    # and the backward fit, else the flash kernels) | 'fused' | 'pallas'
+    # (the flash kernels) | 'xla'.
     attention_backend: Optional[str] = None
     attention_tune_cache: Optional[str] = None
     # Softmax dtype of the 'xla' attention path; None = the compute dtype.

@@ -2,9 +2,12 @@
 
 One model on one device, f32 parameters with the forward and backward in
 the compute dtype (bf16 by default): each attention core runs its forward
-kernel and, in the backward, its backward kernel
-(:mod:`sav_tpu_torch.ops.fused_attention`, and for CaiT's talking-heads
-trunk :mod:`sav_tpu_torch.ops.talking_heads`). Stochastic depth draws its
+kernel and, in the backward, its backward kernels
+(:mod:`sav_tpu_torch.ops.fused_attention`, past the fused backward's band
+:mod:`sav_tpu_torch.ops.flash_attention`, and for CaiT's talking-heads
+trunk :mod:`sav_tpu_torch.ops.talking_heads`). A ViT built with
+``model_overrides={'remat': True}`` recomputes each encoder block in the
+backward pass. Stochastic depth draws its
 masks from a generator on the device seeded from ``config.seed`` and used by
 nothing else (``sav_tpu``'s ``'stochastic_depth'`` stream). The step is ``sav_tpu``'s
 ``_train_step_impl`` for ``grad_accum_steps == 1``: one-hot f32 labels
@@ -16,8 +19,10 @@ Metrics stay on the device as 0-d tensors; :meth:`Trainer.fit` brings a log
 window's metrics to the host in one copy. Without a card the trainer
 refuses to run unless the caller passes ``device="cpu"``.
 
-Not ported yet (ROADMAP queue A4/A6/A9/A10): checkpointing, remat,
-dropout, gradient accumulation, the async device feed,
+Not ported yet (ROADMAP queue A4/A6/A9/A10): checkpointing (and so
+``warm_start_from``; the position-table surgery itself is
+:mod:`sav_tpu_torch.models.surgery`), dropout, gradient accumulation, the
+async device feed,
 on-device mixing, meshes, evaluation inside ``fit`` and the telemetry.
 """
 

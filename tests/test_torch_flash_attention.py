@@ -1,0 +1,249 @@
+"""The port's flash attention (sav_tpu_torch.ops.flash_attention) against
+sav_tpu's, on the CPU.
+
+On CPU tensors the port's wrappers run their plain versions
+(``flash_attention_reference``, ``flash_bwd_dq_reference``,
+``flash_bwd_dkv_reference``), so these tests hold the kernels' arithmetic
+against sav_tpu's ``flash_attention`` (the Pallas kernels in interpret mode)
+from the same numpy inputs. The CUDA kernels themselves are checked against
+the same plain versions on the card by ``chip_smoke.py``.
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from sav_tpu.ops.flash_attention import _flash_forward
+from sav_tpu.ops.flash_attention import flash_attention as jax_flash_attention
+from sav_tpu_torch.ops import attention as port_attention
+from sav_tpu_torch.ops import flash_attention as port_flash
+
+torch.set_num_threads(2)
+
+# tests/test_flash_attention.py: f32 forward 2e-5 (:41), bf16 3e-2 (:131),
+# blocked-backward gradients 1e-4 / 5e-4 (:104), biased gradients
+# 5e-5 / 5e-4 (:73).
+F32_TOL = 2e-5
+BF16_TOL = 3e-2
+GRAD_ATOL, GRAD_RTOL = 1e-4, 5e-4
+BIAS_GRAD_ATOL = 5e-5
+
+
+def _qkv(b, lq, lk, h, d, seed=0):
+    rng = np.random.default_rng(seed)
+    return tuple(
+        rng.standard_normal(shape).astype(np.float32)
+        for shape in ((b, lq, h, d), (b, lk, h, d), (b, lk, h, d))
+    )
+
+
+def _port(arrays, dtype=torch.float32):
+    return [torch.from_numpy(a).to(dtype) for a in arrays]
+
+
+def _blocks(blk):
+    return {} if blk is None else {"block_q": blk, "block_kv": blk}
+
+
+@pytest.mark.parametrize(
+    "b,lq,lk,h,d,blk",
+    [
+        (1, 130, 130, 1, 64, None),  # three of the port's 64-row kv tiles
+        (1, 50, 50, 1, 32, None),  # ragged
+        (1, 1, 130, 1, 64, None),  # one query row (class attention)
+        (1, 130, 49, 1, 64, None),  # short kv
+        # 128-row blocks on the JAX side so that its cross-tile path runs too.
+        (1, 200, 136, 1, 40, 128),
+    ],
+)
+def test_plain_forward_matches_pallas_kernel_f32(b, lq, lk, h, d, blk):
+    q, k, v = _qkv(b, lq, lk, h, d)
+    ref = np.asarray(jax_flash_attention(*map(jnp.asarray, (q, k, v)), **_blocks(blk)))
+    out = port_flash.flash_attention(*_port((q, k, v)))
+    assert out.dtype == torch.float32 and out.shape == (b, lq, h, d)
+    np.testing.assert_allclose(out.numpy(), ref, atol=F32_TOL, rtol=F32_TOL)
+
+
+def test_plain_forward_matches_pallas_kernel_bf16():
+    q, k, v = _qkv(1, 130, 130, 1, 64, seed=1)
+    ref = jax_flash_attention(*(jnp.asarray(a, jnp.bfloat16) for a in (q, k, v)))
+    out = port_flash.flash_attention(*_port((q, k, v), torch.bfloat16))
+    assert out.dtype == torch.bfloat16
+    np.testing.assert_allclose(
+        out.float().numpy(), np.asarray(ref, np.float32), atol=BF16_TOL, rtol=BF16_TOL
+    )
+
+
+@pytest.mark.parametrize("b,lq,lk,h,d", [(1, 130, 130, 1, 64), (2, 50, 50, 2, 32)])
+def test_lse_matches_pallas_residual(b, lq, lk, h, d):
+    """The f32 lse ``[B, H, Lq]`` is lane 0 of the TPU's padded, lane-broadcast
+    ``[B·H, q_len_p, 128]`` residual."""
+    q, k, v = _qkv(b, lq, lk, h, d, seed=2)
+    _, ref = _flash_forward(
+        *map(jnp.asarray, (q, k, v)), None, d ** -0.5, 256, 256, None, with_lse=True
+    )
+    ref = np.asarray(ref)[:, :lq, 0].reshape(b, h, lq)
+    out, lse = port_flash.flash_attention(*_port((q, k, v)), with_lse=True)
+    assert lse.dtype == torch.float32 and lse.shape == (b, h, lq)
+    np.testing.assert_allclose(lse.numpy(), ref, atol=F32_TOL, rtol=F32_TOL)
+
+
+@pytest.mark.parametrize("bias_shape", [(2, 2, 50, 50), (1, 1, 50, 50)])
+def test_bias_patterns_match_pallas_kernel(bias_shape):
+    q, k, v = _qkv(2, 50, 50, 2, 32, seed=3)
+    bias = np.random.default_rng(4).standard_normal(bias_shape).astype(np.float32)
+    ref = np.asarray(jax_flash_attention(*map(jnp.asarray, (q, k, v, bias))))
+    out = port_flash.flash_attention(*_port((q, k, v, bias)))
+    np.testing.assert_allclose(out.numpy(), ref, atol=F32_TOL, rtol=F32_TOL)
+
+
+def _jax_grads(arrays, **kw):
+    def loss(*args):
+        return jnp.sum(jnp.square(jax_flash_attention(*args, **kw)))
+
+    return jax.grad(loss, argnums=tuple(range(len(arrays))))(*map(jnp.asarray, arrays))
+
+
+def _port_grads(arrays):
+    inputs = [t.requires_grad_() for t in _port(arrays)]
+    out = port_flash.flash_attention(*inputs)
+    torch.square(out).sum().backward()
+    return [t.grad for t in inputs]
+
+
+@pytest.mark.parametrize(
+    "b,lq,lk,h,d,blk",
+    [
+        (1, 50, 50, 1, 32, None),  # padded q rows and kv columns
+        (1, 1, 130, 1, 64, None),  # one query row
+        (1, 200, 136, 1, 40, 128),  # several q and kv tiles, odd head dim
+    ],
+)
+def test_blocked_grads_match_jax_grad_of_pallas_kernel(b, lq, lk, h, d, blk):
+    arrays = _qkv(b, lq, lk, h, d, seed=5)
+    ref = _jax_grads(arrays, **_blocks(blk))
+    port_flash.reset_launches()
+    got = _port_grads(arrays)
+    assert port_flash.LAUNCHES == port_flash.BWD_DQ_LAUNCHES == port_flash.BWD_DKV_LAUNCHES == 0
+    for name, a, r in zip(("dq", "dk", "dv"), got, ref):
+        np.testing.assert_allclose(a.numpy(), np.asarray(r), atol=GRAD_ATOL, rtol=GRAD_RTOL,
+                                   err_msg=name)
+
+
+def test_biased_grads_go_through_the_dense_recompute():
+    """With a bias the backward is the dense recompute, with dbias
+    un-broadcast to the bias's (1, H) shape."""
+    arrays = (*_qkv(2, 50, 50, 2, 32, seed=6),
+              np.random.default_rng(7).standard_normal((1, 2, 50, 50)).astype(np.float32))
+    ref = _jax_grads(arrays)
+    got = _port_grads(arrays)
+    assert got[3].shape == (1, 2, 50, 50)
+    for name, a, r in zip(("dq", "dk", "dv", "dbias"), got, ref):
+        np.testing.assert_allclose(a.numpy(), np.asarray(r), atol=BIAS_GRAD_ATOL,
+                                   rtol=GRAD_RTOL, err_msg=name)
+
+
+@pytest.mark.parametrize("b,lq,lk,h,d", [(2, 70, 130, 2, 16), (1, 1, 65, 1, 8)])
+def test_plain_backward_is_the_derivative_of_the_plain_forward(b, lq, lk, h, d):
+    q, k, v = (t.requires_grad_() for t in _port(_qkv(b, lq, lk, h, d, seed=8)))
+    g = torch.from_numpy(np.random.default_rng(9).standard_normal((b, lq, h, d)).astype(np.float32))
+    out, lse = port_flash.flash_attention_reference(q, k, v, with_lse=True)
+    want = torch.autograd.grad(out, (q, k, v), g)
+    got = port_flash.flash_attention_bwd_reference(q, k, v, out.detach(), lse.detach(), g)
+    for name, a, r in zip(("dq", "dk", "dv"), got, want):
+        torch.testing.assert_close(a, r, atol=F32_TOL, rtol=F32_TOL, msg=name)
+
+
+def test_forward_reference_rounds_like_online_softmax_step():
+    """bf16: the unnormalised p is cast to the value dtype before PV, tile by
+    tile, and the division by the f32 row sum comes last; so the result
+    depends on the kv tile, and one tile equals the fused kernel's order."""
+    from sav_tpu_torch.ops import fused_attention as port_fused
+
+    q, k, v = _port(_qkv(1, 8, 96, 1, 32, seed=10), torch.bfloat16)
+    one_tile = port_flash.flash_attention_reference(q, k, v, block_kv=96)
+    assert torch.equal(one_tile, port_fused.fused_attention_reference(q, k, v))
+    scale = 32 ** -0.5
+    s = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * scale
+    m0 = s[..., :64].amax(-1, keepdim=True)
+    m1 = torch.maximum(m0, s[..., 64:].amax(-1, keepdim=True))
+    p0, p1 = torch.exp(s[..., :64] - m0), torch.exp(s[..., 64:] - m1)
+    alpha = torch.exp(m0 - m1)
+    l = alpha * p0.sum(-1, keepdim=True) + p1.sum(-1, keepdim=True)
+
+    def pv(p, vv):
+        return torch.einsum("bhqk,bkhd->bhqd", p.bfloat16().float(), vv.float())
+
+    acc = pv(p0, v[:, :64]) * alpha + pv(p1, v[:, 64:])
+    want = (acc / l).permute(0, 2, 1, 3).bfloat16()
+    assert torch.equal(port_flash.flash_attention_reference(q, k, v), want)
+
+
+def test_bwd_reference_casts_like_the_tpu_kernels():
+    """bf16: ds is rounded to the k/q dtype before dq/dk and p to the dO
+    dtype before dv, all products summed in f32, the scale applied to the
+    f32 dq/dk products (``_bwd_dq_kernel``, ``_bwd_dkv_kernel``)."""
+    q, k, v = _port(_qkv(1, 8, 8, 1, 32, seed=11), torch.bfloat16)
+    out, lse = port_flash.flash_attention_reference(q, k, v, with_lse=True)
+    g = torch.from_numpy(np.random.default_rng(12).standard_normal(out.shape).astype(np.float32)).bfloat16()
+    dq, dk, dv = port_flash.flash_attention_bwd_reference(q, k, v, out, lse, g)
+    scale = 32 ** -0.5
+    s = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * scale
+    p = torch.exp(s - lse[..., None])
+    delta = (g.float() * out.float()).sum(-1).permute(0, 2, 1)[..., None]
+    ds = p * (torch.einsum("bqhd,bkhd->bhqk", g.float(), v.float()) - delta)
+    want_dv = torch.einsum("bhqk,bqhd->bkhd", p.bfloat16().float(), g.float()).bfloat16()
+    want_dq = (torch.einsum("bhqk,bkhd->bqhd", ds.bfloat16().float(), k.float()) * scale).bfloat16()
+    want_dk = (torch.einsum("bhqk,bqhd->bkhd", ds.bfloat16().float(), q.float()) * scale).bfloat16()
+    assert dq.dtype == dk.dtype == dv.dtype == torch.bfloat16
+    assert torch.equal(dv, want_dv) and torch.equal(dq, want_dq) and torch.equal(dk, want_dk)
+
+
+def test_wrappers_run_plain_versions_on_cpu_and_count_no_launch():
+    q, k, v = _port(_qkv(2, 70, 70, 2, 32, seed=13))
+    port_flash.reset_launches()
+    out, lse = port_flash.flash_attention(q, k, v, with_lse=True)
+    g = torch.ones_like(out)
+    delta = port_flash.bwd_delta(out, g)
+    dq = port_flash.flash_attention_bwd_dq(q, k, v, g, lse, delta, scale=32 ** -0.5)
+    dk, dv = port_flash.flash_attention_bwd_dkv(q, k, v, g, lse, delta, scale=32 ** -0.5)
+    assert port_flash.LAUNCHES == port_flash.BWD_DQ_LAUNCHES == port_flash.BWD_DKV_LAUNCHES == 0
+    for a, r in zip((dq, dk, dv), port_flash.flash_attention_bwd_reference(q, k, v, out, lse, g)):
+        assert torch.equal(a, r)
+
+
+def test_eligibility_and_shared_memory_rule():
+    assert all(port_flash.flash_eligible(d) for d in (8, 16, 32, 40, 48, 64, 128))
+    assert not port_flash.flash_eligible(60)  # not a multiple of 8
+    assert not port_flash.flash_eligible(256)  # over MAX_DIM
+    # 64-row f32 tiles at a row stride of D + 4, and 64 x 68 score tiles.
+    assert port_flash.flash_smem_bytes(64) == {"fwd": 69632, "bwd_dq": 87040, "bwd_dkv": 104960}
+    assert max(port_flash.flash_smem_bytes(128).values()) == 170496
+    q, k, v = _port(_qkv(1, 8, 8, 1, 60))
+    with pytest.raises(ValueError, match="multiple of 8"):
+        port_flash.flash_attention(q, k, v)
+    with pytest.raises(ValueError, match="forward-only"):
+        port_flash.flash_attention(*(t.requires_grad_() for t in _port(_qkv(1, 8, 8, 1, 32))),
+                                   with_lse=True)
+
+
+def test_dispatch_takes_flash_outside_the_fused_band():
+    """``pallas`` runs the flash path; ``auto`` keeps the fused kernel inside
+    its band and takes flash where a grad is needed past the fused
+    backward's band (kv > 264 at head dim 64), raising only for head dims
+    flash does not take."""
+    resolve = port_attention.resolve_attention_backend
+    assert resolve(577, 577, 64) == "fused"  # forward band holds ViT at 384
+    assert resolve(577, 577, 64, backward=True) == "pallas"
+    assert resolve(1, 577, 48, backward=True) == "pallas"  # CaiT class attention at 384
+    assert resolve(197, 197, 64, backward=True) == "fused"
+    with pytest.raises(NotImplementedError, match="multiples of 8"):
+        resolve(4096, 4096, 256)
+    q, k, v = _port(_qkv(1, 300, 300, 1, 64, seed=14))
+    out = port_attention.dot_product_attention(q, k, v, backend="pallas")
+    assert torch.equal(out, port_flash.flash_attention_reference(q, k, v))
+    q.requires_grad_()
+    out = port_attention.dot_product_attention(q, k, v)
+    assert out.grad_fn is not None and "FlashAttention" in type(out.grad_fn).__name__

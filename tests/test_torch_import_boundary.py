@@ -43,6 +43,8 @@ def test_importing_the_port_loads_no_jax():
     report = json.loads(proc.stdout.strip().splitlines()[-1])
     assert "sav_tpu_torch.serve.engine" in report["modules"]
     assert "sav_tpu_torch.ops.fused_attention" in report["modules"]
+    assert "sav_tpu_torch.ops.flash_attention" in report["modules"]
+    assert "sav_tpu_torch.models.surgery" in report["modules"]
     leaked = {m for m in report["loaded"] if m.split(".")[0] in FORBIDDEN}
     assert not leaked, f"the port pulled in {sorted(leaked)}"
 

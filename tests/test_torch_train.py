@@ -271,19 +271,21 @@ def test_hwcn_batches_are_transposed():
 # ------------------------------------------------------------------ slice
 
 
-def _four_steps_against_sav_tpu(model_name, overrides, params):
-    """4 f32 steps with backend 'fused' from one parameter tree and one batch
+def _four_steps_against_sav_tpu(model_name, overrides, params, backend="fused",
+                                model_overrides=None):
+    """4 f32 steps at ``backend`` from one parameter tree and one batch
     stream, on sav_tpu's Trainer (8-device CPU mesh, Pallas in interpret
-    mode) and the port's. Per-step loss, grad norm and lr, then every
-    parameter and the eval sums, agree within f32 tolerances (different
+    mode) and the port's, both models built with ``model_overrides``.
+    Per-step loss, grad norm and lr, then every parameter and the eval sums,
+    agree within f32 tolerances (different
     summation orders over 4 Adam steps; Adam divides by √v, which keeps
     relative errors relative)."""
     from sav_tpu.train.trainer import Trainer as JaxTrainer
 
     common = dict(
         model_name=model_name, num_classes=10, image_size=32,
-        compute_dtype="float32", attention_backend="fused",
-        global_batch_size=16, num_train_images=64, num_epochs=2,
+        compute_dtype="float32", attention_backend=backend,
+        model_overrides=model_overrides, global_batch_size=16, num_train_images=64, num_epochs=2,
         warmup_epochs=0, transpose_images=False, base_lr=0.05, seed=0,
     )
     batches = list(synthetic.synthetic_data_iterator(
@@ -291,7 +293,8 @@ def _four_steps_against_sav_tpu(model_name, overrides, params):
     ))
 
     jax_model = jax_create_model(
-        model_name, num_classes=10, dtype=jnp.float32, backend="fused", **overrides
+        model_name, num_classes=10, dtype=jnp.float32, backend=backend, **overrides,
+        **(model_overrides or {}),
     )
     jax_trainer = JaxTrainer(JaxTrainConfig(**common), model=jax_model)
     jstate = jax_trainer.init_state()
@@ -303,7 +306,8 @@ def _four_steps_against_sav_tpu(model_name, overrides, params):
         jax_metrics_per_step.append({k: float(v) for k, v in jax.device_get(m).items()})
     jax_eval = {k: float(v) for k, v in jax.device_get(jax_trainer.eval_step(jstate, batches[0])).items()}
 
-    model = create_model(model_name, num_classes=10, image_size=32, backend="fused", **overrides)
+    model = create_model(model_name, num_classes=10, image_size=32, backend=backend,
+                         **overrides, **(model_overrides or {}))
     model.load_state_dict(params_from_flax(params), strict=True)
     trainer = Trainer(TrainConfig(**common), model=model, device="cpu")
     state = trainer.init_state()
@@ -330,6 +334,14 @@ def test_four_train_steps_match_sav_tpu():
     """The ViT slice as a whole: 4 f32 steps of a 2-layer, width-64, 4-head
     ViT (see _four_steps_against_sav_tpu)."""
     _four_steps_against_sav_tpu("vit_ti_patch16", SMALL, _flax_params())
+
+
+def test_four_remat_flash_train_steps_match_sav_tpu():
+    """The ViT-B/16@384 fine-tune path at small size: the same 2-layer ViT at
+    backend 'pallas' (the flash kernels' plain versions here, the Pallas
+    flash kernels in interpret mode there) with remat on both sides."""
+    _four_steps_against_sav_tpu("vit_ti_patch16", SMALL, _flax_params(), backend="pallas",
+                                model_overrides={"remat": True})
 
 
 def test_four_cait_train_steps_match_sav_tpu():

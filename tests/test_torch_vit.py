@@ -68,6 +68,56 @@ def test_small_vit_logits_match_sav_tpu(backend):
     np.testing.assert_allclose(out, ref, atol=TOL, rtol=TOL)
 
 
+def _logits_and_grads(model, x, weights):
+    """Logits and every parameter gradient of ``sum(logits * weights)``."""
+    model.zero_grad()
+    logits = model(torch.from_numpy(x))
+    (logits * torch.from_numpy(weights)).sum().backward()
+    return logits.detach(), {n: p.grad.clone() for n, p in model.named_parameters()}
+
+
+def test_remat_vit_matches_sav_tpu_remat_vit():
+    """``remat=True``: the flax tree of sav_tpu's ``ViT(remat=True)``
+    converts unchanged (``nn.remat`` keeps ``block_i``), and the port's remat
+    ViT at ``backend='pallas'`` (the flash kernels' plain versions here)
+    agrees with it in the logits and every parameter gradient; the port's
+    remat gradients equal its no-remat ones (tests/test_models.py's remat
+    check, there at 1e-5). sav_tpu runs its dense path here: its Pallas flash
+    kernels under remat are held against the port's in test_torch_train's
+    4-step remat test."""
+    x = np.random.default_rng(5).standard_normal((2, 32, 32, 3)).astype(np.float32)
+    weights = np.random.default_rng(6).standard_normal((2, 10)).astype(np.float32)
+    jax_model = jax_create_model("vit_ti_patch16", num_classes=10, dtype=jnp.float32,
+                                 backend="xla", remat=True, **SMALL)
+    params = small_flax_params()
+    # The remat model's tree, by shape only (an eager init under nn.remat is slow).
+    remat_tree = jax.eval_shape(
+        lambda: jax_model.init({"params": jax.random.PRNGKey(0)}, jnp.zeros((1, 32, 32, 3)),
+                               is_training=False)
+    )["params"]
+    assert jax.tree.map(lambda a: a.shape, remat_tree) == jax.tree.map(np.shape, params)
+
+    def loss(p):
+        return jnp.sum(jax_model.apply({"params": p}, x, is_training=False) * weights)
+
+    ref_logits = np.asarray(
+        jax.jit(lambda p: jax_model.apply({"params": p}, x, is_training=False))(params)
+    )
+    ref_grads = params_from_flax(jax.tree.map(np.asarray, jax.jit(jax.grad(loss))(params)))
+
+    model = small_port_model(params, backend="pallas", remat=True)
+    assert model.encoder.remat
+    logits, grads = _logits_and_grads(model, x, weights)
+    np.testing.assert_allclose(logits.numpy(), ref_logits, atol=TOL, rtol=TOL)
+    assert set(grads) == set(ref_grads)
+    for name, grad in grads.items():
+        np.testing.assert_allclose(grad.numpy(), ref_grads[name].numpy(), atol=TOL, rtol=TOL,
+                                   err_msg=name)
+    _, plain_grads = _logits_and_grads(small_port_model(params, backend="pallas"), x, weights)
+    for name, grad in grads.items():
+        torch.testing.assert_close(grad, plain_grads[name], atol=1e-5, rtol=1e-5, msg=name)
+
+
 def test_deit_s_state_dict_matches_flax_tree_at_full_width():
     jax_model = jax_create_model("deit_s_patch16", num_classes=1000)
     shapes = jax.eval_shape(
@@ -144,7 +194,7 @@ def test_registry_names_and_unported_entries():
     "option,item",
     [
         ({"moe_num_experts": 8}, "A7.7"),
-        ({"remat": True}, "A4"),
+        ({"dropout_rate": 0.1}, "A4"),
         ({"quant": "int8"}, "A8"),
         ({"seq_parallel": "ring"}, "A9"),
         ({"pos_embed": "sincos"}, "A2"),
