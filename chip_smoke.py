@@ -10,8 +10,10 @@ Phases, each of which exits non-zero on failure:
 1. device: refuse to run without CUDA; print the card's name and power limit
    (nvidia-smi); turn TF32 off for every f32 comparison.
 2. build: compile every kernel in sav_tpu_torch/csrc with nvcc, one process
-   per source, all at once; check each kernel's shared-memory rules and the
-   talking-heads kernels' head counts against the Python eligibility rules.
+   per source, all at once; check each kernel's shared-memory rules (the
+   relative-position kernels' at BoTNet's grids and the band's edges) and
+   the talking-heads kernels' head counts against the Python eligibility
+   rules.
 3. kernels: each kernel against its plain PyTorch version on the card. The
    fused forward at the DeiT serve and train shapes, CaiT's class-attention
    shape and small, ragged, biased and strided shapes; the fused backward at
@@ -23,13 +25,17 @@ Phases, each of which exits non-zero on failure:
    the flash forward, dq and dk/dv kernels at the ViT-B/16@384 train shape
    (bf16, with the lse) and in f32, ragged, multi-tile at head dim 40, at
    head dim 128, at CaiT's class attention at 384², short-kv, biased
-   (forward) and on strided views. Each backward runs twice on the same
+   (forward) and on strided views; the relative-position forward, dq (with
+   d_rw and d_rh) and dk/dv kernels at BoTNet-T3's stage-4 train shapes
+   (L=196 and L=49, 4 heads of 128) in bf16 and f32, on grids of 7×9, 5×6
+   and 2×130 and on strided views. Each backward runs twice on the same
    inputs and must give the same bits.
 4. timing: each kernel, its plain version and, where one exists, one PyTorch
    library call (yardstick only) at the shapes the main paths give it,
    beside the card's bound; the talking-heads kernels also beside the port's
    dense talking-heads path; the flash forward also at DeiT's train shape,
-   beside #1.
+   beside #1; the relative-position kernels beside SDPA with the expanded
+   relative bias as its attn_mask.
 5. serve: ServeEngine serves deit_s_patch16, then cait_xxs_24 (bf16, random
    weights from a seed) to concurrent clients; every attention core must
    have gone through its forward kernel (the launches per batch are counted
@@ -52,9 +58,18 @@ Phases, each of which exits non-zero on failure:
    dq and 12 dk/dv, no fused launch; the dense reference runs with remat
    too. Then one step with remat and one without give the same loss, and
    their peak memories.
+8. BoTNet: botnet_t3 (full width and depth, 224²) is served in 5, after
+   CaiT (6 relative-position forward launches per batch, no other kernel),
+   and trained as in 6 at batch 256 after 7 (6 forward, 6 dq and 6 dk/dv
+   launches per step); its first step's running statistics are compared
+   with the dense path's too.
 
-Before each agreement check the head is drawn at std 0.02 and every
-LayerScale scale at 0.05-0.15 (CaiT's init of 1e-5 would hide a wrong trunk).
+Before each agreement check the head is drawn at std 0.02, every
+LayerScale scale at 0.05-0.15 (CaiT's init of 1e-5 would hide a wrong trunk),
+and for BoTNet every bn3 scale at 0.05-0.15 (its init of 0 would hide the
+whole trunk, the attention included) and every BatchNorm's running mean and
+variance taken from a train-mode forward of drawn images (away from their
+0/1 init, and the statistics the eval forward needs to keep logits O(1)).
 The line before the last is the ``{"kernels": [...]}`` record; the last line
 is ``{"ok": true, "device": {...}}``.
 """
@@ -97,6 +112,14 @@ VIT384_MODEL = "vit_b_patch16"
 VIT384_SHAPE = (128, 577, 577, 12, 64)
 VIT384_BATCH = 128
 CLASS384_SHAPE = (128, 1, 577, 4, 48)
+# BoTNet-T3 at 224²: stage 4's first block attends over 14×14 (L=196), the
+# other five over 7×7 (L=49), 4 heads of 128; (B, Hg, W, H, D) at the train
+# batch and at the top serve bucket.
+BOTNET_MODEL = "botnet_t3"
+# The outputs each relative-position kernel's record reports the error of.
+REL_ERR_KEYS = {"fwd": ("fwd", "lse"), "dq": ("dq", "d_rw", "d_rh"), "dkv": ("dk", "dv")}
+REL_TRAIN_SHAPES = {"L=196": (256, 14, 14, 4, 128), "L=49": (256, 7, 7, 4, 128)}
+REL_SERVE_SHAPES = {"L=196": (32, 14, 14, 4, 128), "L=49": (32, 7, 7, 4, 128)}
 SERVE_REQUESTS = 96
 CLIENTS = 4
 TRAIN_BATCH = 256
@@ -111,6 +134,13 @@ TOL = {torch.bfloat16: 2e-2, torch.float32: 2e-5}
 # and dv 9.8e-4 at multi-tile-d40), so a cast point the kernel moved away
 # from its plain version's shows as a failure, not a pass within TOL.
 FLASH_BF16_TOL = {"fwd": 4e-3, "dq": 4e-3, "dk": 2e-3, "dv": 2e-3}
+# The relative-position kernels in bf16: twice the largest error each output
+# showed over every bf16 case of phase_rel_kernels on the H100 (fwd 7.8e-3
+# and dv 1.56e-2 at the L=49 train shape: one bf16 ulp of outputs of 2-4;
+# dq and dk 3.9e-3), absolute; d_rw and d_rh are sums of the f32 ds (6.6e-6,
+# atol = rtol).
+REL_BF16_TOL = {"fwd": 1.6e-2, "dq": 8e-3, "dk": 8e-3, "dv": 3.2e-2, "d_rw": 1.4e-5,
+                "d_rh": 1.4e-5}
 LSE_TOL = 2e-5
 SERVE_TOL = 3e-2
 # First train step, kernels vs dense attention with f32 softmax, both bf16
@@ -120,8 +150,16 @@ TRAIN_REL_TOL = {"loss": 1e-2, "grad_norm": 5e-2}
 # One step with remat and one without, same weights and batch: remat only
 # changes what the backward recomputes, and the kernels are deterministic.
 REMAT_REL_TOL = 1e-6
-# LayerScale scales drawn for the agreement checks.
+# BoTNet's running statistics after the first step, kernels vs dense
+# attention, relative to each tensor's largest entry: only the stage-4
+# BatchNorms after an attention core see different (bf16-rounded) inputs,
+# and the step moves each statistic by a tenth of its batch value.
+BATCH_STATS_REL_TOL = 1e-2
+# LayerScale scales drawn for the agreement checks; and for BoTNet, the
+# zero-init bn3 scales and the BatchNorm running means and variances.
 LAYERSCALE_DRAW = (0.05, 0.15)
+BN3_SCALE_DRAW = (0.05, 0.15)
+CALIBRATION_IMAGES = 8
 
 
 def log(msg: str) -> None:
@@ -220,6 +258,24 @@ def phase_build() -> None:
                 raise AssertionError(f"flash {what} shared-memory rule differs at d={dim}: "
                                      f"kernel {c_value}, flash_smem_bytes {want[what]}, "
                                      f"limit {fa.SMEM_LIMIT}")
+    rel, rel_bwd = flash._rel_lib(), flash._rel_bwd_lib()
+    # BoTNet's grids, the JAX tests' grids and the band's edges at head dims
+    # 128 and 64 (W + Hg = 156 and 284).
+    for dim, height, width in ((128, 14, 14), (128, 7, 7), (16, 7, 9), (8, 5, 6), (8, 2, 130),
+                               (128, 78, 78), (128, 78, 79), (64, 142, 142), (64, 142, 143)):
+        want = flash.rel_smem_bytes(dim, height, width)
+        fits = max(want.values()) <= fa.SMEM_LIMIT
+        for what, c_value in (
+            ("fwd", rel.sav_rel_attention_smem_bytes(dim, height + width)),
+            ("bwd_dq", rel_bwd.sav_rel_attention_bwd_dq_smem_bytes(dim, height + width)),
+            ("bwd_dkv", rel_bwd.sav_rel_attention_bwd_dkv_smem_bytes(dim, height + width)),
+        ):
+            if c_value != want[what] or flash.rel_eligible(dim, height, width) != fits:
+                raise AssertionError(f"relative-position {what} shared-memory rule differs at "
+                                     f"d={dim} grid {height}x{width}: kernel {c_value}, "
+                                     f"rel_smem_bytes {want[what]}, limit {fa.SMEM_LIMIT}")
+    if not all(flash.rel_eligible(128, s, s) for s in (14, 7)):
+        raise AssertionError("BoTNet-T3's stage-4 grids are outside the relative-position band")
     for name, heads in (("CaiT-XXS", 4), ("CaiT-XS", 6), ("CaiT-S", 8)):
         for itemsize in (2, 4):
             if not (th.fused_eligible(heads, 196, 48, itemsize=itemsize)
@@ -506,6 +562,84 @@ def phase_flash_kernels(device="cuda") -> dict:
     return {"fwd": train["fwd"], "dq": train["dq"], "dkv": max(train["dk"], train["dv"])}
 
 
+def _rel_inputs(shape, dtype, seed, device, *, packed=False):
+    """q, k, v, f32 compact logits rw_abs [B, H, L, W] and rh_abs
+    [B, H, L, Hg] (std 1, the scale of q·rel_emb at init) and dO for a
+    ``(B, Hg, W, H, D)`` grid. ``packed``: q/k/v strided views of one
+    [B, L, 3, H, D] tensor and a dO with a row stride of 2·H·D."""
+    b, hg, w, h, d = shape
+    length = hg * w
+    gen = torch.Generator(device=device).manual_seed(seed)
+
+    def randn(*s):
+        return torch.randn(s, generator=gen, device=device)
+
+    if packed:
+        q, k, v = randn(b, length, 3, h, d).to(dtype).unbind(2)
+    else:
+        q, k, v = (randn(b, length, h, d).to(dtype) for _ in range(3))
+    rw, rh = randn(b, h, length, w), randn(b, h, length, hg)
+    g = randn(b, length, h, 2 * d if packed else d).to(dtype)[..., :d]
+    return q, k, v, rw, rh, g
+
+
+def check_rel_kernels(name, shape, dtype, device, *, packed=False) -> dict:
+    """Kernels #6-#8 against their plain versions on the same inputs: the
+    forward's output and lse; from the kernel's output and lse, dq, d_rw,
+    d_rh, dk and dv, each backward run twice on the same inputs, which must
+    give the same bits (no atomics). ``shape`` is ``(B, Hg, W, H, D)``;
+    ``packed``: q/k/v strided views of one [B, L, 3, H, D] tensor and a
+    strided dO."""
+    from sav_tpu_torch.ops import flash_attention as flash
+
+    q, k, v, rw, rh, g = _rel_inputs(shape, dtype, 61, device, packed=packed)
+    scale = shape[-1] ** -0.5
+    if dtype == torch.bfloat16:
+        tols, rtol = REL_BF16_TOL, 0.0
+    else:
+        tols, rtol = dict.fromkeys(REL_BF16_TOL, TOL[dtype]), None
+    with torch.no_grad():
+        out, lse = flash.rel_attention(q, k, v, rw, rh, scale=scale, with_lse=True)
+        ref, ref_lse = flash.rel_attention_reference(q, k, v, rw, rh, scale=scale, with_lse=True)
+        delta = flash.bwd_delta(out, g)
+        operands = (q, k, v, rw, rh, g, lse, delta)
+        runs = [(*flash.rel_attention_bwd_dq(*operands, scale=scale),
+                 *flash.rel_attention_bwd_dkv(*operands, scale=scale)) for _ in range(2)]
+        want = (*flash.rel_bwd_dq_reference(*operands, scale=scale),
+                *flash.rel_bwd_dkv_reference(*operands, scale=scale))
+    names = ("dq", "d_rw", "d_rh", "dk", "dv")
+    errs = {"fwd": _within(out, ref, tols["fwd"], rtol), "lse": _within(lse, ref_lse, LSE_TOL)}
+    errs.update({n: _within(a, r, tols[n], rtol if n in ("dq", "dk", "dv") else None)
+                 for n, a, r in zip(names, runs[0], want)})
+    scales = {"fwd": ref.float().abs().max().item()}
+    scales.update({n: r.float().abs().max().item() for n, r in zip(names, want)})
+    if not all(torch.equal(a, b) for a, b in zip(*runs)):
+        raise AssertionError(f"relative-position backward {name}: two runs on the same inputs differ")
+    log(f"rel kernels {name} {shape} {str(dtype)[6:]}: max abs err "
+        + ", ".join(f"{n} {e:.3e}" for n, e in errs.items())
+        + f" (tol {json.dumps(tols)}{'' if rtol is None else ' absolute, d_rw/d_rh relative too'},"
+        f" lse {LSE_TOL}); largest |plain| "
+        + ", ".join(f"{n} {x:.3f}" for n, x in scales.items()) + "; backward deterministic")
+    return errs
+
+
+def phase_rel_kernels(device="cuda") -> dict:
+    """All relative-position cases; returns the max abs errors at the two
+    BoTNet-T3 stage-4 train shapes in bf16."""
+    bf16, f32 = torch.bfloat16, torch.float32
+    errs = {}
+    for key, shape in REL_TRAIN_SHAPES.items():
+        errs[key] = check_rel_kernels(f"botnet-t3 {key} train", shape, bf16, device)
+        check_rel_kernels(f"botnet-t3 {key} train", shape, f32, device)
+    for dtype in (f32, bf16):
+        check_rel_kernels("grid-7x9", (2, 7, 9, 3, 16), dtype, device)
+        check_rel_kernels("grid-5x6-d8", (2, 5, 6, 2, 8), dtype, device)
+        check_rel_kernels("grid-2x130", (1, 2, 130, 2, 8), dtype, device)
+    check_rel_kernels("grid-14x14-d64 strided", (8, 14, 14, 4, 64), bf16, device, packed=True)
+    check_rel_kernels("botnet-t3 L=196 strided", (32, 14, 14, 4, 128), bf16, device, packed=True)
+    return errs
+
+
 def _median_ms(fn, iters=30, warmup=5) -> float:
     """Median device time of ``fn`` over ``iters`` launches, each after an
     L2 flush (64 MB > the 50 MB L2) and a device-side spin that keeps the
@@ -738,6 +872,77 @@ def time_flash(shape, *, backward=True) -> dict:
     return times
 
 
+def time_rel(shape, *, backward=True) -> dict:
+    """#6 (with lse) and, with ``backward``, #7 and #8 in bf16, each beside
+    its plain version and a yardstick: scaled_dot_product_attention with the
+    relative bias expanded to [B, H, L, L] (bf16) as its float attn_mask,
+    its forward for #6 and its backward (dq, dk and dv in one call, through
+    torch.autograd.grad; the bias gradient is not asked for) for #7 and #8.
+    The yardstick reads the expanded bias; building it is not timed."""
+    import torch.nn.functional as F
+
+    from sav_tpu_torch.ops import flash_attention as flash
+
+    dtype = torch.bfloat16
+    b, hg, w, h, d = shape
+    length = hg * w
+    scale = d ** -0.5
+    q, k, v, rw, rh, g = _rel_inputs(shape, dtype, 71, "cuda")
+    mask = flash.expand_relative_bias(rw, rh, hg, w).to(dtype)
+    qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_() for t in (q, k, v))
+    with torch.no_grad():
+        out, lse = flash.rel_attention(q, k, v, rw, rh, scale=scale, with_lse=True)
+        delta = flash.bwd_delta(out, g)
+        operands = (q, k, v, rw, rh, g, lse, delta)
+        times = {"fwd": {
+            "ms": _median_ms(lambda: flash.rel_attention(q, k, v, rw, rh, scale=scale,
+                                                         with_lse=True)),
+            "plain_ms": _median_ms(lambda: flash.rel_attention_reference(
+                q, k, v, rw, rh, scale=scale, with_lse=True)),
+            "library_ms": _median_ms(lambda: F.scaled_dot_product_attention(
+                qt, kt, vt, attn_mask=mask, scale=scale)),
+        }}
+        if backward:
+            times["dq"] = {
+                "ms": _median_ms(lambda: flash.rel_attention_bwd_dq(*operands, scale=scale)),
+                "plain_ms": _median_ms(lambda: flash.rel_bwd_dq_reference(*operands, scale=scale)),
+            }
+            times["dkv"] = {
+                "ms": _median_ms(lambda: flash.rel_attention_bwd_dkv(*operands, scale=scale)),
+                "plain_ms": _median_ms(lambda: flash.rel_bwd_dkv_reference(*operands, scale=scale)),
+            }
+    if backward:
+        ot = F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask, scale=scale)
+        gt = g.transpose(1, 2)
+        sdpa_bwd = _median_ms(lambda: torch.autograd.grad(ot, (qt, kt, vt), gt, retain_graph=True))
+        times["dq"]["library_ms"] = times["dkv"]["library_ms"] = sdpa_bwd
+        del ot
+    # Each input read once, each output written once: q/k/v/o/dO/dq/dk/dv
+    # tensors, the f32 compact logits (and their gradients), f32 lse and
+    # delta rows. bf16 products, each 2·B·H·L²·D: forward QKᵀ, PV; dq QKᵀ,
+    # dO·Vᵀ, dS·K; dk/dv those two and Pᵀ·dO, dSᵀ·Q. f32: the two bias adds
+    # per score, and in dq the two row sums of each ds.
+    tensor = q.numel() * q.element_size()
+    compact = (rw.numel() + rh.numel()) * 4
+    rows = b * h * length * 4
+    product = 2 * b * h * length * length * d
+    scores = b * h * length * length
+    work = {"fwd": (4 * tensor + compact + rows, 2 * product, 2 * scores),
+            "dq": (5 * tensor + 2 * compact + 2 * rows, 3 * product, 4 * scores),
+            "dkv": (6 * tensor + compact + 2 * rows, 4 * product, 2 * scores)}
+    for name, entry in times.items():
+        nbytes, flops, f32_ops = work[name]
+        entry.update(_bound(nbytes, {dtype: flops, torch.float32: f32_ops}))
+        log(
+            f"timing rel {name} {shape} bf16, median of 30, cold L2: kernel {entry['ms']:.4f} ms, "
+            f"plain {entry['plain_ms']:.4f} ms, scaled_dot_product_attention with the expanded "
+            f"bias {'backward ' if name != 'fwd' else ''}{entry['library_ms']:.4f} ms; bound "
+            f"{entry['bound_ms']:.4f} ms by {entry['bound_by']} ({nbytes / 1e6:.1f} MB, "
+            f"{flops / 1e9:.2f} GFLOP bf16 + {f32_ops / 1e9:.3f} GFLOP f32)"
+        )
+    return times
+
+
 def phase_timing() -> dict:
     return {
         "fwd_serve": time_fwd(SERVE_SHAPE, with_lse=False),
@@ -751,6 +956,9 @@ def phase_timing() -> dict:
         "th_bwd_train": time_th_bwd(TH_TRAIN_SHAPE),
         "flash_vit384": time_flash(VIT384_SHAPE),
         "flash_fwd_deit_train": time_flash(TRAIN_SHAPE, backward=False)["fwd"],
+        **{f"rel {key}": time_rel(shape) for key, shape in REL_TRAIN_SHAPES.items()},
+        **{f"rel {key} serve": time_rel(shape, backward=False)["fwd"]
+           for key, shape in REL_SERVE_SHAPES.items()},
     }
 
 
@@ -781,33 +989,35 @@ def _serve(engine, images, clients) -> list:
 
 # Launch counters, as _launches() names them.
 COUNTERS = ("fused", "fused_bwd", "talking_heads", "talking_heads_bwd",
-            "flash", "flash_dq", "flash_dkv")
+            "flash", "flash_dq", "flash_dkv", "rel", "rel_dq", "rel_dkv")
 
 
 # The counters a plain (not talking-heads) attention core adds to in the
 # forward and in the backward, by the kernel family it takes.
-FAMILIES = {"fused": ("fused", ("fused_bwd",)), "flash": ("flash", ("flash_dq", "flash_dkv"))}
+FAMILIES = {"fused": ("fused", ("fused_bwd",)), "flash": ("flash", ("flash_dq", "flash_dkv")),
+            "rel": ("rel", ("rel_dq", "rel_dkv"))}
 
 
 def attention_launches(model, *, train: bool, family: str) -> dict:
     """Kernel launches, by counter, that one forward (``train=False``) or one
     train step (``train=True``) of ``model`` in bf16 makes: one forward and,
-    in training, one backward per attention module. Talking-heads cores take
-    the talking-heads kernels; every other core takes ``family``, which each
-    path states (DeiT and CaiT at 224² the fused kernels, ViT-B/16@384 in
-    training the flash ones) rather than asks of the port's dispatch rule,
-    so a change of that rule that moves a path to other kernels fails the
-    run. With remat each encoder block's forward runs again in the backward
-    pass."""
-    from sav_tpu_torch.models.layers import AttentionBlock
+    in training, one backward per attention module (``AttentionBlock`` or
+    BoTNet's ``BoTMHSA``). Talking-heads cores take the talking-heads
+    kernels; every other core takes ``family``, which each path states (DeiT
+    and CaiT at 224² the fused kernels, ViT-B/16@384 in training the flash
+    ones, BoTNet the relative-position ones) rather than asks of the port's
+    dispatch rule, so a change of that rule that moves a path to other
+    kernels fails the run. With remat each encoder block's forward runs
+    again in the backward pass."""
+    from sav_tpu_torch.models.layers import AttentionBlock, BoTMHSA
 
     counts = dict.fromkeys(COUNTERS, 0)
     encoder = getattr(model, "encoder", None)
     forwards = 2 if train and encoder is not None and encoder.remat else 1
     for m in model.modules():
-        if not isinstance(m, AttentionBlock):
+        if not isinstance(m, (AttentionBlock, BoTMHSA)):
             continue
-        if m.talking_heads:
+        if getattr(m, "talking_heads", False):
             fwd, bwd = "talking_heads", ("talking_heads_bwd",)
         else:
             fwd, bwd = FAMILIES[family]
@@ -835,7 +1045,8 @@ def _launches() -> dict:
     return {"fused": fa.LAUNCHES, "fused_bwd": fa.BWD_LAUNCHES,
             "talking_heads": th.LAUNCHES, "talking_heads_bwd": th.BWD_LAUNCHES,
             "flash": flash.LAUNCHES, "flash_dq": flash.BWD_DQ_LAUNCHES,
-            "flash_dkv": flash.BWD_DKV_LAUNCHES}
+            "flash_dkv": flash.BWD_DKV_LAUNCHES, "rel": flash.REL_LAUNCHES,
+            "rel_dq": flash.REL_BWD_DQ_LAUNCHES, "rel_dkv": flash.REL_BWD_DKV_LAUNCHES}
 
 
 def _times(per: dict, n: int) -> dict:
@@ -843,23 +1054,59 @@ def _times(per: dict, n: int) -> dict:
 
 
 def _draw_for_agreement(model) -> None:
-    """The head at std 0.02 (DeiT's init for linear layers) and every
-    LayerScale scale in LAYERSCALE_DRAW, from one generator: a zero head
-    makes every logit 0, and CaiT's LayerScale init (1e-5) scales every
-    residual branch to almost nothing, so either would make an agreement
-    check vacuous."""
-    from sav_tpu_torch.models.layers import LayerScaleBlock
+    """The head at std 0.02 (DeiT's init for linear layers), every
+    LayerScale scale in LAYERSCALE_DRAW and every zero-init bn3 scale in
+    BN3_SCALE_DRAW, from one generator; then, for a model with BatchNorm,
+    running statistics taken from one train-mode forward of CALIBRATION_IMAGES
+    drawn uint8 images, normalised as the engine normalises its requests
+    (momentum 0 for that pass). A zero head makes every logit
+    0, CaiT's LayerScale init (1e-5) and BoTNet's zero bn3 scales scale every
+    residual branch to (almost) nothing, and running statistics at their
+    0/1 init would let a serving path that skipped them pass, so each would
+    make an agreement check vacuous. Drawn statistics would not do: the eval
+    forward then never renormalises, and swish shrinks the residual stream
+    block by block to logits of ~1e-2; nor would statistics of images unlike
+    the served ones, which blow the logits up to ~40."""
+    from sav_tpu_torch.models.layers import BatchNorm, LayerScaleBlock
 
     gen = torch.Generator().manual_seed(1)
-    torch.nn.init.normal_(model.head.weight, std=0.02, generator=gen)
-    for module in model.modules():
-        if isinstance(module, LayerScaleBlock):
-            torch.nn.init.uniform_(module.scale, *LAYERSCALE_DRAW, generator=gen)
+    norms = []
+    with torch.no_grad():
+        torch.nn.init.normal_(model.head.weight, std=0.02, generator=gen)
+        for module in model.modules():
+            if isinstance(module, LayerScaleBlock):
+                torch.nn.init.uniform_(module.scale, *LAYERSCALE_DRAW, generator=gen)
+            elif isinstance(module, BatchNorm):
+                norms.append(module)
+                if module.zero_scale:
+                    torch.nn.init.uniform_(module.weight, *BN3_SCALE_DRAW, generator=gen)
+        if norms:
+            from sav_tpu_torch.ops.preprocess import normalize_images
+
+            size = model.image_size
+            images = normalize_images(torch.randint(
+                0, 256, (CALIBRATION_IMAGES, size, size, 3), generator=gen, dtype=torch.uint8),
+                torch.float32)
+            training, momentum = model.training, [bn.momentum for bn in norms]
+            for bn in norms:
+                bn.momentum = 0.0
+            model.train()(images)
+            for bn, m in zip(norms, momentum):
+                bn.momentum = m
+            model.train(training)
+            means = torch.cat([bn.running_mean for bn in norms])
+            variances = torch.cat([bn.running_var for bn in norms])
+            log(f"running statistics of {len(norms)} BatchNorms from {CALIBRATION_IMAGES} "
+                f"drawn images: means {means.min().item():.3f}..{means.max().item():.3f}, "
+                f"variances {variances.min().item():.4f}..{variances.max().item():.3f}")
 
 
 def phase_serve(device="cuda", model_name="deit_s_patch16", requests=SERVE_REQUESTS,
-                max_batch=32, overrides=None, image_size=224) -> dict:
-    """Serve ``requests`` seeded images; returns the kernels' launches."""
+                max_batch=32, overrides=None, image_size=224, family="fused") -> dict:
+    """Serve ``requests`` seeded images; returns the kernels' launches.
+    ``family``: the kernels this path's plain attention cores take (at
+    224² DeiT's and CaiT's class attention the fused ones, BoTNet the
+    relative-position ones)."""
     from sav_tpu_torch import ServeConfig, ServeEngine, create_model
 
     overrides = overrides or {}
@@ -869,8 +1116,7 @@ def phase_serve(device="cuda", model_name="deit_s_patch16", requests=SERVE_REQUE
         model_name, image_size=image_size, backend="xla", logits_dtype=torch.float32, **overrides
     )
     dense.load_state_dict(model.state_dict())
-    # Served at 224², every plain attention core is in #1's forward band.
-    per_batch = attention_launches(model, train=False, family="fused")
+    per_batch = attention_launches(model, train=False, family=family)
 
     def config(**kw):
         # A generous deadline: admission must not shed in a smoke run.
@@ -976,22 +1222,31 @@ def phase_train(device="cuda", model_name="deit_s_patch16", batch_size=TRAIN_BAT
         model=dense, device=device,
     )
     _reset_launches()
-    _, ref_metrics = ref_trainer.train_step(ref_trainer.init_state(), batches[0])
+    ref_state, ref_metrics = ref_trainer.train_step(ref_trainer.init_state(), batches[0])
     ref = {k: float(v) for k, v in ref_metrics.items()}
+    ref_stats = {k: v.clone() for k, v in ref_state.batch_stats.items()}
     if any(_launches().values()):
         raise AssertionError("the dense reference trainer launched a kernel")
-    del ref_trainer, dense, ref_metrics
+    del ref_trainer, ref_state, dense, ref_metrics
     torch.cuda.empty_cache()
 
     trainer = Trainer(TrainConfig(**common), model=model, device=device)
     state = trainer.init_state()
+    first_stats = {}
+
+    def feed():
+        # fit asks for batch 2 after it has launched step 1, and the copies
+        # below are ordered after step 1 on the stream: they are the
+        # running statistics after the first step.
+        for i, batch in enumerate(batches * (steps // len(batches))):
+            if i == 1:
+                first_stats.update({k: v.clone() for k, v in state.batch_stats.items()})
+            yield batch
+
     torch.cuda.reset_peak_memory_stats()
     windows = []
     _reset_launches()
-    state, history = trainer.fit(
-        iter(batches * (steps // len(batches))), num_steps=steps, state=state,
-        log_fn=windows.append,
-    )
+    state, history = trainer.fit(feed(), num_steps=steps, state=state, log_fn=windows.append)
     launches = _launches()
     peak_gb = torch.cuda.max_memory_allocated() / 2**30
     for record in history:
@@ -1016,6 +1271,15 @@ def phase_train(device="cuda", model_name="deit_s_patch16", batch_size=TRAIN_BAT
             f"relative difference {rel:.3e} (tol {tol})")
         if rel > tol:
             raise AssertionError(f"train step 1 {key} disagrees with the dense path")
+    if ref_stats:
+        # Each running statistic after step 1, relative to its largest entry.
+        worst = max(((first_stats[k] - v).abs().max().item() / v.abs().max().item(), k)
+                    for k, v in ref_stats.items())
+        log(f"train step 1 {model_name} running statistics ({len(ref_stats)} tensors): largest "
+            f"difference from the dense path {worst[0]:.3e} of the tensor's largest entry, at "
+            f"{worst[1]} (tol {BATCH_STATS_REL_TOL})")
+        if worst[0] > BATCH_STATS_REL_TOL:
+            raise AssertionError("train step 1 running statistics disagree with the dense path")
     steady = windows[-1]
     profile = profile_step(trainer, state, batches[0])
     log(
@@ -1122,8 +1386,14 @@ KERNEL_GROUPS = (
     ("attention forward (fused_attention.cu)", ("fused_attention_fwd_kernel",)),
     ("talking-heads backward (talking_heads_bwd.cu)", ("talking_heads_bwd_kernel",)),
     ("talking-heads forward (talking_heads.cu)", ("talking_heads_fwd_kernel",)),
+    ("rel backward dq (rel_attention_bwd.cu)", ("rel_attention_bwd_dq_kernel",)),
+    ("rel backward dk/dv (rel_attention_bwd.cu)", ("rel_attention_bwd_dkv_kernel",)),
+    ("rel forward (rel_attention.cu)", ("rel_attention_fwd_kernel",)),
+    ("batch norm", ("batch_norm", "batchnorm", "bn_fw", "bn_bw")),
+    # Before matmul: cuDNN's convolution kernels are implicit GEMMs, named
+    # like cuBLAS's (xmma, cutlass) with fprop/dgrad/wgrad in the name.
+    ("convolution (cuDNN)", ("conv", "cudnn", "implicit", "fprop", "wgrad", "dgrad")),
     ("matmul (cuBLAS)", ("gemm", "xmma", "nvjet", "cutlass", "splitk", "Kernel2")),
-    ("convolution (cuDNN)", ("conv", "cudnn", "implicit", "wgrad", "dgrad")),
     ("optimizer (multi-tensor)", ("multi_tensor", "foreach")),
     ("layer norm", ("layer_norm", "LayerNorm")),
     ("reductions", ("reduce",)),
@@ -1183,8 +1453,10 @@ def main() -> None:
     bwd_err = phase_bwd_kernels()
     th_err = phase_th_kernels()
     flash_err = phase_flash_kernels()
+    rel_err = phase_rel_kernels()
     times = phase_timing()
-    serve = {"deit": phase_serve(), "cait": phase_serve(model_name="cait_xxs_24")}
+    serve = {"deit": phase_serve(), "cait": phase_serve(model_name="cait_xxs_24"),
+             "botnet": phase_serve(model_name=BOTNET_MODEL, family="rel")}
     train = {"deit": phase_train(), "cait": phase_train(model_name="cait_xxs_24")}
     adapted = phase_surgery()
     train["vit384"] = phase_train(model_name=VIT384_MODEL, batch_size=VIT384_BATCH,
@@ -1192,12 +1464,14 @@ def main() -> None:
                                   state_dict=adapted, family="flash")
     remat = phase_remat_trade(adapted, train["vit384"]["first_loss"])
     del adapted
+    train["botnet"] = phase_train(model_name=BOTNET_MODEL, family="rel")
 
     def by_path(kind):
         return {
             "serve": serve["deit"][kind], "train": train["deit"]["launches"][kind],
             "serve_cait": serve["cait"][kind], "train_cait": train["cait"]["launches"][kind],
             "train_vit384": train["vit384"]["launches"][kind],
+            "serve_botnet": serve["botnet"][kind], "train_botnet": train["botnet"]["launches"][kind],
         }
 
     def total(kind):
@@ -1304,6 +1578,37 @@ def main() -> None:
         "max_abs_err": flash_err["dkv"],
         **_timed(flash_times["dkv"]),
     }
+    def rel_timed(kind):
+        return {key: {"shape": list(shape), "max_abs_err": max(
+                    v for n, v in rel_err[key].items() if n in REL_ERR_KEYS[kind]),
+                      **_timed(times[f"rel {key}"][kind])}
+                for key, shape in REL_TRAIN_SHAPES.items()}
+
+    rel_common = {"route": "cuda", "checked": True}
+    rel_records = []
+    for kind, name, source, line, tpu_kernel, counter in (
+        ("fwd", "rel_attention_fwd", "rel_attention.cu", 663, "_rel_kernel", "rel"),
+        ("dq", "rel_attention_bwd_dq", "rel_attention_bwd.cu", 868, "_rel_bwd_dq_kernel", "rel_dq"),
+        ("dkv", "rel_attention_bwd_dkv", "rel_attention_bwd.cu", 913, "_rel_bwd_dkv_kernel",
+         "rel_dkv"),
+    ):
+        at = rel_timed(kind)
+        main_shape = at.pop("L=196")
+        record = {
+            "name": name, **rel_common,
+            "source": f"sav_tpu_torch/csrc/{source}",
+            "replaces": f"sav_tpu/ops/flash_attention.py:{line}",
+            "tpu_kernel": tpu_kernel,
+            "launches": total(counter),
+            "launches_by_path": by_path(counter),
+            **main_shape,
+            "at_L49": at["L=49"],
+        }
+        if kind == "fwd":
+            record["at_serve_shapes"] = {
+                key: {"shape": list(shape), **_timed(times[f"rel {key} serve"])}
+                for key, shape in REL_SERVE_SHAPES.items()}
+        rel_records.append(record)
     steps = {name: {"step_ms": round(r["step_ms"], 3), "images_per_sec": round(r["images_per_sec"], 1),
                     "peak_gb": round(r["peak_gb"], 2),
                     "device_idle_pct": round(100 * (1 - r["profile"]["busy_ms"] / r["profile"]["wall_ms"]), 2)}
@@ -1311,7 +1616,8 @@ def main() -> None:
     steps["vit384"].update({k: round(v, 2) for k, v in remat.items()})
     log(f"train summary: {json.dumps(steps)}")
     log(f"card: {smi}")
-    log(json.dumps({"kernels": [fwd, bwd, th_fwd, th_bwd, flash_fwd, flash_dq, flash_dkv]}))
+    log(json.dumps({"kernels": [fwd, bwd, th_fwd, th_bwd, flash_fwd, flash_dq, flash_dkv,
+                                *rel_records]}))
     log(json.dumps({
         "ok": True,
         "device": {

@@ -1,5 +1,6 @@
 // Tile pieces shared by the flash-attention kernels (flash_attention.cu,
-// flash_attention_bwd.cu).
+// flash_attention_bwd.cu) and the relative-position kernels built on them
+// (rel_attention.cu, rel_attention_bwd.cu).
 //
 // A block of kThreads = 256 threads works on 64 x 64 tiles as a 16 x 16 grid
 // of threads, thread (ty, tx) = (tid / 16, tid % 16), each owning a 4 x 4
@@ -37,6 +38,20 @@ __host__ __device__ inline size_t tile_bytes(int d) {
 }
 __host__ __device__ inline size_t score_bytes() {
   return (size_t)kTile * kLdS * sizeof(float);
+}
+
+// f32 rows of the relative-position kernels' compact logits for one q tile:
+// 64 * rel floats, rel = W + Hg (rel_attention.cu, rel_attention_bwd.cu).
+__host__ __device__ inline size_t rel_rows_bytes(int rel) {
+  return (size_t)kTile * rel * sizeof(float);
+}
+
+// `n` consecutive floats from global memory into shared memory, zero past
+// `valid`.
+__device__ __forceinline__ void load_rows_f32(float* dst, const float* src,
+                                              int n, int valid) {
+  for (int i = threadIdx.x; i < n; i += kThreads)
+    dst[i] = i < valid ? src[i] : 0.f;
 }
 
 // `nrows` rows of one head ([L, D] strided, unit stride on D, 16-byte

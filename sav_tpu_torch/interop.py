@@ -1,10 +1,11 @@
-"""Convert ``sav_tpu`` (flax) ViT and CaiT parameters into the port's ``state_dict``.
+"""Convert ``sav_tpu`` (flax) ViT, CaiT and BoTNet variables into the port's ``state_dict``.
 
 The tree comes as nested dicts of arrays (numpy, or anything
-``numpy.asarray`` takes), with or without the outer ``{"params": ...}``.
-The family is read off the tree's top level (``Encoder_0``: ViT;
-``block_i``/``ca_block_i``: CaiT) and only that family's rules apply. Every
-leaf must be consumed; an unknown key raises.
+``numpy.asarray`` takes): the ``params`` alone, or ``{"params": ...}``
+with, for BoTNet, ``"batch_stats"`` beside it. The family is read off the
+params' top level (``Encoder_0``: ViT; ``block_i``/``ca_block_i``: CaiT;
+``stem_conv``: BoTNet) and only that family's rules apply. Every leaf must
+be consumed; an unknown key raises.
 
 ViT:
 
@@ -41,6 +42,21 @@ flax key                                                 port key               
 ``LayerNorm_0/{scale,bias}``                             ``norm.*``                                  scale → weight
 ``head/{kernel,bias}``                                   ``head.{weight,bias}``                      ``[in, out]`` → ``[out, in]``
 =======================================================  ==========================================  ==========
+
+BoTNet (``X`` = ``stage{s}_block{b}``; the port's modules keep the flax
+names, so the rules copy the path):
+
+==========================================================  ================================  ==========
+flax key                                                    port key                          conversion
+==========================================================  ================================  ==========
+``stem_conv/kernel``, ``X/{conv1,conv2,conv3,proj_conv}/kernel``  ``….weight``            HWIO → OIHW
+``stem_bn/…``, ``X/{bn1,bn2,bn3,proj_bn}/{scale,bias}``     ``….{weight,bias}``               scale → weight
+``X/SqueezeExciteBlock_0/{reduce,expand}/{kernel,bias}``    ``X.se.{reduce,expand}.*``        ``[in, out]`` → ``[out, in]``
+``X/mhsa/to_{q,k,v}/kernel``                                ``X.mhsa.to_{q,k,v}``             as is, ``[in, H, D]``
+``X/mhsa/rel_emb_{h,w}``                                    ``X.mhsa.rel_emb_{h,w}``          as is
+``head/{kernel,bias}``                                      ``head.{weight,bias}``            ``[in, out]`` → ``[out, in]``
+batch_stats ``…/{mean,var}``                                ``….running_{mean,var}``          as is
+==========================================================  ================================  ==========
 """
 
 from __future__ import annotations
@@ -119,14 +135,36 @@ _CAIT_RULES = [
 ]
 
 
+_BOT = r"(stage\d+_block\d+)"
+_BOTNET_RULES = [
+    (rf"(stem_conv|{_BOT}/(?:conv[123]|proj_conv))/kernel", r"\1.weight", _conv),
+    (rf"(stem_bn|{_BOT}/(?:bn[123]|proj_bn))/scale", r"\1.weight", _as_is),
+    (rf"(stem_bn|{_BOT}/(?:bn[123]|proj_bn))/bias", r"\1.bias", _as_is),
+    (rf"{_BOT}/SqueezeExciteBlock_0/(reduce|expand)/kernel", r"\1.se.\2.weight", _dense),
+    (rf"{_BOT}/SqueezeExciteBlock_0/(reduce|expand)/bias", r"\1.se.\2.bias", _as_is),
+    (rf"{_BOT}/mhsa/(to_[qkv])/kernel", r"\1.mhsa.\2", _as_is),
+    (rf"{_BOT}/mhsa/(rel_emb_[hw])", r"\1.mhsa.\2", _as_is),
+    (r"head/kernel", "head.weight", _dense),
+    (r"head/bias", "head.bias", _as_is),
+]
+_BOTNET_STATS_RULES = [
+    (rf"(stem_bn|{_BOT}/(?:bn[123]|proj_bn))/mean", r"\1.running_mean", _as_is),
+    (rf"(stem_bn|{_BOT}/(?:bn[123]|proj_bn))/var", r"\1.running_var", _as_is),
+]
+
+
 def _family_rules(tree) -> tuple:
+    """``(family, params rules, batch_stats rules)`` of a params tree."""
     if "Encoder_0" in tree:
-        return "ViT", _VIT_RULES
+        return "ViT", _VIT_RULES, []
+    if "stem_conv" in tree:
+        return "BoTNet", _BOTNET_RULES, _BOTNET_STATS_RULES
     if any(re.fullmatch(r"(ca_)?block_\d+", str(name)) for name in tree):
-        return "CaiT", _CAIT_RULES
+        return "CaiT", _CAIT_RULES, []
     raise KeyError(
-        f"not a ViT or CaiT parameter tree (top-level keys {sorted(map(str, tree))}); "
-        "the port converts those two families"
+        f"not a ViT or CaiT parameter tree, nor a BoTNet one (top-level keys "
+        f"{sorted(map(str, tree))}); "
+        "the port converts those three families"
     )
 
 
@@ -139,22 +177,32 @@ def _flatten(tree, prefix=""):
             yield path, value
 
 
-def params_from_flax(tree) -> dict:
-    """flax ViT or CaiT params → a ``state_dict`` for
-    ``load_state_dict(strict=True)``."""
-    if set(tree) == {"params"}:
-        tree = tree["params"]
-    family, rules = _family_rules(tree)
-    state, unknown = {}, []
+def _convert(tree, rules, state, unknown, prefix="") -> None:
     for path, leaf in _flatten(dict(tree)):
         for pattern, target, convert in rules:
             match = re.fullmatch(pattern, path)
             if match:
                 array = convert(np.asarray(leaf, dtype=np.float32))
-                state[match.expand(target)] = torch.from_numpy(np.array(array, order="C"))
+                name = match.expand(target).replace("/", ".")
+                state[name] = torch.from_numpy(np.array(array, order="C"))
                 break
         else:
-            unknown.append(path)
+            unknown.append(prefix + path)
+
+
+def params_from_flax(tree) -> dict:
+    """flax ViT, CaiT or BoTNet variables → a ``state_dict`` for
+    ``load_state_dict(strict=True)``: the params tree, or
+    ``{"params": ..., "batch_stats": ...}`` (a BoTNet's running statistics
+    go into its BatchNorm buffers; its strict load needs them)."""
+    stats = {}
+    if "params" in tree and set(tree) <= {"params", "batch_stats"}:
+        stats = tree.get("batch_stats") or {}
+        tree = tree["params"]
+    family, rules, stats_rules = _family_rules(tree)
+    state, unknown = {}, []
+    _convert(tree, rules, state, unknown)
+    _convert(stats, stats_rules, state, unknown, prefix="batch_stats/")
     if unknown:
-        raise KeyError(f"flax parameters the {family} port does not consume: {unknown}")
+        raise KeyError(f"flax variables the {family} port does not consume: {unknown}")
     return state

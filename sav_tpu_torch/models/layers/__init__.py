@@ -5,26 +5,40 @@ from sav_tpu_torch.models.layers.attention import (
     SelfAttentionBlock,
     TalkingHeadsBlock,
 )
+from sav_tpu_torch.models.layers.bot_attention import BoTMHSA
 from sav_tpu_torch.models.layers.class_attention import ClassSelfAttentionBlock
+from sav_tpu_torch.models.layers.convolution import SameConv2d, max_pool_same, same_pads
 from sav_tpu_torch.models.layers.feedforward import Dense, FFBlock
-from sav_tpu_torch.models.layers.normalization import LayerScaleBlock
+from sav_tpu_torch.models.layers.normalization import (
+    BatchNorm,
+    LayerScaleBlock,
+    cast_for_compute,
+)
 from sav_tpu_torch.models.layers.position_embed import AddAbsPosEmbed
 from sav_tpu_torch.models.layers.regularization import (
     StochasticDepthBlock,
     set_stochastic_depth_generator,
 )
+from sav_tpu_torch.models.layers.squeeze_excite import SqueezeExciteBlock
 from sav_tpu_torch.models.layers.stems import PatchEmbedBlock
 
 __all__ = [
     "AddAbsPosEmbed",
     "AttentionBlock",
+    "BatchNorm",
+    "BoTMHSA",
     "ClassSelfAttentionBlock",
     "Dense",
     "FFBlock",
     "LayerScaleBlock",
     "PatchEmbedBlock",
+    "SameConv2d",
     "SelfAttentionBlock",
+    "SqueezeExciteBlock",
     "StochasticDepthBlock",
     "TalkingHeadsBlock",
+    "cast_for_compute",
+    "max_pool_same",
+    "same_pads",
     "set_stochastic_depth_generator",
 ]

@@ -1,8 +1,8 @@
 """Named model registry (port of ``sav_tpu/models/registry.py``).
 
-The plain ViT and the ten CaiT entries are ported. Every other ``sav_tpu``
-name is known here and raises ``NotImplementedError`` naming the ROADMAP
-queue item it waits on.
+The plain ViT, the ten CaiT and the three BoTNet entries are ported. Every
+other ``sav_tpu`` name is known here and raises ``NotImplementedError``
+naming the ROADMAP queue item it waits on.
 """
 
 from __future__ import annotations
@@ -12,6 +12,7 @@ from typing import Optional
 import torch
 from torch import nn
 
+from sav_tpu_torch.models.botnet import BoTNet
 from sav_tpu_torch.models.cait import CaiT
 from sav_tpu_torch.models.vit import ViT
 
@@ -42,10 +43,16 @@ _CAIT = {
     "cait_m_48": (768, 48, 16, 0.4, 1e-6),
 }
 
+# name -> stage_sizes (sav_tpu/models/registry.py:68-70).
+_BOTNET = {
+    "botnet_t3": (3, 4, 6, 6),
+    "botnet_t4": (3, 4, 23, 6),
+    "botnet_t5": (3, 4, 23, 12),
+}
+
 _NOT_PORTED = {
     "vit_s_patch16_rope": "queue A2 (ops/rotary.py)",
     "vit_moe_s_patch16_e8": "queue A7.7 (MoE)",
-    **{n: "queue A7.6 (BoTNet)" for n in ("botnet_t3", "botnet_t4", "botnet_t5")},
     **{n: "queue A7.2 (TNT)" for n in ("tnt_s_patch16", "tnt_b_patch16")},
     **{n: "queue A7.4 (CeiT)" for n in ("ceit_t", "ceit_s", "ceit_b")},
     **{n: "queue A7.5 (CvT)" for n in ("cvt-13", "cvt-21", "cvt-w24")},
@@ -59,7 +66,7 @@ _NOT_PORTED = {
 
 def model_names() -> list:
     """The names :func:`create_model` can build."""
-    return sorted([*_VIT, *_CAIT])
+    return sorted([*_VIT, *_CAIT, *_BOTNET])
 
 
 def create_model(
@@ -81,12 +88,18 @@ def create_model(
     reach every attention block. ``overrides`` replace config fields
     (``embed_dim``, ``num_layers``, ``num_heads``, ``patch_shape``, and for
     CaiT ``num_layers_token_only``, ``stoch_depth_rate``, ...; for ViT
-    ``remat``).
+    ``remat``; for BoTNet ``stage_sizes``, ``num_heads``, ``se_ratio``).
     """
     if model_name in _NOT_PORTED:
         raise NotImplementedError(
             f"{model_name!r} is not ported yet: ROADMAP {_NOT_PORTED[model_name]}"
         )
+    if model_name in _BOTNET:
+        cls = BoTNet
+        kwargs = dict(stage_sizes=_BOTNET[model_name], image_size=image_size,
+                      backend=backend, logits_dtype=logits_dtype)
+        kwargs.update(overrides)
+        return _build(cls, num_classes, kwargs, seed)
     if model_name in _VIT:
         cls = ViT
         embed_dim, num_layers, num_heads, patch = _VIT[model_name]
@@ -109,6 +122,10 @@ def create_model(
         logits_dtype=logits_dtype,
     )
     kwargs.update(overrides)
+    return _build(cls, num_classes, kwargs, seed)
+
+
+def _build(cls, num_classes: int, kwargs: dict, seed: int) -> nn.Module:
     # Built on the meta device so that no global RNG draw or throw-away
     # init happens; the weights come from the explicit generator only.
     with torch.device("meta"):

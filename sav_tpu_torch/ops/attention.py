@@ -139,6 +139,30 @@ def resolve_attention_backend(
     )
 
 
+def resolve_relative_backend(height: int, width: int, dim: int, *,
+                             requested: Optional[str] = None) -> str:
+    """The port's rule for BoTNet's 2-D relative-position attention,
+    returning ``'pallas'`` (the relative-position kernels of
+    :mod:`sav_tpu_torch.ops.flash_attention`) or ``'xla'`` (the dense bias
+    and :func:`dense_attention`). ``auto``/None and ``pallas`` take the
+    kernels at every length, on CPU (their plain versions) and on CUDA
+    alike: ``sav_tpu``'s ``L ≥ 256`` threshold for them is a TPU v5e
+    measurement and is not carried over. Raises for another backend, and
+    where the kernels do not take the head dim or grid."""
+    requested = requested or "auto"
+    if requested not in ("auto", "pallas", "xla"):
+        raise ValueError(f"unknown attention backend: {requested!r}")
+    if requested == "xla":
+        return "xla"
+    if not _flash.rel_eligible(dim, height, width):
+        raise NotImplementedError(
+            f"relative-position attention at head_dim={dim} on a {height}x{width} grid is "
+            "outside the relative-position kernels' band "
+            "(sav_tpu_torch.ops.flash_attention.rel_eligible); backend='xla' takes it"
+        )
+    return "pallas"
+
+
 def dot_product_attention(
     query: torch.Tensor,
     key: torch.Tensor,

@@ -1,7 +1,8 @@
 """Blocked (flash) attention for sequences of any length.
 
-Port of :mod:`sav_tpu.ops.flash_attention` (the no-relative-bias part).
-Three kernels, CUDA C++ for sm_90a built by :mod:`sav_tpu_torch.ops._build`:
+Port of :mod:`sav_tpu.ops.flash_attention`. Six kernels, CUDA C++ for
+sm_90a built by :mod:`sav_tpu_torch.ops._build`; the three of the plain
+flash path:
 
 - ``csrc/flash_attention.cu``, the forward; it replaces the TPU kernel
   ``_kernel`` with its epilogue ``_online_softmax_step``
@@ -24,8 +25,30 @@ the forward keeps no lse and the backward is the dense recompute
 (:func:`sav_tpu_torch.ops.attention.dense_recompute_bwd`), which also gives
 the bias gradient.
 
+BoTNet's 2-D relative-position attention (``:625-1126``) has three kernels
+of its own, the same blocked design with the bias built in-kernel from the
+compact absolute per-axis logits ``rw_abs [B, H, L, W]`` and
+``rh_abs [B, H, L, Hg]``: ``bias[q, kh·W + kw] = rh_abs[q, kh] +
+rw_abs[q, kw]``.
+
+- ``csrc/rel_attention.cu`` replaces ``_rel_kernel`` (``:663``): wrapper
+  :func:`rel_attention`, plain version :func:`rel_attention_reference`,
+  counter :data:`REL_LAUNCHES`.
+- ``csrc/rel_attention_bwd.cu``: dq with the compact bias gradients
+  ``d_rw``/``d_rh``, replacing ``_rel_bwd_dq_kernel`` (``:868``;
+  :func:`rel_attention_bwd_dq`, :func:`rel_bwd_dq_reference`,
+  :data:`REL_BWD_DQ_LAUNCHES`), and dk/dv, replacing ``_rel_bwd_dkv_kernel``
+  (``:913``; :func:`rel_attention_bwd_dkv`, :func:`rel_bwd_dkv_reference`,
+  :data:`REL_BWD_DKV_LAUNCHES`).
+
+:func:`flash_botnet_attention` forms the compact logits outside the kernels
+(:func:`compact_to_absolute`) and differentiates through
+:class:`RelFlashAttentionFunction`, the counterpart of ``_flash_rel``; the
+tables' gradients and dq's extra term come from autograd of that einsum.
+
 The TPU's 128-lane broadcast of lse and delta, its padding of the head dim
-to 128 and its ``block_b`` are TPU layout and are not carried over.
+and of ``rw``/``rh`` to 128, its selection-matrix matmuls (an MXU idiom for
+a gather) and its ``block_b`` are TPU layout and are not carried over.
 
 Every wrapper runs its plain version on CPU tensors, and only there; on CUDA
 tensors it launches its kernel or raises.
@@ -42,6 +65,7 @@ import torch
 
 from sav_tpu_torch.ops import _build
 from sav_tpu_torch.ops.fused_attention import (
+    SMEM_LIMIT,
     _check_dtypes,
     _check_strides,
     _DTYPE_CODES,
@@ -49,6 +73,7 @@ from sav_tpu_torch.ops.fused_attention import (
     _raise_on_error,
     requires_backward,
 )
+from sav_tpu_torch.ops.relative import rel_to_abs
 
 # Mirrors kTile and kMaxDim in csrc/flash_attention.cu and
 # csrc/flash_attention_bwd.cu: q rows per block and kv rows per tile, and
@@ -59,18 +84,24 @@ MAX_DIM = 128
 _SCORE_LD = BLOCK + 4
 
 # Kernel launches since the last reset: the forward, the dq kernel and the
-# dk/dv kernel; each wrapper adds one per launch of its kernel.
+# dk/dv kernel, and the same three of the relative-position family; each
+# wrapper adds one per launch of its kernel.
 LAUNCHES = 0
 BWD_DQ_LAUNCHES = 0
 BWD_DKV_LAUNCHES = 0
+REL_LAUNCHES = 0
+REL_BWD_DQ_LAUNCHES = 0
+REL_BWD_DKV_LAUNCHES = 0
 _LAUNCH_LOCK = threading.Lock()
 
 
 def reset_launches() -> None:
-    """Set the three launch counters to 0."""
+    """Set the six launch counters to 0."""
     global LAUNCHES, BWD_DQ_LAUNCHES, BWD_DKV_LAUNCHES
+    global REL_LAUNCHES, REL_BWD_DQ_LAUNCHES, REL_BWD_DKV_LAUNCHES
     with _LAUNCH_LOCK:
         LAUNCHES = BWD_DQ_LAUNCHES = BWD_DKV_LAUNCHES = 0
+        REL_LAUNCHES = REL_BWD_DQ_LAUNCHES = REL_BWD_DKV_LAUNCHES = 0
 
 
 def _count(counter: str) -> None:
@@ -476,3 +507,365 @@ def flash_attention(
     if with_lse:
         raise ValueError("with_lse=True is forward-only; the lse of a differentiated call stays internal")
     return FlashAttentionFunction.apply(query, key, value, bias, float(scale))
+
+
+# ---------------------------------------------------------------------------
+# BoTNet 2-D relative-position attention: kernels #6-#8.
+# ---------------------------------------------------------------------------
+
+
+def rel_smem_bytes(dim: int, height: int, width: int) -> dict:
+    """Dynamic shared memory of one block of each relative-position kernel:
+    the flash kernel's tiles (:func:`flash_smem_bytes`) plus the q tile's
+    rows of ``rw_abs`` and ``rh_abs`` (64 × (W + Hg) f32); dq also holds its
+    f32 ``d_rw``/``d_rh`` accumulators (as many again). Same formulas as
+    ``smem_bytes`` in ``csrc/rel_attention.cu`` and ``dq_smem_bytes`` /
+    ``dkv_smem_bytes`` in ``csrc/rel_attention_bwd.cu``."""
+    flash = flash_smem_bytes(dim)
+    rows = BLOCK * (height + width) * 4
+    return {
+        "fwd": flash["fwd"] + rows,
+        "bwd_dq": flash["bwd_dq"] + 2 * rows,
+        "bwd_dkv": flash["bwd_dkv"] + rows,
+    }
+
+
+def rel_eligible(dim: int, height: int, width: int) -> bool:
+    """True when the relative-position kernels take the head dim and grid:
+    a head dim :func:`flash_eligible` takes, and every block of
+    :func:`rel_smem_bytes` within the 227 KB a block may have. The dq block
+    is the largest, so at head dim 128 the band is W + Hg ≤ 156 (BoTNet's
+    14 + 14 and 7 + 7 are well inside; 2 + 130 fits), at head dim 64 W + Hg
+    ≤ 284."""
+    return flash_eligible(dim) and max(rel_smem_bytes(dim, height, width).values()) <= SMEM_LIMIT
+
+
+def compact_to_absolute(cw: torch.Tensor, ch: torch.Tensor, height: int, width: int):
+    """Relative-indexed per-axis logits → absolute-indexed.
+
+    ``cw``: ``[B, heads, L, 2W-1]`` (``cw[..., q, r] = q_vec · rel_w[r]``) →
+    ``rw_abs [B, heads, L, W]`` with ``rw_abs[..., q, kw] = cw[..., q,
+    kw - qw + W - 1]`` (:func:`~sav_tpu_torch.ops.relative.rel_to_abs`); the
+    same for ``ch`` along the height axis → ``rh_abs [B, heads, L, H]``.
+    """
+    b, h, l, _ = cw.shape
+    rw_abs = rel_to_abs(cw.reshape(b, h, height, width, 2 * width - 1)).reshape(b, h, l, width)
+    ch_t = ch.reshape(b, h, height, width, 2 * height - 1).transpose(2, 3)
+    rh = rel_to_abs(ch_t)  # [b, h, W, H, H] = [b, n, y, x, X]
+    rh_abs = rh.permute(0, 1, 3, 2, 4).reshape(b, h, l, height)
+    return rw_abs, rh_abs
+
+
+def expand_relative_bias(rw_abs: torch.Tensor, rh_abs: torch.Tensor, height: int,
+                         width: int) -> torch.Tensor:
+    """Absolute per-axis logits → the full ``[B, heads, L, L]`` bias,
+    ``bias[q, kh·W + kw] = rh_abs[q, kh] + rw_abs[q, kw]``."""
+    b, h, l, _ = rw_abs.shape
+    return (rh_abs[..., :, None] + rw_abs[..., None, :]).reshape(b, h, l, height * width)
+
+
+def _rel_grid(rw_abs: torch.Tensor, rh_abs: torch.Tensor) -> tuple:
+    """``(height, width)`` from the compact logits' last axes."""
+    return rh_abs.shape[-1], rw_abs.shape[-1]
+
+
+def rel_attention_reference(query, key, value, rw_abs, rh_abs, *, scale, block_kv=BLOCK,
+                            with_lse=False):
+    """Plain PyTorch version of the forward kernel (``_rel_kernel``): the
+    flash forward's plain version (:func:`flash_attention_reference`, the
+    kernel's kv tile as ``block_kv``) with the f32 bias
+    :func:`expand_relative_bias` added to the scaled f32 scores."""
+    height, width = _rel_grid(rw_abs, rh_abs)
+    bias = expand_relative_bias(rw_abs.float(), rh_abs.float(), height, width)
+    return flash_attention_reference(query, key, value, bias, scale=scale, block_kv=block_kv,
+                                     with_lse=with_lse)
+
+
+def _rel_recompute(query, key, value, rw_abs, rh_abs, grad, lse, delta, scale):
+    """``_rel_recompute_ds``: P from the biased f32 scores and the f32 lse,
+    ``ds = P·(dO·Vᵀ − delta)``, both f32 ``[B, H, L, L]``."""
+    height, width = _rel_grid(rw_abs, rh_abs)
+    s = torch.einsum("bqhd,bkhd->bhqk", query.float(), key.float()) * scale
+    s = s + expand_relative_bias(rw_abs.float(), rh_abs.float(), height, width)
+    p = torch.exp(s - lse.float()[..., None])
+    dp = torch.einsum("bqhd,bkhd->bhqk", grad.float(), value.float())
+    return p, p * (dp - delta.float()[..., None])
+
+
+def rel_bwd_dq_reference(query, key, value, rw_abs, rh_abs, grad, lse, delta, *, scale):
+    """Plain PyTorch version of the dq kernel (``_rel_bwd_dq_kernel``): dq as
+    :func:`flash_bwd_dq_reference` forms it, and the f32 ds reduced over
+    the key columns that share a width (``d_rw [B, H, L, W]``) or a height
+    (``d_rh [B, H, L, Hg]``) coordinate. Returns ``(dq, d_rw, d_rh)``."""
+    height, width = _rel_grid(rw_abs, rh_abs)
+    _, ds = _rel_recompute(query, key, value, rw_abs, rh_abs, grad, lse, delta, scale)
+    dq = torch.einsum("bhqk,bkhd->bqhd", ds.to(key.dtype).float(), key.float()) * scale
+    grid = ds.reshape(*ds.shape[:3], height, width)
+    return dq.to(query.dtype), grid.sum(-2), grid.sum(-1)
+
+
+def rel_bwd_dkv_reference(query, key, value, rw_abs, rh_abs, grad, lse, delta, *, scale):
+    """Plain PyTorch version of the dk/dv kernel (``_rel_bwd_dkv_kernel``):
+    :func:`flash_bwd_dkv_reference`'s casts with the bias recomputed.
+    Returns ``(dk, dv)``."""
+    p, ds = _rel_recompute(query, key, value, rw_abs, rh_abs, grad, lse, delta, scale)
+    dv = torch.einsum("bhqk,bqhd->bkhd", p.to(grad.dtype).float(), grad.float())
+    dk = torch.einsum("bhqk,bqhd->bkhd", ds.to(query.dtype).float(), query.float()) * scale
+    return dk.to(key.dtype), dv.to(value.dtype)
+
+
+@functools.cache
+def _rel_lib() -> ctypes.CDLL:
+    lib = _build.load("rel_attention")
+    lib.sav_rel_attention_fwd.argtypes = [
+        ctypes.c_int,  # dtype
+        *[ctypes.c_void_p] * 5,  # q, k, v, rw_abs, rh_abs
+        ctypes.c_void_p, ctypes.c_void_p,  # o, lse
+        *[ctypes.c_int] * 6,  # B, H, L, D, height, width
+        ctypes.POINTER(ctypes.c_int64),  # 12 strides
+        ctypes.c_float,  # scale
+        ctypes.c_void_p,  # stream
+    ]
+    lib.sav_rel_attention_fwd.restype = ctypes.c_int
+    lib.sav_rel_attention_smem_bytes.argtypes = [ctypes.c_int, ctypes.c_int]
+    lib.sav_rel_attention_smem_bytes.restype = ctypes.c_size_t
+    lib.sav_cuda_error_string.argtypes = [ctypes.c_int]
+    lib.sav_cuda_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+@functools.cache
+def _rel_bwd_lib() -> ctypes.CDLL:
+    lib = _build.load("rel_attention_bwd")
+    lib.sav_rel_attention_bwd_dq.argtypes = [
+        ctypes.c_int,  # dtype
+        *[ctypes.c_void_p] * 8,  # q, k, v, dO, rw_abs, rh_abs, lse, delta
+        *[ctypes.c_void_p] * 3,  # dq, d_rw, d_rh
+        *[ctypes.c_int] * 6,  # B, H, L, D, height, width
+        ctypes.POINTER(ctypes.c_int64),  # 15 strides
+        ctypes.c_float,  # scale
+        ctypes.c_void_p,  # stream
+    ]
+    lib.sav_rel_attention_bwd_dkv.argtypes = [
+        ctypes.c_int,  # dtype
+        *[ctypes.c_void_p] * 8,  # q, k, v, dO, rw_abs, rh_abs, lse, delta
+        *[ctypes.c_void_p] * 2,  # dk, dv
+        *[ctypes.c_int] * 6,  # B, H, L, D, height, width
+        ctypes.POINTER(ctypes.c_int64),  # 18 strides
+        ctypes.c_float,  # scale
+        ctypes.c_void_p,  # stream
+    ]
+    for fn in (lib.sav_rel_attention_bwd_dq, lib.sav_rel_attention_bwd_dkv):
+        fn.restype = ctypes.c_int
+    for fn in (lib.sav_rel_attention_bwd_dq_smem_bytes, lib.sav_rel_attention_bwd_dkv_smem_bytes):
+        fn.argtypes = [ctypes.c_int, ctypes.c_int]
+        fn.restype = ctypes.c_size_t
+    lib.sav_cuda_error_string.argtypes = [ctypes.c_int]
+    lib.sav_cuda_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def _check_rel(query, key, value, rw_abs, rh_abs) -> tuple:
+    """Shapes of a relative-position call; returns ``(height, width)``."""
+    if query.ndim != 4 or key.shape != query.shape or value.shape != query.shape:
+        raise ValueError(
+            "relative-position attention expects q/k/v of one [B, L, H, D] shape, got "
+            f"{tuple(query.shape)}/{tuple(key.shape)}/{tuple(value.shape)}"
+        )
+    batch, length, heads, dim = query.shape
+    height, width = _rel_grid(rw_abs, rh_abs)
+    if height * width != length:
+        raise ValueError(f"L={length} != height*width={height}*{width}")
+    for name, t, n in (("rw_abs", rw_abs, width), ("rh_abs", rh_abs, height)):
+        if tuple(t.shape) != (batch, heads, length, n):
+            raise ValueError(f"{name} must be [B, H, L, {n}], got {tuple(t.shape)}")
+    if not rel_eligible(dim, height, width):
+        raise ValueError(
+            f"head_dim={dim} on a {height}x{width} grid does not fit the relative-position "
+            f"kernels: head dims are multiples of 8 up to {MAX_DIM}, and one block needs "
+            f"{max(rel_smem_bytes(dim, height, width).values())} bytes of shared memory "
+            f"against {SMEM_LIMIT}"
+        )
+    return height, width
+
+
+def _rel_launch(query, key, value, rw_abs, rh_abs, scale, with_lse):
+    batch, length, heads, dim = query.shape
+    height, width = _rel_grid(rw_abs, rh_abs)
+    dtype = _check_dtypes(query, key, value)
+    named = (("query", query), ("key", key), ("value", value))
+    _check_strides(named, named)
+    rw_abs = rw_abs.float().contiguous()
+    rh_abs = rh_abs.float().contiguous()
+    out = torch.empty((batch, length, heads, dim), dtype=dtype, device=query.device)
+    lse = torch.empty((batch, heads, length), dtype=torch.float32, device=query.device)
+    strides = tuple(s for t in (query, key, value, out) for s in t.stride()[:3])
+    lib = _rel_lib()
+    with torch.cuda.device(query.device):
+        stream = torch.cuda.current_stream(query.device).cuda_stream
+        rc = lib.sav_rel_attention_fwd(
+            _DTYPE_CODES[dtype],
+            query.data_ptr(), key.data_ptr(), value.data_ptr(),
+            rw_abs.data_ptr(), rh_abs.data_ptr(), out.data_ptr(), lse.data_ptr(),
+            batch, heads, length, dim, height, width,
+            (ctypes.c_int64 * 12)(*strides),
+            float(scale),
+            stream,
+        )
+    _raise_on_error(lib, rc, "relative-position attention")
+    _count("REL_LAUNCHES")
+    return (out, lse) if with_lse else out
+
+
+def _rel_launch_bwd_dq(query, key, value, rw_abs, rh_abs, grad, lse, delta, scale):
+    batch, length, heads, dim = query.shape
+    height, width = _rel_grid(rw_abs, rh_abs)
+    dtype, grad, lse, delta = _bwd_operands(query, key, value, grad, lse, delta)
+    rw_abs = rw_abs.float().contiguous()
+    rh_abs = rh_abs.float().contiguous()
+    dq = torch.empty((batch, length, heads, dim), dtype=dtype, device=query.device)
+    d_rw = torch.empty((batch, heads, length, width), dtype=torch.float32, device=query.device)
+    d_rh = torch.empty((batch, heads, length, height), dtype=torch.float32, device=query.device)
+    strides = tuple(s for t in (query, key, value, grad, dq) for s in t.stride()[:3])
+    lib = _rel_bwd_lib()
+    with torch.cuda.device(query.device):
+        stream = torch.cuda.current_stream(query.device).cuda_stream
+        rc = lib.sav_rel_attention_bwd_dq(
+            _DTYPE_CODES[dtype],
+            query.data_ptr(), key.data_ptr(), value.data_ptr(), grad.data_ptr(),
+            rw_abs.data_ptr(), rh_abs.data_ptr(), lse.data_ptr(), delta.data_ptr(),
+            dq.data_ptr(), d_rw.data_ptr(), d_rh.data_ptr(),
+            batch, heads, length, dim, height, width,
+            (ctypes.c_int64 * 15)(*strides),
+            float(scale),
+            stream,
+        )
+    _raise_on_error(lib, rc, "relative-position attention dq")
+    _count("REL_BWD_DQ_LAUNCHES")
+    return dq, d_rw, d_rh
+
+
+def _rel_launch_bwd_dkv(query, key, value, rw_abs, rh_abs, grad, lse, delta, scale):
+    batch, length, heads, dim = query.shape
+    height, width = _rel_grid(rw_abs, rh_abs)
+    dtype, grad, lse, delta = _bwd_operands(query, key, value, grad, lse, delta)
+    rw_abs = rw_abs.float().contiguous()
+    rh_abs = rh_abs.float().contiguous()
+    dk = torch.empty((batch, length, heads, dim), dtype=dtype, device=query.device)
+    dv = torch.empty_like(dk)
+    strides = tuple(s for t in (query, key, value, grad, dk, dv) for s in t.stride()[:3])
+    lib = _rel_bwd_lib()
+    with torch.cuda.device(query.device):
+        stream = torch.cuda.current_stream(query.device).cuda_stream
+        rc = lib.sav_rel_attention_bwd_dkv(
+            _DTYPE_CODES[dtype],
+            query.data_ptr(), key.data_ptr(), value.data_ptr(), grad.data_ptr(),
+            rw_abs.data_ptr(), rh_abs.data_ptr(), lse.data_ptr(), delta.data_ptr(),
+            dk.data_ptr(), dv.data_ptr(),
+            batch, heads, length, dim, height, width,
+            (ctypes.c_int64 * 18)(*strides),
+            float(scale),
+            stream,
+        )
+    _raise_on_error(lib, rc, "relative-position attention dk/dv")
+    _count("REL_BWD_DKV_LAUNCHES")
+    return dk, dv
+
+
+def rel_attention(query, key, value, rw_abs, rh_abs, *, scale, with_lse=False):
+    """Flash attention over ``L = height·width`` tokens with the relative
+    bias built from ``rw_abs [B, H, L, W]`` and ``rh_abs [B, H, L, Hg]``
+    (f32) inside the kernel. Forward only; the plain version on CPU tensors,
+    kernel #6 on CUDA tensors. Returns ``[B, L, H, D]`` in the query dtype
+    (and the f32 lse ``[B, H, L]``)."""
+    _check_rel(query, key, value, rw_abs, rh_abs)
+    if _device_of(query, key, value, rw_abs, rh_abs) == "cpu":
+        return rel_attention_reference(query, key, value, rw_abs, rh_abs, scale=scale,
+                                       with_lse=with_lse)
+    return _rel_launch(query, key, value, rw_abs, rh_abs, scale, with_lse)
+
+
+def rel_attention_bwd_dq(query, key, value, rw_abs, rh_abs, grad, lse, delta, *, scale):
+    """``(dq, d_rw, d_rh)`` of :func:`rel_attention` from its f32 lse and
+    ``delta`` (:func:`bwd_delta`), both ``[B, H, L]``; ``d_rw``/``d_rh`` are
+    f32 and shaped like ``rw_abs``/``rh_abs``. The plain version on CPU
+    tensors, kernel #7 on CUDA tensors."""
+    _check_rel(query, key, value, rw_abs, rh_abs)
+    if _device_of(query, key, value, rw_abs, rh_abs, grad, lse, delta) == "cpu":
+        return rel_bwd_dq_reference(query, key, value, rw_abs, rh_abs, grad, lse, delta,
+                                    scale=scale)
+    return _rel_launch_bwd_dq(query, key, value, rw_abs, rh_abs, grad, lse, delta, scale)
+
+
+def rel_attention_bwd_dkv(query, key, value, rw_abs, rh_abs, grad, lse, delta, *, scale):
+    """``(dk, dv)`` of :func:`rel_attention`; see
+    :func:`rel_attention_bwd_dq`. Kernel #8 on CUDA tensors."""
+    _check_rel(query, key, value, rw_abs, rh_abs)
+    if _device_of(query, key, value, rw_abs, rh_abs, grad, lse, delta) == "cpu":
+        return rel_bwd_dkv_reference(query, key, value, rw_abs, rh_abs, grad, lse, delta,
+                                     scale=scale)
+    return _rel_launch_bwd_dkv(query, key, value, rw_abs, rh_abs, grad, lse, delta, scale)
+
+
+class RelFlashAttentionFunction(torch.autograd.Function):
+    """Relative-position flash attention with a backward (``sav_tpu``'s
+    ``_flash_rel`` custom_vjp): the forward keeps the f32 lse, the backward
+    forms delta and runs kernels #7 and #8. Gradients flow to q, k, v and
+    the compact ``rw_abs``/``rh_abs``; the dense bias exists in neither
+    direction."""
+
+    @staticmethod
+    def forward(ctx, query, key, value, rw_abs, rh_abs, scale):
+        out, lse = rel_attention(query, key, value, rw_abs, rh_abs, scale=scale, with_lse=True)
+        ctx.save_for_backward(query, key, value, rw_abs, rh_abs, out, lse)
+        ctx.scale = scale
+        return out
+
+    @staticmethod
+    def backward(ctx, grad):
+        query, key, value, rw_abs, rh_abs, out, lse = ctx.saved_tensors
+        delta = bwd_delta(out, grad)
+        operands = (query, key, value, rw_abs, rh_abs, grad, lse, delta)
+        dq, d_rw, d_rh = rel_attention_bwd_dq(*operands, scale=ctx.scale)
+        dk, dv = rel_attention_bwd_dkv(*operands, scale=ctx.scale)
+        return dq, dk, dv, d_rw.to(rw_abs.dtype), d_rh.to(rh_abs.dtype), None
+
+
+def flash_botnet_attention(
+    query: torch.Tensor,
+    key: torch.Tensor,
+    value: torch.Tensor,
+    rel_k_h: torch.Tensor,
+    rel_k_w: torch.Tensor,
+    height: int,
+    width: int,
+    *,
+    scale: Optional[float] = None,
+) -> torch.Tensor:
+    """BoTNet attention with the 2-D relative logits inside the kernels.
+
+    Args:
+      query/key/value: ``[B, L, heads, D]`` with ``L == height * width``.
+      rel_k_h: ``[2·height−1, D]`` height-relative table.
+      rel_k_w: ``[2·width−1, D]`` width-relative table.
+      scale: content-logit scale, default ``D ** -0.5``, applied to the f32
+        product; the relative logits take q scaled in its own dtype, then
+        widened to f32, times the f32 tables (``sav_tpu``'s conventions).
+
+    Returns:
+      ``[B, L, heads, D]`` in the query dtype, differentiable in all five
+      tensors: the kernels' backward gives dq, dk, dv and the compact bias
+      gradients, autograd of the compact einsum the rest.
+    """
+    _, length, _, dim = query.shape
+    if length != height * width:
+        raise ValueError(f"L={length} != height*width={height * width}")
+    if scale is None:
+        scale = dim ** -0.5
+    qs = (query * torch.tensor(scale, dtype=query.dtype, device=query.device)).float()
+    cw = torch.einsum("blhd,rd->bhlr", qs, rel_k_w.float())
+    ch = torch.einsum("blhd,rd->bhlr", qs, rel_k_h.float())
+    rw_abs, rh_abs = compact_to_absolute(cw, ch, height, width)
+    if not requires_backward(query, key, value, rw_abs, rh_abs):
+        return rel_attention(query, key, value, rw_abs, rh_abs, scale=scale)
+    return RelFlashAttentionFunction.apply(query, key, value, rw_abs, rh_abs, float(scale))

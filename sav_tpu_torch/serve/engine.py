@@ -4,7 +4,10 @@ Port of the serving core of ``sav_tpu/serve/engine.py``. One engine owns:
 
 - **A model on the device**, its parameters loaded from a ``sav_tpu`` flax
   tree (:mod:`sav_tpu_torch.interop`), passed in as a built module, or
-  drawn from ``ServeConfig.seed``; cast to the compute dtype.
+  drawn from ``ServeConfig.seed``; cast to the compute dtype, except the
+  tensors flax keeps f32 (BatchNorm's scale, bias and running statistics,
+  BoTNet's relative tables: :func:`~sav_tpu_torch.models.layers.cast_for_compute`),
+  and in eval mode, so BatchNorm uses its running statistics.
 - **A bucket ladder**, each rung warmed by one forward at startup, which
   also seeds the batcher's per-bucket step estimate (``startup_report``).
 - **A deadline-aware dynamic batcher** (:mod:`sav_tpu_torch.serve.batcher`).
@@ -32,6 +35,7 @@ from torch import nn
 
 from sav_tpu_torch.interop import params_from_flax
 from sav_tpu_torch.models import create_model
+from sav_tpu_torch.models.layers import cast_for_compute
 from sav_tpu_torch.ops.preprocess import normalize_images
 from sav_tpu_torch.serve.batcher import (
     DynamicBatcher,
@@ -104,7 +108,8 @@ class ServeEngine:
     returns a future per request; :meth:`stop` fails what is still queued
     and joins the device thread. Context manager = start/stop.
 
-    Parameters come from ``params`` (a flax tree, converted by
+    Parameters come from ``params`` (a flax tree, with ``batch_stats``
+    beside ``params`` for a BatchNorm model, converted by
     :func:`~sav_tpu_torch.interop.params_from_flax`) loaded into ``model``
     (or a registry model), else from ``model`` as passed, else from a fresh
     init drawn from ``config.seed``.
@@ -130,7 +135,7 @@ class ServeEngine:
         if params is not None:
             model.load_state_dict(params_from_flax(params), strict=True)
             source = "flax"
-        self.model = model.to(device=self.device, dtype=self.compute_dtype).eval()
+        self.model = cast_for_compute(model.to(self.device), self.compute_dtype).eval()
         self._infer = build_infer_fn(self.model, self.compute_dtype)
         param_bytes = sum(p.numel() * p.element_size() for p in self.model.parameters())
         # Two passes over the ladder: the first builds kernels and warms the

@@ -5,7 +5,12 @@ the compute dtype (bf16 by default): each attention core runs its forward
 kernel and, in the backward, its backward kernels
 (:mod:`sav_tpu_torch.ops.fused_attention`, past the fused backward's band
 :mod:`sav_tpu_torch.ops.flash_attention`, and for CaiT's talking-heads
-trunk :mod:`sav_tpu_torch.ops.talking_heads`). A ViT built with
+trunk :mod:`sav_tpu_torch.ops.talking_heads`, for BoTNet's relative-position
+attention the rel kernels of :mod:`sav_tpu_torch.ops.flash_attention`). A
+model with BatchNorm (BoTNet) updates its running statistics in
+:meth:`Trainer.train_step` (train mode) and uses them in
+:meth:`Trainer.eval_step` (eval mode); the state's ``batch_stats`` are those
+buffers. A ViT built with
 ``model_overrides={'remat': True}`` recomputes each encoder block in the
 backward pass. Stochastic depth draws its
 masks from a generator on the device seeded from ``config.seed`` and used by
@@ -102,8 +107,9 @@ class Trainer:
         """A fresh state at step 0 with a fresh optimizer. The parameters are
         drawn from ``seed`` (default ``config.seed``) when the trainer built
         the model or a seed is given; a passed model otherwise keeps its
-        parameters. The stochastic-depth generator restarts from
-        ``config.seed``."""
+        parameters; BatchNorm running statistics are reset with the
+        parameters they belong to. The stochastic-depth generator restarts
+        from ``config.seed``."""
         if seed is not None or not self._model_passed:
             seed = self.config.seed if seed is None else seed
             generator = torch.Generator().manual_seed(seed)
@@ -113,7 +119,8 @@ class Trainer:
                 self.model = cpu.to(self.device)
         self.sd_generator.manual_seed(self.config.seed)
         params = list(self.model.parameters())
-        return TrainState(step=0, model=self.model, opt_state=self.tx.init(params))
+        return TrainState(step=0, model=self.model, opt_state=self.tx.init(params),
+                          batch_stats=dict(self.model.named_buffers()))
 
     # ----------------------------------------------------------------- steps
 

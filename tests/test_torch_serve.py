@@ -107,6 +107,58 @@ def test_engine_serves_a_tiny_cait_on_the_cpu():
     np.testing.assert_allclose(np.stack(out), ref, atol=TOL, rtol=TOL)
 
 
+def test_engine_serves_a_small_botnet_from_params_and_batch_stats():
+    """A BoTNet (BatchNorm, SAME padding, squeeze-excite, the relative-
+    position attention) served from a flax ``params`` + ``batch_stats``
+    tree: in eval mode, on the running statistics, its logits match sav_tpu's
+    build_infer_fn (``model.apply(..., is_training=False)``) on the same
+    tree."""
+    from test_torch_botnet import IMAGE, jax_small_botnet, small_flax_variables
+    from test_torch_botnet import SMALL as BOTNET_SMALL
+
+    variables = small_flax_variables(seed=4)
+    images = np.random.default_rng(5).integers(0, 256, (5, IMAGE, IMAGE, 3), dtype=np.uint8)
+    infer = jax.jit(jax_build_infer_fn(jax_small_botnet("pallas"), jnp.float32))
+    ref = np.asarray(infer(variables["params"], variables["batch_stats"],
+                           {"images": images, "valid": np.ones(5, np.float32)}))
+    # A generous deadline: a BoTNet step on a loaded CPU can take a fifth of
+    # a second, and admission must not shed here.
+    config = _config(model_name="botnet_t3", model_overrides=BOTNET_SMALL, image_size=IMAGE,
+                     max_batch=4, deadline_ms=30_000.0)
+    with ServeEngine(config, params=variables) as engine:
+        assert not engine.model.training
+        out = [f.result(timeout=60) for f in [engine.submit(image) for image in images]]
+    assert engine.stats()["ledger"]["requests"] == 5
+    assert np.abs(ref).max() > 0.5
+    np.testing.assert_allclose(np.stack(out), ref, atol=TOL, rtol=TOL)
+
+
+def test_bf16_engine_keeps_batch_norm_and_relative_tables_f32():
+    """The engine casts the model to its compute dtype except what flax
+    keeps f32 under a bf16 dtype: every BatchNorm's scale, bias and running
+    statistics, and BoTMHSA's relative tables (the kernels' path reads them
+    in f32). The statistics keep their bits."""
+    from sav_tpu_torch.models.layers import BatchNorm, BoTMHSA
+    from test_torch_botnet import IMAGE, small_flax_variables, small_port_model
+    from test_torch_botnet import SMALL as BOTNET_SMALL
+
+    variables = small_flax_variables(seed=5)
+    want = {k: v.clone() for k, v in small_port_model(variables).state_dict().items()}
+    config = _config(model_name="botnet_t3", model_overrides=BOTNET_SMALL, image_size=IMAGE,
+                     compute_dtype="bfloat16", max_batch=2)
+    engine = ServeEngine(config, params=variables)
+    kept = {f"{name}.{t}" for name, m in engine.model.named_modules()
+            if isinstance(m, (BatchNorm, BoTMHSA)) for t in type(m).F32_TENSORS}
+    assert "stage4_block0.bn2.running_var" in kept and "stage4_block0.mhsa.rel_emb_h" in kept
+    for name, value in engine.model.state_dict().items():
+        if name in kept:
+            assert value.dtype == torch.float32 and torch.equal(value, want[name]), name
+        else:
+            assert value.dtype == torch.bfloat16, name
+    logits = engine._run(2, list(np.zeros((2, IMAGE, IMAGE, 3), np.uint8)))
+    assert logits.dtype == np.float32 and np.isfinite(logits).all()
+
+
 def test_padded_rows_are_exactly_zero(flax_params):
     images = _images(4, seed=1)
     valid = np.array([1, 1, 0, 0], np.float32)

@@ -272,24 +272,26 @@ def test_hwcn_batches_are_transposed():
 
 
 def _four_steps_against_sav_tpu(model_name, overrides, params, backend="fused",
-                                model_overrides=None):
-    """4 f32 steps at ``backend`` from one parameter tree and one batch
-    stream, on sav_tpu's Trainer (8-device CPU mesh, Pallas in interpret
-    mode) and the port's, both models built with ``model_overrides``.
-    Per-step loss, grad norm and lr, then every parameter and the eval sums,
+                                model_overrides=None, image_size=32, batch_stats=None,
+                                base_lr=0.05):
+    """4 f32 steps at ``backend`` from one parameter tree (and, for a
+    BatchNorm model, its ``batch_stats``) and one batch stream, on sav_tpu's
+    Trainer (8-device CPU mesh, Pallas in interpret mode) and the port's,
+    both models built with ``model_overrides``. Per-step loss, grad norm and
+    lr, then every parameter, every running statistic and the eval sums,
     agree within f32 tolerances (different
     summation orders over 4 Adam steps; Adam divides by √v, which keeps
     relative errors relative)."""
     from sav_tpu.train.trainer import Trainer as JaxTrainer
 
     common = dict(
-        model_name=model_name, num_classes=10, image_size=32,
+        model_name=model_name, num_classes=10, image_size=image_size,
         compute_dtype="float32", attention_backend=backend,
         model_overrides=model_overrides, global_batch_size=16, num_train_images=64, num_epochs=2,
-        warmup_epochs=0, transpose_images=False, base_lr=0.05, seed=0,
+        warmup_epochs=0, transpose_images=False, base_lr=base_lr, seed=0,
     )
     batches = list(synthetic.synthetic_data_iterator(
-        batch_size=16, image_size=32, num_classes=10, seed=11, num_batches=4
+        batch_size=16, image_size=image_size, num_classes=10, seed=11, num_batches=4
     ))
 
     jax_model = jax_create_model(
@@ -298,17 +300,23 @@ def _four_steps_against_sav_tpu(model_name, overrides, params, backend="fused",
     )
     jax_trainer = JaxTrainer(JaxTrainConfig(**common), model=jax_model)
     jstate = jax_trainer.init_state()
-    placed = jax.tree.map(lambda new, old: jax.device_put(new, old.sharding), params, jstate.params)
-    jstate = jstate.replace(params=placed)
+    def place(new, old):
+        return jax.tree.map(lambda n, o: jax.device_put(n, o.sharding), new, old)
+
+    jstate = jstate.replace(params=place(params, jstate.params))
+    variables = params
+    if batch_stats is not None:
+        jstate = jstate.replace(batch_stats=place(batch_stats, jstate.batch_stats))
+        variables = {"params": params, "batch_stats": batch_stats}
     jax_metrics_per_step = []
     for batch in batches:
         jstate, m = jax_trainer.train_step(jstate, batch, jax.random.PRNGKey(0))
         jax_metrics_per_step.append({k: float(v) for k, v in jax.device_get(m).items()})
     jax_eval = {k: float(v) for k, v in jax.device_get(jax_trainer.eval_step(jstate, batches[0])).items()}
 
-    model = create_model(model_name, num_classes=10, image_size=32, backend=backend,
+    model = create_model(model_name, num_classes=10, image_size=image_size, backend=backend,
                          **overrides, **(model_overrides or {}))
-    model.load_state_dict(params_from_flax(params), strict=True)
+    model.load_state_dict(params_from_flax(variables), strict=True)
     trainer = Trainer(TrainConfig(**common), model=model, device="cpu")
     state = trainer.init_state()
     state, history = trainer.fit(iter(batches), num_steps=4, state=state)
@@ -322,7 +330,11 @@ def _four_steps_against_sav_tpu(model_name, overrides, params, backend="fused",
                                        err_msg=f"{key} at step {step}")
     assert history[-1]["loss"] < history[0]["loss"]
 
-    want = params_from_flax(jax.tree.map(np.asarray, jax.device_get(jstate.params)))
+    final = {"params": jstate.params}
+    if batch_stats is not None:
+        final["batch_stats"] = jstate.batch_stats
+        assert set(state.batch_stats) == {k for k in state.model.state_dict() if "running" in k}
+    want = params_from_flax(jax.tree.map(np.asarray, jax.device_get(final)))
     for name, value in state.model.state_dict().items():
         np.testing.assert_allclose(value.numpy(), want[name].numpy(), atol=2e-5, rtol=1e-4, err_msg=name)
     ours_eval = {k: float(v) for k, v in trainer.eval_step(state, batches[0]).items()}
@@ -353,6 +365,22 @@ def test_four_cait_train_steps_match_sav_tpu():
     from test_torch_cait import small_flax_params
 
     _four_steps_against_sav_tpu("cait_xxs_24", CAIT_SMALL, small_flax_params())
+
+
+def test_four_botnet_train_steps_match_sav_tpu():
+    """The BoTNet slice as a whole: 4 f32 steps of the small BoTNet (every
+    stage one block, 64², one BoTBlock over 4×4) at backend 'pallas', from
+    drawn bn3 scales, head and running statistics; the running statistics
+    are updated in each train step and compared after the last. Base lr
+    0.02: BatchNorm at batch 16 with bn3 scales near 1 makes the loss jump
+    at 0.05."""
+    from test_torch_botnet import IMAGE, small_flax_variables
+    from test_torch_botnet import SMALL as BOTNET_SMALL
+
+    variables = small_flax_variables(seed=3)
+    _four_steps_against_sav_tpu("botnet_t3", BOTNET_SMALL, variables["params"], backend="pallas",
+                                image_size=IMAGE, batch_stats=variables["batch_stats"],
+                                base_lr=0.02)
 
 
 def test_weight_decay_mask_on_the_cait_tree_matches_sav_tpu():
