@@ -11,25 +11,30 @@ Phases, each of which exits non-zero on failure:
    (nvidia-smi); turn TF32 off for every f32 comparison.
 2. build: compile every kernel in sav_tpu_torch/csrc with nvcc, one process
    per source, all at once; check each kernel's shared-memory rules (the
-   relative-position kernels' at BoTNet's grids and the band's edges) and
+   relative-position kernels' at BoTNet's grids and the band's edges), the
+   variant rules of the flash forward (#3) and the fused backward (#2) and
    the talking-heads kernels' head counts against the Python eligibility
-   rules.
+   rules; print the registers, spills and tensor-core instruction count
+   (HMMA/HGMMA in the built library's SASS) of every tensor-core (bf16)
+   instantiation of #3 and #2, and fail where one has none.
 3. kernels: each kernel against its plain PyTorch version on the card. The
    fused forward at the DeiT serve and train shapes, CaiT's class-attention
    shape and small, ragged, biased and strided shapes; the fused backward at
    the DeiT train shape (bf16), the serve shape (f32), CaiT's class
-   attention, ragged, one-query, short-kv and strided shapes; the
+   attention, ragged, one-query and short-kv shapes in bf16 and f32, head
+   dim 128 (one and two rounds of kv rows), two rounds at head dim 64, head
+   dim 256 in bf16 (the CUDA-core variant) and strided shapes; the
    talking-heads forward and backward (dq, dk, dv, dW_pre, dW_post) at the
    CaiT-XXS train and serve shapes, in f32, ragged, on strided views and at
    every other head count they are built for (2, 3, 6, 8; 16 forward only);
    the flash forward, dq and dk/dv kernels at the ViT-B/16@384 train shape
    (bf16, with the lse) and in f32, ragged, multi-tile at head dim 40, at
    head dim 128, at CaiT's class attention at 384², short-kv, biased
-   (forward) and on strided views; the relative-position forward, dq (with
-   d_rw and d_rh) and dk/dv kernels at BoTNet-T3's stage-4 train shapes
-   (L=196 and L=49, 4 heads of 128) in bf16 and f32, on grids of 7×9, 5×6
-   and 2×130 and on strided views. Each backward runs twice on the same
-   inputs and must give the same bits.
+   (forward, f32 and bf16) and on strided views; the relative-position
+   forward, dq (with d_rw and d_rh) and dk/dv kernels at BoTNet-T3's
+   stage-4 train shapes (L=196 and L=49, 4 heads of 128) in bf16 and f32,
+   on grids of 7×9, 5×6 and 2×130 and on strided views. Each backward runs
+   twice on the same inputs and must give the same bits.
 4. timing: each kernel, its plain version and, where one exists, one PyTorch
    library call (yardstick only) at the shapes the main paths give it,
    beside the card's bound; the talking-heads kernels also beside the port's
@@ -40,17 +45,19 @@ Phases, each of which exits non-zero on failure:
    weights from a seed) to concurrent clients; every attention core must
    have gone through its forward kernel (the launches per batch are counted
    from the model's attention modules: DeiT 12 fused; CaiT 24 talking-heads
-   and 2 fused; no backward launch), and 8 rows must agree with the same
-   weights served on the dense attention paths.
+   and 2 fused; no backward launch), every launch of #3 and #2 on the
+   tensor cores, and 8 rows must agree with the same weights served on the
+   dense attention paths.
 6. train: Trainer trains deit_s_patch16, then cait_xxs_24 (bf16 over f32
    parameters, global batch 256, CaiT at its recipe's stochastic depth 0.05)
    for 6 steps on synthetic learnable batches through fit(); every step must
    launch each forward and backward kernel once per attention module that
-   takes it, every loss must be finite, the loss must fall, and the first
-   step's loss and grad norm must agree with the same step on the dense
-   attention paths (f32 softmax, the same stochastic-depth masks). After
-   each counted run, one more step under torch.profiler gives the device's
-   busy time by kernel group and its idle share.
+   takes it (#3 and #2 on the tensor cores), every loss must be finite, the
+   loss must fall, and the first step's loss and grad norm must agree with
+   the same step on the dense attention paths (f32 softmax, the same
+   stochastic-depth masks). After each counted run, one more step under
+   torch.profiler gives the device's busy time by kernel group and its
+   idle share.
 7. fine-tune: vit_b_patch16 built at 224² has its position table resized by
    the port's surgery (197 -> 577 rows, every other tensor unchanged) and
    trains at 384² with remat for 6 steps at global batch 128, as in 6: 24
@@ -214,6 +221,30 @@ def phase_build() -> None:
                     f"{what} shared-memory rule differs at kv={kv_len} d={dim} "
                     f"itemsize={itemsize}: kernel {c_value}, fused_eligible {py_value}"
                 )
+    # The backward's variant rule, and the tensor-core variant's shared memory
+    # and rounds, at the main paths' shapes, the band's edges and past them.
+    for kv_len, dim in ((197, 64), (197, 48), (197, 32), (49, 64), (1, 8), (130, 128),
+                        (197, 128), (336, 128), (337, 128), (640, 64), (641, 64), (577, 48),
+                        (264, 64), (100, 136), (100, 256)):
+        for dtype, itemsize in ((0, 4), (1, 2)):
+            c_variant = {1: fa.TENSOR_CORE, 0: fa.CUDA_CORE}[
+                bwd.sav_fused_attention_bwd_variant(dtype, dim)]
+            if c_variant != fa.fused_bwd_variant(dim, itemsize):
+                raise AssertionError(f"backward variant rule differs at d={dim} itemsize "
+                                     f"{itemsize}: kernel {c_variant}, fused_bwd_variant "
+                                     f"{fa.fused_bwd_variant(dim, itemsize)}")
+        for what, c_value, py_value in (
+            ("tensor-core backward", bwd.sav_fused_attention_bwd_mma_smem_bytes(kv_len, kv_len, dim),
+             fa.fused_bwd_mma_smem_bytes(kv_len, kv_len, dim)),
+            ("tensor-core backward, one query",
+             bwd.sav_fused_attention_bwd_mma_smem_bytes(1, kv_len, dim),
+             fa.fused_bwd_mma_smem_bytes(1, kv_len, dim)),
+            ("tensor-core backward rounds", bwd.sav_fused_attention_bwd_mma_rounds(kv_len, dim),
+             fa.fused_bwd_mma_rounds(kv_len, dim)),
+        ):
+            if c_value != py_value:
+                raise AssertionError(f"{what} rule differs at kv={kv_len} d={dim}: kernel "
+                                     f"{c_value}, Python {py_value}")
     th_lib, th_bwd = th._lib(), th._bwd_lib()
     for kv_len, heads, dim, itemsize in ((196, 4, 48, 2), (196, 4, 48, 4), (196, 6, 48, 2),
                                          (196, 8, 48, 2), (196, 8, 48, 4), (196, 16, 48, 2),
@@ -246,18 +277,28 @@ def phase_build() -> None:
                 raise AssertionError(f"talking-heads {what}: the kernel is built for {heads} "
                                      f"heads: {bool(c_value)}; the Python rule says {py_value}")
     fl, fl_bwd = flash._lib(), flash._bwd_lib()
-    for dim in (8, 32, 40, 48, 64, 128):
-        want = flash.flash_smem_bytes(dim)
-        for what, c_value in (
-            ("fwd", fl.sav_flash_attention_smem_bytes(dim)),
-            ("bwd_dq", fl_bwd.sav_flash_attention_bwd_dq_smem_bytes(dim)),
-            ("bwd_dkv", fl_bwd.sav_flash_attention_bwd_dkv_smem_bytes(dim)),
-        ):
-            # flash_eligible takes every such dim, so each block must fit.
-            if c_value != want[what] or c_value > fa.SMEM_LIMIT or not flash.flash_eligible(dim):
-                raise AssertionError(f"flash {what} shared-memory rule differs at d={dim}: "
-                                     f"kernel {c_value}, flash_smem_bytes {want[what]}, "
-                                     f"limit {fa.SMEM_LIMIT}")
+    for dim in (8, 16, 24, 32, 40, 48, 64, 72, 96, 120, 128):
+        for itemsize in (4, 2):
+            want = flash.flash_smem_bytes(dim, itemsize)
+            for what, c_value in (
+                ("fwd", fl.sav_flash_attention_smem_bytes(dim, itemsize)),
+                ("bwd_dq", fl_bwd.sav_flash_attention_bwd_dq_smem_bytes(dim)),
+                ("bwd_dkv", fl_bwd.sav_flash_attention_bwd_dkv_smem_bytes(dim)),
+            ):
+                # flash_eligible takes every such dim, so each block must fit.
+                if (c_value != want[what] or c_value > fa.SMEM_LIMIT
+                        or not flash.flash_eligible(dim, itemsize)):
+                    raise AssertionError(
+                        f"flash {what} shared-memory rule differs at d={dim} itemsize "
+                        f"{itemsize}: kernel {c_value}, flash_smem_bytes {want[what]}, "
+                        f"limit {fa.SMEM_LIMIT}")
+    for dtype, itemsize in ((0, 4), (1, 2)):
+        c_variant = {1: flash.TENSOR_CORE, 0: flash.CUDA_CORE}[fl.sav_flash_attention_variant(dtype)]
+        if c_variant != flash.flash_fwd_variant(itemsize):
+            raise AssertionError(f"flash forward variant rule differs at itemsize {itemsize}: "
+                                 f"kernel {c_variant}, flash_fwd_variant "
+                                 f"{flash.flash_fwd_variant(itemsize)}")
+    log_mma_builds()
     rel, rel_bwd = flash._rel_lib(), flash._rel_bwd_lib()
     # BoTNet's grids, the JAX tests' grids and the band's edges at head dims
     # 128 and 64 (W + Hg = 156 and 284).
@@ -282,6 +323,73 @@ def phase_build() -> None:
                     and th.fused_bwd_eligible(heads, 196, 196, 48, itemsize=itemsize)):
                 raise AssertionError(f"{name} at 224² (itemsize {itemsize}) is outside the "
                                      "talking-heads band")
+
+
+# The tensor-core (bf16) instantiations whose build is reported: kernel
+# source -> a fragment of their mangled names.
+MMA_KERNELS = {"flash_attention": "flash_attention_fwd_mma_kernel",
+               "fused_attention_bwd": "fused_attention_bwd_mma_kernel"}
+
+
+def _ptxas_resources(text: str) -> dict:
+    """Registers, spill bytes and shared memory of each entry function in an
+    ``nvcc -Xptxas -v`` log, by mangled name."""
+    out, name = {}, None
+    for line in text.splitlines():
+        if "Compiling entry function" in line:
+            name = line.split("'")[1]
+            out[name] = {}
+        elif name is not None and "spill stores" in line:
+            words = line.replace(",", "").split()
+            out[name]["spill_stores"] = int(words[words.index("spill") - 2])
+            out[name]["spill_loads"] = int(words[-4])
+        elif name is not None and "Used" in line and "registers" in line:
+            words = line.replace(",", "").split()
+            out[name]["registers"] = int(words[words.index("registers") - 1])
+            if "smem" in words:
+                out[name]["static_smem"] = int(words[words.index("smem") - 2])
+    return out
+
+
+def _sass_mma_counts(library: str) -> dict:
+    """Tensor-core instructions (HMMA: mma.sync; HGMMA: wgmma) per function
+    in the SASS of a built library, by mangled name."""
+    from sav_tpu_torch.ops import _build
+
+    cuobjdump = os.path.join(os.path.dirname(_build.find_nvcc()), "cuobjdump")
+    sass = subprocess.run([cuobjdump, "-sass", library], capture_output=True, text=True,
+                          check=True, timeout=300).stdout
+    counts, name = {}, None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            name = line.split("Function :")[1].strip()
+            counts[name] = {"HMMA": 0, "HGMMA": 0}
+        elif name is not None:
+            for op in ("HGMMA", "HMMA"):
+                if f" {op}." in line:
+                    counts[name][op] += 1
+                    break
+    return counts
+
+
+def log_mma_builds() -> None:
+    """For each tensor-core instantiation: its registers, spills and shared
+    memory from ptxas, and its tensor-core instruction count from the SASS of
+    the built library; fails where one has no tensor-core instruction."""
+    from sav_tpu_torch.ops import _build
+
+    for source, fragment in MMA_KERNELS.items():
+        resources = _ptxas_resources(_build.BUILD_LOGS.get(source, ""))
+        sass = _sass_mma_counts(str(_build.library_path(source)))
+        names = sorted(n for n in sass if fragment in n)
+        if not names:
+            raise AssertionError(f"no {fragment} in the SASS of {source}")
+        for name in names:
+            ops = sass[name]
+            log(f"  sass {source}: {name}: {ops['HMMA']} HMMA, {ops['HGMMA']} HGMMA; ptxas "
+                + json.dumps(resources.get(name, "not in this process's build log")))
+            if ops["HMMA"] + ops["HGMMA"] == 0:
+                raise AssertionError(f"{name} in {source} has no tensor-core instruction")
 
 
 def _inputs(shape, dtype, seed, device, *, bias_shape=None, packed=False):
@@ -376,10 +484,13 @@ def check_bwd_kernel(name, shape, dtype, device, *, packed=False):
     errs = {n: _within(a, r, TOL[dtype]) for n, a, r in zip(("dq", "dk", "dv"), got, ref)}
     if not all(torch.equal(a, b) for a, b in zip(got, again)):
         raise AssertionError(f"backward kernel {name}: two runs on the same inputs differ")
+    variant = fa.fused_bwd_variant(d, q.element_size())
     log(
-        f"backward kernel {name} {shape} {str(dtype)[6:]}: max abs err "
+        f"backward kernel {name} {shape} {str(dtype)[6:]} ({variant}): max abs err "
         + ", ".join(f"{n} {e:.3e}" for n, e in errs.items())
-        + f" (tol {TOL[dtype]}); deterministic"
+        + f" (tol {TOL[dtype]}); largest |plain| "
+        + ", ".join(f"{n} {r.float().abs().max().item():.3f}" for n, r in zip(("dq", "dk", "dv"), ref))
+        + "; deterministic"
     )
     return max(errs.values())
 
@@ -394,8 +505,16 @@ def phase_bwd_kernels(device="cuda", serve_shape=SERVE_SHAPE, train_shape=TRAIN_
     check_bwd_kernel("packed-qkv+strided-dO", serve_shape, bf16, device, packed=True)
     check_bwd_kernel("ragged-50", (2, 50, 50, 2, 32), bf16, device)
     check_bwd_kernel("ragged-50", (2, 50, 50, 2, 32), f32, device)
-    check_bwd_kernel("one-query", (2, 1, lk, 2, d), f32, device)
-    check_bwd_kernel("short-kv", (2, 196, 49, 2, 64), f32, device)
+    for dtype in (f32, bf16):
+        check_bwd_kernel("one-query", (2, 1, lk, 2, d), dtype, device)
+        check_bwd_kernel("short-kv", (2, 196, 49, 2, 64), dtype, device)
+    # bf16 at head dim 128 (8 warps; two rounds of kv rows at L=197, so dq's
+    # partial sums go through the f32 scratch), two rounds at head dim 64,
+    # and the CUDA-core variant bf16 takes above 128.
+    check_bwd_kernel("d128", (2, 100, 100, 2, 128), bf16, device)
+    check_bwd_kernel("d128-two-rounds", (2, 197, 197, 2, 128), bf16, device)
+    check_bwd_kernel("two-rounds", (2, 300, 300, 2, 64), bf16, device)
+    check_bwd_kernel("d256", (2, 40, 40, 2, 256), bf16, device)
     class_err = check_bwd_kernel("cait-class-attention", CLASS_TRAIN_SHAPE, bf16, device)
     return {"train": train_err, "cait_class": class_err}
 
@@ -555,9 +674,10 @@ def phase_flash_kernels(device="cuda") -> dict:
         check_flash_kernels("d128", (2, 200, 200, 2, 128), dtype, device)
     check_flash_kernels("cait-class-attention@384", CLASS384_SHAPE, bf16, device)
     check_flash_kernels("short-kv", (2, 196, 49, 2, 64), f32, device)
-    for bias_shape in ((2, 4, 130, 150), (1, 1, 130, 150)):
-        check_flash_kernels(f"bias{bias_shape[:2]}", (2, 130, 150, 4, 32), f32, device,
-                            bias_shape=bias_shape, backward=False)
+    for dtype in (f32, bf16):
+        for bias_shape in ((2, 4, 130, 150), (1, 1, 130, 150)):
+            check_flash_kernels(f"bias{bias_shape[:2]}", (2, 130, 150, 4, 32), dtype, device,
+                                bias_shape=bias_shape, backward=False)
     check_flash_kernels("packed-qkv+strided-dO", (8, 577, 577, 12, 64), bf16, device, packed=True)
     return {"fwd": train["fwd"], "dq": train["dq"], "dkv": max(train["dk"], train["dv"])}
 
@@ -1049,6 +1169,22 @@ def _launches() -> dict:
             "rel_dq": flash.REL_BWD_DQ_LAUNCHES, "rel_dkv": flash.REL_BWD_DKV_LAUNCHES}
 
 
+def _variant_launches(launches: dict) -> dict:
+    """The launches of #3 (flash forward) and #2 (fused backward) by the
+    variant that ran, after a bf16 run whose counts are ``launches``; fails
+    unless every one of them ran on the tensor cores."""
+    from sav_tpu_torch.ops import flash_attention as flash
+    from sav_tpu_torch.ops import fused_attention as fa
+
+    variants = {"flash": dict(flash.VARIANT_LAUNCHES),
+                "fused_bwd": dict(fa.BWD_VARIANT_LAUNCHES)}
+    for kind, by_variant in variants.items():
+        if by_variant[flash.TENSOR_CORE] != launches[kind] or sum(by_variant.values()) != launches[kind]:
+            raise AssertionError(f"bf16 {kind} launches {launches[kind]} did not all run on the "
+                                 f"tensor cores: {json.dumps(by_variant)}")
+    return variants
+
+
 def _times(per: dict, n: int) -> dict:
     return {k: v * n for k, v in per.items()}
 
@@ -1146,10 +1282,12 @@ def phase_serve(device="cuda", model_name="deit_s_patch16", requests=SERVE_REQUE
             f"serving {batches} batches launched {json.dumps(launches)}; expected "
             f"{json.dumps(expected)} ({json.dumps(per_batch)} per batch, no backward launch)"
         )
+    variants = _variant_launches(launches)
     log(
         f"serve {model_name} bf16: {requests} requests from {CLIENTS} clients in "
         f"{batches} batches {json.dumps(ledger['bucket_occupancy'])}; kernel launches "
-        f"{json.dumps(launches)} = {json.dumps(per_batch)} x {batches}; "
+        f"{json.dumps(launches)} = {json.dumps(per_batch)} x {batches}, by variant "
+        f"{json.dumps(variants)}; "
         f"p50 {ledger['latency_ms']['p50']} ms, p99 {ledger['latency_ms']['p99']} ms, "
         f"{ledger['throughput_rps']} images/s"
     )
@@ -1165,7 +1303,7 @@ def phase_serve(device="cuda", model_name="deit_s_patch16", requests=SERVE_REQUE
         f"max abs err {err:.3e} (tol {SERVE_TOL}), logits max |x| {np.abs(ref).max():.3f}, "
         f"std {ref.std():.3f}"
     )
-    return launches
+    return {**launches, "variants": variants}
 
 
 def _train_common(model_name, batch_size, steps, image_size, num_classes, overrides) -> dict:
@@ -1264,6 +1402,7 @@ def phase_train(device="cuda", model_name="deit_s_patch16", batch_size=TRAIN_BAT
             f"{steps} train steps launched {json.dumps(launches)}; expected "
             f"{json.dumps(expected)} ({json.dumps(per_step)} per step)"
         )
+    variants = _variant_launches(launches)
     first = history[0]
     for key, tol in TRAIN_REL_TOL.items():
         rel = abs(first[key] - ref[key]) / abs(ref[key])
@@ -1285,13 +1424,14 @@ def phase_train(device="cuda", model_name="deit_s_patch16", batch_size=TRAIN_BAT
     log(
         f"train {model_name} bf16 batch {batch_size}: {steps} steps via fit(), losses "
         f"{[round(x, 4) for x in losses]}; launches {json.dumps(launches)} = "
-        f"{json.dumps(per_step)} x {steps}; steady window (steps "
+        f"{json.dumps(per_step)} x {steps}, by variant {json.dumps(variants)}; steady window (steps "
         f"{steps - steps // 2 + 1}-{steps}) {steady['step_s'] * 1e3:.2f} ms/step, "
         f"{steady['images_per_sec']:.1f} images/s; first window "
         f"{windows[0]['step_s'] * 1e3:.2f} ms/step; peak memory {peak_gb:.2f} GiB"
     )
     return {
         "launches": launches,
+        "variants": variants,
         "first_loss": first["loss"],
         "step_ms": steady["step_s"] * 1e3,
         "images_per_sec": steady["images_per_sec"],
@@ -1381,8 +1521,10 @@ def phase_remat_trade(state_dict, first_loss, device="cuda") -> dict:
 KERNEL_GROUPS = (
     ("flash backward dq (flash_attention_bwd.cu)", ("flash_attention_bwd_dq_kernel",)),
     ("flash backward dk/dv (flash_attention_bwd.cu)", ("flash_attention_bwd_dkv_kernel",)),
-    ("flash forward (flash_attention.cu)", ("flash_attention_fwd_kernel",)),
-    ("attention backward (fused_attention_bwd.cu)", ("fused_attention_bwd_kernel",)),
+    ("flash forward (flash_attention.cu)", ("flash_attention_fwd_kernel",
+                                            "flash_attention_fwd_mma_kernel")),
+    ("attention backward (fused_attention_bwd.cu)", ("fused_attention_bwd_kernel",
+                                                     "fused_attention_bwd_mma_kernel")),
     ("attention forward (fused_attention.cu)", ("fused_attention_fwd_kernel",)),
     ("talking-heads backward (talking_heads_bwd.cu)", ("talking_heads_bwd_kernel",)),
     ("talking-heads forward (talking_heads.cu)", ("talking_heads_fwd_kernel",)),
@@ -1477,12 +1619,24 @@ def main() -> None:
     def total(kind):
         return sum(by_path(kind).values())
 
+    def by_variant(kind):
+        out = {}
+        for run in (*serve.values(), *train.values()):
+            for variant, n in run["variants"][kind].items():
+                out[variant] = out.get(variant, 0) + n
+        return out
+
+    cuda_core = {"variant": "cuda_core: f32 products on the CUDA cores"}
+    tensor_core = ("tensor_core for bf16: mma.sync.m16n8k16, bf16 operands, f32 "
+                   "accumulators; cuda_core for f32")
+
     fwd = {
         "name": "fused_attention_fwd",
         "route": "cuda",
         "source": "sav_tpu_torch/csrc/fused_attention.cu",
         "replaces": "sav_tpu/ops/fused_attention.py:146",
         "tpu_kernel": "_fused_kernel",
+        **cuda_core,
         "checked": True,
         "launches": total("fused"),
         "launches_by_path": by_path("fused"),
@@ -1503,8 +1657,10 @@ def main() -> None:
         "source": "sav_tpu_torch/csrc/fused_attention_bwd.cu",
         "replaces": "sav_tpu/ops/fused_attention.py:351",
         "tpu_kernel": "_fused_bwd_kernel",
+        "variant": tensor_core + " and for bf16 at head dims above 128",
         "checked": True,
         "launches": total("fused_bwd"),
+        "launches_by_variant": by_variant("fused_bwd"),
         "launches_by_path": by_path("fused_bwd"),
         "max_abs_err": bwd_err["train"],
         "shape": list(TRAIN_SHAPE),
@@ -1520,6 +1676,7 @@ def main() -> None:
         "source": "sav_tpu_torch/csrc/talking_heads.cu",
         "replaces": "sav_tpu/ops/talking_heads.py:67",
         "tpu_kernel": "_th_kernel",
+        **cuda_core,
         "checked": True,
         "launches": total("talking_heads"),
         "launches_by_path": by_path("talking_heads"),
@@ -1535,6 +1692,7 @@ def main() -> None:
         "source": "sav_tpu_torch/csrc/talking_heads_bwd.cu",
         "replaces": "sav_tpu/ops/talking_heads.py:183",
         "tpu_kernel": "_th_bwd_kernel",
+        **cuda_core,
         "checked": True,
         "launches": total("talking_heads_bwd"),
         "launches_by_path": by_path("talking_heads_bwd"),
@@ -1550,7 +1708,9 @@ def main() -> None:
         "source": "sav_tpu_torch/csrc/flash_attention.cu",
         "replaces": "sav_tpu/ops/flash_attention.py:86",
         "tpu_kernel": "_kernel",
+        "variant": tensor_core,
         "launches": total("flash"),
+        "launches_by_variant": by_variant("flash"),
         "launches_by_path": by_path("flash"),
         "max_abs_err": flash_err["fwd"],
         **_timed(flash_times["fwd"]),
@@ -1562,6 +1722,7 @@ def main() -> None:
         "source": "sav_tpu_torch/csrc/flash_attention_bwd.cu",
         "replaces": "sav_tpu/ops/flash_attention.py:360",
         "tpu_kernel": "_bwd_dq_kernel",
+        **cuda_core,
         "launches": total("flash_dq"),
         "launches_by_path": by_path("flash_dq"),
         "max_abs_err": flash_err["dq"],
@@ -1573,6 +1734,7 @@ def main() -> None:
         "source": "sav_tpu_torch/csrc/flash_attention_bwd.cu",
         "replaces": "sav_tpu/ops/flash_attention.py:405",
         "tpu_kernel": "_bwd_dkv_kernel",
+        **cuda_core,
         "launches": total("flash_dkv"),
         "launches_by_path": by_path("flash_dkv"),
         "max_abs_err": flash_err["dkv"],
@@ -1599,6 +1761,7 @@ def main() -> None:
             "source": f"sav_tpu_torch/csrc/{source}",
             "replaces": f"sav_tpu/ops/flash_attention.py:{line}",
             "tpu_kernel": tpu_kernel,
+            **cuda_core,
             "launches": total(counter),
             "launches_by_path": by_path(counter),
             **main_shape,

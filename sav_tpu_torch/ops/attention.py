@@ -12,8 +12,9 @@ Port of :mod:`sav_tpu.ops.attention`. Layout everywhere:
     (:mod:`sav_tpu_torch.ops.flash_attention`): any sequence length, head
     dims that are multiples of 8 up to 128.
   - ``'auto'``/``None`` — :func:`resolve_attention_backend`: the fused kernel
-    wherever it is eligible (when an input requires grad, the backward
-    kernel's band counts too), else the flash kernels, on CPU (their plain
+    wherever it is eligible (when an input requires grad, the CUDA-core
+    backward's band counts too: :func:`~sav_tpu_torch.ops.fused_attention.fused_auto_eligible`),
+    else the flash kernels, on CPU (their plain
     versions) and on CUDA alike. The TPU tune cache and the TPU's
     dense-logits threshold are not carried over: they record TPU
     measurements.
@@ -128,7 +129,7 @@ def resolve_attention_backend(
     if requested != "auto":
         raise ValueError(f"unknown attention backend: {requested!r}")
     itemsize = torch.empty((), dtype=_as_dtype(dtype)).element_size()
-    if _fused.fused_eligible(q_len, kv_len, dim, itemsize=itemsize, backward=backward):
+    if _fused.fused_auto_eligible(q_len, kv_len, dim, itemsize=itemsize, backward=backward):
         return "fused"
     if _flash.flash_eligible(dim):
         return "pallas"

@@ -8,7 +8,10 @@ flash path:
   ``_kernel`` with its epilogue ``_online_softmax_step``
   (``sav_tpu/ops/flash_attention.py:86`` / ``:57``). Wrapper
   :func:`flash_attention`, plain version :func:`flash_attention_reference`,
-  launch counter :data:`LAUNCHES`.
+  launch counter :data:`LAUNCHES`. Two variants, chosen by dtype
+  (:func:`flash_fwd_variant`): bf16 runs on the tensor cores, f32 on the
+  CUDA cores in exact f32; :data:`VARIANT_LAUNCHES` tallies each launch
+  under its variant too.
 - ``csrc/flash_attention_bwd.cu``, two kernels: dq, which replaces
   ``_bwd_dq_kernel`` (``:360``; wrapper :func:`flash_attention_bwd_dq`,
   plain version :func:`flash_bwd_dq_reference`, counter
@@ -75,13 +78,20 @@ from sav_tpu_torch.ops.fused_attention import (
 )
 from sav_tpu_torch.ops.relative import rel_to_abs
 
-# Mirrors kTile and kMaxDim in csrc/flash_attention.cu and
-# csrc/flash_attention_bwd.cu: q rows per block and kv rows per tile, and
-# the largest head dim.
+# Mirrors kTile and kMaxDim in csrc/flash_tiles.cuh: q rows per block and
+# kv rows per tile of the f32 kernels, and the largest head dim.
 BLOCK = 64
 MAX_DIM = 128
 # Row stride, in f32, of a tile of scores (kTile + 4 in the CUDA sources).
 _SCORE_LD = BLOCK + 4
+# The forward's bf16 variant (kMmaRows in csrc/flash_attention.cu): q rows
+# per block; its kv tile is BLOCK, like the f32 variant's.
+MMA_ROWS = 128
+MMA_BLOCK_KV = BLOCK
+# The forward's variants by dtype, as ``sav_flash_attention_variant`` picks
+# them: bf16 on the tensor cores (mma.sync), f32 on the CUDA cores.
+TENSOR_CORE = "tensor_core"
+CUDA_CORE = "cuda_core"
 
 # Kernel launches since the last reset: the forward, the dq kernel and the
 # dk/dv kernel, and the same three of the relative-position family; each
@@ -92,6 +102,8 @@ BWD_DKV_LAUNCHES = 0
 REL_LAUNCHES = 0
 REL_BWD_DQ_LAUNCHES = 0
 REL_BWD_DKV_LAUNCHES = 0
+# The forward's launches by variant (each also counts in LAUNCHES).
+VARIANT_LAUNCHES = {TENSOR_CORE: 0, CUDA_CORE: 0}
 _LAUNCH_LOCK = threading.Lock()
 
 
@@ -102,35 +114,58 @@ def reset_launches() -> None:
     with _LAUNCH_LOCK:
         LAUNCHES = BWD_DQ_LAUNCHES = BWD_DKV_LAUNCHES = 0
         REL_LAUNCHES = REL_BWD_DQ_LAUNCHES = REL_BWD_DKV_LAUNCHES = 0
+        VARIANT_LAUNCHES.update(dict.fromkeys(VARIANT_LAUNCHES, 0))
 
 
-def _count(counter: str) -> None:
+def _count(counter: str, variant: Optional[str] = None) -> None:
     with _LAUNCH_LOCK:
         globals()[counter] += 1
+        if variant is not None:
+            VARIANT_LAUNCHES[variant] += 1
 
 
-def flash_smem_bytes(dim: int) -> dict:
-    """Dynamic shared memory of one block of each kernel: f32 tiles of 64
-    rows at a row stride of ``dim + 4`` and f32 score tiles of 64 × 68. The
-    forward holds q, k, v and p; dq holds q, dO, k, v and ds; dk/dv holds k,
-    v, q, dO, p, ds and the q tile's lse and delta. Same formulas as
-    ``smem_bytes`` in the CUDA sources."""
+def flash_fwd_variant(itemsize: int) -> str:
+    """The forward's variant for inputs of ``itemsize`` bytes: bf16 (2) on
+    the tensor cores, f32 (4) on the CUDA cores (no TF32). Same rule as
+    ``sav_flash_attention_variant`` in ``csrc/flash_attention.cu``."""
+    if itemsize not in (2, 4):
+        raise ValueError(f"the flash kernels take float32 or bfloat16, got itemsize {itemsize}")
+    return TENSOR_CORE if itemsize == 2 else CUDA_CORE
+
+
+def flash_smem_bytes(dim: int, itemsize: int = 4) -> dict:
+    """Dynamic shared memory of one block of each kernel for inputs of
+    ``itemsize`` bytes. The f32 kernels (every dq and dk/dv, and the f32
+    forward) hold f32 tiles of 64 rows at a row stride of ``dim + 4`` and
+    f32 score tiles of 64 × 68: the forward q, k, v and p; dq q, dO, k, v
+    and ds; dk/dv k, v, q, dO, p, ds and the q tile's lse and delta. The
+    bf16 forward holds a bf16 q tile of :data:`MMA_ROWS` rows and two
+    stages of bf16 k and v tiles of 64 rows, each row ``round_up(dim, 16)
+    + 8`` long. Same formulas as ``smem_bytes`` and ``mma_smem_bytes`` in
+    the CUDA sources."""
     tile = BLOCK * (dim + 4) * 4
     scores = BLOCK * _SCORE_LD * 4
+    fwd = 3 * tile + scores
+    if flash_fwd_variant(itemsize) == TENSOR_CORE:
+        fwd = (MMA_ROWS + 4 * BLOCK) * (-(-dim // 16) * 16 + 8) * 2
     return {
-        "fwd": 3 * tile + scores,
+        "fwd": fwd,
         "bwd_dq": 4 * tile + scores,
         "bwd_dkv": 4 * tile + 2 * scores + 2 * BLOCK * 4,
     }
 
 
-def flash_eligible(dim: int) -> bool:
-    """True when the kernels take the head dim: a multiple of 8 up to
-    :data:`MAX_DIM` (the tiles are f32 whatever the input dtype, so the rule
-    does not depend on it; at :data:`MAX_DIM` the largest block,
-    :func:`flash_smem_bytes`, is 170,496 bytes, within the 227 KB a block may
-    have). Every sequence length is taken."""
-    return dim % 8 == 0 and 0 < dim <= MAX_DIM
+def flash_eligible(dim: int, itemsize: int = 4) -> bool:
+    """True when the kernels take the head dim for inputs of ``itemsize``
+    bytes: a multiple of 8 up to :data:`MAX_DIM`, with every block of
+    :func:`flash_smem_bytes` within the 227 KB a block may have (at
+    :data:`MAX_DIM` the largest is 170,496 bytes, in either dtype). Every
+    sequence length is taken."""
+    return (
+        dim % 8 == 0
+        and 0 < dim <= MAX_DIM
+        and max(flash_smem_bytes(dim, itemsize).values()) <= SMEM_LIMIT
+    )
 
 
 def flash_attention_reference(
@@ -239,8 +274,10 @@ def _lib() -> ctypes.CDLL:
         ctypes.c_void_p,  # stream
     ]
     lib.sav_flash_attention_fwd.restype = ctypes.c_int
-    lib.sav_flash_attention_smem_bytes.argtypes = [ctypes.c_int]
+    lib.sav_flash_attention_smem_bytes.argtypes = [ctypes.c_int, ctypes.c_int]
     lib.sav_flash_attention_smem_bytes.restype = ctypes.c_size_t
+    lib.sav_flash_attention_variant.argtypes = [ctypes.c_int]
+    lib.sav_flash_attention_variant.restype = ctypes.c_int
     lib.sav_cuda_error_string.argtypes = [ctypes.c_int]
     lib.sav_cuda_error_string.restype = ctypes.c_char_p
     return lib
@@ -320,7 +357,7 @@ def _launch(query, key, value, bias, scale, with_lse):
             stream,
         )
     _raise_on_error(lib, rc, "flash attention")
-    _count("LAUNCHES")
+    _count("LAUNCHES", flash_fwd_variant(query.element_size()))
     return (out, lse) if with_lse else out
 
 

@@ -11,7 +11,10 @@ sm_90a built by :mod:`sav_tpu_torch.ops._build`:
   ``_fused_bwd_kernel`` (``sav_tpu/ops/fused_attention.py:351``) and forms
   ``delta = Σ_d dO·O`` itself. Wrapper :func:`fused_attention_bwd`, plain
   version :func:`fused_attention_bwd_reference`, launch counter
-  :data:`BWD_LAUNCHES`.
+  :data:`BWD_LAUNCHES`. Two variants (:func:`fused_bwd_variant`): bf16 at
+  head dims up to 128 on the tensor cores, f32 (and bf16 above 128) on the
+  CUDA cores in exact f32; :data:`BWD_VARIANT_LAUNCHES` tallies each launch
+  under its variant too.
 
 When an input requires grad, :func:`fused_attention` runs through
 :class:`FusedAttentionFunction`, the counterpart of ``sav_tpu``'s
@@ -42,6 +45,14 @@ _WARPS = 4
 _ROWS = 4
 _BWD_WARPS = 8
 MAX_DIM = 256
+# The backward's variants, as ``sav_fused_attention_bwd_variant`` picks
+# them: bf16 up to head dim MMA_MAX_DIM on the tensor cores (mma.sync),
+# the rest on the CUDA cores. Mirrors kMmaMaxDim and kMq (q rows per tile)
+# in csrc/fused_attention_bwd.cu.
+TENSOR_CORE = "tensor_core"
+CUDA_CORE = "cuda_core"
+MMA_MAX_DIM = 128
+_MMA_Q_ROWS = 32
 # Dynamic shared memory one block may use on Hopper (227 KB).
 SMEM_LIMIT = 232448
 
@@ -51,15 +62,18 @@ _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 # adds one per launch of its kernel.
 LAUNCHES = 0
 BWD_LAUNCHES = 0
+# The backward's launches by variant (each also counts in BWD_LAUNCHES).
+BWD_VARIANT_LAUNCHES = {TENSOR_CORE: 0, CUDA_CORE: 0}
 _LAUNCH_LOCK = threading.Lock()
 
 
 def reset_launches() -> None:
-    """Set both launch counters to 0."""
+    """Set both launch counters (and the backward's tally by variant) to 0."""
     global LAUNCHES, BWD_LAUNCHES
     with _LAUNCH_LOCK:
         LAUNCHES = 0
         BWD_LAUNCHES = 0
+        BWD_VARIANT_LAUNCHES.update(dict.fromkeys(BWD_VARIANT_LAUNCHES, 0))
 
 
 def _count_launch() -> None:
@@ -68,10 +82,11 @@ def _count_launch() -> None:
         LAUNCHES += 1
 
 
-def _count_bwd_launch() -> None:
+def _count_bwd_launch(variant: str) -> None:
     global BWD_LAUNCHES
     with _LAUNCH_LOCK:
         BWD_LAUNCHES += 1
+        BWD_VARIANT_LAUNCHES[variant] += 1
 
 
 def fused_smem_bytes(kv_len: int, dim: int, itemsize: int) -> int:
@@ -83,11 +98,48 @@ def fused_smem_bytes(kv_len: int, dim: int, itemsize: int) -> int:
     return kv_len * (2 * dim + vec) * itemsize + per_warp_rows
 
 
+def fused_bwd_variant(dim: int, itemsize: int) -> str:
+    """The backward's variant: bf16 (``itemsize`` 2) at head dims up to
+    :data:`MMA_MAX_DIM` on the tensor cores, everything else on the CUDA
+    cores (exact f32 products, no TF32). Same rule as
+    ``sav_fused_attention_bwd_variant``."""
+    return TENSOR_CORE if itemsize == 2 and dim <= MMA_MAX_DIM else CUDA_CORE
+
+
+def fused_bwd_mma_warps(dim: int) -> int:
+    """Warps of a tensor-core backward block, 16 kv rows each: 16 up to
+    head dim 64, 8 above (``mma_warps``)."""
+    return 16 if -(-dim // 16) * 16 <= 64 else 8
+
+
+def fused_bwd_mma_rounds(kv_len: int, dim: int) -> int:
+    """Rounds of kv rows a tensor-core backward block sweeps the q tiles
+    for (``mma_rounds``); above one, dq's f32 partial sums need a scratch
+    of ``B·H·Lq·D`` floats."""
+    rows = 16 * fused_bwd_mma_warps(dim)
+    return -(-(-(-kv_len // 16) * 16) // rows)
+
+
+def fused_bwd_mma_smem_bytes(q_len: int, kv_len: int, dim: int) -> int:
+    """Shared memory of one tensor-core backward block: the slice's K and V
+    in bf16 (rows padded to 16, each ``round_up(dim, 16) + 8`` long), two
+    stages of 32-row q and dO tiles, a round's dSᵀ tile (16 kv rows per
+    warp × 40) and the f32 lse and delta of every q row (rounded up to 32).
+    Same formula as ``mma_smem_bytes`` in ``csrc/fused_attention_bwd.cu``."""
+    ld = -(-dim // 16) * 16 + 8
+    return (
+        2 * (-(-kv_len // 16) * 16) * ld * 2
+        + 4 * _MMA_Q_ROWS * ld * 2
+        + 16 * fused_bwd_mma_warps(dim) * (_MMA_Q_ROWS + 8) * 2
+        + 2 * (-(-q_len // _MMA_Q_ROWS) * _MMA_Q_ROWS) * 4
+    )
+
+
 def fused_bwd_smem_bytes(kv_len: int, dim: int, itemsize: int, rows: int) -> int:
-    """Shared memory of one backward block at ``rows`` query rows per warp:
-    K and V (rows padded by 16 bytes), f32 dK and dV, and for a tile of
-    ``8 * rows`` query rows its f32 q, dO, p and ds rows. Same formula as
-    ``smem_bytes`` in ``csrc/fused_attention_bwd.cu``."""
+    """Shared memory of one CUDA-core backward block at ``rows`` query rows
+    per warp: K and V (rows padded by 16 bytes), f32 dK and dV, and for a
+    tile of ``8 * rows`` query rows its f32 q, dO, p and ds rows. Same
+    formula as ``smem_bytes`` in ``csrc/fused_attention_bwd.cu``."""
     vec = 16 // itemsize
     tile = _BWD_WARPS * rows
     return (
@@ -99,12 +151,21 @@ def fused_bwd_smem_bytes(kv_len: int, dim: int, itemsize: int, rows: int) -> int
 
 
 def fused_bwd_rows(kv_len: int, dim: int, itemsize: int) -> int:
-    """Query rows per warp the backward launcher picks: the largest of 4, 2
-    and 1 that fits shared memory, 0 when none does (``pick_rows``)."""
+    """Query rows per warp the CUDA-core backward launcher picks: the
+    largest of 4, 2 and 1 that fits shared memory, 0 when none does
+    (``pick_rows``)."""
     for rows in (4, 2, 1):
         if fused_bwd_smem_bytes(kv_len, dim, itemsize, rows) <= SMEM_LIMIT:
             return rows
     return 0
+
+
+def _bwd_bytes(q_len: int, kv_len: int, dim: int, itemsize: int) -> int:
+    """Shared memory of the smallest backward block of the variant that
+    takes the shape (one row per warp for the CUDA-core variant)."""
+    if fused_bwd_variant(dim, itemsize) == TENSOR_CORE:
+        return fused_bwd_mma_smem_bytes(q_len, kv_len, dim)
+    return fused_bwd_smem_bytes(kv_len, dim, itemsize, 1)
 
 
 def fused_eligible(
@@ -113,15 +174,30 @@ def fused_eligible(
     """True when the kernel takes the shape: a head dim that is a multiple of
     8 up to 256, and the whole kv sequence within one block's shared memory
     (replaces the TPU's 8 MiB VMEM estimate). ``backward=True`` also counts
-    the backward kernel's bytes (f32 dK/dV stay in shared memory, so its band
-    is narrower: kv_len up to 264 at head dim 64 in bf16)."""
+    the backward kernel's bytes for its variant: the tensor-core variant
+    keeps bf16 K/V (kv_len up to 640 at head dim 64), the CUDA-core one f32
+    dK/dV too (kv_len up to 203 at head dim 64 in f32)."""
     return (
         q_len >= 1
         and kv_len >= 1
         and dim % 8 == 0
         and 0 < dim <= MAX_DIM
         and fused_smem_bytes(kv_len, dim, itemsize) <= SMEM_LIMIT
-        and (not backward or fused_bwd_rows(kv_len, dim, itemsize) > 0)
+        and (not backward or _bwd_bytes(q_len, kv_len, dim, itemsize) <= SMEM_LIMIT)
+    )
+
+
+def fused_auto_eligible(
+    q_len: int, kv_len: int, dim: int, *, itemsize: int = 2, backward: bool = False
+) -> bool:
+    """``auto``'s rule for the fused kernels: :func:`fused_eligible`, and for
+    a backward the band of the CUDA-core backward (kv_len up to 264 at head
+    dim 64 in bf16) whatever the variant. The tensor-core backward takes a
+    wider band, but where ``auto`` crosses over to the flash kernels is to
+    be set from card measurements after the forward's (#1) redesign, so it
+    stays where it was; every shape inside it is inside the wider band."""
+    return fused_eligible(q_len, kv_len, dim, itemsize=itemsize, backward=backward) and (
+        not backward or fused_bwd_rows(kv_len, dim, itemsize) > 0
     )
 
 
@@ -208,6 +284,7 @@ def _bwd_lib() -> ctypes.CDLL:
         ctypes.c_int,  # dtype
         *[ctypes.c_void_p] * 6,  # q, k, v, o, dO, lse
         *[ctypes.c_void_p] * 3,  # dq, dk, dv
+        ctypes.c_void_p,  # dq_acc (f32 scratch, may be null)
         ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
         ctypes.POINTER(ctypes.c_int64),  # 24 strides
         ctypes.c_float,  # scale
@@ -218,6 +295,12 @@ def _bwd_lib() -> ctypes.CDLL:
     lib.sav_fused_attention_bwd_smem_bytes.restype = ctypes.c_size_t
     lib.sav_fused_attention_bwd_rows.argtypes = [ctypes.c_int] * 3
     lib.sav_fused_attention_bwd_rows.restype = ctypes.c_int
+    lib.sav_fused_attention_bwd_variant.argtypes = [ctypes.c_int] * 2
+    lib.sav_fused_attention_bwd_variant.restype = ctypes.c_int
+    lib.sav_fused_attention_bwd_mma_smem_bytes.argtypes = [ctypes.c_int] * 3
+    lib.sav_fused_attention_bwd_mma_smem_bytes.restype = ctypes.c_size_t
+    lib.sav_fused_attention_bwd_mma_rounds.argtypes = [ctypes.c_int] * 2
+    lib.sav_fused_attention_bwd_mma_rounds.restype = ctypes.c_int
     lib.sav_cuda_error_string.argtypes = [ctypes.c_int]
     lib.sav_cuda_error_string.restype = ctypes.c_char_p
     return lib
@@ -233,6 +316,11 @@ def _check_dtypes(*tensors) -> torch.dtype:
     return dtype
 
 
+def _chunk_aligned(t: torch.Tensor) -> bool:
+    vec = 16 // t.element_size()
+    return t.data_ptr() % 16 == 0 and all(s % vec == 0 for s in t.stride()[:3])
+
+
 def _check_strides(named_rows, named_chunked) -> None:
     """Unit stride on D for every operand; 16-byte aligned pointers and B/L/H
     strides for the operands the kernel reads in 16-byte chunks."""
@@ -240,8 +328,7 @@ def _check_strides(named_rows, named_chunked) -> None:
         if t.stride(-1) != 1:
             raise ValueError(f"the attention kernels need unit stride on D, {name} has {t.stride()}")
     for name, t in named_chunked:
-        vec = 16 // t.element_size()
-        if t.data_ptr() % 16 or any(s % vec for s in t.stride()[:3]):
+        if not _chunk_aligned(t):
             raise ValueError(
                 f"the attention kernels read {name} in 16-byte chunks: its pointer "
                 f"and its B/L/H strides {t.stride()[:3]} must be 16-byte aligned"
@@ -304,12 +391,19 @@ def _launch_bwd(query, key, value, out, lse, grad, scale):
     # The incoming gradient may arrive in another layout or dtype; the
     # kernel reads it strided but needs unit stride on D, so only then is
     # it copied.
+    variant = fused_bwd_variant(dim, query.element_size())
+    tensor_core = variant == TENSOR_CORE
     grad = grad.to(dtype)
-    if grad.stride(-1) != 1:
+    # The tensor-core variant also copies q and dO in 16-byte chunks (and
+    # reads O in aligned pairs).
+    if grad.stride(-1) != 1 or (tensor_core and not _chunk_aligned(grad)):
         grad = grad.contiguous()
+    chunked = (("key", key), ("value", value))
+    if tensor_core:
+        chunked += (("query", query), ("grad", grad), ("out", out))
     _check_strides(
         (("query", query), ("key", key), ("value", value), ("out", out), ("grad", grad)),
-        (("key", key), ("value", value)),
+        chunked,
     )
     if lse.shape != (batch, heads, q_len) or lse.dtype != torch.float32:
         raise ValueError(f"lse must be f32 [B, H, Lq], got {lse.dtype} {tuple(lse.shape)}")
@@ -317,6 +411,10 @@ def _launch_bwd(query, key, value, out, lse, grad, scale):
     dq = torch.empty((batch, q_len, heads, dim), dtype=dtype, device=query.device)
     dk = torch.empty((batch, kv_len, heads, dim), dtype=dtype, device=query.device)
     dv = torch.empty_like(dk)
+    dq_acc = None
+    if tensor_core and fused_bwd_mma_rounds(kv_len, dim) > 1:
+        dq_acc = torch.empty(batch * heads * q_len * dim, dtype=torch.float32,
+                             device=query.device)
     strides = tuple(
         s for t in (query, key, value, out, grad, dq, dk, dv) for s in t.stride()[:3]
     )
@@ -328,13 +426,14 @@ def _launch_bwd(query, key, value, out, lse, grad, scale):
             query.data_ptr(), key.data_ptr(), value.data_ptr(),
             out.data_ptr(), grad.data_ptr(), lse.data_ptr(),
             dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+            None if dq_acc is None else dq_acc.data_ptr(),
             batch, heads, q_len, kv_len, dim,
             (ctypes.c_int64 * 24)(*strides),
             float(scale),
             stream,
         )
     _raise_on_error(lib, rc, "fused attention backward")
-    _count_bwd_launch()
+    _count_bwd_launch(variant)
     return dq, dk, dv
 
 
@@ -348,10 +447,10 @@ def _check_bwd_band(q_len: int, kv_len: int, dim: int, itemsize: int) -> None:
     if not fused_eligible(q_len, kv_len, dim, itemsize=itemsize, backward=True):
         raise ValueError(
             f"kv_len={kv_len}, head_dim={dim} does not fit the fused backward "
-            f"kernel: f32 dK/dV stay in shared memory, and one block would need "
-            f"{fused_bwd_smem_bytes(kv_len, dim, itemsize, 1)} bytes against "
-            f"{SMEM_LIMIT}; longer sequences train through the flash kernels "
-            "(sav_tpu_torch.ops.flash_attention, backend='pallas')"
+            f"kernel's {fused_bwd_variant(dim, itemsize)} variant: the slice's K/V "
+            f"stay in shared memory, and one block would need {_bwd_bytes(q_len, kv_len, dim, itemsize)} "
+            f"bytes against {SMEM_LIMIT}; longer sequences train through the flash "
+            "kernels (sav_tpu_torch.ops.flash_attention, backend='pallas')"
         )
 
 

@@ -221,6 +221,15 @@ def test_eligibility_and_shared_memory_rule():
     # 64-row f32 tiles at a row stride of D + 4, and 64 x 68 score tiles.
     assert port_flash.flash_smem_bytes(64) == {"fwd": 69632, "bwd_dq": 87040, "bwd_dkv": 104960}
     assert max(port_flash.flash_smem_bytes(128).values()) == 170496
+    # bf16: the forward's tensor-core variant keeps a 128-row q tile and two
+    # stages of 64-row k and v tiles in bf16, rows of round_up(D, 16) + 8;
+    # dq and dk/dv keep their f32 tiles whatever the dtype.
+    assert port_flash.flash_smem_bytes(64, itemsize=2) == {
+        "fwd": 55296, "bwd_dq": 87040, "bwd_dkv": 104960}
+    assert port_flash.flash_smem_bytes(40, itemsize=2)["fwd"] == 384 * 56 * 2
+    assert port_flash.flash_smem_bytes(128, itemsize=2)["fwd"] == 104448
+    assert all(port_flash.flash_eligible(d, itemsize=2) for d in (8, 16, 32, 40, 48, 64, 128))
+    assert not port_flash.flash_eligible(136, itemsize=2)
     q, k, v = _port(_qkv(1, 8, 8, 1, 60))
     with pytest.raises(ValueError, match="multiple of 8"):
         port_flash.flash_attention(q, k, v)
@@ -247,3 +256,77 @@ def test_dispatch_takes_flash_outside_the_fused_band():
     q.requires_grad_()
     out = port_attention.dot_product_attention(q, k, v)
     assert out.grad_fn is not None and "FlashAttention" in type(out.grad_fn).__name__
+
+
+def test_forward_variant_rule():
+    """bf16 runs the forward on the tensor cores, f32 on the CUDA cores (no
+    TF32); the wrapper tallies each launch under its variant, and the CPU
+    plain path under none."""
+    assert port_flash.flash_fwd_variant(2) == port_flash.TENSOR_CORE
+    assert port_flash.flash_fwd_variant(4) == port_flash.CUDA_CORE
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        port_flash.flash_fwd_variant(8)
+    port_flash.reset_launches()
+    port_flash.flash_attention(*_port(_qkv(1, 8, 8, 1, 32), torch.bfloat16))
+    assert port_flash.VARIANT_LAUNCHES == {port_flash.TENSOR_CORE: 0, port_flash.CUDA_CORE: 0}
+    assert port_flash.MMA_BLOCK_KV == port_flash.BLOCK == 64
+
+
+def _online_softmax_f64(q, k, v, block_kv):
+    """The online softmax in float64, tile by tile, with p rounded to bf16
+    (the value dtype) before PV and the division by l last."""
+    s = torch.einsum("bqhd,bkhd->bhqk", q.double(), k.double()) * q.shape[-1] ** -0.5
+    m = torch.full(s.shape[:-1] + (1,), float("-inf"), dtype=torch.float64)
+    l = torch.zeros_like(m)
+    acc = torch.zeros(s.shape[:-1] + (q.shape[-1],), dtype=torch.float64)
+    for start in range(0, k.shape[1], block_kv):
+        st = s[..., start:start + block_kv]
+        m_new = torch.maximum(m, st.amax(-1, keepdim=True))
+        alpha = torch.exp(m - m_new)
+        p = torch.exp(st - m_new)
+        l = alpha * l + p.sum(-1, keepdim=True)
+        pv = torch.einsum("bhqk,bkhd->bhqd", p.to(torch.float32).to(torch.bfloat16).double(),
+                          v[:, start:start + block_kv].double())
+        acc = acc * alpha + pv
+        m = m_new
+    return (acc / l).permute(0, 2, 1, 3), (m + torch.log(l)).squeeze(-1)
+
+
+def test_reference_at_the_tensor_core_kv_tile_matches_float64():
+    """The plain version the card holds the bf16 forward against, at the
+    kernel's kv tile (passed explicitly), is the online softmax at that tile:
+    against a float64 twin that rounds p to bf16 at the same tile, it agrees
+    to f32 rounding (f32 q and k, bf16 v, so the output stays f32 and the
+    cast of p is the only bf16 rounding). A tile of another size moves the
+    result by more than that."""
+    q, k, v = _port(_qkv(2, 40, 200, 2, 32, seed=31))
+    v = v.bfloat16()
+    out, lse = port_flash.flash_attention_reference(
+        q, k, v, block_kv=port_flash.MMA_BLOCK_KV, with_lse=True)
+    want, want_lse = _online_softmax_f64(q, k, v, port_flash.MMA_BLOCK_KV)
+    torch.testing.assert_close(out.double(), want, atol=1e-6, rtol=1e-6)
+    torch.testing.assert_close(lse.double(), want_lse, atol=1e-6, rtol=1e-6)
+    other, _ = _online_softmax_f64(q, k, v, 40)
+    assert (other - want).abs().max() > 1e-4
+
+
+@pytest.mark.parametrize("dtype,serve_577", [(torch.bfloat16, "fused"), (torch.float32, "pallas")])
+def test_dispatch_at_every_main_path_shape_is_unchanged(dtype, serve_577):
+    """Where each main path's attention goes: DeiT-S (197 tokens, 6 heads of
+    64) and CaiT's class attention (1 query over 197) take the fused
+    kernels both ways; the ViT-B/16@384 fine-tune (577) and CaiT's class
+    attention at 384² (1 over 577) train through the flash kernels and
+    serve through the fused forward in bf16 (in f32 its K/V outgrow the
+    fused forward's shared memory, so flash); BoTNet-T3's stage 4 (14x14
+    and 7x7, 4 heads of 128) takes the relative-position kernels."""
+    resolve = port_attention.resolve_attention_backend
+    for q_len, kv_len, dim, train, serve in (
+        (197, 197, 64, "fused", "fused"),
+        (1, 197, 48, "fused", "fused"),
+        (577, 577, 64, "pallas", serve_577),
+        (1, 577, 48, "pallas", serve_577),
+    ):
+        assert resolve(q_len, kv_len, dim, dtype=dtype, backward=True) == train
+        assert resolve(q_len, kv_len, dim, dtype=dtype) == serve
+    for grid in (14, 7):
+        assert port_attention.resolve_relative_backend(grid, grid, 128) == "pallas"

@@ -298,24 +298,43 @@ def test_bwd_wrapper_runs_plain_version_on_cpu_and_counts_no_launch():
     got = port_fused.fused_attention_bwd(q, k, v, out, lse, g)
     want = port_fused.fused_attention_bwd_reference(q, k, v, out, lse, g)
     assert port_fused.LAUNCHES == port_fused.BWD_LAUNCHES == 0
+    assert sum(port_fused.BWD_VARIANT_LAUNCHES.values()) == 0
     for a, r in zip(got, want):
         assert torch.equal(a, r)
 
 
 def test_backward_band_counts_the_backward_bytes():
-    # bf16 at L=197, D=64 takes 4 rows per warp (225,184 bytes); f32 only 1.
+    # The CUDA-core variant (f32, and bf16 above head dim 128) keeps f32
+    # dK/dV in shared memory: at L=197, D=64, f32 takes 1 row per warp
+    # (224,928 bytes); in bf16 its rule would take 4 (225,184 bytes).
     assert port_fused.fused_bwd_smem_bytes(197, 64, 2, 4) == 225184
     assert port_fused.fused_bwd_rows(197, 64, 2) == 4
     assert port_fused.fused_bwd_smem_bytes(197, 64, 4, 1) == 224928
     assert port_fused.fused_bwd_rows(197, 64, 4) == 1
     assert port_fused.fused_eligible(197, 197, 64, itemsize=4, backward=True)
+    assert not port_fused.fused_eligible(204, 204, 64, itemsize=4, backward=True)
+    # The tensor-core variant (bf16 up to head dim 128) keeps bf16 K/V (208
+    # rows of 72), two stages of 32-row q and dO tiles, a 256 x 40 dS tile
+    # and the lse and delta of 224 q rows: 100,608 bytes at L=197, D=64,
+    # one round of kv rows.
+    assert port_fused.fused_bwd_mma_smem_bytes(197, 197, 64) == 100608
+    assert port_fused.fused_bwd_mma_smem_bytes(1, 197, 64) == 100608 - 192 * 8
+    assert port_fused.fused_bwd_mma_rounds(197, 64) == 1
+    assert port_fused.fused_bwd_mma_rounds(197, 128) == 2  # 8 warps above 64
     assert port_fused.fused_eligible(264, 264, 64, backward=True)
-    assert not port_fused.fused_eligible(268, 268, 64, backward=True)
+    assert port_fused.fused_eligible(640, 640, 64, backward=True)
+    assert not port_fused.fused_eligible(641, 641, 64, backward=True)
+    # auto's crossover to the flash kernels stays at kv 264 for D=64.
+    assert port_fused.fused_auto_eligible(264, 264, 64, backward=True)
+    assert not port_fused.fused_auto_eligible(268, 268, 64, backward=True)
     assert port_fused.fused_eligible(577, 577, 64)  # ViT at 384: forward only
     resolve = port_attention.resolve_attention_backend
     assert resolve(577, 577, 64) == "fused"
     assert resolve(577, 577, 64, backward=True) == "pallas"  # trains through flash
-    q, k, v = (t.requires_grad_() for t in _port(_qkv(1, 8, 577, 1, 64), torch.bfloat16))
+    # Past the tensor-core backward's band (640) and inside the forward's
+    # (679 at D=64 in bf16), a differentiated call raises.
+    assert port_fused.fused_eligible(672, 672, 64)
+    q, k, v = (t.requires_grad_() for t in _port(_qkv(1, 8, 672, 1, 64), torch.bfloat16))
     with pytest.raises(ValueError, match="flash kernels"):
         port_fused.fused_attention(q, k, v)
     with torch.no_grad():  # the forward alone still takes the shape
@@ -341,3 +360,32 @@ def test_dot_product_attention_grads_match_sav_tpu(backend):
     out.square().sum().backward()
     for name, t, r in zip("qkv", tensors, ref):
         np.testing.assert_allclose(t.grad.numpy(), r, atol=GRAD_ATOL, rtol=GRAD_RTOL, err_msg=name)
+
+
+def test_backward_variant_rule():
+    """bf16 at head dims up to 128 runs the backward on the tensor cores;
+    f32 at any head dim, and bf16 above 128, on the CUDA cores (exact f32,
+    no TF32)."""
+    tc, cc = port_fused.TENSOR_CORE, port_fused.CUDA_CORE
+    for dim in (8, 32, 40, 48, 64, 72, 128):
+        assert port_fused.fused_bwd_variant(dim, 2) == tc
+        assert port_fused.fused_bwd_variant(dim, 4) == cc
+    for dim in (136, 256):
+        assert port_fused.fused_bwd_variant(dim, 2) == cc
+    # 16 warps of 16 kv rows up to head dim 64, 8 above.
+    assert [port_fused.fused_bwd_mma_warps(d) for d in (8, 48, 64, 72, 128)] == [16, 16, 16, 8, 8]
+    assert [port_fused.fused_bwd_mma_rounds(kv, 64) for kv in (1, 256, 257, 640)] == [1, 1, 2, 3]
+
+
+@pytest.mark.parametrize("itemsize", [2, 4])
+def test_backward_band_holds_every_shape_auto_sends(itemsize):
+    """Every (kv_len, head_dim) that auto's rule sends to the fused backward
+    is inside the band of the variant that runs it, at every head dim the
+    kernel takes; in bf16 the tensor-core band is the wider one."""
+    for dim in range(8, 257, 8):
+        auto = [kv for kv in range(1, 1300, 3)
+                if port_fused.fused_auto_eligible(kv, kv, dim, itemsize=itemsize, backward=True)]
+        assert all(port_fused.fused_eligible(kv, kv, dim, itemsize=itemsize, backward=True)
+                   for kv in auto), dim
+        if itemsize == 2 and dim <= port_fused.MMA_MAX_DIM:
+            assert port_fused.fused_eligible(max(auto) + 8, max(auto) + 8, dim, backward=True), dim
