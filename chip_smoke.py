@@ -11,15 +11,20 @@ Phases, each of which exits non-zero on failure:
    (nvidia-smi); turn TF32 off for every f32 comparison.
 2. build: compile every kernel in sav_tpu_torch/csrc with nvcc, one process
    per source, all at once; check each kernel's shared-memory rules (the
-   relative-position kernels' at BoTNet's grids and the band's edges), the
-   variant rules of the flash forward (#3) and the fused backward (#2) and
-   the talking-heads kernels' head counts against the Python eligibility
-   rules; print the registers, spills and tensor-core instruction count
-   (HMMA/HGMMA in the built library's SASS) of every tensor-core (bf16)
-   instantiation of #3 and #2, and fail where one has none.
+   relative-position kernels' at BoTNet's grids and the band's edges, in
+   both dtypes), the variant rules of the fused forward (#1), the fused
+   backward (#2), the flash forward (#3) and the relative-position forward
+   (#6) and the talking-heads kernels' head counts against the Python
+   eligibility rules; print the registers, spills and tensor-core
+   instruction count (HMMA/HGMMA in the built library's SASS) of every
+   tensor-core (bf16) instantiation of #1, #2, #3 and #6, and fail where
+   one has none.
 3. kernels: each kernel against its plain PyTorch version on the card. The
    fused forward at the DeiT serve and train shapes, CaiT's class-attention
-   shape and small, ragged, biased and strided shapes; the fused backward at
+   shapes, ViT-B/16@384's serve shape (kv 577), head dims 40, 128 and 256,
+   one query over 577 keys, biased (bf16 and f32, (B, H) to (1, 1)),
+   ragged and strided shapes, each bf16 case run twice (the same bits) and
+   held to FUSED_BF16_TOL; the fused backward at
    the DeiT train shape (bf16), the serve shape (f32), CaiT's class
    attention, ragged, one-query and short-kv shapes in bf16 and f32, head
    dim 128 (one and two rounds of kv rows), two rounds at head dim 64, head
@@ -33,26 +38,28 @@ Phases, each of which exits non-zero on failure:
    (forward, f32 and bf16) and on strided views; the relative-position
    forward, dq (with d_rw and d_rh) and dk/dv kernels at BoTNet-T3's
    stage-4 train shapes (L=196 and L=49, 4 heads of 128) in bf16 and f32,
-   on grids of 7×9, 5×6 and 2×130 and on strided views. Each backward runs
-   twice on the same inputs and must give the same bits.
+   on grids of 7×9, 5×6 and 2×130 and on strided views. Each backward, and
+   each tensor-core forward, runs twice on the same inputs and must give
+   the same bits.
 4. timing: each kernel, its plain version and, where one exists, one PyTorch
    library call (yardstick only) at the shapes the main paths give it,
    beside the card's bound; the talking-heads kernels also beside the port's
-   dense talking-heads path; the flash forward also at DeiT's train shape,
-   beside #1; the relative-position kernels beside SDPA with the expanded
-   relative bias as its attn_mask.
+   dense talking-heads path; the flash forward also at DeiT's train and
+   serve shapes, beside #1; the relative-position kernels beside SDPA with
+   the expanded relative bias as its attn_mask.
 5. serve: ServeEngine serves deit_s_patch16, then cait_xxs_24 (bf16, random
    weights from a seed) to concurrent clients; every attention core must
    have gone through its forward kernel (the launches per batch are counted
    from the model's attention modules: DeiT 12 fused; CaiT 24 talking-heads
-   and 2 fused; no backward launch), every launch of #3 and #2 on the
-   tensor cores, and 8 rows must agree with the same weights served on the
-   dense attention paths.
+   and 2 fused; no backward launch), every launch of #1, #2, #3 and #6 on
+   the tensor cores, and 8 rows must agree with the same weights served on
+   the dense attention paths.
 6. train: Trainer trains deit_s_patch16, then cait_xxs_24 (bf16 over f32
    parameters, global batch 256, CaiT at its recipe's stochastic depth 0.05)
    for 6 steps on synthetic learnable batches through fit(); every step must
    launch each forward and backward kernel once per attention module that
-   takes it (#3 and #2 on the tensor cores), every loss must be finite, the
+   takes it (#1, #2, #3 and #6 on the tensor cores), every loss must be
+   finite, the
    loss must fall, and the first step's loss and grad norm must agree with
    the same step on the dense attention paths (f32 softmax, the same
    stochastic-depth masks). After each counted run, one more step under
@@ -141,6 +148,14 @@ TOL = {torch.bfloat16: 2e-2, torch.float32: 2e-5}
 # and dv 9.8e-4 at multi-tile-d40), so a cast point the kernel moved away
 # from its plain version's shows as a failure, not a pass within TOL.
 FLASH_BF16_TOL = {"fwd": 4e-3, "dq": 4e-3, "dk": 2e-3, "dv": 2e-3}
+# The fused forward in bf16, absolute: twice the largest error the CUDA-core
+# #1 showed over its bf16 check cases on the H100 (6.06e-3 at the DeiT train
+# shape; serve 3.12e-3, strided 2.53e-3, ragged 2.40e-3, CaiT's class
+# attention 1.58e-3), each against the plain version computed in f32, so a
+# cast point the tensor-core variant moved away from the reference's shows
+# as a failure, not a pass within TOL. The same limit holds it against the
+# plain version on the bf16 inputs, which rounds p and o where it does.
+FUSED_BF16_TOL = {"fwd": 1.2e-2}
 # The relative-position kernels in bf16: twice the largest error each output
 # showed over every bf16 case of phase_rel_kernels on the H100 (fwd 7.8e-3
 # and dv 1.56e-2 at the L=49 train shape: one bf16 ulp of outputs of 2-4;
@@ -205,10 +220,15 @@ def phase_build() -> None:
         for line in text.splitlines():
             log(f"  nvcc {name}: {line.strip()}")
     lib, bwd = fa._lib(), fa._bwd_lib()
-    for kv_len, dim, itemsize in ((197, 64, 2), (197, 64, 4), (50, 32, 4), (1, 8, 2), (264, 64, 2)):
+    for kv_len, dim, itemsize in ((197, 64, 2), (197, 64, 4), (50, 32, 4), (1, 8, 2), (264, 64, 2),
+                                  (577, 64, 2), (577, 64, 4), (197, 48, 2), (800, 64, 2),
+                                  (416, 128, 2), (197, 40, 2), (40, 136, 2), (40, 256, 2)):
         rules = [
             ("forward", lib.sav_fused_attention_smem_bytes(kv_len, dim, itemsize),
              fa.fused_smem_bytes(kv_len, dim, itemsize)),
+            ("forward variant", {1: fa.TENSOR_CORE, 0: fa.CUDA_CORE}[
+                lib.sav_fused_attention_variant(1 if itemsize == 2 else 0, dim)],
+             fa.fused_fwd_variant(dim, itemsize)),
             ("backward rows", bwd.sav_fused_attention_bwd_rows(kv_len, dim, itemsize),
              fa.fused_bwd_rows(kv_len, dim, itemsize)),
             *[(f"backward at {rows} rows",
@@ -292,30 +312,41 @@ def phase_build() -> None:
                         f"flash {what} shared-memory rule differs at d={dim} itemsize "
                         f"{itemsize}: kernel {c_value}, flash_smem_bytes {want[what]}, "
                         f"limit {fa.SMEM_LIMIT}")
-    for dtype, itemsize in ((0, 4), (1, 2)):
-        c_variant = {1: flash.TENSOR_CORE, 0: flash.CUDA_CORE}[fl.sav_flash_attention_variant(dtype)]
-        if c_variant != flash.flash_fwd_variant(itemsize):
-            raise AssertionError(f"flash forward variant rule differs at itemsize {itemsize}: "
-                                 f"kernel {c_variant}, flash_fwd_variant "
-                                 f"{flash.flash_fwd_variant(itemsize)}")
-    log_mma_builds()
     rel, rel_bwd = flash._rel_lib(), flash._rel_bwd_lib()
+    for dtype, itemsize in ((0, 4), (1, 2)):
+        for what, c_rule, py_rule in (
+            ("flash forward", fl.sav_flash_attention_variant, flash.flash_fwd_variant),
+            ("relative-position forward", rel.sav_rel_attention_variant, flash.rel_fwd_variant),
+        ):
+            c_variant = {1: flash.TENSOR_CORE, 0: flash.CUDA_CORE}[c_rule(dtype)]
+            if c_variant != py_rule(itemsize):
+                raise AssertionError(f"{what} variant rule differs at itemsize {itemsize}: "
+                                     f"kernel {c_variant}, Python {py_rule(itemsize)}")
+    # Every main-path shape of #1 in bf16 takes the tensor-core variant.
+    for q_len, kv_len, dim in ((197, 197, 64), (1, 197, 48), (577, 577, 64), (1, 577, 48)):
+        if not (fa.fused_eligible(q_len, kv_len, dim, itemsize=2)
+                and fa.fused_fwd_variant(dim, 2) == fa.TENSOR_CORE):
+            raise AssertionError(f"#1 at ({q_len}, {kv_len}, {dim}) bf16 is outside the "
+                                 "tensor-core band")
+    log_mma_builds()
     # BoTNet's grids, the JAX tests' grids and the band's edges at head dims
     # 128 and 64 (W + Hg = 156 and 284).
     for dim, height, width in ((128, 14, 14), (128, 7, 7), (16, 7, 9), (8, 5, 6), (8, 2, 130),
                                (128, 78, 78), (128, 78, 79), (64, 142, 142), (64, 142, 143)):
-        want = flash.rel_smem_bytes(dim, height, width)
-        fits = max(want.values()) <= fa.SMEM_LIMIT
-        for what, c_value in (
-            ("fwd", rel.sav_rel_attention_smem_bytes(dim, height + width)),
-            ("bwd_dq", rel_bwd.sav_rel_attention_bwd_dq_smem_bytes(dim, height + width)),
-            ("bwd_dkv", rel_bwd.sav_rel_attention_bwd_dkv_smem_bytes(dim, height + width)),
-        ):
-            if c_value != want[what] or flash.rel_eligible(dim, height, width) != fits:
-                raise AssertionError(f"relative-position {what} shared-memory rule differs at "
-                                     f"d={dim} grid {height}x{width}: kernel {c_value}, "
-                                     f"rel_smem_bytes {want[what]}, limit {fa.SMEM_LIMIT}")
-    if not all(flash.rel_eligible(128, s, s) for s in (14, 7)):
+        for itemsize in (4, 2):
+            want = flash.rel_smem_bytes(dim, height, width, itemsize)
+            fits = max(want.values()) <= fa.SMEM_LIMIT
+            for what, c_value in (
+                ("fwd", rel.sav_rel_attention_smem_bytes(dim, height, width, itemsize)),
+                ("bwd_dq", rel_bwd.sav_rel_attention_bwd_dq_smem_bytes(dim, height + width)),
+                ("bwd_dkv", rel_bwd.sav_rel_attention_bwd_dkv_smem_bytes(dim, height + width)),
+            ):
+                if c_value != want[what] or flash.rel_eligible(dim, height, width, itemsize) != fits:
+                    raise AssertionError(
+                        f"relative-position {what} shared-memory rule differs at d={dim} grid "
+                        f"{height}x{width} itemsize {itemsize}: kernel {c_value}, "
+                        f"rel_smem_bytes {want[what]}, limit {fa.SMEM_LIMIT}")
+    if not all(flash.rel_eligible(128, s, s, itemsize) for s in (14, 7) for itemsize in (2, 4)):
         raise AssertionError("BoTNet-T3's stage-4 grids are outside the relative-position band")
     for name, heads in (("CaiT-XXS", 4), ("CaiT-XS", 6), ("CaiT-S", 8)):
         for itemsize in (2, 4):
@@ -327,8 +358,10 @@ def phase_build() -> None:
 
 # The tensor-core (bf16) instantiations whose build is reported: kernel
 # source -> a fragment of their mangled names.
-MMA_KERNELS = {"flash_attention": "flash_attention_fwd_mma_kernel",
-               "fused_attention_bwd": "fused_attention_bwd_mma_kernel"}
+MMA_KERNELS = {"fused_attention": "fused_attention_fwd_mma_kernel",
+               "fused_attention_bwd": "fused_attention_bwd_mma_kernel",
+               "flash_attention": "flash_attention_fwd_mma_kernel",
+               "rel_attention": "rel_attention_fwd_mma_kernel"}
 
 
 def _ptxas_resources(text: str) -> dict:
@@ -421,22 +454,38 @@ def _within(got, ref, tol, rtol=None) -> float:
 
 def check_kernel(name, shape, dtype, device, *, bias_shape=None, with_lse=False, packed=False):
     """The kernel against its plain version computed in f32 from the same
-    inputs. bf16 allows one bf16 rounding of P and one of O."""
+    inputs (bf16 allows one bf16 rounding of P and one of O), and in bf16
+    also against the plain version on the bf16 inputs (the same roundings),
+    both within FUSED_BF16_TOL (absolute); a bf16 run is repeated on the same
+    inputs and must give the same bits."""
     from sav_tpu_torch.ops import fused_attention as fa
 
     q, k, v, bias = _inputs(shape, dtype, 7, device, bias_shape=bias_shape, packed=packed)
+    bf16 = dtype == torch.bfloat16
+    tol, rtol = (FUSED_BF16_TOL["fwd"], 0.0) if bf16 else (TOL[dtype], None)
     with torch.inference_mode():
         got = fa.fused_attention(q, k, v, bias, with_lse=with_lse)
+        again = fa.fused_attention(q, k, v, bias, with_lse=with_lse) if bf16 else got
         ref = fa.fused_attention_reference(
             q.float(), k.float(), v.float(), bias, with_lse=with_lse
         )
+        same = fa.fused_attention_reference(q, k, v, bias, with_lse=with_lse) if bf16 else None
     if with_lse:
-        (got, got_lse), (ref, ref_lse) = got, ref
-    err = _within(got, ref, TOL[dtype])
-    note = ""
+        (got, got_lse), (ref, ref_lse), (again, _) = got, ref, again
+        same = same[0] if bf16 else None
+    if not torch.equal(got, again):
+        raise AssertionError(f"fused forward {name}: two runs on the same inputs differ")
+    err = _within(got, ref, tol, rtol)
+    variant = fa.fused_fwd_variant(shape[-1], q.element_size())
+    note = f" ({variant}"
+    if bf16:
+        note += (f"; deterministic; against the plain version in bf16 "
+                 f"{_within(got, same, tol, rtol):.3e}")
+    note += f"; largest |plain| {ref.float().abs().max().item():.3f})"
     if with_lse:
-        note = f", lse max abs err {_within(got_lse, ref_lse, LSE_TOL):.3e}"
-    log(f"kernel {name} {shape} {str(dtype)[6:]}: max abs err {err:.3e} (tol {TOL[dtype]}){note}")
+        note += f", lse max abs err {_within(got_lse, ref_lse, LSE_TOL):.3e}"
+    log(f"kernel {name} {shape} {str(dtype)[6:]}: max abs err {err:.3e} "
+        f"(tol {tol}{' absolute' if bf16 else ''}){note}")
     return err
 
 
@@ -458,6 +507,26 @@ def phase_kernels(device="cuda", serve_shape=SERVE_SHAPE, train_shape=TRAIN_SHAP
     check_kernel("short-kv", (2, 196, 49, 2, 64), f32, device)
     class_err = check_kernel("cait-class-attention+lse", CLASS_TRAIN_SHAPE, bf16, device, with_lse=True)
     class_err = max(class_err, check_kernel("cait-class-attention", CLASS_SERVE_SHAPE, bf16, device))
+    # The tensor-core variant beyond the main paths: ViT-B/16@384's serve
+    # shape (kv 577, the band's main-path top), head dims 40 (padded to the
+    # MMA depth) and 128 (16 rows a warp; kv at that band's top, 416), one
+    # query over 577 keys, biases of every broadcast pattern, ragged and
+    # short-kv shapes, with and without the lse; and bf16 above head dim 128
+    # on the CUDA cores.
+    check_kernel("vit-b/16@384 serve", (8, 577, 577, 12, 64), bf16, device)
+    check_kernel("vit-b/16@384 serve+lse", (8, 577, 577, 12, 64), bf16, device, with_lse=True)
+    check_kernel("d40+lse", (2, 100, 150, 2, 40), bf16, device, with_lse=True)
+    check_kernel("d128", (2, 197, 197, 2, 128), bf16, device)
+    check_kernel("d128-kv416+lse", (2, 130, 416, 2, 128), bf16, device, with_lse=True)
+    check_kernel("one-query-577+lse", (8, 1, 577, 4, 48), bf16, device, with_lse=True)
+    for bias_shape in ((2, 4, 130, 150), (1, 1, 130, 150), (1, 4, 130, 150), (2, 1, 130, 150)):
+        check_kernel(f"bias{bias_shape[:2]}", (2, 130, 150, 4, 32), bf16, device,
+                     bias_shape=bias_shape)
+    check_kernel("bias(2, 4)+lse", (2, 130, 150, 4, 32), bf16, device,
+                 bias_shape=(2, 4, 130, 150), with_lse=True)
+    check_kernel("ragged-50", (2, 50, 50, 2, 32), bf16, device)
+    check_kernel("short-kv+lse", (2, 196, 49, 2, 64), bf16, device, with_lse=True)
+    check_kernel("d256 cuda-core", (2, 40, 40, 2, 256), bf16, device)
     return {"serve": serve_err, "train": train_err, "cait_class": class_err}
 
 
@@ -720,6 +789,7 @@ def check_rel_kernels(name, shape, dtype, device, *, packed=False) -> dict:
         tols, rtol = dict.fromkeys(REL_BF16_TOL, TOL[dtype]), None
     with torch.no_grad():
         out, lse = flash.rel_attention(q, k, v, rw, rh, scale=scale, with_lse=True)
+        again = flash.rel_attention(q, k, v, rw, rh, scale=scale, with_lse=True)
         ref, ref_lse = flash.rel_attention_reference(q, k, v, rw, rh, scale=scale, with_lse=True)
         delta = flash.bwd_delta(out, g)
         operands = (q, k, v, rw, rh, g, lse, delta)
@@ -735,11 +805,15 @@ def check_rel_kernels(name, shape, dtype, device, *, packed=False) -> dict:
     scales.update({n: r.float().abs().max().item() for n, r in zip(names, want)})
     if not all(torch.equal(a, b) for a, b in zip(*runs)):
         raise AssertionError(f"relative-position backward {name}: two runs on the same inputs differ")
-    log(f"rel kernels {name} {shape} {str(dtype)[6:]}: max abs err "
+    if not (torch.equal(out, again[0]) and torch.equal(lse, again[1])):
+        raise AssertionError(f"relative-position forward {name}: two runs on the same inputs differ")
+    log(f"rel kernels {name} {shape} {str(dtype)[6:]} (forward "
+        f"{flash.rel_fwd_variant(q.element_size())}): max abs err "
         + ", ".join(f"{n} {e:.3e}" for n, e in errs.items())
         + f" (tol {json.dumps(tols)}{'' if rtol is None else ' absolute, d_rw/d_rh relative too'},"
         f" lse {LSE_TOL}); largest |plain| "
-        + ", ".join(f"{n} {x:.3f}" for n, x in scales.items()) + "; backward deterministic")
+        + ", ".join(f"{n} {x:.3f}" for n, x in scales.items()) + "; forward and backward "
+        "deterministic")
     return errs
 
 
@@ -1064,7 +1138,7 @@ def time_rel(shape, *, backward=True) -> dict:
 
 
 def phase_timing() -> dict:
-    return {
+    times = {
         "fwd_serve": time_fwd(SERVE_SHAPE, with_lse=False),
         "fwd_train": time_fwd(TRAIN_SHAPE, with_lse=True),
         "bwd_train": time_bwd(TRAIN_SHAPE),
@@ -1076,10 +1150,18 @@ def phase_timing() -> dict:
         "th_bwd_train": time_th_bwd(TH_TRAIN_SHAPE),
         "flash_vit384": time_flash(VIT384_SHAPE),
         "flash_fwd_deit_train": time_flash(TRAIN_SHAPE, backward=False)["fwd"],
+        "flash_fwd_deit_serve": time_flash(SERVE_SHAPE, backward=False)["fwd"],
         **{f"rel {key}": time_rel(shape) for key, shape in REL_TRAIN_SHAPES.items()},
         **{f"rel {key} serve": time_rel(shape, backward=False)["fwd"]
            for key, shape in REL_SERVE_SHAPES.items()},
     }
+    # The forward crossover auto does not move: #1 against #3 at DeiT's shapes.
+    for name, shape, fused, flash in (("train", TRAIN_SHAPE, "fwd_train", "flash_fwd_deit_train"),
+                                      ("serve", SERVE_SHAPE, "fwd_serve", "flash_fwd_deit_serve")):
+        a, b = times[fused]["ms"], times[flash]["ms"]
+        log(f"forward crossover at DeiT's {name} shape {shape} bf16: #1 {a:.4f} ms, #3 (with "
+            f"lse) {b:.4f} ms, #1/#3 {a / b:.2f}")
+    return times
 
 
 def _serve(engine, images, clients) -> list:
@@ -1170,14 +1252,17 @@ def _launches() -> dict:
 
 
 def _variant_launches(launches: dict) -> dict:
-    """The launches of #3 (flash forward) and #2 (fused backward) by the
-    variant that ran, after a bf16 run whose counts are ``launches``; fails
-    unless every one of them ran on the tensor cores."""
+    """The launches of #1 (fused forward), #2 (fused backward), #3 (flash
+    forward) and #6 (relative-position forward) by the variant that ran,
+    after a bf16 run whose counts are ``launches``; fails unless every one
+    of them ran on the tensor cores."""
     from sav_tpu_torch.ops import flash_attention as flash
     from sav_tpu_torch.ops import fused_attention as fa
 
-    variants = {"flash": dict(flash.VARIANT_LAUNCHES),
-                "fused_bwd": dict(fa.BWD_VARIANT_LAUNCHES)}
+    variants = {"fused": dict(fa.FWD_VARIANT_LAUNCHES),
+                "fused_bwd": dict(fa.BWD_VARIANT_LAUNCHES),
+                "flash": dict(flash.VARIANT_LAUNCHES),
+                "rel": dict(flash.REL_VARIANT_LAUNCHES)}
     for kind, by_variant in variants.items():
         if by_variant[flash.TENSOR_CORE] != launches[kind] or sum(by_variant.values()) != launches[kind]:
             raise AssertionError(f"bf16 {kind} launches {launches[kind]} did not all run on the "
@@ -1525,12 +1610,14 @@ KERNEL_GROUPS = (
                                             "flash_attention_fwd_mma_kernel")),
     ("attention backward (fused_attention_bwd.cu)", ("fused_attention_bwd_kernel",
                                                      "fused_attention_bwd_mma_kernel")),
-    ("attention forward (fused_attention.cu)", ("fused_attention_fwd_kernel",)),
+    ("attention forward (fused_attention.cu)", ("fused_attention_fwd_kernel",
+                                                "fused_attention_fwd_mma_kernel")),
     ("talking-heads backward (talking_heads_bwd.cu)", ("talking_heads_bwd_kernel",)),
     ("talking-heads forward (talking_heads.cu)", ("talking_heads_fwd_kernel",)),
     ("rel backward dq (rel_attention_bwd.cu)", ("rel_attention_bwd_dq_kernel",)),
     ("rel backward dk/dv (rel_attention_bwd.cu)", ("rel_attention_bwd_dkv_kernel",)),
-    ("rel forward (rel_attention.cu)", ("rel_attention_fwd_kernel",)),
+    ("rel forward (rel_attention.cu)", ("rel_attention_fwd_kernel",
+                                        "rel_attention_fwd_mma_kernel")),
     ("batch norm", ("batch_norm", "batchnorm", "bn_fw", "bn_bw")),
     # Before matmul: cuDNN's convolution kernels are implicit GEMMs, named
     # like cuBLAS's (xmma, cutlass) with fprop/dgrad/wgrad in the name.
@@ -1636,9 +1723,10 @@ def main() -> None:
         "source": "sav_tpu_torch/csrc/fused_attention.cu",
         "replaces": "sav_tpu/ops/fused_attention.py:146",
         "tpu_kernel": "_fused_kernel",
-        **cuda_core,
+        "variant": tensor_core + " and for bf16 at head dims above 128",
         "checked": True,
         "launches": total("fused"),
+        "launches_by_variant": by_variant("fused"),
         "launches_by_path": by_path("fused"),
         "max_abs_err": fwd_err["train"],
         "shape": list(TRAIN_SHAPE),
@@ -1715,6 +1803,7 @@ def main() -> None:
         "max_abs_err": flash_err["fwd"],
         **_timed(flash_times["fwd"]),
         "at_deit_train_shape": {"shape": list(TRAIN_SHAPE), **_timed(times["flash_fwd_deit_train"])},
+        "at_deit_serve_shape": {"shape": list(SERVE_SHAPE), **_timed(times["flash_fwd_deit_serve"])},
     }
     flash_dq = {
         "name": "flash_attention_bwd_dq",
@@ -1761,7 +1850,8 @@ def main() -> None:
             "source": f"sav_tpu_torch/csrc/{source}",
             "replaces": f"sav_tpu/ops/flash_attention.py:{line}",
             "tpu_kernel": tpu_kernel,
-            **cuda_core,
+            **({"variant": tensor_core, "launches_by_variant": by_variant(counter)}
+               if kind == "fwd" else cuda_core),
             "launches": total(counter),
             "launches_by_path": by_path(counter),
             **main_shape,

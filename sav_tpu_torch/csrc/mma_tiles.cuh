@@ -1,5 +1,7 @@
-// Tensor-core tile pieces for the bf16 variants of the flash forward
-// (flash_attention.cu) and the fused backward (fused_attention_bwd.cu).
+// Tensor-core tile pieces for the bf16 variants of the fused forward
+// (fused_attention.cu), the fused backward (fused_attention_bwd.cu), the
+// flash forward (flash_attention.cu) and the relative-position forward
+// (rel_attention.cu).
 //
 // Products are warp-level `mma.sync.m16n8k16` with bf16 operands and f32
 // accumulators; operands reach registers from shared memory with
@@ -39,6 +41,17 @@ __device__ __forceinline__ void cp_async16(void* dst, const void* src,
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
                    smem_addr(dst)),
                "l"(src), "r"(valid ? 16 : 0)
+               : "memory");
+}
+
+// 4 bytes global -> shared (through L1); zero (no read) when !valid. For
+// f32 rows that are not 16-byte chunks, such as the relative-position
+// kernel's rows of compact logits.
+__device__ __forceinline__ void cp_async4(void* dst, const void* src,
+                                          bool valid) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(src), "r"(valid ? 4 : 0)
                : "memory");
 }
 

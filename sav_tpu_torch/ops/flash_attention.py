@@ -36,7 +36,10 @@ rw_abs[q, kw]``.
 
 - ``csrc/rel_attention.cu`` replaces ``_rel_kernel`` (``:663``): wrapper
   :func:`rel_attention`, plain version :func:`rel_attention_reference`,
-  counter :data:`REL_LAUNCHES`.
+  counter :data:`REL_LAUNCHES`. Two variants by dtype
+  (:func:`rel_fwd_variant`), as the flash forward's: bf16 on the tensor
+  cores, f32 on the CUDA cores; :data:`REL_VARIANT_LAUNCHES` tallies each
+  launch under its variant too.
 - ``csrc/rel_attention_bwd.cu``: dq with the compact bias gradients
   ``d_rw``/``d_rh``, replacing ``_rel_bwd_dq_kernel`` (``:868``;
   :func:`rel_attention_bwd_dq`, :func:`rel_bwd_dq_reference`,
@@ -89,7 +92,9 @@ _SCORE_LD = BLOCK + 4
 MMA_ROWS = 128
 MMA_BLOCK_KV = BLOCK
 # The forward's variants by dtype, as ``sav_flash_attention_variant`` picks
-# them: bf16 on the tensor cores (mma.sync), f32 on the CUDA cores.
+# them: bf16 on the tensor cores (mma.sync), f32 on the CUDA cores. The
+# relative-position forward's variants follow the same rule
+# (``sav_rel_attention_variant``).
 TENSOR_CORE = "tensor_core"
 CUDA_CORE = "cuda_core"
 
@@ -102,26 +107,30 @@ BWD_DKV_LAUNCHES = 0
 REL_LAUNCHES = 0
 REL_BWD_DQ_LAUNCHES = 0
 REL_BWD_DKV_LAUNCHES = 0
-# The forward's launches by variant (each also counts in LAUNCHES).
+# The launches of the two forwards by variant (each also counts in
+# LAUNCHES or REL_LAUNCHES).
 VARIANT_LAUNCHES = {TENSOR_CORE: 0, CUDA_CORE: 0}
+REL_VARIANT_LAUNCHES = {TENSOR_CORE: 0, CUDA_CORE: 0}
+_VARIANT_TALLIES = {"LAUNCHES": VARIANT_LAUNCHES, "REL_LAUNCHES": REL_VARIANT_LAUNCHES}
 _LAUNCH_LOCK = threading.Lock()
 
 
 def reset_launches() -> None:
-    """Set the six launch counters to 0."""
+    """Set the six launch counters and the forwards' tallies by variant to 0."""
     global LAUNCHES, BWD_DQ_LAUNCHES, BWD_DKV_LAUNCHES
     global REL_LAUNCHES, REL_BWD_DQ_LAUNCHES, REL_BWD_DKV_LAUNCHES
     with _LAUNCH_LOCK:
         LAUNCHES = BWD_DQ_LAUNCHES = BWD_DKV_LAUNCHES = 0
         REL_LAUNCHES = REL_BWD_DQ_LAUNCHES = REL_BWD_DKV_LAUNCHES = 0
-        VARIANT_LAUNCHES.update(dict.fromkeys(VARIANT_LAUNCHES, 0))
+        for tally in _VARIANT_TALLIES.values():
+            tally.update(dict.fromkeys(tally, 0))
 
 
 def _count(counter: str, variant: Optional[str] = None) -> None:
     with _LAUNCH_LOCK:
         globals()[counter] += 1
         if variant is not None:
-            VARIANT_LAUNCHES[variant] += 1
+            _VARIANT_TALLIES[counter][variant] += 1
 
 
 def flash_fwd_variant(itemsize: int) -> str:
@@ -551,30 +560,60 @@ def flash_attention(
 # ---------------------------------------------------------------------------
 
 
-def rel_smem_bytes(dim: int, height: int, width: int) -> dict:
-    """Dynamic shared memory of one block of each relative-position kernel:
-    the flash kernel's tiles (:func:`flash_smem_bytes`) plus the q tile's
-    rows of ``rw_abs`` and ``rh_abs`` (64 × (W + Hg) f32); dq also holds its
-    f32 ``d_rw``/``d_rh`` accumulators (as many again). Same formulas as
-    ``smem_bytes`` in ``csrc/rel_attention.cu`` and ``dq_smem_bytes`` /
-    ``dkv_smem_bytes`` in ``csrc/rel_attention_bwd.cu``."""
+def rel_fwd_variant(itemsize: int) -> str:
+    """The relative-position forward's variant for inputs of ``itemsize``
+    bytes: bf16 (2) on the tensor cores, f32 (4) on the CUDA cores (no
+    TF32). Same rule as ``sav_rel_attention_variant`` in
+    ``csrc/rel_attention.cu``; the backward kernels (#7, #8) take f32
+    tiles in either dtype."""
+    if itemsize not in (2, 4):
+        raise ValueError(f"the relative-position kernels take float32 or bfloat16, "
+                         f"got itemsize {itemsize}")
+    return TENSOR_CORE if itemsize == 2 else CUDA_CORE
+
+
+def rel_mma_rows(length: int) -> int:
+    """Query rows of one tensor-core forward block: 128 (8 warps of 16) where
+    the sequence is longer than one kv tile, else 64 (4 warps): at L=49 a
+    128-row block would leave 79 rows idle (``mma_rows``)."""
+    return 128 if length > BLOCK else 64
+
+
+def rel_smem_bytes(dim: int, height: int, width: int, itemsize: int = 4) -> dict:
+    """Dynamic shared memory of one block of each relative-position kernel
+    for inputs of ``itemsize`` bytes. The f32 kernels: the flash kernel's
+    f32 tiles (:func:`flash_smem_bytes`) plus the q tile's rows of
+    ``rw_abs`` and ``rh_abs`` (64 × (W + Hg) f32); dq also holds its f32
+    ``d_rw``/``d_rh`` accumulators (as many again). The bf16 forward: a bf16
+    q tile of :func:`rel_mma_rows` rows and two stages of bf16 k and v tiles
+    of 64 rows, each row ``round_up(dim, 16) + 8`` long, the q tile's f32
+    rows of ``rw_abs``/``rh_abs`` and the key coordinates of two kv tiles
+    (64 int32 each). Same formulas as ``smem_bytes`` / ``mma_smem_bytes``
+    in ``csrc/rel_attention.cu`` and ``dq_smem_bytes`` / ``dkv_smem_bytes``
+    in ``csrc/rel_attention_bwd.cu``."""
     flash = flash_smem_bytes(dim)
     rows = BLOCK * (height + width) * 4
+    fwd = flash["fwd"] + rows
+    if rel_fwd_variant(itemsize) == TENSOR_CORE:
+        q_rows = rel_mma_rows(height * width)
+        fwd = ((q_rows + 4 * BLOCK) * (-(-dim // 16) * 16 + 8) * 2
+               + q_rows * (height + width) * 4 + 2 * BLOCK * 4)
     return {
-        "fwd": flash["fwd"] + rows,
+        "fwd": fwd,
         "bwd_dq": flash["bwd_dq"] + 2 * rows,
         "bwd_dkv": flash["bwd_dkv"] + rows,
     }
 
 
-def rel_eligible(dim: int, height: int, width: int) -> bool:
-    """True when the relative-position kernels take the head dim and grid:
-    a head dim :func:`flash_eligible` takes, and every block of
-    :func:`rel_smem_bytes` within the 227 KB a block may have. The dq block
-    is the largest, so at head dim 128 the band is W + Hg ≤ 156 (BoTNet's
-    14 + 14 and 7 + 7 are well inside; 2 + 130 fits), at head dim 64 W + Hg
-    ≤ 284."""
-    return flash_eligible(dim) and max(rel_smem_bytes(dim, height, width).values()) <= SMEM_LIMIT
+def rel_eligible(dim: int, height: int, width: int, itemsize: int = 4) -> bool:
+    """True when the relative-position kernels take the head dim and grid
+    for inputs of ``itemsize`` bytes: a head dim :func:`flash_eligible`
+    takes, and every block of :func:`rel_smem_bytes` within the 227 KB a
+    block may have. The dq block is the largest in either dtype, so at head
+    dim 128 the band is W + Hg ≤ 156 (BoTNet's 14 + 14 and 7 + 7 are well
+    inside; 2 + 130 fits), at head dim 64 W + Hg ≤ 284."""
+    return flash_eligible(dim) and max(
+        rel_smem_bytes(dim, height, width, itemsize).values()) <= SMEM_LIMIT
 
 
 def compact_to_absolute(cw: torch.Tensor, ch: torch.Tensor, height: int, width: int):
@@ -664,8 +703,10 @@ def _rel_lib() -> ctypes.CDLL:
         ctypes.c_void_p,  # stream
     ]
     lib.sav_rel_attention_fwd.restype = ctypes.c_int
-    lib.sav_rel_attention_smem_bytes.argtypes = [ctypes.c_int, ctypes.c_int]
+    lib.sav_rel_attention_smem_bytes.argtypes = [ctypes.c_int] * 4
     lib.sav_rel_attention_smem_bytes.restype = ctypes.c_size_t
+    lib.sav_rel_attention_variant.argtypes = [ctypes.c_int]
+    lib.sav_rel_attention_variant.restype = ctypes.c_int
     lib.sav_cuda_error_string.argtypes = [ctypes.c_int]
     lib.sav_cuda_error_string.restype = ctypes.c_char_p
     return lib
@@ -716,11 +757,12 @@ def _check_rel(query, key, value, rw_abs, rh_abs) -> tuple:
     for name, t, n in (("rw_abs", rw_abs, width), ("rh_abs", rh_abs, height)):
         if tuple(t.shape) != (batch, heads, length, n):
             raise ValueError(f"{name} must be [B, H, L, {n}], got {tuple(t.shape)}")
-    if not rel_eligible(dim, height, width):
+    itemsize = query.element_size()
+    if not rel_eligible(dim, height, width, itemsize):
         raise ValueError(
             f"head_dim={dim} on a {height}x{width} grid does not fit the relative-position "
             f"kernels: head dims are multiples of 8 up to {MAX_DIM}, and one block needs "
-            f"{max(rel_smem_bytes(dim, height, width).values())} bytes of shared memory "
+            f"{max(rel_smem_bytes(dim, height, width, itemsize).values())} bytes of shared memory "
             f"against {SMEM_LIMIT}"
         )
     return height, width
@@ -750,7 +792,7 @@ def _rel_launch(query, key, value, rw_abs, rh_abs, scale, with_lse):
             stream,
         )
     _raise_on_error(lib, rc, "relative-position attention")
-    _count("REL_LAUNCHES")
+    _count("REL_LAUNCHES", rel_fwd_variant(query.element_size()))
     return (out, lse) if with_lse else out
 
 

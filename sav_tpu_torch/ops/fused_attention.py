@@ -6,7 +6,10 @@ sm_90a built by :mod:`sav_tpu_torch.ops._build`:
 - ``csrc/fused_attention.cu``, the forward; it replaces the TPU kernel
   ``_fused_kernel`` (``sav_tpu/ops/fused_attention.py:146``). Wrapper
   :func:`fused_attention`, plain version :func:`fused_attention_reference`,
-  launch counter :data:`LAUNCHES`.
+  launch counter :data:`LAUNCHES`. Two variants (:func:`fused_fwd_variant`):
+  bf16 at head dims up to 128 on the tensor cores, f32 (and bf16 above
+  128) on the CUDA cores in exact f32; :data:`FWD_VARIANT_LAUNCHES` tallies
+  each launch under its variant too.
 - ``csrc/fused_attention_bwd.cu``, the backward; it replaces
   ``_fused_bwd_kernel`` (``sav_tpu/ops/fused_attention.py:351``) and forms
   ``delta = Σ_d dO·O`` itself. Wrapper :func:`fused_attention_bwd`, plain
@@ -45,13 +48,15 @@ _WARPS = 4
 _ROWS = 4
 _BWD_WARPS = 8
 MAX_DIM = 256
-# The backward's variants, as ``sav_fused_attention_bwd_variant`` picks
-# them: bf16 up to head dim MMA_MAX_DIM on the tensor cores (mma.sync),
-# the rest on the CUDA cores. Mirrors kMmaMaxDim and kMq (q rows per tile)
-# in csrc/fused_attention_bwd.cu.
+# The variants of both kernels, as ``sav_fused_attention_variant`` and
+# ``sav_fused_attention_bwd_variant`` pick them: bf16 up to head dim
+# MMA_MAX_DIM on the tensor cores (mma.sync), the rest on the CUDA cores.
+# Mirrors kMmaMaxDim in both sources, kMmaWarps in csrc/fused_attention.cu
+# and kMq (q rows per tile) in csrc/fused_attention_bwd.cu.
 TENSOR_CORE = "tensor_core"
 CUDA_CORE = "cuda_core"
 MMA_MAX_DIM = 128
+_MMA_FWD_WARPS = 4
 _MMA_Q_ROWS = 32
 # Dynamic shared memory one block may use on Hopper (227 KB).
 SMEM_LIMIT = 232448
@@ -62,24 +67,28 @@ _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 # adds one per launch of its kernel.
 LAUNCHES = 0
 BWD_LAUNCHES = 0
-# The backward's launches by variant (each also counts in BWD_LAUNCHES).
+# The launches of each kernel by variant (each also counts in LAUNCHES or
+# BWD_LAUNCHES).
+FWD_VARIANT_LAUNCHES = {TENSOR_CORE: 0, CUDA_CORE: 0}
 BWD_VARIANT_LAUNCHES = {TENSOR_CORE: 0, CUDA_CORE: 0}
 _LAUNCH_LOCK = threading.Lock()
 
 
 def reset_launches() -> None:
-    """Set both launch counters (and the backward's tally by variant) to 0."""
+    """Set both launch counters (and the tallies by variant) to 0."""
     global LAUNCHES, BWD_LAUNCHES
     with _LAUNCH_LOCK:
         LAUNCHES = 0
         BWD_LAUNCHES = 0
-        BWD_VARIANT_LAUNCHES.update(dict.fromkeys(BWD_VARIANT_LAUNCHES, 0))
+        for tally in (FWD_VARIANT_LAUNCHES, BWD_VARIANT_LAUNCHES):
+            tally.update(dict.fromkeys(tally, 0))
 
 
-def _count_launch() -> None:
+def _count_launch(variant: str) -> None:
     global LAUNCHES
     with _LAUNCH_LOCK:
         LAUNCHES += 1
+        FWD_VARIANT_LAUNCHES[variant] += 1
 
 
 def _count_bwd_launch(variant: str) -> None:
@@ -89,10 +98,37 @@ def _count_bwd_launch(variant: str) -> None:
         BWD_VARIANT_LAUNCHES[variant] += 1
 
 
+def fused_fwd_variant(dim: int, itemsize: int) -> str:
+    """The forward's variant: bf16 (``itemsize`` 2) at head dims up to
+    :data:`MMA_MAX_DIM` on the tensor cores, f32 (4), and bf16 above, on the
+    CUDA cores (exact f32 products, no TF32). Same rule as
+    ``sav_fused_attention_variant``."""
+    if itemsize not in (2, 4):
+        raise ValueError(f"the fused kernels take float32 or bfloat16, got itemsize {itemsize}")
+    return TENSOR_CORE if itemsize == 2 and dim <= MMA_MAX_DIM else CUDA_CORE
+
+
+def fused_fwd_mma_rows(dim: int) -> int:
+    """Query rows of one tensor-core forward block: 4 warps of 32 rows up to
+    head dim 64, of 16 above (``mma_rows``)."""
+    return 16 * _MMA_FWD_WARPS * (2 if -(-dim // 16) * 16 <= 64 else 1)
+
+
 def fused_smem_bytes(kv_len: int, dim: int, itemsize: int) -> int:
-    """Shared memory of one kernel block: the whole K (rows padded by 16
-    bytes) and V in the input dtype, plus each warp's f32 query and score
-    rows. Same formula as ``smem_bytes`` in the CUDA source."""
+    """Shared memory of one forward block of the variant that takes the
+    shape. Tensor cores: the slice's K and V in bf16, ``round_up(kv_len,
+    16)`` rows of ``round_up(dim, 16) + 8`` each, V's space holding at
+    least the block's q rows (the q tile lands there first). CUDA cores:
+    the whole K (rows padded by 16 bytes) and V in the input dtype, plus
+    each warp's f32 query and score rows. Same formulas as
+    ``mma_smem_bytes`` and ``smem_bytes`` in the CUDA source."""
+    if itemsize == 2 and fused_fwd_variant(dim, itemsize) == TENSOR_CORE:
+        rows = -(-kv_len // 16) * 16
+        return (rows + max(rows, fused_fwd_mma_rows(dim))) * (-(-dim // 16) * 16 + 8) * 2
+    return _cuda_core_smem_bytes(kv_len, dim, itemsize)
+
+
+def _cuda_core_smem_bytes(kv_len: int, dim: int, itemsize: int) -> int:
     vec = 16 // itemsize
     per_warp_rows = _WARPS * _ROWS * (dim + -(-kv_len // 4) * 4) * 4
     return kv_len * (2 * dim + vec) * itemsize + per_warp_rows
@@ -173,7 +209,9 @@ def fused_eligible(
 ) -> bool:
     """True when the kernel takes the shape: a head dim that is a multiple of
     8 up to 256, and the whole kv sequence within one block's shared memory
-    (replaces the TPU's 8 MiB VMEM estimate). ``backward=True`` also counts
+    of the forward's variant (replaces the TPU's 8 MiB VMEM estimate; in
+    bf16 the tensor-core forward takes kv_len up to 800 at head dim 64, and
+    every shape the CUDA-core forward's band takes). ``backward=True`` also counts
     the backward kernel's bytes for its variant: the tensor-core variant
     keeps bf16 K/V (kv_len up to 640 at head dim 64), the CUDA-core one f32
     dK/dV too (kv_len up to 203 at head dim 64 in f32)."""
@@ -190,14 +228,21 @@ def fused_eligible(
 def fused_auto_eligible(
     q_len: int, kv_len: int, dim: int, *, itemsize: int = 2, backward: bool = False
 ) -> bool:
-    """``auto``'s rule for the fused kernels: :func:`fused_eligible`, and for
-    a backward the band of the CUDA-core backward (kv_len up to 264 at head
-    dim 64 in bf16) whatever the variant. The tensor-core backward takes a
-    wider band, but where ``auto`` crosses over to the flash kernels is to
-    be set from card measurements after the forward's (#1) redesign, so it
-    stays where it was; every shape inside it is inside the wider band."""
-    return fused_eligible(q_len, kv_len, dim, itemsize=itemsize, backward=backward) and (
-        not backward or fused_bwd_rows(kv_len, dim, itemsize) > 0
+    """``auto``'s rule for the fused kernels: :func:`fused_eligible` within
+    the bands of the CUDA-core kernels whatever the variant: the forward's
+    (kv_len up to 679 at head dim 64 in bf16) and, for a backward, the
+    backward's (up to 264). The tensor-core variants take wider bands
+    (kv_len up to 800 forward, 640 backward), and every shape inside the
+    narrow bands is inside the wide ones, but ``auto``'s crossover to the
+    flash kernels stays where it was. The backward's is to move only after
+    the flash backward kernels (#4, #5) are redesigned: at 264 it keeps
+    ViT-B/16@384 training (kv 577) on #3-#5, the only main path that runs
+    them, and a crossover set now would hold #2 against #4/#5 before their
+    redesign. The forward's is measured (#1 against #3) but not moved."""
+    return (
+        fused_eligible(q_len, kv_len, dim, itemsize=itemsize, backward=backward)
+        and _cuda_core_smem_bytes(kv_len, dim, itemsize) <= SMEM_LIMIT
+        and (not backward or fused_bwd_rows(kv_len, dim, itemsize) > 0)
     )
 
 
@@ -272,6 +317,8 @@ def _lib() -> ctypes.CDLL:
     lib.sav_fused_attention_fwd.restype = ctypes.c_int
     lib.sav_fused_attention_smem_bytes.argtypes = [ctypes.c_int] * 3
     lib.sav_fused_attention_smem_bytes.restype = ctypes.c_size_t
+    lib.sav_fused_attention_variant.argtypes = [ctypes.c_int] * 2
+    lib.sav_fused_attention_variant.restype = ctypes.c_int
     lib.sav_cuda_error_string.argtypes = [ctypes.c_int]
     lib.sav_cuda_error_string.restype = ctypes.c_char_p
     return lib
@@ -347,10 +394,12 @@ def _launch(query, key, value, bias, scale, with_lse):
     batch, q_len, heads, dim = query.shape
     kv_len = key.shape[1]
     dtype = _check_dtypes(query, key, value)
-    _check_strides(
-        (("query", query), ("key", key), ("value", value)),
-        (("key", key), ("value", value)),
-    )
+    variant = fused_fwd_variant(dim, query.element_size())
+    # The tensor-core variant also copies q in 16-byte chunks.
+    chunked = (("key", key), ("value", value))
+    if variant == TENSOR_CORE:
+        chunked = (("query", query),) + chunked
+    _check_strides((("query", query), ("key", key), ("value", value)), chunked)
     out = torch.empty((batch, q_len, heads, dim), dtype=dtype, device=query.device)
     lse = (
         torch.empty((batch, heads, q_len), dtype=torch.float32, device=query.device)
@@ -380,7 +429,7 @@ def _launch(query, key, value, bias, scale, with_lse):
             stream,
         )
     _raise_on_error(lib, rc, "fused attention")
-    _count_launch()
+    _count_launch(variant)
     return (out, lse) if with_lse else out
 
 

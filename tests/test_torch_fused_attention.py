@@ -110,7 +110,10 @@ def test_fused_eligible_band_and_budget_error():
     assert not port_fused.fused_eligible(197, 197, 60)  # D not a multiple of 8
     assert not port_fused.fused_eligible(197, 197, 512)  # D over 256
     assert not port_fused.fused_eligible(4096, 4096, 64)  # K/V over 227 KB
-    assert port_fused.fused_smem_bytes(197, 64, 2) == 70480
+    # bf16 takes the tensor-core forward (208 bf16 rows of 72 for K and for
+    # V); f32 the CUDA-core one (K, V and each warp's f32 q and score rows).
+    assert port_fused.fused_smem_bytes(197, 64, 2) == 59904
+    assert port_fused.fused_smem_bytes(197, 64, 4) == 120912
     q, k, v = _port(_qkv(1, 8, 4096, 1, 64))
     with pytest.raises(ValueError, match="shared memory"):
         port_fused.fused_attention(q, k, v)
@@ -332,7 +335,7 @@ def test_backward_band_counts_the_backward_bytes():
     assert resolve(577, 577, 64) == "fused"
     assert resolve(577, 577, 64, backward=True) == "pallas"  # trains through flash
     # Past the tensor-core backward's band (640) and inside the forward's
-    # (679 at D=64 in bf16), a differentiated call raises.
+    # (800 at D=64 in bf16 on the tensor cores), a differentiated call raises.
     assert port_fused.fused_eligible(672, 672, 64)
     q, k, v = (t.requires_grad_() for t in _port(_qkv(1, 8, 672, 1, 64), torch.bfloat16))
     with pytest.raises(ValueError, match="flash kernels"):
@@ -389,3 +392,119 @@ def test_backward_band_holds_every_shape_auto_sends(itemsize):
                    for kv in auto), dim
         if itemsize == 2 and dim <= port_fused.MMA_MAX_DIM:
             assert port_fused.fused_eligible(max(auto) + 8, max(auto) + 8, dim, backward=True), dim
+
+
+def test_forward_variant_rule():
+    """bf16 at head dims up to 128 runs the forward on the tensor cores; f32
+    at any head dim, and bf16 above 128, on the CUDA cores (exact f32, no
+    TF32); another itemsize is refused. The wrapper tallies each launch
+    under its variant, and the CPU plain path under none."""
+    tc, cc = port_fused.TENSOR_CORE, port_fused.CUDA_CORE
+    for dim in (8, 32, 40, 48, 64, 72, 128):
+        assert port_fused.fused_fwd_variant(dim, 2) == tc
+        assert port_fused.fused_fwd_variant(dim, 4) == cc
+    for dim in (136, 256):
+        assert port_fused.fused_fwd_variant(dim, 2) == cc
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        port_fused.fused_fwd_variant(64, 8)
+    # 4 warps of 32 rows up to head dim 64, of 16 above.
+    assert [port_fused.fused_fwd_mma_rows(d) for d in (8, 40, 64, 72, 128)] == [128, 128, 128, 64, 64]
+    port_fused.reset_launches()
+    port_fused.fused_attention(*_port(_qkv(1, 8, 8, 1, 32), torch.bfloat16), with_lse=True)
+    assert port_fused.LAUNCHES == 0
+    assert port_fused.FWD_VARIANT_LAUNCHES == {tc: 0, cc: 0}
+
+
+@pytest.mark.parametrize(
+    "q_len,kv_len,dim",
+    [
+        (197, 197, 64),  # DeiT-S serve and train
+        (1, 197, 48),  # CaiT-XXS class attention
+        (577, 577, 64),  # ViT-B/16@384 serve
+        (1, 577, 48),  # CaiT class attention at 384², serve
+    ],
+)
+def test_every_bf16_main_path_shape_takes_the_tensor_core_forward(q_len, kv_len, dim):
+    """The variant-aware shared-memory rule keeps every bf16 main-path shape
+    of the forward inside the band, on the tensor cores, and ``auto``
+    serves it through the fused forward."""
+    assert port_fused.fused_eligible(q_len, kv_len, dim, itemsize=2)
+    assert port_fused.fused_fwd_variant(dim, 2) == port_fused.TENSOR_CORE
+    assert port_fused.fused_smem_bytes(kv_len, dim, 2) <= port_fused.SMEM_LIMIT
+    assert port_attention.resolve_attention_backend(q_len, kv_len, dim) == "fused"
+
+
+def test_tensor_core_band_takes_every_shape_of_the_cuda_core_band():
+    """In bf16 up to head dim 128 the tensor-core forward takes every kv
+    length the CUDA-core forward took (its bf16 K/V rows are smaller than
+    the CUDA-core block's K/V and f32 score columns), and more; ``auto``
+    keeps the CUDA-core band, so its forward crossover to the flash kernels
+    does not move (kv 679 at head dim 64)."""
+    for dim in range(8, port_fused.MMA_MAX_DIM + 1, 8):
+        old = [kv for kv in range(1, 2600, 7)
+               if port_fused._cuda_core_smem_bytes(kv, dim, 2) <= port_fused.SMEM_LIMIT]
+        assert all(port_fused.fused_eligible(kv, kv, dim, itemsize=2) for kv in old), dim
+        assert port_fused.fused_eligible(max(old) + 7, max(old) + 7, dim, itemsize=2), dim
+        assert not port_fused.fused_auto_eligible(max(old) + 7, max(old) + 7, dim), dim
+    assert port_fused.fused_auto_eligible(679, 679, 64)
+    assert not port_fused.fused_auto_eligible(680, 680, 64)
+    assert port_fused.fused_eligible(800, 800, 64) and not port_fused.fused_eligible(801, 801, 64)
+    resolve = port_attention.resolve_attention_backend
+    assert resolve(679, 679, 64) == "fused" and resolve(700, 700, 64) == "pallas"
+
+
+def _full_row_softmax_f64(q, k, v, bias=None, block_kv=None):
+    """Attention in float64 with p rounded to bf16 (the value dtype) before
+    PV and the division by l last: over the whole kv row after its max
+    (``block_kv=None``), or as an online softmax over tiles of ``block_kv``."""
+    s = torch.einsum("bqhd,bkhd->bhqk", q.double(), k.double()) * q.shape[-1] ** -0.5
+    if bias is not None:
+        s = s + bias.double()
+    block_kv = block_kv or s.shape[-1]
+    m = torch.full(s.shape[:-1] + (1,), float("-inf"), dtype=torch.float64)
+    l = torch.zeros_like(m)
+    acc = torch.zeros(s.shape[:-1] + (q.shape[-1],), dtype=torch.float64)
+    for start in range(0, s.shape[-1], block_kv):
+        st = s[..., start:start + block_kv]
+        m_new = torch.maximum(m, st.amax(-1, keepdim=True))
+        alpha = torch.exp(m - m_new)
+        p = torch.exp(st - m_new)
+        l = alpha * l + p.sum(-1, keepdim=True)
+        pv = torch.einsum("bhqk,bkhd->bhqd", p.to(torch.float32).to(torch.bfloat16).double(),
+                          v[:, start:start + block_kv].double())
+        acc = acc * alpha + pv
+        m = m_new
+    return (acc / l).permute(0, 2, 1, 3), (m + torch.log(l)).squeeze(-1)
+
+
+def _rows_within(got, want, tol):
+    """Share of output rows (all head-dim entries of one query of one head)
+    within ``tol`` of ``want``."""
+    return ((got.double() - want).abs().amax(-1) <= tol).double().mean().item()
+
+
+@pytest.mark.parametrize("with_bias", [False, True])
+def test_forward_reference_rounds_p_after_the_full_row_max(with_bias):
+    """The plain version the card holds the tensor-core forward against
+    takes the full-row max before it rounds p to the value dtype, and divides
+    by the f32 row sum last: against a float64 twin that does the same (f32 q
+    and k, bf16 v, so the output stays f32 and the cast of p is the only bf16
+    rounding) its rows agree to 1e-6, but for the rare p that sits within f32
+    rounding of a bf16 rounding boundary and rounds the other way, which
+    moves its row by one bf16 ulp of that p (at most 1e-3 here); the lse
+    agrees to 1e-6. An online softmax at the flash kernels' 64-column tile
+    rounds p per tile: most rows move by more than 1e-6, so the tensor-core
+    forward must not reuse it."""
+    q, k, v = _port(_qkv(2, 40, 200, 2, 32, seed=32))
+    v = v.bfloat16()
+    bias = torch.from_numpy(
+        np.random.default_rng(33).standard_normal((2, 1, 40, 200)).astype(np.float32)
+    ) if with_bias else None
+    out, lse = port_fused.fused_attention_reference(q, k, v, bias, with_lse=True)
+    want, want_lse = _full_row_softmax_f64(q, k, v, bias)
+    torch.testing.assert_close(lse.double(), want_lse, atol=1e-6, rtol=1e-6)
+    assert _rows_within(out, want, 1e-6) >= 0.9
+    assert _rows_within(out, want, 1e-3) == 1.0
+    online, online_lse = _full_row_softmax_f64(q, k, v, bias, block_kv=64)
+    torch.testing.assert_close(online_lse, want_lse, atol=1e-9, rtol=1e-9)
+    assert _rows_within(out, online, 1e-6) < 0.5

@@ -268,3 +268,106 @@ def test_botmhsa_takes_the_kernel_family_or_the_dense_path(backend, kernels):
     names = _backward_nodes(block(x))
     assert ("RelFlashAttentionFunctionBackward" in names) == kernels
     assert ("SoftmaxBackward0" in names) == (not kernels)
+
+
+def test_forward_variant_rule():
+    """bf16 runs the relative-position forward on the tensor cores, f32 on
+    the CUDA cores (no TF32); another itemsize is refused. The wrapper
+    tallies each launch under its variant, and the CPU plain path under
+    none; the tensor-core block is 128 query rows where L outgrows one kv
+    tile, 64 where it does not."""
+    tc, cc = port_flash.TENSOR_CORE, port_flash.CUDA_CORE
+    assert port_flash.rel_fwd_variant(2) == tc
+    assert port_flash.rel_fwd_variant(4) == cc
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        port_flash.rel_fwd_variant(8)
+    assert [port_flash.rel_mma_rows(n) for n in (30, 49, 64, 65, 196)] == [64, 64, 64, 128, 128]
+    q, k, v, rel_h, rel_w = _inputs(*GRIDS["5x6"], seed=8)
+    rw, rh = _compact(q, rel_h, rel_w, 5, 6)
+    tq, tk, tv = _t((q, k, v), torch.bfloat16)
+    trw, trh = _t((rw, rh))
+    port_flash.reset_launches()
+    port_flash.rel_attention(tq, tk, tv, trw, trh, scale=0.3, with_lse=True)
+    assert port_flash.REL_LAUNCHES == 0
+    assert port_flash.REL_VARIANT_LAUNCHES == {tc: 0, cc: 0}
+
+
+@pytest.mark.parametrize("height,width", [(14, 14), (7, 7)])
+def test_tensor_core_forward_keeps_botnet_grids_in_the_band(height, width):
+    """BoTNet-T3's stage-4 grids at 4 heads of 128 stay eligible in bf16,
+    where the forward's block is the tensor-core one (a bf16 q tile of
+    rel_mma_rows rows, two stages of 64-row bf16 K/V tiles, the q tile's f32
+    rw/rh rows and two tiles' key coordinates); the backward blocks, f32 in
+    either dtype, are the same as in f32."""
+    rows = port_flash.rel_mma_rows(height * width)
+    bf16 = port_flash.rel_smem_bytes(128, height, width, 2)
+    f32 = port_flash.rel_smem_bytes(128, height, width)
+    assert bf16["fwd"] == (rows + 256) * 136 * 2 + rows * (height + width) * 4 + 512
+    assert (bf16["bwd_dq"], bf16["bwd_dkv"]) == (f32["bwd_dq"], f32["bwd_dkv"])
+    assert max(bf16.values()) <= port_flash.SMEM_LIMIT
+    assert port_flash.rel_eligible(128, height, width, 2)
+    # The bf16 forward never sets the band: at its edges dq is the largest.
+    for dim, h, w in ((128, 78, 78), (64, 142, 142), (8, 2, 130), (8, 198, 198)):
+        sizes = port_flash.rel_smem_bytes(dim, h, w, 2)
+        assert sizes["fwd"] <= sizes["bwd_dq"], (dim, h, w)
+
+
+def _rel_online_softmax_f64(q, k, v, rw, rh, height, width, scale, block_kv):
+    """The online softmax in float64 over tiles of ``block_kv`` key columns,
+    the relative bias ``rh[q, kh] + rw[q, kw]`` added after the scale, p
+    rounded to bf16 (the value dtype) before PV and the division by l last."""
+    s = torch.einsum("bqhd,bkhd->bhqk", q.double(), k.double()) * scale
+    b, heads, length, _ = rw.shape
+    bias = (rh.double()[..., :, None] + rw.double()[..., None, :]).reshape(
+        b, heads, length, height * width)
+    s = s + bias
+    m = torch.full(s.shape[:-1] + (1,), float("-inf"), dtype=torch.float64)
+    l = torch.zeros_like(m)
+    acc = torch.zeros(s.shape[:-1] + (q.shape[-1],), dtype=torch.float64)
+    for start in range(0, s.shape[-1], block_kv):
+        st = s[..., start:start + block_kv]
+        m_new = torch.maximum(m, st.amax(-1, keepdim=True))
+        alpha = torch.exp(m - m_new)
+        p = torch.exp(st - m_new)
+        l = alpha * l + p.sum(-1, keepdim=True)
+        pv = torch.einsum("bhqk,bkhd->bhqd", p.to(torch.float32).to(torch.bfloat16).double(),
+                          v[:, start:start + block_kv].double())
+        acc = acc * alpha + pv
+        m = m_new
+    return (acc / l).permute(0, 2, 1, 3), (m + torch.log(l)).squeeze(-1)
+
+
+@pytest.mark.parametrize("height,width", [(7, 7), (14, 14)])
+def test_reference_at_the_kernel_kv_tile_matches_float64(height, width):
+    """The plain version the card holds the tensor-core forward against, at
+    the kernel's kv tile (BLOCK, passed explicitly), is the online softmax at
+    that tile with the relative bias: against a float64 twin (f32 q and k,
+    bf16 v, so the cast of p is the only bf16 rounding) at 7×7 (one partial
+    tile) and 14×14 (four tiles, the last partial) its lse agrees to 1e-6 and
+    its rows agree to 1e-6, but for the rare p that sits within f32 rounding
+    of a bf16 rounding boundary and rounds the other way (one bf16 ulp of
+    that p, at most 1e-3 here). At 14×14 a tile of another size rounds p
+    elsewhere and moves most rows by more than 1e-6."""
+    b, heads, d = 2, 2, 32
+    rng = np.random.default_rng(34)
+    length = height * width
+    q, k, v = _t([rng.standard_normal((b, length, heads, d)).astype(np.float32)
+                  for _ in range(3)])
+    v = v.bfloat16()
+    rw, rh = _t([rng.standard_normal((b, heads, length, n)).astype(np.float32)
+                 for n in (width, height)])
+    scale = d ** -0.5
+    out, lse = port_flash.rel_attention_reference(q, k, v, rw, rh, scale=scale,
+                                                  block_kv=port_flash.BLOCK, with_lse=True)
+    want, want_lse = _rel_online_softmax_f64(q, k, v, rw, rh, height, width, scale,
+                                             port_flash.BLOCK)
+
+    def rows_within(a, tol):
+        return ((out.double() - a).abs().amax(-1) <= tol).double().mean().item()
+
+    torch.testing.assert_close(lse.double(), want_lse, atol=1e-6, rtol=1e-6)
+    assert rows_within(want, 1e-6) >= 0.9
+    assert rows_within(want, 1e-3) == 1.0
+    if length > port_flash.BLOCK:
+        other, _ = _rel_online_softmax_f64(q, k, v, rw, rh, height, width, scale, 100)
+        assert rows_within(other, 1e-6) < 0.5
