@@ -18,7 +18,11 @@ flash path:
   :data:`BWD_DQ_LAUNCHES`), and dk/dv, which replaces ``_bwd_dkv_kernel``
   (``:405``; :func:`flash_attention_bwd_dkv`, :func:`flash_bwd_dkv_reference`,
   :data:`BWD_DKV_LAUNCHES`). ``delta = Σ_d dO·O`` is one PyTorch reduction
-  before them, as ``sav_tpu`` forms it outside its kernels (``:337``).
+  before them, as ``sav_tpu`` forms it outside its kernels (``:337``). Both
+  take the forward's variants by dtype (:func:`flash_bwd_variant`): bf16
+  on the tensor cores, f32 on the CUDA cores in exact f32;
+  :data:`BWD_DQ_VARIANT_LAUNCHES` and :data:`BWD_DKV_VARIANT_LAUNCHES`
+  tally each launch under its variant too.
 
 When an input requires grad, :func:`flash_attention` runs through
 :class:`FlashAttentionFunction`, the counterpart of the ``_flash``
@@ -91,10 +95,17 @@ _SCORE_LD = BLOCK + 4
 # per block; its kv tile is BLOCK, like the f32 variant's.
 MMA_ROWS = 128
 MMA_BLOCK_KV = BLOCK
+# The backward's bf16 variants (kMmaRows and kMmaQTile in
+# csrc/flash_attention_bwd.cu): q rows of a dq block and kv rows of a dk/dv
+# block, and the q rows of each tile a dk/dv block streams; dq streams kv
+# tiles of BLOCK rows.
+BWD_MMA_ROWS = 64
+BWD_MMA_Q_TILE = 64
 # The forward's variants by dtype, as ``sav_flash_attention_variant`` picks
 # them: bf16 on the tensor cores (mma.sync), f32 on the CUDA cores. The
-# relative-position forward's variants follow the same rule
-# (``sav_rel_attention_variant``).
+# backward's (``sav_flash_attention_bwd_variant``) and the
+# relative-position forward's (``sav_rel_attention_variant``) follow the
+# same rule.
 TENSOR_CORE = "tensor_core"
 CUDA_CORE = "cuda_core"
 
@@ -107,16 +118,20 @@ BWD_DKV_LAUNCHES = 0
 REL_LAUNCHES = 0
 REL_BWD_DQ_LAUNCHES = 0
 REL_BWD_DKV_LAUNCHES = 0
-# The launches of the two forwards by variant (each also counts in
-# LAUNCHES or REL_LAUNCHES).
+# The launches of the two forwards and of the flash dq and dk/dv kernels by
+# variant (each also counts in its counter above).
 VARIANT_LAUNCHES = {TENSOR_CORE: 0, CUDA_CORE: 0}
 REL_VARIANT_LAUNCHES = {TENSOR_CORE: 0, CUDA_CORE: 0}
-_VARIANT_TALLIES = {"LAUNCHES": VARIANT_LAUNCHES, "REL_LAUNCHES": REL_VARIANT_LAUNCHES}
+BWD_DQ_VARIANT_LAUNCHES = {TENSOR_CORE: 0, CUDA_CORE: 0}
+BWD_DKV_VARIANT_LAUNCHES = {TENSOR_CORE: 0, CUDA_CORE: 0}
+_VARIANT_TALLIES = {"LAUNCHES": VARIANT_LAUNCHES, "REL_LAUNCHES": REL_VARIANT_LAUNCHES,
+                    "BWD_DQ_LAUNCHES": BWD_DQ_VARIANT_LAUNCHES,
+                    "BWD_DKV_LAUNCHES": BWD_DKV_VARIANT_LAUNCHES}
 _LAUNCH_LOCK = threading.Lock()
 
 
 def reset_launches() -> None:
-    """Set the six launch counters and the forwards' tallies by variant to 0."""
+    """Set the six launch counters and the tallies by variant to 0."""
     global LAUNCHES, BWD_DQ_LAUNCHES, BWD_DKV_LAUNCHES
     global REL_LAUNCHES, REL_BWD_DQ_LAUNCHES, REL_BWD_DKV_LAUNCHES
     with _LAUNCH_LOCK:
@@ -142,23 +157,39 @@ def flash_fwd_variant(itemsize: int) -> str:
     return TENSOR_CORE if itemsize == 2 else CUDA_CORE
 
 
+def flash_bwd_variant(itemsize: int) -> str:
+    """The dq and dk/dv kernels' variant for inputs of ``itemsize`` bytes:
+    bf16 (2) on the tensor cores, f32 (4) on the CUDA cores (no TF32). Same
+    rule as ``sav_flash_attention_bwd_variant`` in
+    ``csrc/flash_attention_bwd.cu``."""
+    return flash_fwd_variant(itemsize)
+
+
 def flash_smem_bytes(dim: int, itemsize: int = 4) -> dict:
     """Dynamic shared memory of one block of each kernel for inputs of
-    ``itemsize`` bytes. The f32 kernels (every dq and dk/dv, and the f32
-    forward) hold f32 tiles of 64 rows at a row stride of ``dim + 4`` and
-    f32 score tiles of 64 × 68: the forward q, k, v and p; dq q, dO, k, v
-    and ds; dk/dv k, v, q, dO, p, ds and the q tile's lse and delta. The
-    bf16 forward holds a bf16 q tile of :data:`MMA_ROWS` rows and two
-    stages of bf16 k and v tiles of 64 rows, each row ``round_up(dim, 16)
-    + 8`` long. Same formulas as ``smem_bytes`` and ``mma_smem_bytes`` in
-    the CUDA sources."""
+    ``itemsize`` bytes. The f32 kernels hold f32 tiles of 64 rows at a row
+    stride of ``dim + 4`` and f32 score tiles of 64 × 68: the forward q, k,
+    v and p; dq q, dO, k, v and ds; dk/dv k, v, q, dO, p, ds and the q
+    tile's lse and delta. The bf16 kernels hold bf16 rows of
+    ``round_up(dim, 16) + 8``: the forward a q tile of :data:`MMA_ROWS`
+    rows and two stages of k and v tiles of 64 rows; dq the block's
+    :data:`BWD_MMA_ROWS` q and dO rows and two stages of 64-row k and v
+    tiles; dk/dv the block's :data:`BWD_MMA_ROWS` k and v rows, two stages
+    of :data:`BWD_MMA_Q_TILE`-row q and dO tiles and their f32 lse and
+    delta. Same formulas as ``smem_bytes``, ``mma_smem_bytes``,
+    ``dq_smem_bytes``, ``dkv_smem_bytes``, ``dq_mma_smem_bytes`` and
+    ``dkv_mma_smem_bytes`` in the CUDA sources."""
+    if flash_fwd_variant(itemsize) == TENSOR_CORE:
+        row = (-(-dim // 16) * 16 + 8) * 2
+        return {
+            "fwd": (MMA_ROWS + 4 * BLOCK) * row,
+            "bwd_dq": (2 * BWD_MMA_ROWS + 4 * BLOCK) * row,
+            "bwd_dkv": (2 * BWD_MMA_ROWS + 4 * BWD_MMA_Q_TILE) * row + 4 * BWD_MMA_Q_TILE * 4,
+        }
     tile = BLOCK * (dim + 4) * 4
     scores = BLOCK * _SCORE_LD * 4
-    fwd = 3 * tile + scores
-    if flash_fwd_variant(itemsize) == TENSOR_CORE:
-        fwd = (MMA_ROWS + 4 * BLOCK) * (-(-dim // 16) * 16 + 8) * 2
     return {
-        "fwd": fwd,
+        "fwd": 3 * tile + scores,
         "bwd_dq": 4 * tile + scores,
         "bwd_dkv": 4 * tile + 2 * scores + 2 * BLOCK * 4,
     }
@@ -168,8 +199,8 @@ def flash_eligible(dim: int, itemsize: int = 4) -> bool:
     """True when the kernels take the head dim for inputs of ``itemsize``
     bytes: a multiple of 8 up to :data:`MAX_DIM`, with every block of
     :func:`flash_smem_bytes` within the 227 KB a block may have (at
-    :data:`MAX_DIM` the largest is 170,496 bytes, in either dtype). Every
-    sequence length is taken."""
+    :data:`MAX_DIM` the largest is 170,496 bytes in f32 and 104,448 in
+    bf16). Every sequence length is taken."""
     return (
         dim % 8 == 0
         and 0 < dim <= MAX_DIM
@@ -316,8 +347,10 @@ def _bwd_lib() -> ctypes.CDLL:
     for fn in (lib.sav_flash_attention_bwd_dq, lib.sav_flash_attention_bwd_dkv):
         fn.restype = ctypes.c_int
     for fn in (lib.sav_flash_attention_bwd_dq_smem_bytes, lib.sav_flash_attention_bwd_dkv_smem_bytes):
-        fn.argtypes = [ctypes.c_int]
+        fn.argtypes = [ctypes.c_int, ctypes.c_int]
         fn.restype = ctypes.c_size_t
+    lib.sav_flash_attention_bwd_variant.argtypes = [ctypes.c_int]
+    lib.sav_flash_attention_bwd_variant.restype = ctypes.c_int
     lib.sav_cuda_error_string.argtypes = [ctypes.c_int]
     lib.sav_cuda_error_string.restype = ctypes.c_char_p
     return lib
@@ -407,7 +440,7 @@ def _launch_bwd_dq(query, key, value, grad, lse, delta, scale):
             stream,
         )
     _raise_on_error(lib, rc, "flash attention dq")
-    _count("BWD_DQ_LAUNCHES")
+    _count("BWD_DQ_LAUNCHES", flash_bwd_variant(query.element_size()))
     return dq
 
 
@@ -431,7 +464,7 @@ def _launch_bwd_dkv(query, key, value, grad, lse, delta, scale):
             stream,
         )
     _raise_on_error(lib, rc, "flash attention dk/dv")
-    _count("BWD_DKV_LAUNCHES")
+    _count("BWD_DKV_LAUNCHES", flash_bwd_variant(query.element_size()))
     return dk, dv
 
 

@@ -221,11 +221,12 @@ def test_eligibility_and_shared_memory_rule():
     # 64-row f32 tiles at a row stride of D + 4, and 64 x 68 score tiles.
     assert port_flash.flash_smem_bytes(64) == {"fwd": 69632, "bwd_dq": 87040, "bwd_dkv": 104960}
     assert max(port_flash.flash_smem_bytes(128).values()) == 170496
-    # bf16: the forward's tensor-core variant keeps a 128-row q tile and two
-    # stages of 64-row k and v tiles in bf16, rows of round_up(D, 16) + 8;
-    # dq and dk/dv keep their f32 tiles whatever the dtype.
+    # bf16: the tensor-core variants keep bf16 rows of round_up(D, 16) + 8:
+    # the forward a 128-row q tile and two stages of 64-row k and v tiles,
+    # dq 64 q and dO rows and the same k/v ring, dk/dv 64 k and v rows, two
+    # stages of 64-row q and dO tiles and their f32 lse and delta.
     assert port_flash.flash_smem_bytes(64, itemsize=2) == {
-        "fwd": 55296, "bwd_dq": 87040, "bwd_dkv": 104960}
+        "fwd": 55296, "bwd_dq": 384 * 72 * 2, "bwd_dkv": 384 * 72 * 2 + 1024}
     assert port_flash.flash_smem_bytes(40, itemsize=2)["fwd"] == 384 * 56 * 2
     assert port_flash.flash_smem_bytes(128, itemsize=2)["fwd"] == 104448
     assert all(port_flash.flash_eligible(d, itemsize=2) for d in (8, 16, 32, 40, 48, 64, 128))
@@ -330,3 +331,108 @@ def test_dispatch_at_every_main_path_shape_is_unchanged(dtype, serve_577):
         assert resolve(q_len, kv_len, dim, dtype=dtype) == serve
     for grid in (14, 7):
         assert port_attention.resolve_relative_backend(grid, grid, 128) == "pallas"
+
+
+def test_backward_variant_rule():
+    """bf16 runs dq and dk/dv on the tensor cores, f32 on the CUDA cores (no
+    TF32), as the forward; any other itemsize raises."""
+    assert port_flash.flash_bwd_variant(2) == port_flash.TENSOR_CORE
+    assert port_flash.flash_bwd_variant(4) == port_flash.CUDA_CORE
+    for itemsize in (1, 8):
+        with pytest.raises(ValueError, match="float32 or bfloat16"):
+            port_flash.flash_bwd_variant(itemsize)
+
+
+@pytest.mark.parametrize("dim", range(8, 136, 8))
+def test_bf16_backward_blocks_fit_at_every_head_dim(dim):
+    """The tensor-core dq and dk/dv blocks fit the 227 KB a block may have at
+    every head dim the kernels take, so ``flash_eligible`` takes the same
+    head dims in both dtypes."""
+    smem = port_flash.flash_smem_bytes(dim, itemsize=2)
+    row = (-(-dim // 16) * 16 + 8) * 2
+    assert smem["bwd_dq"] == (2 * port_flash.BWD_MMA_ROWS + 4 * port_flash.BLOCK) * row
+    assert smem["bwd_dkv"] == ((2 * port_flash.BWD_MMA_ROWS + 4 * port_flash.BWD_MMA_Q_TILE) * row
+                               + 4 * port_flash.BWD_MMA_Q_TILE * 4)
+    assert max(smem.values()) <= port_flash.SMEM_LIMIT
+    assert port_flash.flash_eligible(dim, itemsize=2) and port_flash.flash_eligible(dim, itemsize=4)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_backward_wrappers_on_cpu_count_no_launch_in_any_tally(dtype):
+    """On CPU tensors dq and dk/dv (directly and through autograd) run their
+    plain versions and add to no counter and no tally by variant."""
+    arrays = _qkv(1, 70, 40, 2, 32, seed=41)
+    port_flash.reset_launches()
+    q, k, v = (t.requires_grad_() for t in _port(arrays, dtype))
+    out = port_flash.flash_attention(q, k, v)
+    torch.square(out.float()).sum().backward()
+    with torch.no_grad():
+        out, lse = port_flash.flash_attention(q, k, v, with_lse=True)
+        g = torch.ones_like(out)
+        delta = port_flash.bwd_delta(out, g)
+        port_flash.flash_attention_bwd_dq(q, k, v, g, lse, delta, scale=32 ** -0.5)
+        port_flash.flash_attention_bwd_dkv(q, k, v, g, lse, delta, scale=32 ** -0.5)
+    assert q.grad is not None and q.grad.dtype == dtype
+    assert port_flash.BWD_DQ_LAUNCHES == port_flash.BWD_DKV_LAUNCHES == port_flash.LAUNCHES == 0
+    for tally in (port_flash.BWD_DQ_VARIANT_LAUNCHES, port_flash.BWD_DKV_VARIANT_LAUNCHES,
+                  port_flash.VARIANT_LAUNCHES):
+        assert tally == {port_flash.TENSOR_CORE: 0, port_flash.CUDA_CORE: 0}
+
+
+def _bwd_f64(q, k, v, g, lse, delta, scale, rounded=True):
+    """dq, dk and dv in float64 from the same lse and delta, with p rounded to
+    the dO dtype before dV and ds to the k and q dtypes before dQ and dK
+    (through f32, as the plain version casts its f32 values); ``rounded``
+    False skips the roundings."""
+    s = torch.einsum("bqhd,bkhd->bhqk", q.double(), k.double()) * scale
+    p = torch.exp(s - lse.double()[..., None])
+    dp = torch.einsum("bqhd,bkhd->bhqk", g.double(), v.double())
+    ds = p * (dp - delta.double()[..., None])
+
+    def cast(x, dtype):
+        return x.to(torch.float32).to(dtype).double() if rounded else x
+
+    dq = torch.einsum("bhqk,bkhd->bqhd", cast(ds, k.dtype), k.double()) * scale
+    dk = torch.einsum("bhqk,bqhd->bkhd", cast(ds, q.dtype), q.double()) * scale
+    dv = torch.einsum("bhqk,bqhd->bkhd", cast(p, g.dtype), g.double())
+    return dq, dk, dv
+
+
+@pytest.mark.parametrize("b,lq,lk,h,d", [(2, 40, 200, 2, 32), (1, 130, 70, 2, 64)])
+@pytest.mark.parametrize("output", ["dq", "dk", "dv"])
+def test_bwd_references_match_float64_with_bf16_casts(b, lq, lk, h, d, output):
+    """The plain dq and dk/dv against a float64 twin that rounds p and ds to
+    bf16 at the same points: they agree to f32 rounding, row by row (an
+    output row of each B, L, H). The cast under test is bf16 and every other
+    operand f32, so each output stays f32: ds is cast to the k dtype for dq
+    (bf16 k), p to the dO dtype for dv (bf16 dO), ds to the q dtype for dk
+    (bf16 q). A p or ds within f32 rounding of a bf16 boundary rounds either
+    way, so a few rows may differ by more, never by more than 1e-3; without
+    the roundings most rows move by more than 1e-6. This is the plain
+    versions' own error that the card's bf16 limits sit above."""
+    q, k, v = _port(_qkv(b, lq, lk, h, d, seed=43))
+    g = torch.from_numpy(np.random.default_rng(44).standard_normal(q.shape).astype(np.float32))
+    out, lse = port_flash.flash_attention_reference(q, k, v, with_lse=True)
+    delta = port_flash.bwd_delta(out, g)
+    bf16 = {"dq": "k", "dv": "g", "dk": "q"}[output]
+    operands = {"q": q, "k": k, "v": v, "g": g}
+    operands[bf16] = operands[bf16].bfloat16()
+    q, k, v, g = operands["q"], operands["k"], operands["v"], operands["g"]
+    scale = d ** -0.5
+    if output == "dq":
+        got = port_flash.flash_bwd_dq_reference(q, k, v, g, lse, delta, scale=scale)
+    else:
+        got = port_flash.flash_bwd_dkv_reference(q, k, v, g, lse, delta, scale=scale)
+        got = got[0] if output == "dk" else got[1]
+    assert got.dtype == torch.float32
+    index = ("dq", "dk", "dv").index(output)
+    want = _bwd_f64(q, k, v, g, lse, delta, scale)[index]
+    unrounded = _bwd_f64(q, k, v, g, lse, delta, scale, rounded=False)[index]
+
+    def rows_within(x, tol):
+        err = (got.double() - x).abs() - tol * (1 + x.abs())
+        return (err <= 0).all(dim=-1).double().mean().item()
+
+    assert rows_within(want, 1e-6) >= 0.9
+    assert rows_within(want, 1e-3) == 1.0
+    assert rows_within(unrounded, 1e-6) < 0.5

@@ -97,8 +97,10 @@ def test_engine_serves_a_tiny_cait_on_the_cpu():
     )
     infer = jax.jit(jax_build_infer_fn(jax_model, jnp.float32))
     ref = np.asarray(infer(params, {}, {"images": images, "valid": np.ones(5, np.float32)}))
+    # A generous deadline, as for the BoTNet below: a CaiT step on a loaded
+    # CPU can take a sixth of a second, and admission must not shed here.
     config = _config(model_name="cait_xxs_24", model_overrides=CAIT_SMALL, max_batch=4,
-                     deadline_ms=300.0)
+                     deadline_ms=30_000.0)
     with ServeEngine(config, params=params) as engine:
         out = [f.result(timeout=60) for f in [engine.submit(image) for image in images]]
     assert engine.stats()["ledger"]["requests"] == 5
