@@ -14,11 +14,11 @@ Phases, each of which exits non-zero on failure:
    relative-position kernels' at BoTNet's grids and the band's edges, in
    both dtypes), the variant rules of the fused forward (#1), the fused
    backward (#2), the flash forward (#3), the flash dq (#4) and dk/dv (#5)
-   and the relative-position forward (#6) and the talking-heads kernels'
-   head counts against the Python eligibility rules; print the registers,
-   spills and tensor-core instruction count (HMMA/HGMMA in the built
-   library's SASS) of every tensor-core (bf16) instantiation of #1-#6, and
-   fail where one has none.
+   and the relative-position forward (#6), dq (#7) and dk/dv (#8) and the
+   talking-heads kernels' head counts against the Python eligibility rules;
+   print the registers, spills and tensor-core instruction count
+   (HMMA/HGMMA in the built library's SASS) of every tensor-core (bf16)
+   instantiation of #1-#8, and fail where one has none.
 3. kernels: each kernel against its plain PyTorch version on the card. The
    fused forward at the DeiT serve and train shapes, CaiT's class-attention
    shapes, ViT-B/16@384's serve shape (kv 577), head dims 40, 128 and 256,
@@ -41,9 +41,11 @@ Phases, each of which exits non-zero on failure:
    variant its dtype takes; the relative-position
    forward, dq (with d_rw and d_rh) and dk/dv kernels at BoTNet-T3's
    stage-4 train shapes (L=196 and L=49, 4 heads of 128) in bf16 and f32,
-   on grids of 7×9, 5×6 and 2×130 and on strided views. Each backward, and
-   each tensor-core forward, runs twice on the same inputs and must give
-   the same bits.
+   on grids of 7×9, 5×6, 2×130 and 78×78 (the f32 band's edge at head dim
+   128) and on strided views, each bf16 case also beside a float64 twin and
+   each backward launch counted under the variant its dtype takes. Each
+   backward, and each tensor-core forward, runs twice on the same inputs
+   and must give the same bits.
 4. timing: each kernel, its plain version and, where one exists, one PyTorch
    library call (yardstick only) at the shapes the main paths give it,
    beside the card's bound; the talking-heads kernels also beside the port's
@@ -56,14 +58,14 @@ Phases, each of which exits non-zero on failure:
    weights from a seed) to concurrent clients; every attention core must
    have gone through its forward kernel (the launches per batch are counted
    from the model's attention modules: DeiT 12 fused; CaiT 24 talking-heads
-   and 2 fused; no backward launch), every launch of #1-#6 on
+   and 2 fused; no backward launch), every launch of #1-#8 on
    the tensor cores, and 8 rows must agree with the same weights served on
    the dense attention paths.
 6. train: Trainer trains deit_s_patch16, then cait_xxs_24 (bf16 over f32
    parameters, global batch 256, CaiT at its recipe's stochastic depth 0.05)
    for 6 steps on synthetic learnable batches through fit(); every step must
    launch each forward and backward kernel once per attention module that
-   takes it (#1-#6 on the tensor cores), every loss must be
+   takes it (#1-#8 on the tensor cores), every loss must be
    finite, the
    loss must fall, and the first step's loss and grad norm must agree with
    the same step on the dense attention paths (f32 softmax, the same
@@ -308,6 +310,7 @@ def phase_build() -> None:
                 raise AssertionError(f"talking-heads {what}: the kernel is built for {heads} "
                                      f"heads: {bool(c_value)}; the Python rule says {py_value}")
     fl, fl_bwd = flash._lib(), flash._bwd_lib()
+    rel, rel_bwd = flash._rel_lib(), flash._rel_bwd_lib()
     for dim in range(8, 136, 8):
         for itemsize in (4, 2):
             want = flash.flash_smem_bytes(dim, itemsize)
@@ -323,12 +326,13 @@ def phase_build() -> None:
                         f"flash {what} shared-memory rule differs at d={dim} itemsize "
                         f"{itemsize}: kernel {c_value}, flash_smem_bytes {want[what]}, "
                         f"limit {fa.SMEM_LIMIT}")
-    rel, rel_bwd = flash._rel_lib(), flash._rel_bwd_lib()
     for dtype, itemsize in ((0, 4), (1, 2)):
         for what, c_rule, py_rule in (
             ("flash forward", fl.sav_flash_attention_variant, flash.flash_fwd_variant),
             ("flash backward", fl_bwd.sav_flash_attention_bwd_variant, flash.flash_bwd_variant),
             ("relative-position forward", rel.sav_rel_attention_variant, flash.rel_fwd_variant),
+            ("relative-position backward", rel_bwd.sav_rel_attention_bwd_variant,
+             flash.rel_bwd_variant),
         ):
             c_variant = {1: flash.TENSOR_CORE, 0: flash.CUDA_CORE}[c_rule(dtype)]
             if c_variant != py_rule(itemsize):
@@ -341,23 +345,28 @@ def phase_build() -> None:
             raise AssertionError(f"#1 at ({q_len}, {kv_len}, {dim}) bf16 is outside the "
                                  "tensor-core band")
     log_mma_builds()
-    # BoTNet's grids, the JAX tests' grids and the band's edges at head dims
-    # 128 and 64 (W + Hg = 156 and 284).
+    # BoTNet's grids, the JAX tests' grids and the f32 band's edges at head
+    # dims 128 and 64 (W + Hg = 156 and 284); the bf16 band contains the f32
+    # one.
     for dim, height, width in ((128, 14, 14), (128, 7, 7), (16, 7, 9), (8, 5, 6), (8, 2, 130),
                                (128, 78, 78), (128, 78, 79), (64, 142, 142), (64, 142, 143)):
         for itemsize in (4, 2):
             want = flash.rel_smem_bytes(dim, height, width, itemsize)
             fits = max(want.values()) <= fa.SMEM_LIMIT
+            rel_sum = height + width
             for what, c_value in (
                 ("fwd", rel.sav_rel_attention_smem_bytes(dim, height, width, itemsize)),
-                ("bwd_dq", rel_bwd.sav_rel_attention_bwd_dq_smem_bytes(dim, height + width)),
-                ("bwd_dkv", rel_bwd.sav_rel_attention_bwd_dkv_smem_bytes(dim, height + width)),
+                ("bwd_dq", rel_bwd.sav_rel_attention_bwd_dq_smem_bytes(dim, rel_sum, itemsize)),
+                ("bwd_dkv", rel_bwd.sav_rel_attention_bwd_dkv_smem_bytes(dim, rel_sum, itemsize)),
             ):
                 if c_value != want[what] or flash.rel_eligible(dim, height, width, itemsize) != fits:
                     raise AssertionError(
                         f"relative-position {what} shared-memory rule differs at d={dim} grid "
                         f"{height}x{width} itemsize {itemsize}: kernel {c_value}, "
                         f"rel_smem_bytes {want[what]}, limit {fa.SMEM_LIMIT}")
+        if flash.rel_eligible(dim, height, width) and not flash.rel_eligible(dim, height, width, 2):
+            raise AssertionError(f"d={dim} grid {height}x{width} is in the f32 relative-position "
+                                 "band and not in the bf16 one")
     if not all(flash.rel_eligible(128, s, s, itemsize) for s in (14, 7) for itemsize in (2, 4)):
         raise AssertionError("BoTNet-T3's stage-4 grids are outside the relative-position band")
     for name, heads in (("CaiT-XXS", 4), ("CaiT-XS", 6), ("CaiT-S", 8)):
@@ -375,7 +384,9 @@ MMA_KERNELS = {"fused_attention": ("fused_attention_fwd_mma_kernel",),
                "flash_attention": ("flash_attention_fwd_mma_kernel",),
                "flash_attention_bwd": ("flash_attention_bwd_dq_mma_kernel",
                                        "flash_attention_bwd_dkv_mma_kernel"),
-               "rel_attention": ("rel_attention_fwd_mma_kernel",)}
+               "rel_attention": ("rel_attention_fwd_mma_kernel",),
+               "rel_attention_bwd": ("rel_attention_bwd_dq_mma_kernel",
+                                     "rel_attention_bwd_dkv_mma_kernel")}
 
 
 def _ptxas_resources(text: str) -> dict:
@@ -697,19 +708,40 @@ def phase_th_kernels(device="cuda") -> dict:
     return {"fwd_train": train["fwd"], "fwd_serve": serve["fwd"], "bwd_train": train["bwd"]}
 
 
-def _flash_bwd_f64(q, k, v, g, lse, delta, scale):
-    """dq, dk and dv in float64 from the same lse and delta, with p and ds
-    rounded (through f32) to the inputs' dtype where the plain version casts
-    them: its arithmetic without its f32 sums and its rounding of the
-    outputs."""
+def _p_ds_f64(q, k, v, g, lse, delta, scale, bias=None):
+    """p and ds in float64 from the same lse and delta, the f64 bias (if
+    any) added after the scale."""
     s = torch.einsum("bqhd,bkhd->bhqk", q.double(), k.double()) * scale
+    if bias is not None:
+        s = s + bias
     p = torch.exp(s - lse.double()[..., None])
     dp = torch.einsum("bqhd,bkhd->bhqk", g.double(), v.double())
-    ds = (p * (dp - delta.double()[..., None])).float().to(q.dtype).double()
+    return p, p * (dp - delta.double()[..., None])
+
+
+def _grads_f64(q, k, g, p, ds, scale):
+    """dq, dk and dv in float64 from p and ds rounded (through f32) to the
+    inputs' dtype where the plain versions cast them: their arithmetic
+    without their f32 sums and their rounding of the outputs."""
+    ds = ds.float().to(q.dtype).double()
     p = p.float().to(q.dtype).double()
     return (torch.einsum("bhqk,bkhd->bqhd", ds, k.double()) * scale,
             torch.einsum("bhqk,bqhd->bkhd", ds, q.double()) * scale,
             torch.einsum("bhqk,bqhd->bkhd", p, g.double()))
+
+
+def _flash_bwd_f64(q, k, v, g, lse, delta, scale):
+    """dq, dk and dv of the flash backward in float64 (:func:`_grads_f64`)."""
+    return _grads_f64(q, k, g, *_p_ds_f64(q, k, v, g, lse, delta, scale), scale)
+
+
+def _require_variant(family, name, variant, launched, tallies) -> None:
+    """Fails unless each ``(kind, tally)`` counts ``launched`` launches, all
+    under ``variant``."""
+    for kind, tally in tallies:
+        if tally[variant] != launched or sum(tally.values()) != launched:
+            raise AssertionError(f"{family} {kind} {name}: {launched} launches did not all "
+                                 f"take the {variant} variant: {json.dumps(tally)}")
 
 
 def check_flash_kernels(name, shape, dtype, device, *, bias_shape=None, packed=False,
@@ -755,12 +787,9 @@ def check_flash_kernels(name, shape, dtype, device, *, bias_shape=None, packed=F
                     *flash.flash_bwd_dkv_reference(q, k, v, g, lse, delta, scale=scale))
         # Two launches of each on the card, none on CPU tensors.
         variant = flash.flash_bwd_variant(q.element_size())
-        launched = 2 if q.is_cuda else 0
-        for kind, tally in (("dq", flash.BWD_DQ_VARIANT_LAUNCHES),
-                            ("dk/dv", flash.BWD_DKV_VARIANT_LAUNCHES)):
-            if tally[variant] != launched or sum(tally.values()) != launched:
-                raise AssertionError(f"flash {kind} {name}: {launched} launches did not all "
-                                     f"take the {variant} variant: {json.dumps(tally)}")
+        _require_variant("flash", name, variant, 2 if q.is_cuda else 0,
+                         (("dq", flash.BWD_DQ_VARIANT_LAUNCHES),
+                          ("dk/dv", flash.BWD_DKV_VARIANT_LAUNCHES)))
         errs.update({n: _within(a, r, tols[n], rtol)
                      for n, a, r in zip(("dq", "dk", "dv"), runs[0], want)})
         scales.update({n: r.float().abs().max().item() for n, r in zip(("dq", "dk", "dv"), want)})
@@ -826,13 +855,30 @@ def _rel_inputs(shape, dtype, seed, device, *, packed=False):
     return q, k, v, rw, rh, g
 
 
+def _rel_bwd_f64(q, k, v, rw, rh, g, lse, delta, scale):
+    """dq, d_rw, d_rh, dk and dv of the relative-position backward in
+    float64: dq, dk and dv as :func:`_grads_f64` forms them, d_rw and d_rh
+    summed from the unrounded ds."""
+    from sav_tpu_torch.ops import flash_attention as flash
+
+    height, width = rh.shape[-1], rw.shape[-1]
+    bias = flash.expand_relative_bias(rw.double(), rh.double(), height, width)
+    p, ds = _p_ds_f64(q, k, v, g, lse, delta, scale, bias)
+    grid = ds.reshape(*ds.shape[:3], height, width)
+    dq, dk, dv = _grads_f64(q, k, g, p, ds, scale)
+    return dq, grid.sum(-2), grid.sum(-1), dk, dv
+
+
 def check_rel_kernels(name, shape, dtype, device, *, packed=False) -> dict:
     """Kernels #6-#8 against their plain versions on the same inputs: the
     forward's output and lse; from the kernel's output and lse, dq, d_rw,
     d_rh, dk and dv, each backward run twice on the same inputs, which must
-    give the same bits (no atomics). ``shape`` is ``(B, Hg, W, H, D)``;
-    ``packed``: q/k/v strided views of one [B, L, 3, H, D] tensor and a
-    strided dO."""
+    give the same bits (no atomics), every backward launch under the variant
+    its dtype takes. In bf16 the backward kernels and their plain versions
+    are also held beside a float64 twin (the first 4 batch elements) that
+    rounds p and ds where they do, so the kernels' error stands beside the
+    plain versions' own. ``shape`` is ``(B, Hg, W, H, D)``; ``packed``:
+    q/k/v strided views of one [B, L, 3, H, D] tensor and a strided dO."""
     from sav_tpu_torch.ops import flash_attention as flash
 
     q, k, v, rw, rh, g = _rel_inputs(shape, dtype, 61, device, packed=packed)
@@ -847,10 +893,16 @@ def check_rel_kernels(name, shape, dtype, device, *, packed=False) -> dict:
         ref, ref_lse = flash.rel_attention_reference(q, k, v, rw, rh, scale=scale, with_lse=True)
         delta = flash.bwd_delta(out, g)
         operands = (q, k, v, rw, rh, g, lse, delta)
+        flash.reset_launches()
         runs = [(*flash.rel_attention_bwd_dq(*operands, scale=scale),
                  *flash.rel_attention_bwd_dkv(*operands, scale=scale)) for _ in range(2)]
         want = (*flash.rel_bwd_dq_reference(*operands, scale=scale),
                 *flash.rel_bwd_dkv_reference(*operands, scale=scale))
+    # Two launches of each on the card, none on CPU tensors.
+    variant = flash.rel_bwd_variant(q.element_size())
+    _require_variant("relative-position", name, variant, 2 if q.is_cuda else 0,
+                     (("dq", flash.REL_BWD_DQ_VARIANT_LAUNCHES),
+                      ("dk/dv", flash.REL_BWD_DKV_VARIANT_LAUNCHES)))
     names = ("dq", "d_rw", "d_rh", "dk", "dv")
     errs = {"fwd": _within(out, ref, tols["fwd"], rtol), "lse": _within(lse, ref_lse, LSE_TOL)}
     errs.update({n: _within(a, r, tols[n], rtol if n in ("dq", "dk", "dv") else None)
@@ -861,8 +913,18 @@ def check_rel_kernels(name, shape, dtype, device, *, packed=False) -> dict:
         raise AssertionError(f"relative-position backward {name}: two runs on the same inputs differ")
     if not (torch.equal(out, again[0]) and torch.equal(lse, again[1])):
         raise AssertionError(f"relative-position forward {name}: two runs on the same inputs differ")
+    note = f"backward {variant}"
+    if dtype == torch.bfloat16:
+        n = min(shape[0], 4)
+        with torch.no_grad():
+            exact = _rel_bwd_f64(*(t[:n] for t in operands), scale)
+            twin = {who: ", ".join(f"{o} {(x[:n].double() - e).abs().max().item():.3e}"
+                                   for o, x, e in zip(names, got, exact))
+                    for who, got in (("kernel", runs[0]), ("plain", want))}
+        del exact
+        note += f"; against the float64 twin: kernel {twin['kernel']}, plain {twin['plain']}"
     log(f"rel kernels {name} {shape} {str(dtype)[6:]} (forward "
-        f"{flash.rel_fwd_variant(q.element_size())}): max abs err "
+        f"{flash.rel_fwd_variant(q.element_size())}, {note}): max abs err "
         + ", ".join(f"{n} {e:.3e}" for n, e in errs.items())
         + f" (tol {json.dumps(tols)}{'' if rtol is None else ' absolute, d_rw/d_rh relative too'},"
         f" lse {LSE_TOL}); largest |plain| "
@@ -883,6 +945,8 @@ def phase_rel_kernels(device="cuda") -> dict:
         check_rel_kernels("grid-7x9", (2, 7, 9, 3, 16), dtype, device)
         check_rel_kernels("grid-5x6-d8", (2, 5, 6, 2, 8), dtype, device)
         check_rel_kernels("grid-2x130", (1, 2, 130, 2, 8), dtype, device)
+        # The f32 band's edge at head dim 128 (W + Hg = 156).
+        check_rel_kernels("grid-78x78-d128", (1, 78, 78, 1, 128), dtype, device)
     check_rel_kernels("grid-14x14-d64 strided", (8, 14, 14, 4, 64), bf16, device, packed=True)
     check_rel_kernels("botnet-t3 L=196 strided", (32, 14, 14, 4, 128), bf16, device, packed=True)
     return errs
@@ -1328,9 +1392,10 @@ def _launches() -> dict:
 
 def _variant_launches(launches: dict) -> dict:
     """The launches of #1 (fused forward), #2 (fused backward), #3 (flash
-    forward), #4 (flash dq), #5 (flash dk/dv) and #6 (relative-position
-    forward) by the variant that ran, after a bf16 run whose counts are
-    ``launches``; fails unless every one of them ran on the tensor cores."""
+    forward), #4 (flash dq), #5 (flash dk/dv), #6 (relative-position
+    forward), #7 (its dq) and #8 (its dk/dv) by the variant that ran, after
+    a bf16 run whose counts are ``launches``; fails unless every one of them
+    ran on the tensor cores."""
     from sav_tpu_torch.ops import flash_attention as flash
     from sav_tpu_torch.ops import fused_attention as fa
 
@@ -1339,7 +1404,9 @@ def _variant_launches(launches: dict) -> dict:
                 "flash": dict(flash.VARIANT_LAUNCHES),
                 "flash_dq": dict(flash.BWD_DQ_VARIANT_LAUNCHES),
                 "flash_dkv": dict(flash.BWD_DKV_VARIANT_LAUNCHES),
-                "rel": dict(flash.REL_VARIANT_LAUNCHES)}
+                "rel": dict(flash.REL_VARIANT_LAUNCHES),
+                "rel_dq": dict(flash.REL_BWD_DQ_VARIANT_LAUNCHES),
+                "rel_dkv": dict(flash.REL_BWD_DKV_VARIANT_LAUNCHES)}
     for kind, by_variant in variants.items():
         if by_variant[flash.TENSOR_CORE] != launches[kind] or sum(by_variant.values()) != launches[kind]:
             raise AssertionError(f"bf16 {kind} launches {launches[kind]} did not all run on the "
@@ -1693,8 +1760,10 @@ KERNEL_GROUPS = (
                                                 "fused_attention_fwd_mma_kernel")),
     ("talking-heads backward (talking_heads_bwd.cu)", ("talking_heads_bwd_kernel",)),
     ("talking-heads forward (talking_heads.cu)", ("talking_heads_fwd_kernel",)),
-    ("rel backward dq (rel_attention_bwd.cu)", ("rel_attention_bwd_dq_kernel",)),
-    ("rel backward dk/dv (rel_attention_bwd.cu)", ("rel_attention_bwd_dkv_kernel",)),
+    ("rel backward dq (rel_attention_bwd.cu)", ("rel_attention_bwd_dq_kernel",
+                                                "rel_attention_bwd_dq_mma_kernel")),
+    ("rel backward dk/dv (rel_attention_bwd.cu)", ("rel_attention_bwd_dkv_kernel",
+                                                   "rel_attention_bwd_dkv_mma_kernel")),
     ("rel forward (rel_attention.cu)", ("rel_attention_fwd_kernel",
                                         "rel_attention_fwd_mma_kernel")),
     ("batch norm", ("batch_norm", "batchnorm", "bn_fw", "bn_bw")),
@@ -1936,8 +2005,8 @@ def main() -> None:
             "source": f"sav_tpu_torch/csrc/{source}",
             "replaces": f"sav_tpu/ops/flash_attention.py:{line}",
             "tpu_kernel": tpu_kernel,
-            **({"variant": tensor_core, "launches_by_variant": by_variant(counter)}
-               if kind == "fwd" else cuda_core),
+            "variant": tensor_core,
+            "launches_by_variant": by_variant(counter),
             "launches": total(counter),
             "launches_by_path": by_path(counter),
             **main_shape,

@@ -1,7 +1,8 @@
 // Tensor-core tile pieces for the bf16 variants of the fused forward
 // (fused_attention.cu), the fused backward (fused_attention_bwd.cu), the
-// flash forward (flash_attention.cu) and the relative-position forward
-// (rel_attention.cu).
+// flash forward and backward (flash_attention.cu, flash_attention_bwd.cu)
+// and the relative-position forward and backward (rel_attention.cu,
+// rel_attention_bwd.cu).
 //
 // Products are warp-level `mma.sync.m16n8k16` with bf16 operands and f32
 // accumulators; operands reach registers from shared memory with
@@ -187,6 +188,15 @@ __device__ __forceinline__ float quad_max(float x) {
 __device__ __forceinline__ float quad_sum(float x) {
   x += __shfl_xor_sync(0xffffffffu, x, 1);
   return x + __shfl_xor_sync(0xffffffffu, x, 2);
+}
+
+// The key coordinates of column `col` of an hg x w grid as kh << 16 | kw,
+// for the relative-position kernels (columns past L take the last one's:
+// they are masked or not stored).
+__device__ __forceinline__ int key_coord(int col, int L, int W) {
+  col = min(col, L - 1);
+  const int kh = col / W;
+  return (kh << 16) | (col - kh * W);
 }
 
 }  // namespace

@@ -238,14 +238,6 @@ __host__ __device__ inline size_t mma_smem_bytes(int d, int hg, int w) {
          (size_t)rows * (hg + w) * sizeof(float) + 2 * kTile * sizeof(int);
 }
 
-// The key coordinates of column `col` as kh << 16 | kw (columns past L take
-// the last one's: they are masked).
-__device__ __forceinline__ int key_coord(int col, int L, int W) {
-  col = min(col, L - 1);
-  const int kh = col / W;
-  return (kh << 16) | (col - kh * W);
-}
-
 template <int DK, int WARPS>
 __global__ void __launch_bounds__(WARPS * 32)
     rel_attention_fwd_mma_kernel(const Params p) {

@@ -49,7 +49,10 @@ rw_abs[q, kw]``.
   :func:`rel_attention_bwd_dq`, :func:`rel_bwd_dq_reference`,
   :data:`REL_BWD_DQ_LAUNCHES`), and dk/dv, replacing ``_rel_bwd_dkv_kernel``
   (``:913``; :func:`rel_attention_bwd_dkv`, :func:`rel_bwd_dkv_reference`,
-  :data:`REL_BWD_DKV_LAUNCHES`).
+  :data:`REL_BWD_DKV_LAUNCHES`). Both take the forward's variants by dtype
+  (:func:`rel_bwd_variant`); :data:`REL_BWD_DQ_VARIANT_LAUNCHES` and
+  :data:`REL_BWD_DKV_VARIANT_LAUNCHES` tally each launch under its variant
+  too.
 
 :func:`flash_botnet_attention` forms the compact logits outside the kernels
 (:func:`compact_to_absolute`) and differentiates through
@@ -101,11 +104,15 @@ MMA_BLOCK_KV = BLOCK
 # tiles of BLOCK rows.
 BWD_MMA_ROWS = 64
 BWD_MMA_Q_TILE = 64
+# The relative-position dk/dv kernel's bf16 variant streams q tiles of 32
+# rows (kMmaQTile in csrc/rel_attention_bwd.cu); its blocks and its dq's are
+# BWD_MMA_ROWS rows.
+REL_BWD_MMA_Q_TILE = 32
 # The forward's variants by dtype, as ``sav_flash_attention_variant`` picks
 # them: bf16 on the tensor cores (mma.sync), f32 on the CUDA cores. The
 # backward's (``sav_flash_attention_bwd_variant``) and the
-# relative-position forward's (``sav_rel_attention_variant``) follow the
-# same rule.
+# relative-position kernels' (``sav_rel_attention_variant``,
+# ``sav_rel_attention_bwd_variant``) follow the same rule.
 TENSOR_CORE = "tensor_core"
 CUDA_CORE = "cuda_core"
 
@@ -118,15 +125,19 @@ BWD_DKV_LAUNCHES = 0
 REL_LAUNCHES = 0
 REL_BWD_DQ_LAUNCHES = 0
 REL_BWD_DKV_LAUNCHES = 0
-# The launches of the two forwards and of the flash dq and dk/dv kernels by
-# variant (each also counts in its counter above).
+# The launches of each of the six kernels by variant (each also counts in
+# its counter above).
 VARIANT_LAUNCHES = {TENSOR_CORE: 0, CUDA_CORE: 0}
 REL_VARIANT_LAUNCHES = {TENSOR_CORE: 0, CUDA_CORE: 0}
 BWD_DQ_VARIANT_LAUNCHES = {TENSOR_CORE: 0, CUDA_CORE: 0}
 BWD_DKV_VARIANT_LAUNCHES = {TENSOR_CORE: 0, CUDA_CORE: 0}
+REL_BWD_DQ_VARIANT_LAUNCHES = {TENSOR_CORE: 0, CUDA_CORE: 0}
+REL_BWD_DKV_VARIANT_LAUNCHES = {TENSOR_CORE: 0, CUDA_CORE: 0}
 _VARIANT_TALLIES = {"LAUNCHES": VARIANT_LAUNCHES, "REL_LAUNCHES": REL_VARIANT_LAUNCHES,
                     "BWD_DQ_LAUNCHES": BWD_DQ_VARIANT_LAUNCHES,
-                    "BWD_DKV_LAUNCHES": BWD_DKV_VARIANT_LAUNCHES}
+                    "BWD_DKV_LAUNCHES": BWD_DKV_VARIANT_LAUNCHES,
+                    "REL_BWD_DQ_LAUNCHES": REL_BWD_DQ_VARIANT_LAUNCHES,
+                    "REL_BWD_DKV_LAUNCHES": REL_BWD_DKV_VARIANT_LAUNCHES}
 _LAUNCH_LOCK = threading.Lock()
 
 
@@ -597,12 +608,19 @@ def rel_fwd_variant(itemsize: int) -> str:
     """The relative-position forward's variant for inputs of ``itemsize``
     bytes: bf16 (2) on the tensor cores, f32 (4) on the CUDA cores (no
     TF32). Same rule as ``sav_rel_attention_variant`` in
-    ``csrc/rel_attention.cu``; the backward kernels (#7, #8) take f32
-    tiles in either dtype."""
+    ``csrc/rel_attention.cu``."""
     if itemsize not in (2, 4):
         raise ValueError(f"the relative-position kernels take float32 or bfloat16, "
                          f"got itemsize {itemsize}")
     return TENSOR_CORE if itemsize == 2 else CUDA_CORE
+
+
+def rel_bwd_variant(itemsize: int) -> str:
+    """The relative-position dq and dk/dv kernels' variant for inputs of
+    ``itemsize`` bytes, the forward's rule: bf16 (2) on the tensor cores,
+    f32 (4) on the CUDA cores (no TF32). Same rule as
+    ``sav_rel_attention_bwd_variant`` in ``csrc/rel_attention_bwd.cu``."""
+    return rel_fwd_variant(itemsize)
 
 
 def rel_mma_rows(length: int) -> int:
@@ -614,25 +632,39 @@ def rel_mma_rows(length: int) -> int:
 
 def rel_smem_bytes(dim: int, height: int, width: int, itemsize: int = 4) -> dict:
     """Dynamic shared memory of one block of each relative-position kernel
-    for inputs of ``itemsize`` bytes. The f32 kernels: the flash kernel's
-    f32 tiles (:func:`flash_smem_bytes`) plus the q tile's rows of
-    ``rw_abs`` and ``rh_abs`` (64 × (W + Hg) f32); dq also holds its f32
-    ``d_rw``/``d_rh`` accumulators (as many again). The bf16 forward: a bf16
-    q tile of :func:`rel_mma_rows` rows and two stages of bf16 k and v tiles
-    of 64 rows, each row ``round_up(dim, 16) + 8`` long, the q tile's f32
-    rows of ``rw_abs``/``rh_abs`` and the key coordinates of two kv tiles
-    (64 int32 each). Same formulas as ``smem_bytes`` / ``mma_smem_bytes``
-    in ``csrc/rel_attention.cu`` and ``dq_smem_bytes`` / ``dkv_smem_bytes``
-    in ``csrc/rel_attention_bwd.cu``."""
-    flash = flash_smem_bytes(dim)
-    rows = BLOCK * (height + width) * 4
-    fwd = flash["fwd"] + rows
+    for inputs of ``itemsize`` bytes (``rel = width + height``). The f32
+    kernels: the flash kernel's f32 tiles (:func:`flash_smem_bytes`) plus
+    the q tile's rows of ``rw_abs`` and ``rh_abs`` (64 × rel f32); dq also
+    holds its f32 ``d_rw``/``d_rh`` accumulators (as many again). The bf16
+    kernels hold bf16 rows of ``round_up(dim, 16) + 8``: the forward a q
+    tile of :func:`rel_mma_rows` rows and two stages of 64-row k and v
+    tiles, the q tile's f32 rows of ``rw_abs``/``rh_abs`` and the key
+    coordinates of two kv tiles (64 int32 each); dq the block's
+    :data:`BWD_MMA_ROWS` dO rows and two stages of 64-row k and v tiles (the
+    q rows pass through k's second stage into registers), the q tile's f32
+    rows of the compact logits and the f32 accumulators, and two kv tiles'
+    key coordinates; dk/dv the block's :data:`BWD_MMA_ROWS` k and v rows
+    and two stages of :data:`REL_BWD_MMA_Q_TILE`-row q and dO tiles, of
+    their f32 lse and delta and of their f32 rows of the compact logits.
+    Same formulas as ``smem_bytes`` / ``mma_smem_bytes`` in
+    ``csrc/rel_attention.cu`` and ``dq_smem_bytes`` / ``dkv_smem_bytes`` /
+    ``dq_mma_smem_bytes`` / ``dkv_mma_smem_bytes`` in
+    ``csrc/rel_attention_bwd.cu``."""
+    rel = height + width
     if rel_fwd_variant(itemsize) == TENSOR_CORE:
+        row = (-(-dim // 16) * 16 + 8) * 2
         q_rows = rel_mma_rows(height * width)
-        fwd = ((q_rows + 4 * BLOCK) * (-(-dim // 16) * 16 + 8) * 2
-               + q_rows * (height + width) * 4 + 2 * BLOCK * 4)
+        return {
+            "fwd": (q_rows + 4 * BLOCK) * row + q_rows * rel * 4 + 2 * BLOCK * 4,
+            "bwd_dq": (BWD_MMA_ROWS + 4 * BLOCK) * row + 2 * BWD_MMA_ROWS * rel * 4
+                      + 2 * BLOCK * 4,
+            "bwd_dkv": ((2 * BWD_MMA_ROWS + 4 * REL_BWD_MMA_Q_TILE) * row
+                        + 4 * REL_BWD_MMA_Q_TILE * 4 + 2 * REL_BWD_MMA_Q_TILE * rel * 4),
+        }
+    flash = flash_smem_bytes(dim)
+    rows = BLOCK * rel * 4
     return {
-        "fwd": fwd,
+        "fwd": flash["fwd"] + rows,
         "bwd_dq": flash["bwd_dq"] + 2 * rows,
         "bwd_dkv": flash["bwd_dkv"] + rows,
     }
@@ -642,9 +674,10 @@ def rel_eligible(dim: int, height: int, width: int, itemsize: int = 4) -> bool:
     """True when the relative-position kernels take the head dim and grid
     for inputs of ``itemsize`` bytes: a head dim :func:`flash_eligible`
     takes, and every block of :func:`rel_smem_bytes` within the 227 KB a
-    block may have. The dq block is the largest in either dtype, so at head
-    dim 128 the band is W + Hg ≤ 156 (BoTNet's 14 + 14 and 7 + 7 are well
-    inside; 2 + 130 fits), at head dim 64 W + Hg ≤ 284."""
+    block may have. In f32 the dq block is the largest, so at head dim 128
+    the band is W + Hg ≤ 156 (BoTNet's 14 + 14 and 7 + 7 are well inside;
+    2 + 130 fits), at head dim 64 W + Hg ≤ 284; every bf16 block is smaller
+    than the f32 dq block, so the bf16 band contains the f32 one."""
     return flash_eligible(dim) and max(
         rel_smem_bytes(dim, height, width, itemsize).values()) <= SMEM_LIMIT
 
@@ -769,8 +802,10 @@ def _rel_bwd_lib() -> ctypes.CDLL:
     for fn in (lib.sav_rel_attention_bwd_dq, lib.sav_rel_attention_bwd_dkv):
         fn.restype = ctypes.c_int
     for fn in (lib.sav_rel_attention_bwd_dq_smem_bytes, lib.sav_rel_attention_bwd_dkv_smem_bytes):
-        fn.argtypes = [ctypes.c_int, ctypes.c_int]
+        fn.argtypes = [ctypes.c_int] * 3
         fn.restype = ctypes.c_size_t
+    lib.sav_rel_attention_bwd_variant.argtypes = [ctypes.c_int]
+    lib.sav_rel_attention_bwd_variant.restype = ctypes.c_int
     lib.sav_cuda_error_string.argtypes = [ctypes.c_int]
     lib.sav_cuda_error_string.restype = ctypes.c_char_p
     return lib
@@ -853,7 +888,7 @@ def _rel_launch_bwd_dq(query, key, value, rw_abs, rh_abs, grad, lse, delta, scal
             stream,
         )
     _raise_on_error(lib, rc, "relative-position attention dq")
-    _count("REL_BWD_DQ_LAUNCHES")
+    _count("REL_BWD_DQ_LAUNCHES", rel_bwd_variant(query.element_size()))
     return dq, d_rw, d_rh
 
 
@@ -880,7 +915,7 @@ def _rel_launch_bwd_dkv(query, key, value, rw_abs, rh_abs, grad, lse, delta, sca
             stream,
         )
     _raise_on_error(lib, rc, "relative-position attention dk/dv")
-    _count("REL_BWD_DKV_LAUNCHES")
+    _count("REL_BWD_DKV_LAUNCHES", rel_bwd_variant(query.element_size()))
     return dk, dv
 
 

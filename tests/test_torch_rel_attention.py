@@ -295,21 +295,170 @@ def test_forward_variant_rule():
 @pytest.mark.parametrize("height,width", [(14, 14), (7, 7)])
 def test_tensor_core_forward_keeps_botnet_grids_in_the_band(height, width):
     """BoTNet-T3's stage-4 grids at 4 heads of 128 stay eligible in bf16,
-    where the forward's block is the tensor-core one (a bf16 q tile of
+    where every block is a tensor-core one: the forward's (a bf16 q tile of
     rel_mma_rows rows, two stages of 64-row bf16 K/V tiles, the q tile's f32
-    rw/rh rows and two tiles' key coordinates); the backward blocks, f32 in
-    either dtype, are the same as in f32."""
+    rw/rh rows and two tiles' key coordinates), dq's (64 bf16 dO rows, two
+    stages of K/V, the q tile's f32 rw/rh rows and accumulators, two tiles'
+    key coordinates) and dk/dv's (64 bf16 K and V rows, two stages of 32-row
+    q/dO tiles, of their lse/delta and of their rw/rh rows)."""
     rows = port_flash.rel_mma_rows(height * width)
+    rel = height + width
     bf16 = port_flash.rel_smem_bytes(128, height, width, 2)
-    f32 = port_flash.rel_smem_bytes(128, height, width)
-    assert bf16["fwd"] == (rows + 256) * 136 * 2 + rows * (height + width) * 4 + 512
-    assert (bf16["bwd_dq"], bf16["bwd_dkv"]) == (f32["bwd_dq"], f32["bwd_dkv"])
+    assert bf16["fwd"] == (rows + 256) * 136 * 2 + rows * rel * 4 + 512
+    assert bf16["bwd_dq"] == (64 + 256) * 136 * 2 + 2 * 64 * rel * 4 + 512
+    assert bf16["bwd_dkv"] == (128 + 128) * 136 * 2 + 128 * 4 + 2 * 32 * rel * 4
     assert max(bf16.values()) <= port_flash.SMEM_LIMIT
     assert port_flash.rel_eligible(128, height, width, 2)
-    # The bf16 forward never sets the band: at its edges dq is the largest.
+    # The bf16 blocks never set the band: at its edges the f32 dq block is
+    # larger than every one of them.
     for dim, h, w in ((128, 78, 78), (64, 142, 142), (8, 2, 130), (8, 198, 198)):
         sizes = port_flash.rel_smem_bytes(dim, h, w, 2)
-        assert sizes["fwd"] <= sizes["bwd_dq"], (dim, h, w)
+        assert max(sizes.values()) <= port_flash.rel_smem_bytes(dim, h, w)["bwd_dq"], (dim, h, w)
+
+
+def test_backward_variant_rule():
+    """bf16 runs the relative-position dq and dk/dv on the tensor cores, f32
+    on the CUDA cores (no TF32), as the forward; any other itemsize raises."""
+    assert port_flash.rel_bwd_variant(2) == port_flash.TENSOR_CORE
+    assert port_flash.rel_bwd_variant(4) == port_flash.CUDA_CORE
+    for itemsize in (1, 8):
+        with pytest.raises(ValueError, match="float32 or bfloat16"):
+            port_flash.rel_bwd_variant(itemsize)
+
+
+@pytest.mark.parametrize("height,width,dq,dkv", [(14, 14, 101888, 77312),
+                                                 (7, 7, 94720, 73728)])
+def test_bf16_backward_blocks_hold_two_an_sm_at_botnet_grids(height, width, dq, dkv):
+    """The tensor-core dq and dk/dv blocks at BoTNet-T3's grids (head dim
+    128), in bytes; two of each fit an SM (233,472 bytes, 1 KB of it
+    reserved per block), as for the flash backward's bf16 blocks."""
+    sizes = port_flash.rel_smem_bytes(128, height, width, 2)
+    assert (sizes["bwd_dq"], sizes["bwd_dkv"]) == (dq, dkv)
+    assert max(dq, dkv) <= 233472 // 2 - 1024
+
+
+@pytest.mark.parametrize("dim,height,width", [(128, 14, 14), (128, 7, 7), (16, 7, 9), (8, 5, 6),
+                                              (8, 2, 130), (128, 2, 130), (128, 78, 78),
+                                              (64, 142, 142)])
+def test_bf16_band_takes_every_f32_case(dim, height, width):
+    """Every grid of test_band_and_shared_memory_rule that the f32 kernels
+    take, the bf16 ones take too."""
+    assert port_flash.rel_eligible(dim, height, width)
+    assert port_flash.rel_eligible(dim, height, width, 2)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_backward_wrappers_on_cpu_count_no_launch_in_any_tally(dtype):
+    """On CPU tensors dq and dk/dv (directly and through autograd) run their
+    plain versions and add to no counter and no tally by variant."""
+    q, k, v, rel_h, rel_w = _t(_inputs(*GRIDS["5x6"], seed=9), dtype)
+    port_flash.reset_launches()
+    inputs = [t.requires_grad_() for t in (q, k, v, rel_h, rel_w)]
+    out = port_flash.flash_botnet_attention(*inputs, 5, 6)
+    torch.square(out.float()).sum().backward()
+    rw, rh = _t(_compact(*(t.detach().float().numpy() for t in (q, rel_h, rel_w)), 5, 6))
+    with torch.no_grad():
+        out, lse = port_flash.rel_attention(q, k, v, rw, rh, scale=0.3, with_lse=True)
+        g = torch.ones_like(out)
+        operands = (q, k, v, rw, rh, g, lse, port_flash.bwd_delta(out, g))
+        port_flash.rel_attention_bwd_dq(*operands, scale=0.3)
+        port_flash.rel_attention_bwd_dkv(*operands, scale=0.3)
+    assert q.grad is not None and q.grad.dtype == dtype
+    assert (port_flash.REL_LAUNCHES, port_flash.REL_BWD_DQ_LAUNCHES,
+            port_flash.REL_BWD_DKV_LAUNCHES) == (0, 0, 0)
+    for tally in (port_flash.REL_BWD_DQ_VARIANT_LAUNCHES, port_flash.REL_BWD_DKV_VARIANT_LAUNCHES,
+                  port_flash.REL_VARIANT_LAUNCHES):
+        assert tally == {port_flash.TENSOR_CORE: 0, port_flash.CUDA_CORE: 0}
+
+
+def _rel_ds_f64(q, k, v, rw, rh, g, lse, delta, scale):
+    """p and ds in float64 ``[B, H, L, L]`` from the same lse and delta, the
+    relative bias added after the scale."""
+    b, heads, length, _ = rw.shape
+    bias = (rh.double()[..., :, None] + rw.double()[..., None, :]).reshape(b, heads, length, length)
+    s = torch.einsum("bqhd,bkhd->bhqk", q.double(), k.double()) * scale + bias
+    p = torch.exp(s - lse.double()[..., None])
+    dp = torch.einsum("bqhd,bkhd->bhqk", g.double(), v.double())
+    return p, p * (dp - delta.double()[..., None])
+
+
+def _grid_sums(ds, height, width):
+    """``(d_rw, d_rh)``: ds summed over the key columns that share kw, kh."""
+    grid = ds.reshape(*ds.shape[:3], height, width)
+    return grid.sum(-2), grid.sum(-1)
+
+
+def _rel_bwd_f64(q, k, v, rw, rh, g, lse, delta, scale, rounded=True):
+    """dq, dk, dv, d_rw and d_rh in float64, with p rounded to the dO dtype
+    before dV and ds to the k and q dtypes before dQ and dK (through f32, as
+    the plain version casts its f32 values); d_rw/d_rh sum the unrounded
+    ds. ``rounded`` False skips the roundings."""
+    p, ds = _rel_ds_f64(q, k, v, rw, rh, g, lse, delta, scale)
+
+    def cast(x, dtype):
+        return x.to(torch.float32).to(dtype).double() if rounded else x
+
+    dq = torch.einsum("bhqk,bkhd->bqhd", cast(ds, k.dtype), k.double()) * scale
+    dk = torch.einsum("bhqk,bqhd->bkhd", cast(ds, q.dtype), q.double()) * scale
+    dv = torch.einsum("bhqk,bqhd->bkhd", cast(p, g.dtype), g.double())
+    return (dq, dk, dv, *_grid_sums(ds, rh.shape[-1], rw.shape[-1]))
+
+
+@pytest.mark.parametrize("height,width", [(7, 7), (9, 11)])
+@pytest.mark.parametrize("output", ["dq", "dk", "dv", "d_rw", "d_rh"])
+def test_bwd_references_match_float64_with_bf16_casts(height, width, output):
+    """The plain dq/d_rw/d_rh and dk/dv against a float64 twin that rounds p
+    and ds to bf16 at the same points and sums d_rw/d_rh from the unrounded
+    ds: they agree to f32 rounding, row by row (an output row of each B, L,
+    H). The cast under test is bf16 and every other operand f32, so each
+    output stays f32: ds is cast to the k dtype for dq (bf16 k), p to the dO
+    dtype for dv (bf16 dO), ds to the q dtype for dk (bf16 q); d_rw/d_rh run
+    with the bf16 k of dq and follow no rounding. A p or ds within f32
+    rounding of a bf16 boundary rounds either way, so a few rows of dq, dk
+    and dv may differ by more, never by more than 1e-3; without the
+    roundings most rows move by more than 1e-6, and d_rw/d_rh summed from
+    the rounded ds move too. This is the plain versions' own error that the
+    card's bf16 limits sit above."""
+    b, heads, d = 2, 2, 32
+    length = height * width
+    rng = np.random.default_rng(45)
+    q, k, v, g = _t([rng.standard_normal((b, length, heads, d)).astype(np.float32)
+                     for _ in range(4)])
+    rw, rh = _t([rng.standard_normal((b, heads, length, n)).astype(np.float32)
+                 for n in (width, height)])
+    scale = d ** -0.5
+    out, lse = port_flash.rel_attention_reference(q, k, v, rw, rh, scale=scale, with_lse=True)
+    delta = port_flash.bwd_delta(out, g)
+    bf16 = {"dq": "k", "dv": "g", "dk": "q", "d_rw": "k", "d_rh": "k"}[output]
+    operands = {"q": q, "k": k, "v": v, "g": g}
+    operands[bf16] = operands[bf16].bfloat16()
+    q, k, v, g = operands["q"], operands["k"], operands["v"], operands["g"]
+    args = (q, k, v, rw, rh, g, lse, delta)
+    index = ("dq", "dk", "dv", "d_rw", "d_rh").index(output)
+    if output in ("dk", "dv"):
+        got = port_flash.rel_bwd_dkv_reference(*args, scale=scale)[index - 1]
+    else:
+        got = port_flash.rel_bwd_dq_reference(*args, scale=scale)[(0, 3, 4).index(index)]
+    assert got.dtype == torch.float32
+    want = _rel_bwd_f64(*args, scale)[index]
+
+    def rows_within(x, tol):
+        err = (got.double() - x).abs() - tol * (1 + x.abs())
+        return (err <= 0).all(dim=-1).double().mean().item()
+
+    if output in ("d_rw", "d_rh"):
+        # No rounding in the chain: every row agrees to a few f32 ulps (the
+        # sums cancel); sums of the ds rounded to bf16 (dq's operand) lie
+        # 1e-4 and more away.
+        assert rows_within(want, 2e-6) == 1.0
+        _, ds = _rel_ds_f64(*args, scale)
+        of_rounded = _grid_sums(ds.float().bfloat16().double(), height, width)[index - 3]
+        assert rows_within(of_rounded, 1e-5) < 0.1
+        return
+    unrounded = _rel_bwd_f64(*args, scale, rounded=False)[index]
+    assert rows_within(want, 1e-6) >= 0.9
+    assert rows_within(want, 1e-3) == 1.0
+    assert rows_within(unrounded, 1e-6) < 0.5
 
 
 def _rel_online_softmax_f64(q, k, v, rw, rh, height, width, scale, block_kv):
