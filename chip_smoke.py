@@ -15,10 +15,12 @@ Phases, each of which exits non-zero on failure:
    both dtypes), the variant rules of the fused forward (#1), the fused
    backward (#2), the flash forward (#3), the flash dq (#4) and dk/dv (#5)
    and the relative-position forward (#6), dq (#7) and dk/dv (#8) and the
-   talking-heads kernels' head counts against the Python eligibility rules;
+   talking-heads kernels' head counts, variant rules (#9, #10), heads per
+   warp and tensor-core shared memory against the Python eligibility rules;
    print the registers, spills and tensor-core instruction count
    (HMMA/HGMMA in the built library's SASS) of every tensor-core (bf16)
-   instantiation of #1-#8, and fail where one has none.
+   instantiation of #1-#10 (#10's two kernels, dq and dk/dv), and fail
+   where one has none.
 3. kernels: each kernel against its plain PyTorch version on the card. The
    fused forward at the DeiT serve and train shapes, CaiT's class-attention
    shapes, ViT-B/16@384's serve shape (kv 577), head dims 40, 128 and 256,
@@ -31,7 +33,10 @@ Phases, each of which exits non-zero on failure:
    dim 256 in bf16 (the CUDA-core variant) and strided shapes; the
    talking-heads forward and backward (dq, dk, dv, dW_pre, dW_post) at the
    CaiT-XXS train and serve shapes, in f32, ragged, on strided views and at
-   every other head count they are built for (2, 3, 6, 8; 16 forward only);
+   every other head count they are built for (2, 3, 6, 8; 16 forward only,
+   on the CUDA cores), each bf16 case held to TH_BF16_TOL beside a float64
+   twin that rounds p' and dS where the plain versions do, every launch
+   counted under the variant its dtype and head count take;
    the flash forward, dq and dk/dv kernels at the ViT-B/16@384 train shape
    (bf16, with the lse) and in f32, ragged, multi-tile at head dim 40, at
    head dim 128, at CaiT's class attention at 384², short-kv (Lq > Lk)
@@ -58,14 +63,15 @@ Phases, each of which exits non-zero on failure:
    weights from a seed) to concurrent clients; every attention core must
    have gone through its forward kernel (the launches per batch are counted
    from the model's attention modules: DeiT 12 fused; CaiT 24 talking-heads
-   and 2 fused; no backward launch), every launch of #1-#8 on
+   and 2 fused; no backward launch), every launch of #1-#10 on
    the tensor cores, and 8 rows must agree with the same weights served on
    the dense attention paths.
 6. train: Trainer trains deit_s_patch16, then cait_xxs_24 (bf16 over f32
    parameters, global batch 256, CaiT at its recipe's stochastic depth 0.05)
    for 6 steps on synthetic learnable batches through fit(); every step must
    launch each forward and backward kernel once per attention module that
-   takes it (#1-#8 on the tensor cores), every loss must be
+   takes it (#1-#10 on the tensor cores; #10 is two kernels, dq and
+   dk/dv, each launched once per talking-heads module), every loss must be
    finite, the
    loss must fall, and the first step's loss and grad norm must agree with
    the same step on the dense attention paths (f32 softmax, the same
@@ -176,6 +182,30 @@ FUSED_BF16_TOL = {"fwd": 1.2e-2}
 # atol = rtol).
 REL_BF16_TOL = {"fwd": 1.6e-2, "dq": 8e-3, "dk": 8e-3, "dv": 3.2e-2, "d_rw": 1.4e-5,
                 "d_rh": 1.4e-5}
+# The talking-heads kernels in bf16, absolute (dW_pre and dW_post as a
+# share of their largest |plain| entry, as _within_largest holds them):
+# twice the largest error each output of the CUDA-core #9/#10 showed over
+# phase_th_kernels' bf16 cases on the H100 (the parent tree's run): dq, dk
+# and dv 1.953e-3 (train and serve); dW_pre 2.599e-6 and dW_post 2.487e-6
+# of their largest entry (train: 1.053e-3 of 405.167 and 9.155e-4 of
+# 368.179, the parent's abs errors over the largest entries this script
+# prints for the same plain version on the same inputs); the CUDA-core
+# forward equalled its plain version to the bit. Two limits are
+# reset for the tensor-core kernels, whose f32 sums (an online row sum, the
+# SFU's exp2, mma accumulation) run in another order than the plain
+# versions': the forward's to 4e-3, twice the 1.953e-3 it showed (one bf16
+# ulp of outputs in [0.25, 0.5): a p' at a rounding boundary rounds the
+# other way), and dk's to 8e-3, twice the 3.906e-3 it showed (one ulp in
+# [0.5, 1), 8 heads and the train shape). Against a float64 twin that
+# rounds p' and dS where the plain versions do, kernel and plain version
+# lie equally far on the output, dq, dk and dv in every bf16 case, to four
+# digits (up to 3.8e-3: half a bf16 ulp, the outputs' own rounding), and on
+# dW_pre and dW_post the kernel lies as near or nearer (3.2e-5 against
+# 3.8e-5 at the train shape); check_th_kernel prints both. The tensor-core
+# dW kept within the parent's limits: 3.164e-6 and 2.762e-6 of the largest
+# entry at the train shape.
+TH_BF16_TOL = {"fwd": 4e-3, "dq": 3.9e-3, "dk": 8e-3, "dv": 3.9e-3, "dw_pre": 5.2e-6,
+               "dw_post": 5e-6}
 LSE_TOL = 2e-5
 SERVE_TOL = 3e-2
 # First train step, kernels vs dense attention with f32 softmax, both bf16
@@ -309,6 +339,47 @@ def phase_build() -> None:
             if bool(c_value) != py_value:
                 raise AssertionError(f"talking-heads {what}: the kernel is built for {heads} "
                                      f"heads: {bool(c_value)}; the Python rule says {py_value}")
+    # #9/#10's variant rule (one for both directions), and the tensor-core
+    # kernels' heads per warp and shared memory, over every head count and
+    # head dim the band could take; the backward's rows per block beside
+    # them (the Python mirror of the dk/dv kernel's and the bound's).
+    for heads in range(1, 17):
+        for dim in range(8, 136, 8):
+            for dtype, itemsize in ((0, 4), (1, 2)):
+                c_variant = {1: th.TENSOR_CORE, 0: th.CUDA_CORE}[
+                    th_lib.sav_talking_heads_variant(dtype, heads, dim)]
+                if c_variant != th.th_variant(heads, dim, itemsize):
+                    raise AssertionError(
+                        f"talking-heads variant rule differs at h={heads} d={dim} itemsize "
+                        f"{itemsize}: kernel {c_variant}, Python {th.th_variant(heads, dim, itemsize)}")
+            if th.th_variant(heads, dim, 2) != th.TENSOR_CORE:
+                continue
+            dk = -(-dim // 16) * 16
+            for kind, c_ho, c_smem, c_rows in (
+                ("fwd", th_lib.sav_talking_heads_mma_heads_per_warp(heads, dk),
+                 th_lib.sav_talking_heads_mma_smem_bytes(heads, dk), None),
+                *[(kind, th_bwd.sav_talking_heads_bwd_mma_heads_per_warp(code, heads, dk),
+                   th_bwd.sav_talking_heads_bwd_mma_smem_bytes(code, heads, dk),
+                   th_bwd.sav_talking_heads_bwd_mma_rows(code, heads, dk))
+                  for code, kind in ((1, "bwd_dq"), (2, "bwd_dkv"))],
+            ):
+                c = (c_ho, c_smem, c_rows)
+                py = (th.th_mma_heads_per_warp(kind, heads, dim), th.th_mma_smem_bytes(kind, heads, dim),
+                      None if c_rows is None else th.th_mma_block(kind, heads, dim)["rows"])
+                if c != py or c_smem > fa.SMEM_LIMIT:
+                    raise AssertionError(
+                        f"talking-heads tensor-core {kind} rule differs at h={heads} d={dim}: "
+                        f"kernel (heads per warp, bytes, rows) {c}, Python {py}, "
+                        f"limit {fa.SMEM_LIMIT}")
+    # CaiT-XXS/XS/S at 224² in bf16 take the tensor cores; CaiT-XXS's blocks
+    # fit two to an SM in each kernel.
+    for heads in (4, 6, 8):
+        if th.th_variant(heads, 48, 2) != th.TENSOR_CORE:
+            raise AssertionError(f"{heads} heads of 48 in bf16 are outside the talking-heads "
+                                 "tensor-core band")
+    for kind in th.MMA_KINDS:
+        if th.th_mma_blocks_per_sm(kind, 4, 48) < 2:
+            raise AssertionError(f"CaiT-XXS's talking-heads {kind} blocks no longer fit two to an SM")
     fl, fl_bwd = flash._lib(), flash._bwd_lib()
     rel, rel_bwd = flash._rel_lib(), flash._rel_bwd_lib()
     for dim in range(8, 136, 8):
@@ -386,7 +457,10 @@ MMA_KERNELS = {"fused_attention": ("fused_attention_fwd_mma_kernel",),
                                        "flash_attention_bwd_dkv_mma_kernel"),
                "rel_attention": ("rel_attention_fwd_mma_kernel",),
                "rel_attention_bwd": ("rel_attention_bwd_dq_mma_kernel",
-                                     "rel_attention_bwd_dkv_mma_kernel")}
+                                     "rel_attention_bwd_dkv_mma_kernel"),
+               "talking_heads": ("talking_heads_fwd_mma_kernel",),
+               "talking_heads_bwd": ("talking_heads_bwd_dq_mma_kernel",
+                                     "talking_heads_bwd_dkv_mma_kernel")}
 
 
 def _ptxas_resources(text: str) -> dict:
@@ -637,75 +711,152 @@ def _th_inputs(shape, dtype, seed, device, *, packed=False):
 
 def _within_largest(got, ref, tol) -> float:
     """For the [H, H] weight gradients, each a sum over B·L·L products:
-    the error relative to the largest entry (an entry near 0 is the
-    difference of large partial sums)."""
+    the max abs error, held at ``tol`` times the largest |ref| entry (an
+    entry near 0 is the difference of large partial sums)."""
     err = (got.float() - ref.float()).abs().max().item()
-    if err > tol * (1.0 + ref.float().abs().max().item()):
-        raise AssertionError(f"max abs err {err:.3e} against largest |ref| "
-                             f"{ref.float().abs().max().item():.3e}")
+    largest = ref.float().abs().max().item()
+    if err > tol * largest:
+        raise AssertionError(f"max abs err {err:.3e} is {err / largest:.3e} of the largest |ref| "
+                             f"{largest:.3e}, above {tol:.1e}")
     return err
+
+
+def _th_f64(q, k, v, w_pre, w_post, g, scale):
+    """Talking-heads attention and its gradients in float64: p' rounded
+    (through f32) to the value dtype before PV and dV and dS to the key
+    dtype before dq and dk, where the plain versions cast them; dW_pre and
+    dW_post from the unrounded values. Returns ``(out, dq, dk, dv, dw_pre,
+    dw_post)``: the plain versions' arithmetic without their f32 sums and
+    their rounding of the outputs."""
+    qd, kd, vd, gd = (t.double() for t in (q, k, v, g))
+    wp, wq = w_pre.double(), w_post.double()
+    s = torch.einsum("bqhd,bkhd->bhqk", qd, kd) * scale
+    p = torch.softmax(torch.einsum("hi,bhqk->biqk", wp, s), dim=-1)
+    post = torch.einsum("hi,bhqk->biqk", wq, p).float().to(v.dtype).double()
+    out = torch.einsum("bhqk,bkhd->bqhd", post, vd)
+    dpost = torch.einsum("bqid,bkid->biqk", gd, vd)
+    dv = torch.einsum("biqk,bqid->bkid", post, gd)
+    dw_post = torch.einsum("bhqk,biqk->hi", p, dpost)
+    dp = torch.einsum("hi,biqk->bhqk", wq, dpost)
+    dsm = p * (dp - (p * dp).sum(dim=-1, keepdim=True))
+    dw_pre = torch.einsum("bhqk,biqk->hi", s, dsm)
+    ds = torch.einsum("hi,biqk->bhqk", wp, dsm).float().to(k.dtype).double()
+    dq = torch.einsum("bhqk,bkhd->bqhd", ds, kd) * scale
+    dk = torch.einsum("bhqk,bqhd->bkhd", ds, qd) * scale
+    return out, dq, dk, dv, dw_pre, dw_post
+
+
+TH_OUTPUTS = ("fwd", "dq", "dk", "dv", "dw_pre", "dw_post")
 
 
 def check_th_kernel(name, shape, dtype, device, *, packed=False, backward=True) -> dict:
     """The talking-heads forward and backward kernels against their plain
-    versions on the same inputs; the backward once more on the same inputs,
-    which must give the same bits (no atomics). ``backward=False``: the
+    versions on the same inputs, each run twice, which must give the same
+    bits (no atomics), every launch under the variant its dtype and head
+    count take (bf16 in the band: the tensor-core forward and #10's dq and
+    dk/dv kernels). bf16 is held to TH_BF16_TOL, and kernel and plain
+    version are also held beside a float64 twin (the first 4 batch
+    elements) that rounds p' and dS where they do. ``backward=False``: the
     forward alone, for a head count the backward is not built for."""
     from sav_tpu_torch.ops import talking_heads as th
 
     q, k, v, w_pre, w_post, g = _th_inputs(shape, dtype, 31, device, packed=packed)
-    tol = TOL[dtype]
+    heads, dim = shape[2], shape[3]
+    bf16 = dtype == torch.bfloat16
+    tols = TH_BF16_TOL if bf16 else dict.fromkeys(TH_BF16_TOL, TOL[dtype])
+    rtol = 0.0 if bf16 else None
+    launched = 2 if q.is_cuda else 0
+    variant = th.th_variant(heads, dim, q.element_size())
+    th.reset_launches()
     with torch.no_grad():
         out = th.flash_talking_heads_attention(q, k, v, w_pre, w_post)
+        again = th.flash_talking_heads_attention(q, k, v, w_pre, w_post)
         ref = th.talking_heads_reference(q, k, v, w_pre, w_post)
-    fwd_err = _within(out, ref, tol)
-    if not backward:
-        log(f"talking-heads kernel {name} {shape} {str(dtype)[6:]}: forward max abs err "
-            f"{fwd_err:.3e} (tol {tol}; forward only)")
-        return {"fwd": fwd_err}
-    with torch.no_grad():
-        got = th.talking_heads_bwd(q, k, v, w_pre, w_post, g)
-        again = th.talking_heads_bwd(q, k, v, w_pre, w_post, g)
-        want = th.talking_heads_bwd_reference(q, k, v, w_pre, w_post, g)
-    names = ("dq", "dk", "dv", "dw_pre", "dw_post")
-    errs = {n: _within(a, r, tol) for n, a, r in zip(names[:3], got, want)}
-    errs.update({n: _within_largest(a, r, tol) for n, a, r in zip(names[3:], got[3:], want[3:])})
-    if not all(torch.equal(a, b) for a, b in zip(got, again)):
-        raise AssertionError(f"talking-heads backward {name}: two runs on the same inputs differ")
-    log(
-        f"talking-heads kernels {name} {shape} {str(dtype)[6:]}: forward max abs err "
-        f"{fwd_err:.3e}; backward " + ", ".join(f"{n} {e:.3e}" for n, e in errs.items())
-        + f" (tol {tol}; dW relative to its largest entry); deterministic"
-    )
-    return {"fwd": fwd_err, "bwd": max(errs.values())}
+    _require_variant("talking-heads", name, variant, launched, (("forward", th.VARIANT_LAUNCHES),))
+    if not torch.equal(out, again):
+        raise AssertionError(f"talking-heads forward {name}: two runs on the same inputs differ")
+    errs = {"fwd": _within(out, ref, tols["fwd"], rtol)}
+    scales = {"fwd": ref.float().abs().max().item()}
+    kernel, plain = [out], [ref]
+    if backward:
+        th.reset_launches()
+        with torch.no_grad():
+            got = th.talking_heads_bwd(q, k, v, w_pre, w_post, g)
+            again = th.talking_heads_bwd(q, k, v, w_pre, w_post, g)
+            want = th.talking_heads_bwd_reference(q, k, v, w_pre, w_post, g)
+        _require_variant("talking-heads", name, variant, launched,
+                         (("backward", th.BWD_VARIANT_LAUNCHES),))
+        _require_variant("talking-heads", name, variant,
+                         launched if variant == th.TENSOR_CORE else 0,
+                         (("backward dk/dv", th.BWD_DKV_VARIANT_LAUNCHES),))
+        if not all(torch.equal(a, b) for a, b in zip(got, again)):
+            raise AssertionError(f"talking-heads backward {name}: two runs on the same inputs differ")
+        for n, a, r in zip(TH_OUTPUTS[1:], got, want):
+            errs[n] = (_within_largest(a, r, tols[n]) if n.startswith("dw")
+                       else _within(a, r, tols[n], rtol))
+            scales[n] = r.float().abs().max().item()
+    note = f"forward {variant}" + (f", backward {variant}" if backward else ", forward only")
+    if bf16:
+        n = min(shape[0], 4)
+        part = [t[:n] for t in (q, k, v, g)]
+        with torch.no_grad():
+            kernel = [th.flash_talking_heads_attention(*part[:3], w_pre, w_post)]
+            plain = [th.talking_heads_reference(*part[:3], w_pre, w_post)]
+            if backward:
+                kernel += th.talking_heads_bwd(*part[:3], w_pre, w_post, part[3])
+                plain += th.talking_heads_bwd_reference(*part[:3], w_pre, w_post, part[3])
+            exact = _th_f64(*part[:3], w_pre, w_post, part[3], dim ** -0.5)
+            twin = {who: ", ".join(f"{o} {(x.double() - e).abs().max().item():.3e}"
+                                   for o, x, e in zip(TH_OUTPUTS, got_, exact))
+                    for who, got_ in (("kernel", kernel), ("plain", plain))}
+        del exact
+        note += f"; against the float64 twin: kernel {twin['kernel']}, plain {twin['plain']}"
+    shares = {f"{n} share": e / scales[n] for n, e in errs.items() if n.startswith("dw")}
+    log(f"talking-heads kernels {name} {shape} {str(dtype)[6:]} ({note}): max abs err "
+        + ", ".join(f"{n} {e:.3e}" for n, e in errs.items())
+        + ("; dW as a share of its largest |plain| entry: "
+           + ", ".join(f"{n} {x:.3e}" for n, x in shares.items()) if shares else "")
+        + f" (tol {json.dumps(tols)}{'' if rtol is None else ' absolute'}, dW as a share of its "
+        "largest entry); largest |plain| "
+        + ", ".join(f"{n} {x:.3f}" for n, x in scales.items()) + "; deterministic")
+    return {**errs, **shares}
 
 
 def phase_th_kernels(device="cuda") -> dict:
     """All talking-heads cases, every head count the kernels are built for
     among them; returns the max abs errors at the CaiT-XXS serve and train
-    shapes in bf16."""
+    shapes in bf16, and the largest error of each output over every bf16
+    case."""
     from sav_tpu_torch.ops import talking_heads as th
 
     bf16, f32 = torch.bfloat16, torch.float32
-    train = check_th_kernel("train", TH_TRAIN_SHAPE, bf16, device)
-    serve = check_th_kernel("serve", TH_SERVE_SHAPE, bf16, device)
-    check_th_kernel("serve-f32", TH_SERVE_SHAPE, f32, device)
-    check_th_kernel("ragged-50", (2, 50, 3, 32), bf16, device)
-    check_th_kernel("ragged-50", (2, 50, 3, 32), f32, device)
-    check_th_kernel("6-heads", (8, 196, 6, 48), bf16, device)  # CaiT-XS
-    check_th_kernel("8-heads", (8, 196, 8, 48), bf16, device)  # CaiT-S
-    check_th_kernel("8-heads", (8, 196, 8, 48), f32, device)
-    # CaiT-M: forward only (its backward is the dense recompute); in f32 the
-    # forward takes 1 row per warp.
+    cases = [("train", TH_TRAIN_SHAPE, bf16, {}), ("serve", TH_SERVE_SHAPE, bf16, {}),
+             ("serve-f32", TH_SERVE_SHAPE, f32, {}),
+             ("ragged-50", (2, 50, 3, 32), bf16, {}), ("ragged-50", (2, 50, 3, 32), f32, {}),
+             ("6-heads", (8, 196, 6, 48), bf16, {}),  # CaiT-XS
+             ("8-heads", (8, 196, 8, 48), bf16, {}),  # CaiT-S
+             ("8-heads", (8, 196, 8, 48), f32, {}),
+             # CaiT-M: forward only (its backward is the dense recompute),
+             # on the CUDA cores; in f32 the forward takes 1 row per warp.
+             ("16-heads", (8, 196, 16, 48), bf16, {"backward": False}),
+             ("16-heads", (8, 196, 16, 48), f32, {"backward": False}),
+             # The small CaiT of the CPU parity tests: 16 tokens, 2 heads of 16.
+             ("2-heads", (2, 16, 2, 16), bf16, {}), ("2-heads", (2, 16, 2, 16), f32, {}),
+             ("packed-qkv+strided-dO", TH_SERVE_SHAPE, bf16, {"packed": True})]
     if th.fused_bwd_eligible(16, 196, 196, 48):
         raise AssertionError("CaiT-M's backward is in the talking-heads band")
-    check_th_kernel("16-heads", (8, 196, 16, 48), bf16, device, backward=False)
-    check_th_kernel("16-heads", (8, 196, 16, 48), f32, device, backward=False)
-    # The small CaiT of the CPU parity tests: 16 tokens, 2 heads of 16.
-    check_th_kernel("2-heads", (2, 16, 2, 16), bf16, device)
-    check_th_kernel("2-heads", (2, 16, 2, 16), f32, device)
-    check_th_kernel("packed-qkv+strided-dO", TH_SERVE_SHAPE, bf16, device, packed=True)
-    return {"fwd_train": train["fwd"], "fwd_serve": serve["fwd"], "bwd_train": train["bwd"]}
+    errs, largest = {}, {}
+    for name, shape, dtype, kw in cases:
+        e = check_th_kernel(name, shape, dtype, device, **kw)
+        if dtype == bf16:
+            errs[name] = e
+            for n, x in e.items():
+                largest[n] = max(largest.get(n, 0.0), x)
+    log("talking-heads bf16, largest error of each output over every case: "
+        + ", ".join(f"{n} {x:.3e}" for n, x in largest.items()))
+    train, serve = errs["train"], errs["serve"]
+    return {"fwd_train": train["fwd"], "fwd_serve": serve["fwd"], "train": train,
+            "largest": largest}
 
 
 def _p_ds_f64(q, k, v, g, lse, delta, scale, bias=None):
@@ -1081,12 +1232,48 @@ def time_th_fwd(shape) -> dict:
         f"({nbytes / 1e6:.1f} MB, {flops[dtype] / 1e9:.2f} GFLOP bf16 + "
         f"{flops[torch.float32] / 1e9:.2f} GFLOP f32)"
     )
+    if times["ms"] >= times["dense_ms"]:
+        raise AssertionError(f"the talking-heads forward ({times['ms']:.4f} ms) is not faster "
+                             f"than the dense path ({times['dense_ms']:.4f} ms) at {shape}")
     return times
 
 
+def _kernel_ms(fn, fragments, iters=30, warmup=5) -> dict:
+    """Median device time of each kernel whose name holds one of
+    ``fragments``, over ``iters`` runs of ``fn`` under torch.profiler, each
+    run after the L2 flush of :func:`_median_ms`: the time each kernel takes
+    within ``fn``'s own sequence (a later kernel finds what the earlier
+    ones left in L2)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    flush = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            flush.zero_()
+            fn()
+        torch.cuda.synchronize()
+    times = {f: [] for f in fragments}
+    for event in prof.events():
+        if event.device_type == DeviceType.CUDA:
+            for f in fragments:
+                if f in event.name:
+                    times[f].append(event.time_range.elapsed_us() / 1e3)
+    if any(len(t) != iters for t in times.values()):
+        raise RuntimeError(f"the profiler did not record {iters} launches of each of "
+                           f"{fragments}: {json.dumps({f: len(t) for f, t in times.items()})}")
+    return {f: statistics.median(t) for f, t in times.items()}
+
+
 def time_th_bwd(shape) -> dict:
-    """The talking-heads backward kernel, its plain version and the backward
-    of the dense path through torch.autograd.grad, in bf16."""
+    """The talking-heads backward (in bf16 #10's dq and dk/dv kernels, one
+    after the other), its plain version and the backward of the dense path
+    through torch.autograd.grad, in bf16; and each of the two kernels'
+    own device time within the backward (torch.profiler), beside its
+    bound and its own plain version's time."""
     from sav_tpu_torch.ops import talking_heads as th
 
     dtype = torch.bfloat16
@@ -1097,6 +1284,15 @@ def time_th_bwd(shape) -> dict:
             "ms": _median_ms(lambda: th.talking_heads_bwd(q, k, v, w_pre, w_post, g)),
             "plain_ms": _median_ms(lambda: th.talking_heads_bwd_reference(q, k, v, w_pre, w_post, g)),
         }
+        split = _kernel_ms(lambda: th.talking_heads_bwd(q, k, v, w_pre, w_post, g),
+                           ("talking_heads_bwd_dq_mma_kernel", "talking_heads_bwd_dkv_mma_kernel"))
+        lse, delta = th.talking_heads_bwd_dq_reference(q, k, v, w_pre, w_post, g)[3:]
+        split_plain = {
+            "dq": _median_ms(lambda: th.talking_heads_bwd_dq_reference(q, k, v, w_pre, w_post, g)),
+            "dkv": _median_ms(lambda: th.talking_heads_bwd_dkv_reference(
+                q, k, v, w_pre, w_post, g, lse, delta)),
+        }
+        del lse, delta
     inputs = [t.detach().requires_grad_() for t in (q, k, v, w_pre, w_post)]
     out = th.dense_talking_heads(*inputs)
     times["dense_ms"] = _median_ms(lambda: torch.autograd.grad(out, inputs, g, retain_graph=True))
@@ -1105,17 +1301,69 @@ def time_th_bwd(shape) -> dict:
     # In: q, k, v, dO and the weights; out: dq, dk, dv and the dW. Five
     # products on the inputs' type; in f32 the pre- and post-mix recompute,
     # the dP and dS mixes and the two dW reductions (2·H² per score each).
-    nbytes = 7 * q.numel() * q.element_size() + 4 * h * h * 4
-    flops = {dtype: 10 * b * h * length * length * d, torch.float32: 6 * 2 * h * h * b * length * length}
+    item = q.element_size()
+    nbytes = 7 * q.numel() * item + 4 * h * h * 4
+    pairs = b * length * length
+    flops = {dtype: 10 * b * h * length * length * d, torch.float32: 6 * 2 * h * h * pairs}
     times.update(_bound(nbytes, flops))
+    # Each kernel alone, the work its function needs, each product and mix
+    # once (the dq kernel's second sweep over kv recomputes S, dP', the
+    # pre-mix and the dP mix; that is this design's cost, not the
+    # function's). dq reads q, k, v, dO and writes dq, each row's lse and
+    # delta per mixed head and the dW partials; its products are S, dP' and
+    # dS.K, its f32 work the pre- and dP mixes, dW_pre, dW_post and the dS
+    # mix. dk/dv reads q, k, v, dO, lse and delta and writes dk and dv; its
+    # products are S, dP', P'.dO and dS.Q, its f32 work the pre-, post-, dP
+    # and dS mixes.
+    stats = 2 * b * h * length * 4
+    q_tiles = -(-length // th.th_mma_block("bwd_dq", h, d)["rows"])
+    kernels = {}
+    for name, frag, nb, mm, f32 in (
+        ("dq", "talking_heads_bwd_dq_mma_kernel",
+         5 * q.numel() * item + stats + b * q_tiles * 2 * h * h * 4, 3, 5 * 2 * h * h * pairs),
+        ("dkv", "talking_heads_bwd_dkv_mma_kernel", 6 * q.numel() * item + stats, 4,
+         4 * 2 * h * h * pairs),
+    ):
+        entry = {"ms": split[frag], "plain_ms": split_plain[name], "library_ms": None}
+        entry.update(_bound(nb, {dtype: 2 * mm * b * h * length * length * d, torch.float32: f32}))
+        kernels[name] = entry
+    times["kernels"] = kernels
     log(
-        f"timing talking-heads backward {shape} bf16, median of 30, cold L2: kernel "
+        f"timing talking-heads backward {shape} bf16, median of 30, cold L2: kernels "
         f"{times['ms']:.4f} ms, plain {times['plain_ms']:.4f} ms, dense path backward "
         f"{times['dense_ms']:.4f} ms; bound {times['bound_ms']:.4f} ms by {times['bound_by']} "
         f"({nbytes / 1e6:.1f} MB, {flops[dtype] / 1e9:.2f} GFLOP bf16 + "
-        f"{flops[torch.float32] / 1e9:.2f} GFLOP f32)"
+        f"{flops[torch.float32] / 1e9:.2f} GFLOP f32); within it (torch.profiler) "
+        + ", ".join(f"{n} {e['ms']:.4f} ms (its plain version {e['plain_ms']:.4f} ms; bound "
+                    f"{e['bound_ms']:.4f} by {e['bound_by']})" for n, e in kernels.items())
     )
+    if times["ms"] >= times["dense_ms"]:
+        raise AssertionError(f"the talking-heads backward ({times['ms']:.4f} ms) is not faster "
+                             f"than the dense path's ({times['dense_ms']:.4f} ms) at {shape}")
     return times
+
+
+def time_th_bwd_band(shapes) -> dict:
+    """`auto`'s choice of #10 over the dense backward across the tensor-core
+    band: the whole backward against the dense path's, in bf16, at each
+    shape; fails where #10 is the slower."""
+    from sav_tpu_torch.ops import talking_heads as th
+
+    out = {}
+    for shape in shapes:
+        q, k, v, w_pre, w_post, g = _th_inputs(shape, torch.bfloat16, 23, "cuda")
+        with torch.no_grad():
+            ms = _median_ms(lambda: th.talking_heads_bwd(q, k, v, w_pre, w_post, g))
+        inputs = [t.detach().requires_grad_() for t in (q, k, v, w_pre, w_post)]
+        dense = th.dense_talking_heads(*inputs)
+        dense_ms = _median_ms(lambda: torch.autograd.grad(dense, inputs, g, retain_graph=True))
+        del dense, inputs
+        out[str(shape)] = {"ms": ms, "dense_ms": dense_ms}
+        log(f"timing talking-heads backward {shape} bf16 ({th.th_variant(shape[2], shape[3], 2)}), "
+            f"median of 30, cold L2: kernels {ms:.4f} ms, dense path backward {dense_ms:.4f} ms")
+        if ms >= dense_ms:
+            raise AssertionError(f"the talking-heads backward is slower than the dense path at {shape}")
+    return out
 
 
 def time_flash(shape, *, backward=True) -> dict:
@@ -1274,6 +1522,10 @@ def phase_timing() -> dict:
         "th_fwd_serve": time_th_fwd(TH_SERVE_SHAPE),
         "th_fwd_train": time_th_fwd(TH_TRAIN_SHAPE),
         "th_bwd_train": time_th_bwd(TH_TRAIN_SHAPE),
+        # CaiT-XS and CaiT-S at batch 64, a 3-head ragged shape and the
+        # serve batch: the rest of #10's tensor-core band beside the dense path.
+        "th_bwd_band": time_th_bwd_band(((64, 196, 6, 48), (64, 196, 8, 48), (64, 50, 3, 32),
+                                         TH_SERVE_SHAPE)),
         "flash_vit384": time_flash(VIT384_SHAPE),
         "bwd_vit384": time_bwd(VIT384_SHAPE),
         "flash_deit_train": time_flash(TRAIN_SHAPE),
@@ -1330,7 +1582,8 @@ def _serve(engine, images, clients) -> list:
 
 # Launch counters, as _launches() names them.
 COUNTERS = ("fused", "fused_bwd", "talking_heads", "talking_heads_bwd",
-            "flash", "flash_dq", "flash_dkv", "rel", "rel_dq", "rel_dkv")
+            "talking_heads_bwd_dkv", "flash", "flash_dq", "flash_dkv", "rel", "rel_dq",
+            "rel_dkv")
 
 
 # The counters a plain (not talking-heads) attention core adds to in the
@@ -1359,7 +1612,8 @@ def attention_launches(model, *, train: bool, family: str) -> dict:
         if not isinstance(m, (AttentionBlock, BoTMHSA)):
             continue
         if getattr(m, "talking_heads", False):
-            fwd, bwd = "talking_heads", ("talking_heads_bwd",)
+            # In bf16 #10 is two kernels: dq, then dk/dv.
+            fwd, bwd = "talking_heads", ("talking_heads_bwd", "talking_heads_bwd_dkv")
         else:
             fwd, bwd = FAMILIES[family]
         counts[fwd] += forwards
@@ -1385,6 +1639,7 @@ def _launches() -> dict:
 
     return {"fused": fa.LAUNCHES, "fused_bwd": fa.BWD_LAUNCHES,
             "talking_heads": th.LAUNCHES, "talking_heads_bwd": th.BWD_LAUNCHES,
+            "talking_heads_bwd_dkv": th.BWD_DKV_LAUNCHES,
             "flash": flash.LAUNCHES, "flash_dq": flash.BWD_DQ_LAUNCHES,
             "flash_dkv": flash.BWD_DKV_LAUNCHES, "rel": flash.REL_LAUNCHES,
             "rel_dq": flash.REL_BWD_DQ_LAUNCHES, "rel_dkv": flash.REL_BWD_DKV_LAUNCHES}
@@ -1393,14 +1648,19 @@ def _launches() -> dict:
 def _variant_launches(launches: dict) -> dict:
     """The launches of #1 (fused forward), #2 (fused backward), #3 (flash
     forward), #4 (flash dq), #5 (flash dk/dv), #6 (relative-position
-    forward), #7 (its dq) and #8 (its dk/dv) by the variant that ran, after
-    a bf16 run whose counts are ``launches``; fails unless every one of them
-    ran on the tensor cores."""
+    forward), #7 (its dq), #8 (its dk/dv), #9 (talking-heads forward) and
+    #10 (its dq and dk/dv kernels) by the variant that ran, after a bf16 run
+    whose counts are ``launches``; fails unless every one of them ran on the
+    tensor cores."""
     from sav_tpu_torch.ops import flash_attention as flash
     from sav_tpu_torch.ops import fused_attention as fa
+    from sav_tpu_torch.ops import talking_heads as th
 
     variants = {"fused": dict(fa.FWD_VARIANT_LAUNCHES),
                 "fused_bwd": dict(fa.BWD_VARIANT_LAUNCHES),
+                "talking_heads": dict(th.VARIANT_LAUNCHES),
+                "talking_heads_bwd": dict(th.BWD_VARIANT_LAUNCHES),
+                "talking_heads_bwd_dkv": dict(th.BWD_DKV_VARIANT_LAUNCHES),
                 "flash": dict(flash.VARIANT_LAUNCHES),
                 "flash_dq": dict(flash.BWD_DQ_VARIANT_LAUNCHES),
                 "flash_dkv": dict(flash.BWD_DKV_VARIANT_LAUNCHES),
@@ -1758,8 +2018,11 @@ KERNEL_GROUPS = (
                                                      "fused_attention_bwd_mma_kernel")),
     ("attention forward (fused_attention.cu)", ("fused_attention_fwd_kernel",
                                                 "fused_attention_fwd_mma_kernel")),
-    ("talking-heads backward (talking_heads_bwd.cu)", ("talking_heads_bwd_kernel",)),
-    ("talking-heads forward (talking_heads.cu)", ("talking_heads_fwd_kernel",)),
+    ("talking-heads backward dq (talking_heads_bwd.cu)", ("talking_heads_bwd_kernel",
+                                                         "talking_heads_bwd_dq_mma_kernel")),
+    ("talking-heads backward dk/dv (talking_heads_bwd.cu)", ("talking_heads_bwd_dkv_mma_kernel",)),
+    ("talking-heads forward (talking_heads.cu)", ("talking_heads_fwd_kernel",
+                                                  "talking_heads_fwd_mma_kernel")),
     ("rel backward dq (rel_attention_bwd.cu)", ("rel_attention_bwd_dq_kernel",
                                                 "rel_attention_bwd_dq_mma_kernel")),
     ("rel backward dk/dv (rel_attention_bwd.cu)", ("rel_attention_bwd_dkv_kernel",
@@ -1861,7 +2124,6 @@ def main() -> None:
                 out[variant] = out.get(variant, 0) + n
         return out
 
-    cuda_core = {"variant": "cuda_core: f32 products on the CUDA cores"}
     tensor_core = ("tensor_core for bf16: mma.sync.m16n8k16, bf16 operands, f32 "
                    "accumulators; cuda_core for f32")
 
@@ -1913,9 +2175,10 @@ def main() -> None:
         "source": "sav_tpu_torch/csrc/talking_heads.cu",
         "replaces": "sav_tpu/ops/talking_heads.py:67",
         "tpu_kernel": "_th_kernel",
-        **cuda_core,
+        "variant": tensor_core + " and for bf16 outside 2, 3, 4, 6, 8 heads of up to 48",
         "checked": True,
         "launches": total("talking_heads"),
+        "launches_by_variant": by_variant("talking_heads"),
         "launches_by_path": by_path("talking_heads"),
         "max_abs_err": th_err["fwd_train"],
         "shape": list(TH_TRAIN_SHAPE),
@@ -1923,20 +2186,32 @@ def main() -> None:
         "at_serve_shape": {"shape": list(TH_SERVE_SHAPE), "max_abs_err": th_err["fwd_serve"],
                            **_timed(times["th_fwd_serve"])},
     }
-    th_bwd = {
-        "name": "talking_heads_bwd",
+    # #10 is two kernels in bf16: dq (with the row statistics, delta and the
+    # dW partials), then dk/dv; each record times its kernel within the
+    # backward beside its own plain version, and keeps the whole backward's
+    # times (its plain version, the dense path's backward) under
+    # whole_backward.
+    th_bwd_times = times["th_bwd_train"]
+    th_bwd = [{
+        "name": name,
         "route": "cuda",
         "source": "sav_tpu_torch/csrc/talking_heads_bwd.cu",
         "replaces": "sav_tpu/ops/talking_heads.py:183",
         "tpu_kernel": "_th_bwd_kernel",
-        **cuda_core,
+        "variant": (tensor_core + " (the one CUDA-core kernel computes every gradient)"
+                    + ("" if counter == "talking_heads_bwd" else "; not launched for f32")),
         "checked": True,
-        "launches": total("talking_heads_bwd"),
-        "launches_by_path": by_path("talking_heads_bwd"),
-        "max_abs_err": th_err["bwd_train"],
+        "launches": total(counter),
+        "launches_by_variant": by_variant(counter),
+        "launches_by_path": by_path(counter),
+        "max_abs_err": max(th_err["train"][n] for n in outputs),
         "shape": list(TH_TRAIN_SHAPE),
-        **_timed(times["th_bwd_train"]),
-    }
+        **_timed(th_bwd_times["kernels"][kind]),
+        "whole_backward": _timed(th_bwd_times),
+    } for name, counter, kind, outputs in (
+        ("talking_heads_bwd_dq", "talking_heads_bwd", "dq", ("dq", "dw_pre", "dw_post")),
+        ("talking_heads_bwd_dkv", "talking_heads_bwd_dkv", "dkv", ("dk", "dv")),
+    )]
     flash_times = times["flash_vit384"]
     flash_common = {"route": "cuda", "checked": True, "shape": list(VIT384_SHAPE)}
     flash_fwd = {
@@ -2024,7 +2299,7 @@ def main() -> None:
     steps["vit384"].update({k: round(v, 2) for k, v in remat.items()})
     log(f"train summary: {json.dumps(steps)}")
     log(f"card: {smi}")
-    log(json.dumps({"kernels": [fwd, bwd, th_fwd, th_bwd, flash_fwd, flash_dq, flash_dkv,
+    log(json.dumps({"kernels": [fwd, bwd, th_fwd, *th_bwd, flash_fwd, flash_dq, flash_dkv,
                                 *rel_records]}))
     log(json.dumps({
         "ok": True,

@@ -1,8 +1,9 @@
 // Tensor-core tile pieces for the bf16 variants of the fused forward
 // (fused_attention.cu), the fused backward (fused_attention_bwd.cu), the
-// flash forward and backward (flash_attention.cu, flash_attention_bwd.cu)
-// and the relative-position forward and backward (rel_attention.cu,
-// rel_attention_bwd.cu).
+// flash forward and backward (flash_attention.cu, flash_attention_bwd.cu),
+// the relative-position forward and backward (rel_attention.cu,
+// rel_attention_bwd.cu) and the talking-heads forward and backward
+// (talking_heads.cu, talking_heads_bwd.cu).
 //
 // Products are warp-level `mma.sync.m16n8k16` with bf16 operands and f32
 // accumulators; operands reach registers from shared memory with
@@ -99,6 +100,12 @@ __device__ __forceinline__ void ldsm_x4_trans(uint32_t r[4], const bf16* p) {
       : "r"(smem_addr(p)));
 }
 
+__device__ __forceinline__ void ldsm_x2(uint32_t r[2], const bf16* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0, %1}, [%2];\n"
+               : "=r"(r[0]), "=r"(r[1])
+               : "r"(smem_addr(p)));
+}
+
 __device__ __forceinline__ void ldsm_x2_trans(uint32_t r[2], const bf16* p) {
   asm volatile(
       "ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0, %1}, [%2];\n"
@@ -132,6 +139,12 @@ __device__ __forceinline__ void load_b2(uint32_t b[4], const bf16* tile,
 __device__ __forceinline__ void load_b2_trans(uint32_t b[4], const bf16* tile,
                                               int ld, int lane) {
   ldsm_x4_trans(b, tile + (lane & 15) * ld + (lane >> 4) * 8);
+}
+
+// B of one 8-column tile from a [n][k] tile (`tile` at (n0, k0)).
+__device__ __forceinline__ void load_b1(uint32_t b[2], const bf16* tile,
+                                        int ld, int lane) {
+  ldsm_x2(b, tile + (lane & 7) * ld + ((lane >> 3) & 1) * 8);
 }
 
 // B of one 8-column tile from a [k][n] tile (`tile` at (k0, n0)).
@@ -197,6 +210,181 @@ __device__ __forceinline__ int key_coord(int col, int L, int W) {
   col = min(col, L - 1);
   const int kh = col / W;
   return (kh << 16) | (col - kh * W);
+}
+
+// ---- Talking-heads pieces (talking_heads.cu, talking_heads_bwd.cu) ----
+//
+// The head mixes couple every head at one (row, column), so a warp forms
+// the scores of ALL heads over the same 16 columns, and each thread mixes
+// the values it holds at its fragment positions in registers. A warp
+// accumulates its products for a group of HO of the H heads only; the
+// G = H / HO warps of one 16-row group share their rows and each recompute
+// the scores. Registers are the crux: HO is the largest divisor of H whose
+// live f32 values a thread holds stay within a budget (th_live_floats; S
+// = 8 H, scores of 16 columns of every head, halved in the backward above
+// 4 heads, where a 16-column step forms them 8 columns at a time):
+//   forward: S, row max and sum (4 H), O (HO * DK / 2), P' (8 HO);
+//   backward dq: S and dP' (2 S), lse and delta (4 H), dQ (HO * DK / 2),
+//     dS (8 HO) and the warp's rows of dW_pre and dW_post (2 HO H);
+//   backward dk/dv: S and dP' (2 S), P' and dS (16 HO), dK and dV
+//     (HO * DK).
+// Blocks are 4 warps where G divides 4 (4 / G row groups of 16 times G
+// head groups), else one row group of G warps. Streamed tiles are 32 rows
+// up to 4 heads, 16 above. The budgets leave room for the addresses and the
+// weights, which the compiler keeps in registers; above 4 heads (2 H^2
+// weights) the kernels spill some registers all the same, which ran faster
+// than reading the weights from shared memory at each use. The bf16 band:
+// the head counts listed in SAV_TH_MMA_HEADS and head dims up to
+// kThMmaMaxDim.
+
+constexpr int kThMmaMaxDim = 48;
+// An SM's shared memory, and what the runtime keeps of it per block.
+constexpr int kSmemPerSM = 233472;
+constexpr int kSmemPerBlockReserved = 1024;
+
+#define SAV_TH_MMA_HEADS(X) X(2) X(3) X(4) X(6) X(8)
+
+__host__ __device__ constexpr bool th_mma_heads(int h) {
+  return h == 2 || h == 3 || h == 4 || h == 6 || h == 8;
+}
+
+// The variant a launch takes, forward and backward alike: 1 = bf16 on the
+// tensor cores (a head count of SAV_TH_MMA_HEADS, head dim up to
+// kThMmaMaxDim), 0 = the CUDA cores (f32, and bf16 outside that band); -1
+// for a dtype the kernels do not take (0 = float32, 1 = bfloat16).
+inline int th_variant(int dtype, int h, int d) {
+  if (dtype != 0 && dtype != 1) return -1;
+  return dtype == 1 && th_mma_heads(h) && d <= kThMmaMaxDim ? 1 : 0;
+}
+
+// kind 0: forward, 1: backward dq, 2: backward dk/dv.
+__host__ __device__ constexpr int th_live_floats(int kind, int h, int ho,
+                                                 int dk) {
+  const int s = (kind != 0 && h > 4 ? 4 : 8) * h;
+  return kind == 0   ? s + 4 * h + ho * (dk / 2 + 8)
+         : kind == 1 ? 2 * s + 4 * h + ho * (dk / 2 + 8 + 2 * h)
+                     : 2 * s + ho * (dk + 16);
+}
+
+__host__ __device__ constexpr int th_live_budget(int kind) {
+  return kind == 0 ? 224 : kind == 1 ? 240 : 200;
+}
+
+__host__ __device__ constexpr int th_heads_per_warp(int kind, int h, int dk) {
+  int ho = h;
+  while (ho > 1 && (h % ho != 0 || th_live_floats(kind, h, ho, dk) >
+                                       th_live_budget(kind)))
+    --ho;
+  return ho;
+}
+
+__host__ __device__ constexpr int th_row_warps(int groups) {
+  return 4 % groups == 0 ? 4 / groups : 1;
+}
+
+__host__ __device__ constexpr int th_kv_tile(int h) { return h <= 4 ? 32 : 16; }
+
+// Rows one block of kernel `kind` owns: q rows (forward, dq), kv rows
+// (dk/dv).
+__host__ __device__ constexpr int th_mma_rows(int kind, int h, int dk) {
+  return 16 * th_row_warps(h / th_heads_per_warp(kind, h, dk));
+}
+
+// The layout of one block of kernel `KIND` at H heads, padded head dim DK.
+template <int H, int KIND, int DK>
+struct ThMmaShape {
+  static constexpr int HO = th_heads_per_warp(KIND, H, DK);  // heads a warp
+  static constexpr int G = H / HO;             // warps of one row group
+  static constexpr int RW = th_row_warps(G);   // row groups per block
+  static constexpr int ROWS = th_mma_rows(KIND, H, DK);  // rows owned
+  static constexpr int THREADS = 32 * RW * G;
+  static constexpr int MIN_BLOCKS = THREADS <= 128 ? 2 : 1;
+  static constexpr int KT = th_kv_tile(H);     // rows of a streamed tile
+  static constexpr int LD = DK + 8;            // bf16 row stride
+  static constexpr int KS = DK / 16;           // k-steps over the head dim
+  static constexpr int NT = DK / 8;            // 8-column tiles of an output
+  // Each 16-column step forms its scores in NPASS passes of NB 8-column
+  // tiles: in the backward above 4 heads one tile at a time, which halves
+  // the scores and dP' held (the forward ran faster with its spills).
+  static constexpr int NPASS = KIND != 0 && H > 4 ? 2 : 1;
+  static constexpr int NB = 2 / NPASS;
+};
+
+// Shared memory of one block, bf16 rows of DK + 8 (all heads of each tile;
+// f32 weights [H][H] twice): forward the block's q rows and two stages of
+// K and V tiles; dq the block's q and dO rows and two stages of K and V
+// tiles; dk/dv the block's k and v rows, two stages of q and dO tiles and
+// their f32 base-2 lse and delta rows.
+__host__ __device__ constexpr size_t th_mma_smem_bytes(int kind, int h,
+                                                       int dk) {
+  const int rows = th_mma_rows(kind, h, dk);
+  const int kt = th_kv_tile(h);
+  const size_t ld = dk + 8;
+  const size_t tiles = kind == 0 ? (size_t)h * (rows + 4 * kt)
+                                 : (size_t)h * (2 * rows + 4 * kt);
+  return tiles * ld * 2 + (size_t)2 * h * h * 4 +
+         (kind == 2 ? (size_t)2 * 2 * h * kt * 4 : 0);
+}
+
+// The design's occupancy at CaiT-XXS (4 heads of 48): two blocks an SM in
+// each kernel.
+static_assert(2 * (th_mma_smem_bytes(0, 4, 48) + kSmemPerBlockReserved) <= kSmemPerSM &&
+                  2 * (th_mma_smem_bytes(1, 4, 48) + kSmemPerBlockReserved) <= kSmemPerSM &&
+                  2 * (th_mma_smem_bytes(2, 4, 48) + kSmemPerBlockReserved) <= kSmemPerSM,
+              "CaiT-XXS's talking-heads blocks no longer fit two to an SM");
+
+// acc[n][h] = A_h . B_h^T over NB 8-column tiles n (one or two) for every
+// head: A rows (the warp's 16) at a + h * a_hs, B rows [n][k] at
+// b + h * b_hs, both of row stride LD, KS k-steps.
+template <int H, int KS, int LD, int NB>
+__device__ __forceinline__ void th_heads_scores(float (&acc)[NB][H][4],
+                                                const bf16* a, int a_hs,
+                                                const bf16* b, int b_hs,
+                                                int lane) {
+#pragma unroll
+  for (int h = 0; h < H; ++h) {
+#pragma unroll
+    for (int n = 0; n < NB; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[n][h][e] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < KS; ++kk) {
+      uint32_t fa[4], fb[4];
+      load_a(fa, a + h * a_hs + kk * 16, LD, lane);
+      if constexpr (NB == 2) {
+        load_b2(fb, b + h * b_hs + kk * 16, LD, lane);
+        mma_bf16(acc[0][h], fa, fb[0], fb[1]);
+        mma_bf16(acc[1][h], fa, fb[2], fb[3]);
+      } else {
+        load_b1(fb, b + h * b_hs + kk * 16, LD, lane);
+        mma_bf16(acc[0][h], fa, fb[0], fb[1]);
+      }
+    }
+  }
+}
+
+// out[j] = sum_h w[h * H + j] * x[h] in f32, the plain versions' order
+// (head 0 first, then fused multiply-adds).
+template <int H>
+__device__ __forceinline__ void th_mix(float (&out)[H], const float (&x)[H],
+                                       const float* w) {
+#pragma unroll
+  for (int j = 0; j < H; ++j) {
+    float m = x[0] * w[j];
+#pragma unroll
+    for (int h = 1; h < H; ++h) m = fmaf(x[h], w[h * H + j], m);
+    out[j] = m;
+  }
+}
+
+// x[k] for a k known only at run time (a warp's head group), by selects
+// over the registers (x stays in registers).
+template <int H>
+__device__ __forceinline__ float th_pick(const float (&x)[H], int k) {
+  float v = x[0];
+#pragma unroll
+  for (int h = 1; h < H; ++h) v = k == h ? x[h] : v;
+  return v;
 }
 
 }  // namespace

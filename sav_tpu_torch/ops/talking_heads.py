@@ -14,8 +14,21 @@ Two kernels, CUDA C++ for sm_90a built by :mod:`sav_tpu_torch.ops._build`:
   :func:`talking_heads_reference`, launch counter :data:`LAUNCHES`.
 - ``csrc/talking_heads_bwd.cu``, the backward; it replaces ``_th_bwd_kernel``
   (``sav_tpu/ops/talking_heads.py:183``). Wrapper :func:`talking_heads_bwd`,
-  plain version :func:`talking_heads_bwd_reference`, launch counter
-  :data:`BWD_LAUNCHES`.
+  plain version :func:`talking_heads_bwd_reference` (of its two
+  tensor-core kernels :func:`talking_heads_bwd_dq_reference` and
+  :func:`talking_heads_bwd_dkv_reference`), launch counters
+  :data:`BWD_LAUNCHES` and :data:`BWD_DKV_LAUNCHES`.
+
+Two variants of each, by one rule for both directions (:func:`th_variant`):
+bf16 at the head counts :data:`MMA_HEADS` and head dims up to :data:`MMA_MAX_DIM`
+runs on the tensor cores (the forward in one kernel; the backward in two, a
+dq kernel, which also leaves each row's lse and delta and the dW partials,
+then a dk/dv kernel); f32, and bf16 outside that band, on the CUDA cores in
+f32 (the backward in one kernel). :data:`VARIANT_LAUNCHES`,
+:data:`BWD_VARIANT_LAUNCHES` and :data:`BWD_DKV_VARIANT_LAUNCHES` tally each
+launch under its variant too. Which shapes the kernels take at all
+(:func:`fused_eligible`, :func:`fused_bwd_eligible`) is the CUDA-core
+variants' rule.
 
 When an input requires grad the call runs through
 :class:`TalkingHeadsFunction`, the counterpart of ``_th``'s ``custom_vjp``:
@@ -32,8 +45,8 @@ The port's dispatch rule (:func:`resolve_talking_heads_backend`): ``auto``,
 takes :func:`dense_talking_heads`. ``sav_tpu`` rides its kernel under
 ``auto`` only when training, from a TPU v5e measurement
 (``tools/th_micro.py``); that rule records the TPU and is not carried over.
-``chip_smoke.py`` times the kernels against the dense path on the H100, from
-which a measured crossover can be set.
+``chip_smoke.py`` times the kernels against the dense path on the H100: in
+bf16 both are faster across the tensor-core band, so ``auto`` keeps them.
 
 Every wrapper runs its plain version on CPU tensors, and only there; on CUDA
 tensors it launches its kernel or raises.
@@ -50,9 +63,12 @@ import torch
 
 from sav_tpu_torch.ops import _build
 from sav_tpu_torch.ops.fused_attention import (
+    CUDA_CORE,
     SMEM_LIMIT,
+    TENSOR_CORE,
     _check_dtypes,
     _check_strides,
+    _chunk_aligned,
     _device_of,
     _raise_on_error,
     requires_backward,
@@ -66,30 +82,114 @@ MAX_DIM = 128
 HEADS = (2, 3, 4, 6, 8, 16)
 BWD_HEADS = (2, 3, 4, 6, 8)
 
+# The tensor-core (bf16) variants' band and layout, mirrored from
+# csrc/mma_tiles.cuh: the head counts built (SAV_TH_MMA_HEADS), the largest
+# head dim (kThMmaMaxDim), the register budgets that set the heads a warp
+# accumulates (th_heads_per_warp), the tile rows (th_kv_tile) and an SM's
+# shared memory with what the runtime keeps per block (kSmemPerSM,
+# kSmemPerBlockReserved).
+MMA_HEADS = (2, 3, 4, 6, 8)
+MMA_MAX_DIM = 48
+MMA_KINDS = ("fwd", "bwd_dq", "bwd_dkv")
+_MMA_LIVE_BUDGET = {"fwd": 224, "bwd_dq": 240, "bwd_dkv": 200}
+SMEM_PER_SM = 233472
+SMEM_PER_BLOCK_RESERVED = 1024
+
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
-# Kernel launches since the last reset, forward and backward; each wrapper
-# adds one per launch of its kernel.
+# Kernel launches since the last reset: the forward, the backward's
+# CUDA-core kernel or tensor-core dq kernel (one per backward), and the
+# tensor-core dk/dv kernel that follows the dq kernel; each wrapper adds one
+# per launch of its kernel, and tallies it under its variant too.
 LAUNCHES = 0
 BWD_LAUNCHES = 0
+BWD_DKV_LAUNCHES = 0
+VARIANT_LAUNCHES = {TENSOR_CORE: 0, CUDA_CORE: 0}
+BWD_VARIANT_LAUNCHES = {TENSOR_CORE: 0, CUDA_CORE: 0}
+BWD_DKV_VARIANT_LAUNCHES = {TENSOR_CORE: 0, CUDA_CORE: 0}
+_VARIANT_TALLIES = {"LAUNCHES": VARIANT_LAUNCHES, "BWD_LAUNCHES": BWD_VARIANT_LAUNCHES,
+                    "BWD_DKV_LAUNCHES": BWD_DKV_VARIANT_LAUNCHES}
 _LAUNCH_LOCK = threading.Lock()
 
 
 def reset_launches() -> None:
-    """Set both launch counters to 0."""
-    global LAUNCHES, BWD_LAUNCHES
+    """Set the three launch counters and their tallies by variant to 0."""
+    global LAUNCHES, BWD_LAUNCHES, BWD_DKV_LAUNCHES
     with _LAUNCH_LOCK:
-        LAUNCHES = 0
-        BWD_LAUNCHES = 0
+        LAUNCHES = BWD_LAUNCHES = BWD_DKV_LAUNCHES = 0
+        for tally in _VARIANT_TALLIES.values():
+            tally.update(dict.fromkeys(tally, 0))
 
 
-def _count_launch(backward: bool) -> None:
-    global LAUNCHES, BWD_LAUNCHES
+def _count(counter: str, variant: str) -> None:
     with _LAUNCH_LOCK:
-        if backward:
-            BWD_LAUNCHES += 1
-        else:
-            LAUNCHES += 1
+        globals()[counter] += 1
+        _VARIANT_TALLIES[counter][variant] += 1
+
+
+def th_variant(heads: int, dim: int, itemsize: int) -> str:
+    """The variant of the forward and of the backward alike: bf16
+    (``itemsize`` 2) at a head count of :data:`MMA_HEADS` and a head dim up
+    to :data:`MMA_MAX_DIM` on the tensor cores (the backward's dq and dk/dv
+    kernels), everything else (f32, and bf16 outside that band) on the CUDA
+    cores. Same rule as ``sav_talking_heads_variant``."""
+    if itemsize not in (2, 4):
+        raise ValueError(f"the talking-heads kernels take float32 or bfloat16, got itemsize {itemsize}")
+    in_band = itemsize == 2 and heads in MMA_HEADS and dim <= MMA_MAX_DIM
+    return TENSOR_CORE if in_band else CUDA_CORE
+
+
+def _mma_live_floats(kind: str, heads: int, ho: int, dk: int) -> int:
+    scores = (4 if heads > 4 and kind != "fwd" else 8) * heads
+    if kind == "fwd":
+        return scores + 4 * heads + ho * (dk // 2 + 8)
+    if kind == "bwd_dq":
+        return 2 * scores + 4 * heads + ho * (dk // 2 + 8 + 2 * heads)
+    return 2 * scores + ho * (dk + 16)
+
+
+def th_mma_heads_per_warp(kind: str, heads: int, dim: int) -> int:
+    """Heads whose products one warp of the tensor-core ``kind`` kernel
+    accumulates: the largest divisor of ``heads`` for which the f32 values a
+    thread holds (every head's scores, and dP' in the backward; the row
+    statistics; the warp's accumulators) stay within the kernel's register
+    budget, as ``th_heads_per_warp`` in ``csrc/mma_tiles.cuh`` picks it."""
+    dk = -(-dim // 16) * 16
+    ho = heads
+    while ho > 1 and (heads % ho or _mma_live_floats(kind, heads, ho, dk) > _MMA_LIVE_BUDGET[kind]):
+        ho -= 1
+    return ho
+
+
+def th_mma_block(kind: str, heads: int, dim: int) -> dict:
+    """The tensor-core ``kind`` kernel's block: ``warps``, the ``rows`` it
+    owns (q rows; kv rows for dk/dv) and the rows of each tile it streams
+    (``tile``)."""
+    groups = heads // th_mma_heads_per_warp(kind, heads, dim)
+    row_groups = 4 // groups if 4 % groups == 0 else 1
+    return {"warps": row_groups * groups, "rows": 16 * row_groups,
+            "tile": 32 if heads <= 4 else 16}
+
+
+def th_mma_smem_bytes(kind: str, heads: int, dim: int) -> int:
+    """Shared memory of one tensor-core ``kind`` block: bf16 rows of
+    ``round_up(dim, 16) + 8`` of every head (the forward's q rows and two
+    stages of K and V tiles; dq's q and dO rows and two stages of K and V
+    tiles; dk/dv's k and v rows and two stages of q and dO tiles with their
+    f32 lse and delta rows) and the two f32 weights. Same formula as
+    ``th_mma_smem_bytes`` in ``csrc/mma_tiles.cuh``."""
+    block = th_mma_block(kind, heads, dim)
+    rows, tile = block["rows"], block["tile"]
+    ld = -(-dim // 16) * 16 + 8
+    tiles = heads * (rows + 4 * tile) if kind == "fwd" else heads * (2 * rows + 4 * tile)
+    extra = 2 * 2 * heads * tile * 4 if kind == "bwd_dkv" else 0
+    return tiles * ld * 2 + 2 * heads * heads * 4 + extra
+
+
+def th_mma_blocks_per_sm(kind: str, heads: int, dim: int) -> int:
+    """Blocks of the tensor-core ``kind`` kernel that an SM's shared memory
+    holds at once."""
+    return SMEM_PER_SM // (th_mma_smem_bytes(kind, heads, dim) + SMEM_PER_BLOCK_RESERVED)
 
 
 def _round_up4(x: int) -> int:
@@ -226,6 +326,53 @@ def talking_heads_bwd_reference(query, key, value, w_pre, w_post, grad, *, scale
             dw_pre.to(w_pre.dtype), dw_post.to(w_post.dtype))
 
 
+def talking_heads_bwd_dq_reference(query, key, value, w_pre, w_post, grad, *, scale=None):
+    """Plain PyTorch version of the tensor-core dq kernel: the plain
+    backward's arithmetic for dq, dW_pre and dW_post, with p from each row's
+    log-sum-exp of the pre-mixed scores; and, per (row, mixed head), that
+    lse and delta = rowsum(p ⊙ dP), which the dk/dv kernel reads (f32 [B,
+    H, Lq]; the kernel keeps its lse in base 2). Returns ``(dq, dw_pre,
+    dw_post, lse, delta)``."""
+    if scale is None:
+        scale = query.shape[-1] ** -0.5
+    qf, kf, vf = query.float(), key.float(), value.float()
+    g = grad.to(query.dtype).float()
+    s = torch.einsum("bqhd,bkhd->bhqk", qf, kf) * scale
+    mixed = _mix(w_pre, s)
+    lse = torch.logsumexp(mixed, dim=-1)
+    p = torch.exp(mixed - lse[..., None])
+    dpost = torch.einsum("bqid,bkid->biqk", g, vf)
+    dw_post = torch.einsum("bhqk,biqk->hi", p, dpost)
+    dp = torch.einsum("hi,biqk->bhqk", w_post.float(), dpost)
+    delta = (p * dp).sum(dim=-1)
+    ds_mixed = p * (dp - delta[..., None])
+    dw_pre = torch.einsum("bhqk,biqk->hi", s, ds_mixed)
+    ds = torch.einsum("hi,biqk->bhqk", w_pre.float(), ds_mixed).to(key.dtype).float()
+    dq = torch.einsum("bhqk,bkhd->bqhd", ds, kf) * scale
+    return dq.to(query.dtype), dw_pre.to(w_pre.dtype), dw_post.to(w_post.dtype), lse, delta
+
+
+def talking_heads_bwd_dkv_reference(query, key, value, w_pre, w_post, grad, lse, delta, *,
+                                    scale=None):
+    """Plain PyTorch version of the tensor-core dk/dv kernel: dk and dv with
+    the plain backward's casts, p from the ``lse`` and ``delta`` that
+    :func:`talking_heads_bwd_dq_reference` returns. Returns ``(dk, dv)``."""
+    if scale is None:
+        scale = query.shape[-1] ** -0.5
+    qf, kf, vf = query.float(), key.float(), value.float()
+    g = grad.to(query.dtype).float()
+    s = torch.einsum("bqhd,bkhd->bhqk", qf, kf) * scale
+    p = torch.exp(_mix(w_pre, s) - lse[..., None])
+    post = _mix(w_post, p)
+    dv = torch.einsum("biqk,bqid->bkid", post.to(query.dtype).float(), g)
+    dpost = torch.einsum("bqid,bkid->biqk", g, vf)
+    dp = torch.einsum("hi,biqk->bhqk", w_post.float(), dpost)
+    ds_mixed = p * (dp - delta[..., None])
+    ds = torch.einsum("hi,biqk->bhqk", w_pre.float(), ds_mixed).to(key.dtype).float()
+    dk = torch.einsum("bhqk,bqhd->bkhd", ds, qf) * scale
+    return dk.to(key.dtype), dv.to(value.dtype)
+
+
 def dense_talking_heads(query, key, value, w_pre, w_post, *, scale=None):
     """The dense path (``backend='xla'``), differentiable by autograd: port of
     ``talking_heads_attention`` and ``_th_dense_reference``. q is scaled in
@@ -263,6 +410,12 @@ def _lib() -> ctypes.CDLL:
     lib.sav_talking_heads_rows.restype = ctypes.c_int
     lib.sav_talking_heads_has_heads.argtypes = [ctypes.c_int]
     lib.sav_talking_heads_has_heads.restype = ctypes.c_int
+    lib.sav_talking_heads_variant.argtypes = [ctypes.c_int] * 3
+    lib.sav_talking_heads_variant.restype = ctypes.c_int
+    lib.sav_talking_heads_mma_heads_per_warp.argtypes = [ctypes.c_int] * 2
+    lib.sav_talking_heads_mma_heads_per_warp.restype = ctypes.c_int
+    lib.sav_talking_heads_mma_smem_bytes.argtypes = [ctypes.c_int] * 2
+    lib.sav_talking_heads_mma_smem_bytes.restype = ctypes.c_size_t
     lib.sav_cuda_error_string.argtypes = [ctypes.c_int]
     lib.sav_cuda_error_string.restype = ctypes.c_char_p
     return lib
@@ -288,6 +441,23 @@ def _bwd_lib() -> ctypes.CDLL:
     lib.sav_talking_heads_bwd_rows.restype = ctypes.c_int
     lib.sav_talking_heads_bwd_has_heads.argtypes = [ctypes.c_int]
     lib.sav_talking_heads_bwd_has_heads.restype = ctypes.c_int
+    lib.sav_talking_heads_bwd_mma_heads_per_warp.argtypes = [ctypes.c_int] * 3
+    lib.sav_talking_heads_bwd_mma_heads_per_warp.restype = ctypes.c_int
+    lib.sav_talking_heads_bwd_mma_smem_bytes.argtypes = [ctypes.c_int] * 3
+    lib.sav_talking_heads_bwd_mma_smem_bytes.restype = ctypes.c_size_t
+    lib.sav_talking_heads_bwd_mma_rows.argtypes = [ctypes.c_int] * 3
+    lib.sav_talking_heads_bwd_mma_rows.restype = ctypes.c_int
+    lib.sav_talking_heads_bwd_mma.argtypes = [
+        ctypes.c_int,  # kind: 1 dq, 2 dk/dv
+        *[ctypes.c_void_p] * 6,  # q, k, v, dO, wpre, wpost
+        *[ctypes.c_void_p] * 3,  # dq, dk, dv
+        *[ctypes.c_void_p] * 2,  # stats, dw
+        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+        ctypes.POINTER(ctypes.c_int64),  # 21 strides
+        ctypes.c_float,  # scale
+        ctypes.c_void_p,  # stream
+    ]
+    lib.sav_talking_heads_bwd_mma.restype = ctypes.c_int
     lib.sav_cuda_error_string.argtypes = [ctypes.c_int]
     lib.sav_cuda_error_string.restype = ctypes.c_char_p
     return lib
@@ -306,10 +476,12 @@ def _launch(query, key, value, w_pre, w_post, scale):
     batch, q_len, heads, dim = query.shape
     kv_len = key.shape[1]
     dtype = _check_dtypes(query, key, value)
-    _check_strides(
-        (("query", query), ("key", key), ("value", value)),
-        (("key", key), ("value", value)),
-    )
+    variant = th_variant(heads, dim, query.element_size())
+    # The tensor-core variant also copies q in 16-byte chunks.
+    chunked = (("key", key), ("value", value))
+    if variant == TENSOR_CORE:
+        chunked = (("query", query), *chunked)
+    _check_strides((("query", query), ("key", key), ("value", value)), chunked)
     wp, wq = _weights(w_pre, w_post, heads)
     out = torch.empty((batch, q_len, heads, dim), dtype=dtype, device=query.device)
     strides = tuple(s for t in (query, key, value, out) for s in t.stride()[:3])
@@ -326,7 +498,7 @@ def _launch(query, key, value, w_pre, w_post, scale):
             stream,
         )
     _raise_on_error(lib, rc, "talking-heads")
-    _count_launch(backward=False)
+    _count("LAUNCHES", variant)
     return out
 
 
@@ -334,47 +506,65 @@ def _launch_bwd(query, key, value, w_pre, w_post, grad, scale):
     batch, q_len, heads, dim = query.shape
     kv_len = key.shape[1]
     dtype = _check_dtypes(query, key, value)
+    variant = th_variant(heads, dim, query.element_size())
     # dO enters in the query dtype (``_th_backward`` casts it); it is read
-    # strided and copied only without unit stride on D.
+    # strided and copied only without unit stride on D, or, for the
+    # tensor-core kernels, which copy it in 16-byte chunks, without 16-byte
+    # aligned rows.
     grad = grad.to(dtype)
-    if grad.stride(-1) != 1:
+    if grad.stride(-1) != 1 or (variant == TENSOR_CORE and not _chunk_aligned(grad)):
         grad = grad.contiguous()
-    _check_strides(
-        (("query", query), ("key", key), ("value", value), ("grad", grad)),
-        (("key", key), ("value", value)),
-    )
+    rows = (("query", query), ("key", key), ("value", value), ("grad", grad))
+    # The tensor-core kernels copy every operand in 16-byte chunks.
+    _check_strides(rows, rows if variant == TENSOR_CORE else rows[1:3])
     wp, wq = _weights(w_pre, w_post, heads)
     device = query.device
     dq = torch.empty((batch, q_len, heads, dim), dtype=dtype, device=device)
     dk = torch.empty((batch, kv_len, heads, dim), dtype=dtype, device=device)
     dv = torch.empty_like(dk)
-    # Per-batch f32 dK/dV sums across q tiles (read only when Lq spans more
-    # than one tile) and the per-batch dW partials.
-    dk_acc = torch.empty((batch, kv_len, heads, dim), dtype=torch.float32, device=device)
-    dv_acc = torch.empty_like(dk_acc)
-    dw_parts = torch.empty((2, batch, heads, heads), dtype=torch.float32, device=device)
-    strides = tuple(
+    strides = (ctypes.c_int64 * 21)(*(
         s for t in (query, key, value, grad, dq, dk, dv) for s in t.stride()[:3]
-    )
+    ))
+    operands = (query.data_ptr(), key.data_ptr(), value.data_ptr(), grad.data_ptr(),
+                wp.data_ptr(), wq.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr())
     lib = _bwd_lib()
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
-        rc = lib.sav_talking_heads_bwd(
-            _DTYPE_CODES[dtype],
-            query.data_ptr(), key.data_ptr(), value.data_ptr(), grad.data_ptr(),
-            wp.data_ptr(), wq.data_ptr(),
-            dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-            dk_acc.data_ptr(), dv_acc.data_ptr(),
-            dw_parts[0].data_ptr(), dw_parts[1].data_ptr(),
-            batch, heads, q_len, kv_len, dim,
-            (ctypes.c_int64 * 21)(*strides),
-            float(scale),
-            stream,
-        )
-    _raise_on_error(lib, rc, "talking-heads backward")
-    _count_launch(backward=True)
-    # The batch's partials summed in a fixed order (no atomics anywhere).
-    dw_pre, dw_post = dw_parts.sum(dim=1).unbind(0)
+        if variant == TENSOR_CORE:
+            # The dq kernel writes each row's base-2 lse and delta per mixed
+            # head, which the dk/dv kernel reads, and one [2, H, H] partial
+            # of dW_pre and dW_post per block: its blocks are the library's
+            # own count.
+            dq_rows = lib.sav_talking_heads_bwd_mma_rows(1, heads, -(-dim // 16) * 16)
+            q_tiles = -(-q_len // dq_rows)
+            stats = torch.empty((2, batch, heads, q_len), dtype=torch.float32, device=device)
+            parts = torch.empty((batch * q_tiles, 2, heads, heads), dtype=torch.float32,
+                                device=device)
+            for kind, counter in ((1, "BWD_LAUNCHES"), (2, "BWD_DKV_LAUNCHES")):
+                rc = lib.sav_talking_heads_bwd_mma(
+                    kind, *operands, stats.data_ptr(), parts.data_ptr(),
+                    batch, heads, q_len, kv_len, dim, strides, float(scale), stream,
+                )
+                _raise_on_error(lib, rc, "talking-heads backward")
+                _count(counter, variant)
+            dw_pre, dw_post = parts.sum(dim=0).unbind(0)
+        else:
+            # Per-batch f32 dK/dV sums across q tiles (read only when Lq
+            # spans more than one tile) and the per-batch dW partials.
+            dk_acc = torch.empty((batch, kv_len, heads, dim), dtype=torch.float32,
+                                 device=device)
+            dv_acc = torch.empty_like(dk_acc)
+            dw_parts = torch.empty((2, batch, heads, heads), dtype=torch.float32, device=device)
+            rc = lib.sav_talking_heads_bwd(
+                _DTYPE_CODES[dtype], *operands,
+                dk_acc.data_ptr(), dv_acc.data_ptr(),
+                dw_parts[0].data_ptr(), dw_parts[1].data_ptr(),
+                batch, heads, q_len, kv_len, dim, strides, float(scale), stream,
+            )
+            _raise_on_error(lib, rc, "talking-heads backward")
+            _count("BWD_LAUNCHES", variant)
+            dw_pre, dw_post = dw_parts.sum(dim=1).unbind(0)
+    # The partials are summed in a fixed order (no atomics anywhere).
     return dq, dk, dv, dw_pre.to(w_pre.dtype), dw_post.to(w_post.dtype)
 
 
