@@ -78,18 +78,33 @@ Phases, each of which exits non-zero on failure:
    stochastic-depth masks). After each counted run, one more step under
    torch.profiler gives the device's busy time by kernel group and its
    idle share.
-7. fine-tune: vit_b_patch16 built at 224² has its position table resized by
-   the port's surgery (197 -> 577 rows, every other tensor unchanged) and
-   trains at 384² with remat for 6 steps at global batch 128, as in 6: 24
-   flash forward launches per step (12 blocks, each recomputed once), 12
-   dq and 12 dk/dv, no fused launch; the dense reference runs with remat
-   too. Then one step with remat and one without give the same loss, and
-   their peak memories.
-8. BoTNet: botnet_t3 (full width and depth, 224²) is served in 5, after
+7. the run path on DeiT-S (bf16, batch 256, #1/#2): resume (fit 6 steps;
+   fit 3 steps into a checkpoint directory; a fresh Trainer's
+   restore_or_init and fit on to step 6 from the resumable feed: steps 4-6
+   bit-equal to the uninterrupted run, losses, parameters, moments and
+   generator state; 3 steps' launches; the save's hold on the training
+   thread, its background write, the bytes and the restore time), eval
+   (Trainer.evaluate over 1,000 held-out images, the last batch of 232
+   padded, kernels against the dense path; fit with eval_every_epochs=1
+   appends eval records at steps 3 and 6) and dropout (dropout_rate 0.1
+   keeps #1/#2's launches; attn_dropout_rate 0.1 trains on the dense path,
+   launching no attention kernel, and evaluates through #1).
+8. fine-tune: vit_b_patch16 built at 224² is saved with the port's
+   Checkpointer, its position table resized by the port's surgery (197 ->
+   577 rows, every other tensor unchanged); Trainer.warm_start_from that
+   checkpoint into the 384² remat model gives every tensor bit-equal to
+   the surgery's, none kept fresh; it trains as in 6 for 6 steps at the
+   recipe's global batch 512 in 4 micro-batches of 128: 4 x (24 flash
+   forward launches (12 blocks, each recomputed once), 12 dq and 12 dk/dv)
+   per step, no fused launch; the dense reference runs with remat and the
+   same accumulation. Then one step of 128 with remat and one without give
+   the same loss, and their peak memories.
+9. BoTNet: botnet_t3 (full width and depth, 224²) is served in 5, after
    CaiT (6 relative-position forward launches per batch, no other kernel),
-   and trained as in 6 at batch 256 after 7 (6 forward, 6 dq and 6 dk/dv
+   and trained as in 6 from get_preset("botnet_t3_imagenet") at its global
+   batch 2048 in 8 micro-batches of 256 (8 x (6 forward, 6 dq and 6 dk/dv)
    launches per step); its first step's running statistics are compared
-   with the dense path's too.
+   with the dense path's under the same accumulation too.
 
 Before each agreement check the head is drawn at std 0.02, every
 LayerScale scale at 0.05-0.15 (CaiT's init of 1e-5 would hide a wrong trunk),
@@ -103,11 +118,13 @@ is ``{"ok": true, "device": {...}}``.
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
 import statistics
 import subprocess
 import sys
+import tempfile
 import threading
 import time
 
@@ -116,6 +133,10 @@ import torch
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, ROOT)
+# Before CUDA starts: lets phase_resume turn on
+# torch.use_deterministic_algorithms should an op break bit equality (32
+# MiB of cuBLAS workspace in 8 buffers, what PyTorch takes on Hopper anyway).
+os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
 
 # H100 SXM peaks (NVIDIA data sheet, dense): HBM bytes/s, and FLOP/s by the
 # inputs' type (bf16 on the tensor cores, f32 outside them).
@@ -138,11 +159,18 @@ TH_TRAIN_SHAPE = (256, 196, 4, 48)
 VIT384_MODEL = "vit_b_patch16"
 VIT384_SHAPE = (128, 577, 577, 12, 64)
 VIT384_BATCH = 128
+# The recipes' global batch 512 (Dosovitskiy et al. 2021 App. B.1.1; Touvron
+# et al. 2021 Table 7) in micro-batches of VIT384_BATCH.
+VIT384_ACCUM = 4
 CLASS384_SHAPE = (128, 1, 577, 4, 48)
 # BoTNet-T3 at 224²: stage 4's first block attends over 14×14 (L=196), the
 # other five over 7×7 (L=49), 4 heads of 128; (B, Hg, W, H, D) at the train
 # batch and at the top serve bucket.
 BOTNET_MODEL = "botnet_t3"
+# The reference's one experiment config: global batch 2048, here in 8
+# micro-batches of TRAIN_BATCH.
+BOTNET_PRESET = "botnet_t3_imagenet"
+BOTNET_ACCUM = 8
 # The outputs each relative-position kernel's record reports the error of.
 REL_ERR_KEYS = {"fwd": ("fwd", "lse"), "dq": ("dq", "d_rw", "d_rh"), "dkv": ("dk", "dv")}
 REL_TRAIN_SHAPES = {"L=196": (256, 14, 14, 4, 128), "L=49": (256, 7, 7, 4, 128)}
@@ -1819,10 +1847,16 @@ def _train_batches(batch_size, image_size, num_classes, device, num_batches) -> 
 
 def phase_train(device="cuda", model_name="deit_s_patch16", batch_size=TRAIN_BATCH,
                 steps=TRAIN_STEPS, image_size=224, num_classes=1000, overrides=None,
-                state_dict=None, family="fused") -> dict:
+                state_dict=None, family="fused", grad_accum=1, config=None,
+                warm_start=None) -> dict:
     """Train ``steps`` steps through Trainer.fit from seed-0 weights (or from
-    ``state_dict``), then profile one step; returns the launches, the first
-    loss, the step time, the peak memory and the profile."""
+    ``state_dict``, or through ``Trainer.warm_start_from`` a directory,
+    ``warm_start = (directory, expected state dict)``: every tensor must come
+    out bit-equal to the expected one, none kept fresh), at global
+    ``batch_size`` in ``grad_accum`` micro-batches, then profile one step;
+    returns the launches, the first loss, the step time, the peak memory and
+    the profile. ``config`` replaces the smoke run's recipe (a preset's
+    TrainConfig)."""
     from sav_tpu_torch import TrainConfig, Trainer, create_model
 
     torch.cuda.empty_cache()
@@ -1831,21 +1865,39 @@ def phase_train(device="cuda", model_name="deit_s_patch16", batch_size=TRAIN_BAT
                          seed=0, **overrides)
     if state_dict is not None:
         model.load_state_dict(state_dict, strict=True)
-    else:
+    elif warm_start is None:
         # A zero head passes no gradient to the attention cores in the first step.
         _draw_for_agreement(model)
+    if config is None:
+        config = TrainConfig(**_train_common(model_name, batch_size, steps, image_size,
+                                             num_classes, overrides))
+    config = dataclasses.replace(config, grad_accum_steps=grad_accum)
+    trainer = Trainer(config, model=model, device=device)
+    if warm_start is not None:
+        directory, expected = warm_start
+        t0 = time.perf_counter()
+        state = trainer.warm_start_from(directory)
+        warm_s = time.perf_counter() - t0
+        got = state.model.state_dict()
+        differ = [k for k, v in expected.items() if not torch.equal(got[k].cpu(), v)]
+        if set(got) != set(expected) or differ or trainer.last_warm_start["fresh"]:
+            raise AssertionError(f"warm start from {directory}: {trainer.last_warm_start}, "
+                                 f"tensors not equal to the surgery's: {differ}")
+        log(f"warm start {model_name} from {directory} in {warm_s:.2f} s: "
+            f"{json.dumps(trainer.last_warm_start)}, every tensor bit-equal to phase_surgery's")
+    else:
+        state = trainer.init_state()
     dense = create_model(model_name, num_classes=num_classes, image_size=image_size,
                          backend="xla", logits_dtype=torch.float32, **overrides)
     dense.load_state_dict(model.state_dict())
-    per_step = attention_launches(model, train=True, family=family)
-    common = _train_common(model_name, batch_size, steps, image_size, num_classes, overrides)
+    per_step = _times(attention_launches(model, train=True, family=family), grad_accum)
     batches = _train_batches(batch_size, image_size, num_classes, device, TRAIN_DISTINCT_BATCHES)
 
     # The same first step on the dense attention paths with f32 softmax; the
     # stochastic-depth masks come from a generator seeded from config.seed
     # on both sides, drawn in the same order, so they are the same masks.
     ref_trainer = Trainer(
-        TrainConfig(attention_backend="xla", attention_logits_dtype="float32", **common),
+        dataclasses.replace(config, attention_backend="xla", attention_logits_dtype="float32"),
         model=dense, device=device,
     )
     _reset_launches()
@@ -1857,8 +1909,6 @@ def phase_train(device="cuda", model_name="deit_s_patch16", batch_size=TRAIN_BAT
     del ref_trainer, ref_state, dense, ref_metrics
     torch.cuda.empty_cache()
 
-    trainer = Trainer(TrainConfig(**common), model=model, device=device)
-    state = trainer.init_state()
     first_stats = {}
 
     def feed():
@@ -1911,7 +1961,8 @@ def phase_train(device="cuda", model_name="deit_s_patch16", batch_size=TRAIN_BAT
     steady = windows[-1]
     profile = profile_step(trainer, state, batches[0])
     log(
-        f"train {model_name} bf16 batch {batch_size}: {steps} steps via fit(), losses "
+        f"train {model_name} bf16 batch {batch_size} ({grad_accum} x {batch_size // grad_accum}): "
+        f"{steps} steps via fit(), losses "
         f"{[round(x, 4) for x in losses]}; launches {json.dumps(launches)} = "
         f"{json.dumps(per_step)} x {steps}, by variant {json.dumps(variants)}; steady window (steps "
         f"{steps - steps // 2 + 1}-{steps}) {steady['step_s'] * 1e3:.2f} ms/step, "
@@ -1929,17 +1980,31 @@ def phase_train(device="cuda", model_name="deit_s_patch16", batch_size=TRAIN_BAT
     }
 
 
-def phase_surgery() -> dict:
+def phase_surgery(directory, device="cuda") -> dict:
     """The fine-tune recipe's start: ViT-B/16 built at 224² from seed 0 (head
-    drawn at std 0.02), its state dict resized by the port's surgery to the
-    384² model's. Every tensor but the position table is carried unchanged;
-    the table goes from 197 to 577 rows. Returns the 384² state dict."""
-    from sav_tpu_torch import create_model
+    drawn at std 0.02), saved as step 0 with the port's Checkpointer into
+    ``directory`` (the pretrain checkpoint a fine-tune warm-starts from), and
+    its state dict resized by the port's surgery to the 384² model's. Every
+    tensor but the position table is carried unchanged; the table goes from
+    197 to 577 rows. Returns the 384² state dict."""
+    from sav_tpu_torch import TrainConfig, Trainer, create_model
     from sav_tpu_torch.models.surgery import adapt_pos_embeds
+    from sav_tpu_torch.train import Checkpointer
 
-    source = create_model(VIT384_MODEL, image_size=224, seed=0)
-    _draw_for_agreement(source)
-    source = source.state_dict()
+    model = create_model(VIT384_MODEL, image_size=224, seed=0)
+    _draw_for_agreement(model)
+    source = {k: v.clone() for k, v in model.state_dict().items()}
+    trainer = Trainer(TrainConfig(**_train_common(VIT384_MODEL, VIT384_BATCH, TRAIN_STEPS, 224,
+                                                  1000, {})), model=model, device=device)
+    checkpointer = Checkpointer(directory)
+    checkpointer.save(0, trainer.init_state())
+    checkpointer.close()
+    written = checkpointer.written[-1]
+    log(f"pretrain checkpoint {VIT384_MODEL}@224 step 0: save held the thread "
+        f"{checkpointer.last_hold_s * 1e3:.1f} ms, background write "
+        f"{written['write_s'] * 1e3:.1f} ms, {written['bytes']} bytes")
+    del trainer, model
+    torch.cuda.empty_cache()
     target = create_model(VIT384_MODEL, image_size=384, seed=1).state_dict()
     adapted = adapt_pos_embeds(source, target)
     key = "encoder.pos_embed.pos_embed"
@@ -1958,12 +2023,12 @@ def phase_surgery() -> dict:
     return adapted
 
 
-def phase_remat_trade(state_dict, first_loss, device="cuda") -> dict:
+def phase_remat_trade(state_dict, device="cuda") -> dict:
     """One train step of the 384² ViT-B/16 from ``state_dict`` with remat on
-    and one with it off, on the fine-tune run's first batch: the same loss
-    (within REMAT_REL_TOL of each other and of the run's first loss), the
-    flash forward launched twice per block with remat and once without, and
-    each step's peak device memory."""
+    and one with it off, on one batch of VIT384_BATCH (the fine-tune run's
+    micro-batch): the same loss (within REMAT_REL_TOL), the flash forward
+    launched twice per block with remat and once without, and each step's
+    peak device memory."""
     from sav_tpu_torch import TrainConfig, Trainer, create_model
 
     batch = _train_batches(VIT384_BATCH, 384, 1000, device, 1)[0]
@@ -1990,20 +2055,294 @@ def phase_remat_trade(state_dict, first_loss, device="cuda") -> dict:
                                  f"expected {json.dumps(want)}")
         out[remat] = {"loss": loss, "peak_gb": torch.cuda.max_memory_allocated() / 2**30}
         del trainer, model, state, metrics
-    for name, other in (("the step without remat", out[False]["loss"]),
-                        ("fit's first step", first_loss)):
-        if abs(out[True]["loss"] - other) > REMAT_REL_TOL * abs(other):
-            raise AssertionError(f"the step with remat has loss {out[True]['loss']}, "
-                                 f"{name} {other}")
+    if abs(out[True]["loss"] - out[False]["loss"]) > REMAT_REL_TOL * abs(out[False]["loss"]):
+        raise AssertionError(f"the step with remat has loss {out[True]['loss']}, the step "
+                             f"without {out[False]['loss']}")
     log(
         f"remat trade {VIT384_MODEL}@384 bf16 batch {VIT384_BATCH}, one step: loss with remat "
-        f"{out[True]['loss']:.7f}, without {out[False]['loss']:.7f}, fit's first step "
-        f"{first_loss:.7f} (tol {REMAT_REL_TOL} relative); flash forward launches "
+        f"{out[True]['loss']:.7f}, without {out[False]['loss']:.7f} (tol {REMAT_REL_TOL} "
+        f"relative); flash forward launches "
         f"{2 * blocks} vs {blocks}; "
         f"peak memory {out[True]['peak_gb']:.2f} GiB with remat, {out[False]['peak_gb']:.2f} "
         f"GiB without"
     )
     return {"peak_gb_remat": out[True]["peak_gb"], "peak_gb_no_remat": out[False]["peak_gb"]}
+
+
+def _deit_source() -> dict:
+    """DeiT-S/16's seed-0 weights with the head drawn (as phase_train draws
+    them), on the host."""
+    from sav_tpu_torch import create_model
+
+    model = create_model("deit_s_patch16", seed=0)
+    _draw_for_agreement(model)
+    return model.state_dict()
+
+
+def _deit_config(**kw):
+    from sav_tpu_torch import TrainConfig
+
+    return TrainConfig(**{**_train_common("deit_s_patch16", TRAIN_BATCH, TRAIN_STEPS, 224, 1000,
+                                          {}), **kw})
+
+
+def _resume_feed(start_step, device):
+    """The resumable synthetic feed from ``start_step``: batch k is a pure
+    function of (seed, k), so a resumed run reads what the uninterrupted
+    run read."""
+    from sav_tpu_torch.data.synthetic import synth_resumable_iterator
+
+    for b in synth_resumable_iterator(seed=0, start_step=start_step, batch_size=TRAIN_BATCH,
+                                      image_size=224, num_classes=1000):
+        yield {"images": torch.from_numpy(b["images"]).to(device),
+               "labels": torch.from_numpy(b["labels"]).to(device)}
+
+
+def _resume_run(source, directory, device) -> dict:
+    """6 uninterrupted steps; 3 steps that save into ``directory``; a fresh
+    Trainer that restores step 3 and runs on to 6. Returns what to compare
+    and the timings."""
+    from sav_tpu_torch import Trainer, create_model
+
+    def trainer(config):
+        model = create_model("deit_s_patch16", seed=0)
+        model.load_state_dict(source)
+        return Trainer(config, model=model, device=device)
+
+    full = trainer(_deit_config())
+    state, history = full.fit(_resume_feed(0, device), num_steps=TRAIN_STEPS,
+                              state=full.init_state())
+    want = {"losses": [r["loss"] for r in history][3:], "state": _host_tree(state.state_dict())}
+    del full, state
+    first = trainer(_deit_config(checkpoint_dir=directory))
+    first.fit(_resume_feed(0, device), num_steps=3, state=first.init_state())
+    hold_s, written = first.checkpointer.last_hold_s, first.checkpointer.written[-1]
+    first.checkpointer.close()
+    del first
+    torch.cuda.empty_cache()
+    second = trainer(_deit_config(checkpoint_dir=directory))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    restored = second.restore_or_init()
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t0
+    if restored.step != 3:
+        raise AssertionError(f"restore_or_init gave step {restored.step}, expected 3")
+    per_step = attention_launches(second.model, train=True, family="fused")
+    _reset_launches()
+    state, history = second.fit(_resume_feed(restored.step, device), num_steps=TRAIN_STEPS,
+                                state=restored)
+    launches = _launches()
+    second.checkpointer.close()
+    got = {"losses": [r["loss"] for r in history], "state": _host_tree(state.state_dict())}
+    # The resumed run's own save (step 6) finds the pinned host blocks the
+    # first run's save freed: the steady-state cost of a save.
+    return {"want": want, "got": got, "launches": launches, "per_step": per_step,
+            "steps": [r["step"] for r in history], "hold_s": hold_s, "written": written,
+            "warm_hold_s": second.checkpointer.last_hold_s,
+            "warm_written": second.checkpointer.written[-1],
+            "restore_s": restore_s, "variants": _variant_launches(launches)}
+
+
+def _host_tree(tree):
+    if isinstance(tree, dict):
+        return {k: _host_tree(v) for k, v in tree.items()}
+    return tree.detach().to("cpu", copy=True) if torch.is_tensor(tree) else tree
+
+
+def _tree_differences(got, want, path="") -> list:
+    if isinstance(want, dict):
+        return [d for k in want for d in _tree_differences(got[k], want[k], f"{path}/{k}")]
+    same = torch.equal(got, want) if torch.is_tensor(want) else got == want
+    return [] if same else [path]
+
+
+def phase_resume(source, device="cuda") -> dict:
+    """DeiT-S bf16 at batch 256 through #1/#2: fit 6 steps uninterrupted;
+    fit 3 steps into a checkpoint directory; a fresh Trainer's
+    restore_or_init (step 3) and fit on to step 6 from the resumable feed's
+    position 3. Steps 4-6 must match the uninterrupted run bit for bit: the
+    losses and, after step 6, every parameter, Adam moment and generator
+    state. Should an op outside the port's kernels break that, the phase
+    runs again under torch.use_deterministic_algorithms(True), which names
+    any op without a deterministic version (CUBLAS_WORKSPACE_CONFIG is set
+    before CUDA starts), and the log says so. The resumed run launches 3x a
+    step's kernels."""
+    deterministic = False
+    while True:
+        with tempfile.TemporaryDirectory() as directory:
+            run = _resume_run(source, directory, device)
+        differ = _tree_differences(run["got"], run["want"])
+        if not differ:
+            break
+        if deterministic:
+            raise AssertionError(f"resume under deterministic algorithms differs at {differ[:8]}")
+        log(f"resume: steps 4-6 differ from the uninterrupted run at {len(differ)} entries "
+            f"({differ[:4]}); running the phase again under "
+            "torch.use_deterministic_algorithms(True)")
+        torch.use_deterministic_algorithms(True)
+        deterministic = True
+    torch.use_deterministic_algorithms(False)
+    expected = _times(run["per_step"], 3)
+    if run["steps"] != [4, 5, 6] or run["launches"] != expected:
+        raise AssertionError(f"resumed fit ran steps {run['steps']} with launches "
+                             f"{json.dumps(run['launches'])}, expected {json.dumps(expected)}")
+    written = run["written"]
+    log(
+        f"resume deit_s_patch16 bf16 batch {TRAIN_BATCH}: steps 4-6 after a restore of step 3 "
+        f"bit-equal to the uninterrupted run (losses {run['got']['losses']}, every parameter, "
+        f"moment and generator state){' under deterministic algorithms' if deterministic else ''}; "
+        f"launches {json.dumps(run['launches'])} = 3 x {json.dumps(run['per_step'])}; the first "
+        f"save held the training thread {run['hold_s'] * 1e3:.1f} ms (pinning its host "
+        f"buffers), a later one {run['warm_hold_s'] * 1e3:.1f} ms; background write "
+        f"{written['write_s'] * 1e3:.1f} ms (later {run['warm_written']['write_s'] * 1e3:.1f} ms) "
+        f"for {written['bytes']} bytes on disk; restore {run['restore_s'] * 1e3:.1f} ms"
+    )
+    return {**run["launches"], "variants": run["variants"], "deterministic": deterministic,
+            "save_hold_ms": run["hold_s"] * 1e3, "warm_save_hold_ms": run["warm_hold_s"] * 1e3,
+            "write_ms": written["write_s"] * 1e3,
+            "warm_write_ms": run["warm_written"]["write_s"] * 1e3,
+            "bytes": written["bytes"], "restore_ms": run["restore_s"] * 1e3}
+
+
+EVAL_IMAGES = 1000
+
+
+def _eval_batches(device) -> list:
+    """EVAL_IMAGES held-out synthetic images (another seed than the train
+    batches) in batches of TRAIN_BATCH, the last one short."""
+    from sav_tpu_torch.data.synthetic import synthetic_data_iterator
+
+    batches = []
+    for b in synthetic_data_iterator(batch_size=TRAIN_BATCH, image_size=224, num_classes=1000,
+                                     seed=1, num_batches=-(-EVAL_IMAGES // TRAIN_BATCH)):
+        take = min(TRAIN_BATCH, EVAL_IMAGES - TRAIN_BATCH * len(batches))
+        batches.append({"images": torch.from_numpy(b["images"][:take]).to(device),
+                        "labels": torch.from_numpy(b["labels"][:take]).to(device)})
+    return batches
+
+
+def phase_eval(source, device="cuda") -> dict:
+    """Trainer.evaluate of DeiT-S over EVAL_IMAGES held-out images (3 x 256
+    and a short batch of 232, padded) with the kernels and on the dense path
+    (f32 softmax), same weights: eval_count 1000 on both, eval_loss within
+    TRAIN_REL_TOL['loss'], top-1 within one point; each batch launches the
+    fused forward once per attention module. Then fit with
+    eval_every_epochs=1 over two 3-step epochs appends eval records at steps
+    3 and 6."""
+    from sav_tpu_torch import TrainConfig, Trainer, create_model
+
+    batches = _eval_batches(device)
+    results = {}
+    for backend in ("kernels", "dense"):
+        kw = {} if backend == "kernels" else {"backend": "xla", "logits_dtype": torch.float32}
+        model = create_model("deit_s_patch16", **kw)
+        model.load_state_dict(source)
+        config = _deit_config(**({} if backend == "kernels" else
+                                   {"attention_backend": "xla",
+                                    "attention_logits_dtype": "float32"}))
+        trainer = Trainer(config, model=model, device=device)
+        state = trainer.init_state()
+        trainer.evaluate(state, iter(batches[:1]))  # warm
+        torch.cuda.synchronize()
+        _reset_launches()
+        t0 = time.perf_counter()
+        result = trainer.evaluate(state, iter(batches))
+        seconds = time.perf_counter() - t0
+        launches = _launches()
+        expected = _times(attention_launches(model, train=False, family="fused"),
+                          len(batches)) if backend == "kernels" else dict.fromkeys(COUNTERS, 0)
+        if launches != expected:
+            raise AssertionError(f"evaluate ({backend}) launched {json.dumps(launches)}, "
+                                 f"expected {json.dumps(expected)}")
+        results[backend] = {**result, "images_per_sec": EVAL_IMAGES / seconds,
+                            "launches": launches}
+        if backend == "kernels":
+            variants = _variant_launches(launches)
+        del trainer, model, state
+    ours, ref = results["kernels"], results["dense"]
+    loss_rel = abs(ours["eval_loss"] - ref["eval_loss"]) / abs(ref["eval_loss"])
+    top1 = abs(ours["eval_top_1_acc"] - ref["eval_top_1_acc"])
+    if (ours["eval_count"], ref["eval_count"]) != (EVAL_IMAGES, EVAL_IMAGES) or \
+            loss_rel > TRAIN_REL_TOL["loss"] or top1 > 0.01:
+        raise AssertionError(f"evaluate disagrees with the dense path: {json.dumps(results)}")
+    log(f"eval deit_s_patch16 bf16, {EVAL_IMAGES} images ({len(batches)} batches, the last "
+        f"{len(batches[-1]['labels'])} padded to {TRAIN_BATCH}): kernels loss "
+        f"{ours['eval_loss']:.6f}, top-1 {ours['eval_top_1_acc']:.4f}, "
+        f"{ours['images_per_sec']:.1f} images/s; dense loss {ref['eval_loss']:.6f} (relative "
+        f"difference {loss_rel:.3e}, tol {TRAIN_REL_TOL['loss']}), top-1 "
+        f"{ref['eval_top_1_acc']:.4f}, {ref['images_per_sec']:.1f} images/s; launches "
+        f"{json.dumps(ours['launches'])}")
+
+    model = create_model("deit_s_patch16")
+    model.load_state_dict(source)
+    config = _deit_config(num_train_images=TRAIN_BATCH * 3, eval_every_epochs=1,
+                            log_every_steps=3)
+    trainer = Trainer(config, model=model, device=device)
+    train = _train_batches(TRAIN_BATCH, 224, 1000, device, TRAIN_DISTINCT_BATCHES)
+    _, history = trainer.fit(iter(train * 2), num_steps=TRAIN_STEPS, state=trainer.init_state(),
+                             eval_iter_fn=lambda: iter(batches))
+    evals = [r for r in history if "eval_loss" in r]
+    if [r["step"] for r in evals] != [3, 6] or any(r["eval_count"] != EVAL_IMAGES for r in evals):
+        raise AssertionError(f"fit's eval records: {evals}")
+    log(f"fit with eval_every_epochs=1 over two 3-step epochs: eval records at steps "
+        f"{[r['step'] for r in evals]}, losses {[round(r['eval_loss'], 6) for r in evals]}")
+    return {**ours["launches"], "variants": variants,
+            "images_per_sec": ours["images_per_sec"], "dense_images_per_sec": ref["images_per_sec"]}
+
+
+def phase_dropout(source, device="cuda") -> dict:
+    """DeiT-S with dropout_rate=0.1 for 2 steps still runs #1/#2 (the
+    launches of 2 steps); with attn_dropout_rate=0.1 under auto a train step
+    launches no attention kernel (the dense path, as sav_tpu's kernels_ok)
+    and eval launches the fused forward as before. Prints the kept share of
+    one drawn mask."""
+    from sav_tpu_torch import Trainer, create_model
+
+    batches = _train_batches(TRAIN_BATCH, 224, 1000, device, 2)
+    out = {}
+    for rate_name in ("dropout_rate", "attn_dropout_rate"):
+        overrides = {rate_name: 0.1}
+        model = create_model("deit_s_patch16", **overrides)
+        model.load_state_dict(source)
+        trainer = Trainer(_deit_config(model_overrides=overrides), model=model, device=device)
+        state = trainer.init_state()
+        per_step = attention_launches(model, train=True, family="fused")
+        _reset_launches()
+        if rate_name == "dropout_rate":
+            state, history = trainer.fit(iter(batches), num_steps=2, state=state)
+            launches, expected = _launches(), _times(per_step, 2)
+            variants = _variant_launches(launches)
+            losses = [r["loss"] for r in history]
+        else:
+            state, metrics = trainer.train_step(state, batches[0])
+            losses = [float(metrics["loss"])]
+            launches, expected = _launches(), dict.fromkeys(COUNTERS, 0)
+            _reset_launches()
+            trainer.eval_step(state, batches[1])
+            eval_launches = _launches()
+            eval_expected = attention_launches(model, train=False, family="fused")
+            if eval_launches != eval_expected:
+                raise AssertionError(f"eval under attention dropout launched "
+                                     f"{json.dumps(eval_launches)}, expected "
+                                     f"{json.dumps(eval_expected)}")
+        if launches != expected or not np.isfinite(losses).all():
+            raise AssertionError(f"{rate_name}=0.1: launches {json.dumps(launches)}, expected "
+                                 f"{json.dumps(expected)}; losses {losses}")
+        out[rate_name] = launches
+        log(f"dropout deit_s_patch16 {rate_name}=0.1: losses {[round(x, 6) for x in losses]}, "
+            f"train launches {json.dumps(launches)}")
+        if rate_name == "dropout_rate":
+            # One mask of the position-embedding dropout, from the trainer's generator.
+            ones = torch.ones((TRAIN_BATCH, 197, 384), device=device, dtype=torch.bfloat16)
+            kept = (model.encoder.pos_drop.train()(ones) != 0).float().mean().item()
+            sigma = (0.9 * 0.1 / ones.numel()) ** 0.5
+            if abs(kept - 0.9) > 6 * sigma:
+                raise AssertionError(f"a dropout mask kept {kept} of its entries, expected 0.9")
+            log(f"dropout mask at rate 0.1 over {ones.numel()} entries: kept share {kept:.6f} "
+                f"(0.9 ± {sigma:.2e})")
+        del trainer, model, state
+    return {**out["dropout_rate"], "variants": variants, "kept_share": kept}
 
 
 # Kernel-name fragments → the group a device kernel is counted under.
@@ -2098,13 +2437,27 @@ def main() -> None:
     serve = {"deit": phase_serve(), "cait": phase_serve(model_name="cait_xxs_24"),
              "botnet": phase_serve(model_name=BOTNET_MODEL, family="rel")}
     train = {"deit": phase_train(), "cait": phase_train(model_name="cait_xxs_24")}
-    adapted = phase_surgery()
-    train["vit384"] = phase_train(model_name=VIT384_MODEL, batch_size=VIT384_BATCH,
-                                  image_size=384, overrides={"remat": True},
-                                  state_dict=adapted, family="flash")
-    remat = phase_remat_trade(adapted, train["vit384"]["first_loss"])
+    deit_source = _deit_source()
+    resume = phase_resume(deit_source)
+    evaluation = phase_eval(deit_source)
+    dropout = phase_dropout(deit_source)
+    del deit_source
+    with tempfile.TemporaryDirectory() as pretrain:
+        adapted = phase_surgery(pretrain)
+        train["vit384"] = phase_train(
+            model_name=VIT384_MODEL, batch_size=VIT384_ACCUM * VIT384_BATCH,
+            grad_accum=VIT384_ACCUM, image_size=384, overrides={"remat": True},
+            warm_start=(pretrain, adapted), family="flash")
+    remat = phase_remat_trade(adapted)
     del adapted
-    train["botnet"] = phase_train(model_name=BOTNET_MODEL, family="rel")
+    from sav_tpu_torch.train import get_preset
+
+    preset = get_preset(BOTNET_PRESET, num_train_images=BOTNET_ACCUM * TRAIN_BATCH * TRAIN_STEPS,
+                        warmup_epochs=0, transpose_images=False,
+                        log_every_steps=TRAIN_STEPS // 2, seed=0)
+    train["botnet"] = phase_train(model_name=BOTNET_MODEL, family="rel",
+                                  batch_size=preset.global_batch_size, grad_accum=BOTNET_ACCUM,
+                                  config=preset)
 
     def by_path(kind):
         return {
@@ -2112,6 +2465,8 @@ def main() -> None:
             "serve_cait": serve["cait"][kind], "train_cait": train["cait"]["launches"][kind],
             "train_vit384": train["vit384"]["launches"][kind],
             "serve_botnet": serve["botnet"][kind], "train_botnet": train["botnet"]["launches"][kind],
+            "train_resumed_deit": resume[kind], "eval_deit": evaluation[kind],
+            "train_dropout_deit": dropout[kind],
         }
 
     def total(kind):
@@ -2119,7 +2474,7 @@ def main() -> None:
 
     def by_variant(kind):
         out = {}
-        for run in (*serve.values(), *train.values()):
+        for run in (*serve.values(), *train.values(), resume, evaluation, dropout):
             for variant, n in run["variants"][kind].items():
                 out[variant] = out.get(variant, 0) + n
         return out
@@ -2298,6 +2653,13 @@ def main() -> None:
              for name, r in train.items()}
     steps["vit384"].update({k: round(v, 2) for k, v in remat.items()})
     log(f"train summary: {json.dumps(steps)}")
+    log("checkpoint and eval summary: " + json.dumps({
+        "resume": {k: resume[k] for k in ("save_hold_ms", "warm_save_hold_ms", "write_ms",
+                                          "warm_write_ms", "bytes", "restore_ms",
+                                          "deterministic")},
+        "eval_images_per_sec": round(evaluation["images_per_sec"], 1),
+        "eval_dense_images_per_sec": round(evaluation["dense_images_per_sec"], 1),
+        "dropout_kept_share": dropout["kept_share"]}))
     log(f"card: {smi}")
     log(json.dumps({"kernels": [fwd, bwd, th_fwd, *th_bwd, flash_fwd, flash_dq, flash_dkv,
                                 *rel_records]}))

@@ -1,4 +1,6 @@
-"""Convert ``sav_tpu`` (flax) ViT, CaiT and BoTNet variables into the port's ``state_dict``.
+"""Convert ``sav_tpu`` (flax) ViT, CaiT and BoTNet variables into the port's
+``state_dict`` (:func:`params_from_flax`), and back (:func:`flax_from_params`,
+the exact inverse under the same rules).
 
 The tree comes as nested dicts of arrays (numpy, or anything
 ``numpy.asarray`` takes): the ``params`` alone, or ``{"params": ...}``
@@ -206,3 +208,123 @@ def params_from_flax(tree) -> dict:
     if unknown:
         raise KeyError(f"flax variables the {family} port does not consume: {unknown}")
     return state
+
+
+# ------------------------------------------------------------------ reverse
+
+_FAMILY_RULES = {
+    "ViT": (_VIT_RULES, []),
+    "CaiT": (_CAIT_RULES, []),
+    "BoTNet": (_BOTNET_RULES, _BOTNET_STATS_RULES),
+}
+
+
+def _conv_back(a):
+    return a.transpose(2, 3, 1, 0)  # OIHW → HWIO
+
+
+_BACK = {_as_is: _as_is, _dense: _dense, _conv: _conv_back}
+
+
+def _capture_spans(pattern: str) -> list:
+    """``[start, end)`` of each capturing group of ``pattern``, by group
+    number (index 0 is group 1)."""
+    spans, stack, i = [], [], 0
+    while i < len(pattern):
+        c = pattern[i]
+        if c == "\\":
+            i += 2
+            continue
+        if c == "[":
+            i = pattern.index("]", i)
+        elif c == "(":
+            if pattern.startswith("(?", i):
+                stack.append(None)
+            else:
+                spans.append([i, None])
+                stack.append(len(spans) - 1)
+        elif c == ")":
+            index = stack.pop()
+            if index is not None:
+                spans[index][1] = i + 1
+        i += 1
+    return spans
+
+
+def _reverse_rule(pattern: str, target: str):
+    """A port-key regex for ``target`` and a function from its match to the
+    flax path ``pattern`` matches: each ``\\N`` of ``target`` captures what
+    group N of ``pattern`` matches (its ``/`` read as ``.``), and the flax
+    path is ``pattern`` with those groups replaced by the captured text."""
+    spans = _capture_spans(pattern)
+    parts = re.split(r"\\(\d)", target)
+    port, used = [], []
+    for i, part in enumerate(parts):
+        if i % 2 == 0:
+            port.append(re.escape(part))
+            continue
+        number = int(part)
+        start, end = spans[number - 1]
+        inner = pattern[start + 1:end - 1].replace("/", r"\.")
+        port.append(f"(?P<g{number}>{inner})")
+        used.append(number)
+    regex = re.compile("".join(port))
+
+    def flax_path(match) -> str:
+        path, cursor = [], 0
+        for number in sorted(used, key=lambda n: spans[n - 1][0]):
+            start, end = spans[number - 1]
+            path.append(pattern[cursor:start])
+            path.append(match.group(f"g{number}").replace(".", "/"))
+            cursor = end
+        path.append(pattern[cursor:])
+        return "".join(path)
+
+    return regex, flax_path
+
+
+def _nest(flat: dict) -> dict:
+    tree = {}
+    for path, value in flat.items():
+        *parents, leaf = path.split("/")
+        node = tree
+        for name in parents:
+            node = node.setdefault(name, {})
+        node[leaf] = value
+    return tree
+
+
+def flax_from_params(state_dict: dict, family: str) -> dict:
+    """A port ``state_dict`` of ``family`` ('ViT', 'CaiT' or 'BoTNet') →
+    flax variables ``{"params": ...}`` (with ``"batch_stats"`` for BoTNet)
+    as nested dicts of f32 numpy arrays: the exact inverse of
+    :func:`params_from_flax` under the same rules. Every entry must be
+    consumed; an unknown key raises."""
+    if family not in _FAMILY_RULES:
+        raise ValueError(f"family must be one of {sorted(_FAMILY_RULES)}, got {family!r}")
+    params_rules, stats_rules = _FAMILY_RULES[family]
+    reverse = [(*_reverse_rule(p, t), p, t, c, "params") for p, t, c in params_rules]
+    reverse += [(*_reverse_rule(p, t), p, t, c, "batch_stats") for p, t, c in stats_rules]
+    out = {"params": {}, "batch_stats": {}}
+    unknown = []
+    for name, value in state_dict.items():
+        array = value.detach().cpu().float().numpy() if torch.is_tensor(value) else np.asarray(
+            value, np.float32)
+        for regex, flax_path, pattern, target, convert, collection in reverse:
+            match = regex.fullmatch(name)
+            if match is None:
+                continue
+            path = flax_path(match)
+            forward = re.fullmatch(pattern, path)
+            if forward is None or forward.expand(target).replace("/", ".") != name:
+                continue
+            out[collection][path] = np.array(_BACK[convert](array), order="C")
+            break
+        else:
+            unknown.append(name)
+    if unknown:
+        raise KeyError(f"state_dict entries the {family} rules do not produce: {unknown}")
+    tree = {"params": _nest(out["params"])}
+    if stats_rules:
+        tree["batch_stats"] = _nest(out["batch_stats"])
+    return tree

@@ -11,7 +11,12 @@ seam of :mod:`sav_tpu_torch.ops.attention` (the fused kernels).
 As in the ViT, parameters stay in their own dtype and every layer computes
 in the dtype of its input. Stochastic depth draws from the generator
 :func:`~sav_tpu_torch.models.layers.regularization.set_stochastic_depth_generator`
-gives it (the Trainer seeds one from its config).
+gives it, dropout from the one
+:func:`~sav_tpu_torch.models.layers.regularization.set_dropout_generator`
+gives it (the Trainer seeds both from its config). ``dropout_rate`` drops
+after the position embedding and in every block's attention output and FF,
+``attn_dropout_rate`` the attention probabilities of every block, talking
+heads and class attention alike, on the dense paths.
 """
 
 from __future__ import annotations
@@ -26,6 +31,7 @@ from sav_tpu_torch.models.layers import (
     AttentionBlock,
     ClassSelfAttentionBlock,
     Dense,
+    Dropout,
     FFBlock,
     LayerScaleBlock,
     PatchEmbedBlock,
@@ -38,8 +44,6 @@ from sav_tpu_torch.models.vit import LayerNorm, refuse_unported
 # sav_tpu CaiT options this port does not carry yet, and the ROADMAP item
 # each waits on. Setting one raises NotImplementedError.
 _NOT_PORTED = {
-    "attn_dropout_rate": "queue A4 (training: dropout)",
-    "dropout_rate": "queue A4 (training: dropout)",
     "seq_parallel": "queue A9 (parallelism)",
     "seq_mesh": "queue A9 (parallelism)",
     "quant": "queue A8 (int8)",
@@ -52,16 +56,18 @@ class EncoderBlock(nn.Module):
 
     def __init__(self, dim: int, num_heads: int, *, expand_ratio: float = 4.0,
                  layerscale_eps: float = 1e-5, stoch_depth_rate: float = 0.0,
-                 backend: Optional[str] = None, logits_dtype=None):
+                 backend: Optional[str] = None, logits_dtype=None,
+                 attn_dropout_rate: float = 0.0, dropout_rate: float = 0.0):
         super().__init__()
         self.norm1 = LayerNorm(dim)
         self.attn = SelfAttentionBlock(
-            dim, num_heads, talking_heads=True, backend=backend, logits_dtype=logits_dtype
+            dim, num_heads, talking_heads=True, backend=backend, logits_dtype=logits_dtype,
+            attn_dropout_rate=attn_dropout_rate, out_dropout_rate=dropout_rate,
         )
         self.ls1 = LayerScaleBlock(dim, layerscale_eps)
         self.sd1 = StochasticDepthBlock(stoch_depth_rate)
         self.norm2 = LayerNorm(dim)
-        self.ff = FFBlock(dim, expand_ratio=expand_ratio)
+        self.ff = FFBlock(dim, expand_ratio=expand_ratio, dropout_rate=dropout_rate)
         self.ls2 = LayerScaleBlock(dim, layerscale_eps)
         self.sd2 = StochasticDepthBlock(stoch_depth_rate)
 
@@ -77,15 +83,17 @@ class CAEncoderBlock(nn.Module):
 
     def __init__(self, dim: int, num_heads: int, *, expand_ratio: float = 4.0,
                  layerscale_eps: float = 1e-5, backend: Optional[str] = None,
-                 logits_dtype=None):
+                 logits_dtype=None, attn_dropout_rate: float = 0.0,
+                 dropout_rate: float = 0.0):
         super().__init__()
         self.norm1 = LayerNorm(dim)
         self.attn = ClassSelfAttentionBlock(
-            dim, num_heads, backend=backend, logits_dtype=logits_dtype
+            dim, num_heads, backend=backend, logits_dtype=logits_dtype,
+            attn_dropout_rate=attn_dropout_rate, out_dropout_rate=dropout_rate,
         )
         self.ls1 = LayerScaleBlock(dim, layerscale_eps)
         self.norm2 = LayerNorm(dim)
-        self.ff = FFBlock(dim, expand_ratio=expand_ratio)
+        self.ff = FFBlock(dim, expand_ratio=expand_ratio, dropout_rate=dropout_rate)
         self.ls2 = LayerScaleBlock(dim, layerscale_eps)
 
     def forward(self, cls_tok: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
@@ -116,6 +124,8 @@ class CaiT(nn.Module):
         stoch_depth_rate: float = 0.0,
         backend: Optional[str] = None,
         logits_dtype=None,
+        attn_dropout_rate: float = 0.0,
+        dropout_rate: float = 0.0,
         **unported,
     ):
         super().__init__()
@@ -124,9 +134,11 @@ class CaiT(nn.Module):
         if image_size % ph or image_size % pw:
             raise ValueError(f"image {image_size} not divisible by patch {patch_shape}")
         common = dict(expand_ratio=expand_ratio, layerscale_eps=layerscale_eps,
-                      backend=backend, logits_dtype=logits_dtype)
+                      backend=backend, logits_dtype=logits_dtype,
+                      attn_dropout_rate=attn_dropout_rate, dropout_rate=dropout_rate)
         self.patch_embed = PatchEmbedBlock(patch_shape, embed_dim)
         self.pos_embed = AddAbsPosEmbed((image_size // ph) * (image_size // pw), embed_dim)
+        self.pos_drop = Dropout(dropout_rate)
         self.blocks = nn.ModuleList(
             EncoderBlock(embed_dim, num_heads, stoch_depth_rate=stoch_depth_rate, **common)
             for _ in range(num_layers)
@@ -165,7 +177,7 @@ class CaiT(nn.Module):
         nn.init.zeros_(self.head.bias)
 
     def forward(self, inputs: torch.Tensor) -> torch.Tensor:
-        x = self.pos_embed(self.patch_embed(inputs))
+        x = self.pos_drop(self.pos_embed(self.patch_embed(inputs)))
         for block in self.blocks:
             x = block(x)
         cls_tok = self.cls.to(x.dtype).expand(x.shape[0], 1, -1)

@@ -16,7 +16,9 @@ from sav_tpu_torch.models.layers.normalization import (
 )
 from sav_tpu_torch.models.layers.position_embed import AddAbsPosEmbed
 from sav_tpu_torch.models.layers.regularization import (
+    Dropout,
     StochasticDepthBlock,
+    set_dropout_generator,
     set_stochastic_depth_generator,
 )
 from sav_tpu_torch.models.layers.squeeze_excite import SqueezeExciteBlock
@@ -29,6 +31,7 @@ __all__ = [
     "BoTMHSA",
     "ClassSelfAttentionBlock",
     "Dense",
+    "Dropout",
     "FFBlock",
     "LayerScaleBlock",
     "PatchEmbedBlock",
@@ -40,5 +43,6 @@ __all__ = [
     "cast_for_compute",
     "max_pool_same",
     "same_pads",
+    "set_dropout_generator",
     "set_stochastic_depth_generator",
 ]

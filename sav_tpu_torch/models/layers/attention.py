@@ -14,6 +14,10 @@ probabilities across heads through two ``[H, H]`` kernels
 (:func:`sav_tpu_torch.ops.talking_heads.resolve_talking_heads_backend`): the
 talking-heads kernels, or the dense path for ``backend='xla'``. Otherwise
 the core is the seam of :mod:`sav_tpu_torch.ops.attention`.
+
+``attn_dropout_rate`` drops attention probabilities in training, on the
+dense path only (``auto`` takes it; a kernel backend raises), and
+``out_dropout_rate`` the merged output, as ``sav_tpu``'s blocks do.
 """
 
 from __future__ import annotations
@@ -24,6 +28,7 @@ import torch
 from torch import nn
 
 from sav_tpu_torch.models.layers.initializers import lecun_normal_
+from sav_tpu_torch.models.layers.regularization import Dropout
 from sav_tpu_torch.ops import talking_heads as _th
 from sav_tpu_torch.ops.attention import dot_product_attention
 
@@ -56,6 +61,8 @@ class AttentionBlock(nn.Module):
         fused_qkv: bool = True,
         backend: Optional[str] = None,
         logits_dtype=None,
+        attn_dropout_rate: float = 0.0,
+        out_dropout_rate: float = 0.0,
     ):
         super().__init__()
         self.num_heads = num_heads
@@ -77,6 +84,8 @@ class AttentionBlock(nn.Module):
             self.pre_softmax = TalkingHeadsBlock(h)
             self.post_softmax = TalkingHeadsBlock(h)
         self.to_out = nn.Parameter(torch.empty(h, d, out_ch or in_ch))
+        self.attn_drop = Dropout(attn_dropout_rate)
+        self.out_drop = Dropout(out_dropout_rate)
 
     def reset_parameters(self, generator: torch.Generator) -> None:
         """flax's initialisers: lecun-normal projections (fan-in ``in_ch``,
@@ -94,23 +103,26 @@ class AttentionBlock(nn.Module):
 
     def _core(self, query, key, value):
         scale = self.head_ch ** -0.5
+        dropout = self.attn_drop if self.attn_drop.active() else None
         if not self.talking_heads:
             return dot_product_attention(
                 query, key, value,
                 scale=scale,
                 backend=self.backend,
                 logits_dtype=self.logits_dtype or query.dtype,
+                dropout=dropout,
             )
         w_pre, w_post = self.pre_softmax.kernel, self.post_softmax.kernel
         backend = _th.resolve_talking_heads_backend(
             self.num_heads, key.shape[1], self.head_ch,
-            dtype=query.dtype, requested=self.backend,
+            dtype=query.dtype, requested=self.backend, dropout=dropout is not None,
         )
         if backend == "fused":
             return _th.flash_talking_heads_attention(
                 query, key, value, w_pre, w_post, scale=scale
             )
-        return _th.dense_talking_heads(query, key, value, w_pre, w_post, scale=scale)
+        return _th.dense_talking_heads(query, key, value, w_pre, w_post, scale=scale,
+                                       dropout=dropout)
 
     def forward(self, inputs_q: torch.Tensor, inputs_kv: torch.Tensor) -> torch.Tensor:
         b, q_len, in_ch = inputs_q.shape
@@ -136,7 +148,7 @@ class AttentionBlock(nn.Module):
             value = proj(inputs_kv, self.to_v.to(dtype), kv_len)
         out = self._core(query, key, value)
         w_out = self.to_out.to(out.dtype).reshape(h * d, -1)
-        return torch.matmul(out.reshape(b, q_len, h * d), w_out)
+        return self.out_drop(torch.matmul(out.reshape(b, q_len, h * d), w_out))
 
 
 class SelfAttentionBlock(AttentionBlock):

@@ -8,6 +8,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from sav_tpu_torch.models.layers.regularization import Dropout
+
 
 class Dense(nn.Linear):
     """``nn.Linear`` that computes in the input's dtype: the weight and bias
@@ -21,8 +23,7 @@ class Dense(nn.Linear):
 
 class FFBlock(nn.Module):
     """Dense(expand) → GELU (tanh approximation, flax's ``nn.gelu``) →
-    Dense(in_ch), in the input's dtype. Dropout is not ported (ROADMAP
-    queue A4)."""
+    dropout → Dense(in_ch) → dropout, in the input's dtype."""
 
     def __init__(
         self,
@@ -30,11 +31,15 @@ class FFBlock(nn.Module):
         expand_ratio: Optional[float] = 4.0,
         hidden_ch: Optional[int] = None,
         use_bias: bool = True,
+        dropout_rate: float = 0.0,
     ):
         super().__init__()
         hidden = hidden_ch or int(in_ch * expand_ratio)
         self.fc1 = Dense(in_ch, hidden, bias=use_bias)
         self.fc2 = Dense(hidden, in_ch, bias=use_bias)
+        self.drop1 = Dropout(dropout_rate)
+        self.drop2 = Dropout(dropout_rate)
 
     def forward(self, inputs: torch.Tensor) -> torch.Tensor:
-        return self.fc2(F.gelu(self.fc1(inputs), approximate="tanh"))
+        x = self.drop1(F.gelu(self.fc1(inputs), approximate="tanh"))
+        return self.drop2(self.fc2(x))

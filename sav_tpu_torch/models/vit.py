@@ -6,7 +6,12 @@ and head, with every self-attention core on the backend-dispatched seam of
 ``remat=True`` recomputes each encoder block in the backward pass (flax's
 ``nn.remat``): activation memory drops to the blocks' boundaries for one
 more forward of every block, so each attention core's forward kernel runs
-twice per train step.
+twice per train step. The recompute draws the dropout masks the forward
+drew (:func:`remat_block`).
+
+``dropout_rate`` drops after the position embedding, in each FF block and
+on each attention output; ``attn_dropout_rate`` drops attention
+probabilities, on the dense path (see :mod:`sav_tpu_torch.ops.attention`).
 
 Parameters stay in their own dtype (f32 for training) and every layer
 computes in the dtype of its input, casting its weights at use: the
@@ -26,11 +31,13 @@ from torch.utils.checkpoint import checkpoint
 from sav_tpu_torch.models.layers import (
     AddAbsPosEmbed,
     Dense,
+    Dropout,
     FFBlock,
     PatchEmbedBlock,
     SelfAttentionBlock,
 )
 from sav_tpu_torch.models.layers.initializers import lecun_normal_
+from sav_tpu_torch.models.layers.regularization import module_generators
 
 # flax.linen.LayerNorm's epsilon (torch's default is 1e-5).
 LN_EPS = 1e-6
@@ -39,8 +46,6 @@ LN_EPS = 1e-6
 # each waits on. Setting one raises NotImplementedError.
 _NOT_PORTED = {
     "moe_num_experts": "queue A7.7 (MoE)",
-    "attn_dropout_rate": "queue A4 (training: dropout)",
-    "dropout_rate": "queue A4 (training: dropout)",
     "seq_parallel": "queue A9 (parallelism)",
     "seq_mesh": "queue A9 (parallelism)",
     "layout": "queue A9 (parallelism)",
@@ -75,18 +80,47 @@ class LayerNorm(nn.LayerNorm):
         )
 
 
+def remat_block(block: nn.Module, inputs: torch.Tensor) -> torch.Tensor:
+    """``block(inputs)`` under non-reentrant activation checkpointing whose
+    recompute draws the masks the forward drew. ``checkpoint`` restores
+    only the default generators; the block's dropout and stochastic-depth
+    layers draw from their own, so the recompute rewinds each of those to
+    where it stood when the forward began, and afterwards puts it back
+    where it was: the generators end where they end without remat."""
+    generators = module_generators(block)
+    start = [g.get_state() for g in generators]
+    calls = []
+
+    def run(x):
+        if not calls:
+            calls.append(1)
+            return block(x)
+        now = [g.get_state() for g in generators]
+        for g, state in zip(generators, start):
+            g.set_state(state)
+        try:
+            return block(x)
+        finally:
+            for g, state in zip(generators, now):
+                g.set_state(state)
+
+    return checkpoint(run, inputs, use_reentrant=False)
+
+
 class EncoderBlock(nn.Module):
     """Pre-LN transformer block: LN→MHSA→res, LN→FF→res."""
 
     def __init__(self, dim: int, num_heads: int, *, expand_ratio: float = 4.0,
-                 backend: Optional[str] = None, logits_dtype=None):
+                 backend: Optional[str] = None, logits_dtype=None,
+                 attn_dropout_rate: float = 0.0, dropout_rate: float = 0.0):
         super().__init__()
         self.norm1 = LayerNorm(dim)
         self.attn = SelfAttentionBlock(
-            dim, num_heads, backend=backend, logits_dtype=logits_dtype
+            dim, num_heads, backend=backend, logits_dtype=logits_dtype,
+            attn_dropout_rate=attn_dropout_rate, out_dropout_rate=dropout_rate,
         )
         self.norm2 = LayerNorm(dim)
-        self.ff = FFBlock(dim, expand_ratio=expand_ratio)
+        self.ff = FFBlock(dim, expand_ratio=expand_ratio, dropout_rate=dropout_rate)
 
     def forward(self, inputs: torch.Tensor) -> torch.Tensor:
         x = self.attn(self.norm1(inputs)) + inputs
@@ -94,29 +128,32 @@ class EncoderBlock(nn.Module):
 
 
 class Encoder(nn.Module):
-    """Learned abs pos-emb, N pre-LN blocks, final LN. With ``remat``, each
-    block runs under non-reentrant activation checkpointing whenever grad
-    is enabled; the parameter names stay ``blocks.i``, as flax's
-    ``nn.remat`` keeps ``block_i``."""
+    """Learned abs pos-emb and dropout, N pre-LN blocks, final LN. With
+    ``remat``, each block runs under :func:`remat_block` whenever grad is
+    enabled; the parameter names stay ``blocks.i``, as flax's ``nn.remat``
+    keeps ``block_i``."""
 
     def __init__(self, length: int, dim: int, num_layers: int, num_heads: int, *,
                  expand_ratio: float = 4.0, backend: Optional[str] = None,
-                 logits_dtype=None, remat: bool = False):
+                 logits_dtype=None, remat: bool = False,
+                 attn_dropout_rate: float = 0.0, dropout_rate: float = 0.0):
         super().__init__()
         self.remat = remat
         self.pos_embed = AddAbsPosEmbed(length, dim)
+        self.pos_drop = Dropout(dropout_rate)
         self.blocks = nn.ModuleList(
             EncoderBlock(dim, num_heads, expand_ratio=expand_ratio,
-                         backend=backend, logits_dtype=logits_dtype)
+                         backend=backend, logits_dtype=logits_dtype,
+                         attn_dropout_rate=attn_dropout_rate, dropout_rate=dropout_rate)
             for _ in range(num_layers)
         )
         self.norm = LayerNorm(dim)
 
     def forward(self, inputs: torch.Tensor) -> torch.Tensor:
-        x = self.pos_embed(inputs)
+        x = self.pos_drop(self.pos_embed(inputs))
         for block in self.blocks:
             if self.remat and torch.is_grad_enabled():
-                x = checkpoint(block, x, use_reentrant=False)
+                x = remat_block(block, x)
             else:
                 x = block(x)
         return self.norm(x)
@@ -143,6 +180,8 @@ class ViT(nn.Module):
         backend: Optional[str] = None,
         logits_dtype=None,
         remat: bool = False,
+        attn_dropout_rate: float = 0.0,
+        dropout_rate: float = 0.0,
         **unported,
     ):
         super().__init__()
@@ -161,7 +200,7 @@ class ViT(nn.Module):
         self.encoder = Encoder(
             length, embed_dim, num_layers, num_heads,
             expand_ratio=expand_ratio, backend=backend, logits_dtype=logits_dtype,
-            remat=remat,
+            remat=remat, attn_dropout_rate=attn_dropout_rate, dropout_rate=dropout_rate,
         )
         self.head = Dense(embed_dim, num_classes)
 

@@ -19,6 +19,11 @@ Port of :mod:`sav_tpu.ops.attention`. Layout everywhere:
     dense-logits threshold are not carried over: they record TPU
     measurements.
 
+Attention dropout (a ``dropout`` layer on the probabilities, active in
+training only) runs on the dense path, as in ``sav_tpu`` (``kernels_ok``):
+``auto`` takes ``'xla'`` for such a call and an explicit kernel backend
+raises ``ValueError``; no kernel takes dropout.
+
 Gradients: the ``fused`` and ``pallas`` paths differentiate through their
 backward kernels (or, with a bias, :func:`dense_recompute_bwd`); the ``xla``
 path through PyTorch autograd of its plain ops.
@@ -26,7 +31,7 @@ path through PyTorch autograd of its plain ops.
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Callable, Optional
 
 import torch
 
@@ -48,11 +53,13 @@ def dense_attention(
     *,
     scale: Optional[float] = None,
     logits_dtype=None,
+    dropout: Optional[Callable[[torch.Tensor], torch.Tensor]] = None,
 ) -> torch.Tensor:
     """Attention in plain PyTorch ops, with ``xla_attention``'s numerics: q
     is scaled in its own dtype first, the logits and softmax are in
-    ``logits_dtype`` (None = float32), the probabilities are cast to the
-    value dtype before PV.
+    ``logits_dtype`` (None = float32), ``dropout`` (when given) applies to
+    the probabilities in that dtype, and they are cast to the value dtype
+    before PV.
 
     Args:
       query: ``[..., q_len, heads, head_dim]``.
@@ -69,8 +76,10 @@ def dense_attention(
     ).to(logits_dtype)
     if bias is not None:
         logits = logits + bias.to(logits_dtype)
-    probs = torch.softmax(logits, dim=-1).to(value.dtype)
-    return torch.einsum("...hqk,...khd->...qhd", probs, value)
+    probs = torch.softmax(logits, dim=-1)
+    if dropout is not None:
+        probs = dropout(probs)
+    return torch.einsum("...hqk,...khd->...qhd", probs.to(value.dtype), value)
 
 
 def dense_recompute_bwd(
@@ -117,17 +126,27 @@ def resolve_attention_backend(
     dtype=torch.bfloat16,
     requested: Optional[str] = None,
     backward: bool = False,
+    dropout: bool = False,
 ) -> str:
     """The port's rule on static shapes, returning ``'fused'``, ``'pallas'``
     or ``'xla'``: ``auto`` means the fused kernel inside its band (with
     ``backward=True``, the backward kernel's band too), else the flash
     kernels, and raises only where those do not take the head dim;
-    ``fused``, ``pallas`` and ``xla`` pass through."""
+    ``fused``, ``pallas`` and ``xla`` pass through. A call with attention
+    ``dropout`` takes ``xla`` under ``auto``, and an explicit kernel
+    backend raises."""
     requested = requested or "auto"
-    if requested in ("fused", "pallas", "xla"):
-        return requested
-    if requested != "auto":
+    if requested not in ("auto", "fused", "pallas", "xla"):
         raise ValueError(f"unknown attention backend: {requested!r}")
+    if dropout:
+        if requested in ("fused", "pallas"):
+            raise ValueError(
+                f"{requested} attention backend requires deterministic mode "
+                "(attention dropout runs on the XLA path)"
+            )
+        return "xla"
+    if requested != "auto":
+        return requested
     itemsize = torch.empty((), dtype=_as_dtype(dtype)).element_size()
     if _fused.fused_auto_eligible(q_len, kv_len, dim, itemsize=itemsize, backward=backward):
         return "fused"
@@ -173,21 +192,25 @@ def dot_product_attention(
     scale: Optional[float] = None,
     backend: Optional[str] = None,
     logits_dtype=None,
+    dropout: Optional[Callable[[torch.Tensor], torch.Tensor]] = None,
 ) -> torch.Tensor:
     """Backend-dispatched attention on ``[B, L, H, D]`` inputs (see the module
     docstring). ``logits_dtype`` applies to the ``xla`` path only; the
-    kernel always takes its softmax in f32."""
+    kernel always takes its softmax in f32. ``dropout``, an active dropout
+    layer or None, applies to the probabilities and forces the ``xla``
+    path."""
     if query.ndim != 4:
         raise ValueError(f"attention expects [B, L, H, D] inputs, got {tuple(query.shape)}")
     backend = resolve_attention_backend(
         query.shape[1], key.shape[1], query.shape[-1],
         dtype=query.dtype, requested=backend,
         backward=_fused.requires_backward(query, key, value, bias),
+        dropout=dropout is not None,
     )
     if backend == "fused":
         return _fused.fused_attention(query, key, value, bias, scale=scale)
     if backend == "pallas":
         return _flash.flash_attention(query, key, value, bias, scale=scale)
     return dense_attention(
-        query, key, value, bias, scale=scale, logits_dtype=logits_dtype
+        query, key, value, bias, scale=scale, logits_dtype=logits_dtype, dropout=dropout
     )

@@ -263,14 +263,23 @@ def fused_bwd_eligible(heads: int, q_len: int, kv_len: int, dim: int, *,
 
 def resolve_talking_heads_backend(heads: int, kv_len: int, dim: int, *,
                                   dtype=torch.bfloat16,
-                                  requested: Optional[str] = None) -> str:
+                                  requested: Optional[str] = None,
+                                  dropout: bool = False) -> str:
     """The port's rule, returning ``'fused'`` or ``'xla'``: ``fused`` and
     ``pallas`` mean the kernel (which raises outside its band); ``auto`` /
     None the kernel inside its band and the dense path outside it; ``xla``
-    the dense path."""
+    the dense path. A call with attention ``dropout`` takes the dense path
+    under ``auto``, and the kernel backends raise, as in ``sav_tpu``."""
     requested = requested or "auto"
     if requested in ("fused", "pallas"):
+        if dropout:
+            raise ValueError(
+                "pallas talking-heads attention is deterministic-only "
+                "(attention dropout runs on the XLA path)"
+            )
         return "fused"
+    if dropout and requested == "auto":
+        return "xla"
     if requested == "xla":
         return "xla"
     if requested != "auto":
@@ -373,18 +382,21 @@ def talking_heads_bwd_dkv_reference(query, key, value, w_pre, w_post, grad, lse,
     return dk.to(key.dtype), dv.to(value.dtype)
 
 
-def dense_talking_heads(query, key, value, w_pre, w_post, *, scale=None):
+def dense_talking_heads(query, key, value, w_pre, w_post, *, scale=None, dropout=None):
     """The dense path (``backend='xla'``), differentiable by autograd: port of
     ``talking_heads_attention`` and ``_th_dense_reference``. q is scaled in
     its own dtype first, the logits are f32 (f32 products of the inputs),
-    both mixes and the softmax f32 with the weights in f32, the
-    probabilities cast to the value dtype before PV, the output in the
-    query dtype."""
+    both mixes and the softmax f32 with the weights in f32, ``dropout``
+    (an active dropout layer, when given) on the mixed f32 probabilities,
+    which are cast to the value dtype before PV, the output in the query
+    dtype."""
     if scale is None:
         scale = query.shape[-1] ** -0.5
     qs = query * torch.tensor(scale, dtype=query.dtype, device=query.device)
     logits = torch.einsum("bqhd,bkhd->bhqk", qs.float(), key.float())
     probs = _mix(w_post, torch.softmax(_mix(w_pre, logits), dim=-1))
+    if dropout is not None:
+        probs = dropout(probs)
     out = torch.einsum("bhqk,bkhd->bqhd", probs.to(value.dtype).float(), value.float())
     return out.to(query.dtype)
 

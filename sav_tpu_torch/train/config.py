@@ -24,18 +24,11 @@ _NOT_CARRIED = {
     "async_feed": "queue A6 (device feed and on-device mixing)",
     "feed_depth": "queue A6 (device feed and on-device mixing)",
     "compilation_cache_dir": "queue A10 (infra)",
-    "grad_accum_steps": "queue A4 (training: gradient accumulation)",
     "mesh_axes": "queue A9 (parallelism)",
     "layout_preset": "queue A9 (parallelism)",
     "sequence_parallel": "queue A9 (parallelism)",
     "pipeline_parallel": "queue A9 (parallelism)",
     "pipeline_microbatches": "queue A9 (parallelism)",
-    "eval_every_epochs": "queue A4 (training: evaluation inside fit)",
-    "checkpoint_every_epochs": "queue A4 (training: checkpoint)",
-    "checkpoint_every_steps": "queue A4 (training: checkpoint)",
-    "checkpoint_every_secs": "queue A4 (training: checkpoint)",
-    "checkpoint_dir": "queue A4 (training: checkpoint)",
-    "checkpoint_keep": "queue A4 (training: checkpoint)",
     **{
         name: "queue A10 (observability)"
         for name in (
@@ -143,6 +136,8 @@ class TrainConfig:
                     f"TrainConfig.{name}={value!r} is not ported yet (only its "
                     f"default {defaults[name]!r} is): ROADMAP {item}"
                 )
+        if self.grad_accum_steps < 1:
+            raise ValueError(f"grad_accum_steps must be >= 1, got {self.grad_accum_steps}")
         if self.compute_dtype not in COMPUTE_DTYPES:
             raise ValueError(
                 f"compute_dtype must be one of {sorted(COMPUTE_DTYPES)}, got {self.compute_dtype!r}"

@@ -68,6 +68,51 @@ class OptState:
     nu: list
     ema: Optional[list] = None
 
+    def state_dict(self, names: list) -> dict:
+        """``{"count", "mu", "nu"[, "ema"]}`` with each list keyed by the
+        parameter ``names`` (in the lists' order): plain dicts of tensors
+        and an int, as a checkpoint stores them."""
+        out = {"count": int(self.count), "mu": dict(zip(names, self.mu)),
+               "nu": dict(zip(names, self.nu))}
+        if self.ema is not None:
+            out["ema"] = dict(zip(names, self.ema))
+        return out
+
+    def load_state_dict(self, state: dict, names: list) -> "OptState":
+        """Copy ``state`` (from :meth:`state_dict`) into this state's
+        tensors in place, on their devices; returns the state at the saved
+        count. A checkpoint with an EMA and a state without one (or the
+        other way round) raise ``ValueError``: ``ema_decay`` must match the
+        saved run."""
+        if ("ema" in state) != (self.ema is not None):
+            raise ValueError(
+                f"the checkpoint {'carries' if 'ema' in state else 'lacks'} a "
+                f"parameter EMA but this optimizer "
+                f"{'has none' if self.ema is None else 'has one'}: set ema_decay "
+                "(--ema-decay) as the checkpointed run had it"
+            )
+        pairs = [(self.mu, state["mu"]), (self.nu, state["nu"])]
+        if self.ema is not None:
+            pairs.append((self.ema, state["ema"]))
+        with torch.no_grad():
+            for tensors, saved in pairs:
+                if set(saved) != set(names):
+                    raise ValueError(
+                        "the checkpoint's optimizer state names other parameters: "
+                        f"missing {sorted(set(names) - set(saved))}, "
+                        f"unexpected {sorted(set(saved) - set(names))}"
+                    )
+                for name, tensor in zip(names, tensors):
+                    copy_checked(tensor, saved[name], name)
+        return dataclasses.replace(self, count=int(state["count"]))
+
+
+def copy_checked(dst: torch.Tensor, src: torch.Tensor, name: str) -> None:
+    """``dst.copy_(src)`` (any device, any dtype) after checking the shapes."""
+    if tuple(src.shape) != tuple(dst.shape):
+        raise ValueError(f"{name}: saved shape {tuple(src.shape)} != {tuple(dst.shape)}")
+    dst.copy_(src)
+
 
 def global_norm(tensors) -> torch.Tensor:
     """optax's ``global_norm``: the 2-norm of all elements together, f32."""

@@ -4,16 +4,19 @@ from __future__ import annotations
 
 import dataclasses
 
+import torch
 from torch import nn
 
-from sav_tpu_torch.train.optimizer import OptState
+from sav_tpu_torch.train.optimizer import OptState, copy_checked
 
 
 @dataclasses.dataclass
 class TrainState:
     """Step count, the model (whose parameters are the state's parameters),
-    the optimizer state, and ``batch_stats``: the model's buffers by name,
-    the BatchNorm running statistics (empty for ViT and CaiT).
+    the optimizer state, ``batch_stats``: the model's buffers by name, the
+    BatchNorm running statistics (empty for ViT and CaiT), and
+    ``generators``: the trainer's generators by stream name
+    (``stochastic_depth``, ``dropout``), whose states resume the masks.
 
     ``sav_tpu``'s state is an immutable pytree; here the model and the
     optimizer state are updated in place by each step, and the step count
@@ -25,7 +28,46 @@ class TrainState:
     model: nn.Module
     opt_state: OptState
     batch_stats: dict = dataclasses.field(default_factory=dict)
+    generators: dict = dataclasses.field(default_factory=dict)
 
     @property
     def params(self) -> dict:
         return dict(self.model.named_parameters())
+
+    def state_dict(self) -> dict:
+        """The state as plain dicts of tensors, ints and strings:
+        ``{"step", "params", "batch_stats", "opt_state", "generators"}``
+        (the generators' ``get_state()`` byte tensors). The tensors are the
+        live ones, not copies."""
+        params = self.params
+        return {
+            "step": int(self.step),
+            "params": params,
+            "batch_stats": dict(self.batch_stats),
+            "opt_state": self.opt_state.state_dict(list(params)),
+            "generators": {name: g.get_state() for name, g in self.generators.items()},
+        }
+
+    def load_state_dict(self, state: dict) -> "TrainState":
+        """Copy ``state`` (from :meth:`state_dict`, any device) into this
+        state's tensors and generators in place; returns the state at the
+        saved step. Names and shapes must match (``ValueError``)."""
+        params = self.params
+        with torch.no_grad():
+            for kind, live in (("params", params), ("batch_stats", self.batch_stats)):
+                saved = state[kind]
+                if set(saved) != set(live):
+                    raise ValueError(
+                        f"the checkpoint's {kind} do not match the model's: missing "
+                        f"{sorted(set(live) - set(saved))}, unexpected "
+                        f"{sorted(set(saved) - set(live))}"
+                    )
+                for name, tensor in live.items():
+                    copy_checked(tensor, saved[name], name)
+        opt_state = self.opt_state.load_state_dict(state["opt_state"], list(params))
+        saved = state.get("generators", {})
+        for name, generator in self.generators.items():
+            if name not in saved:
+                raise ValueError(f"the checkpoint holds no state of the {name!r} generator")
+            generator.set_state(saved[name])
+        return dataclasses.replace(self, step=int(state["step"]), opt_state=opt_state)

@@ -222,13 +222,18 @@ def test_train_config_mirrors_sav_tpu_and_refuses_what_it_does_not_carry():
         ref.steps_per_epoch, ref.total_steps, ref.learning_rate)
     assert TrainConfig.from_json(cfg.to_json()) == cfg
     for field, value, item in (
-        ("grad_accum_steps", 2, "A4"), ("quant", "int8", "A8"),
-        ("device_preprocess", True, "A6"), ("mesh_axes", {"data": 8}, "A9"),
-        ("checkpoint_dir", "/tmp/ckpt", "A4"), ("diagnostics", True, "A10"),
+        ("quant", "int8", "A8"), ("device_preprocess", True, "A6"),
+        ("mesh_axes", {"data": 8}, "A9"), ("diagnostics", True, "A10"),
     ):
         with pytest.raises(NotImplementedError, match=item):
             TrainConfig(**{field: value})
     TrainConfig(fused_optimizer=False, ema_decay=0.99, augment="none")  # carried
+    # Carried since gradient accumulation and checkpointing were ported.
+    for field, value in (("grad_accum_steps", 2), ("checkpoint_dir", "ckpt"),
+                         ("eval_every_epochs", 1), ("checkpoint_every_steps", 10)):
+        assert getattr(TrainConfig(**{field: value}), field) == value
+    with pytest.raises(ValueError, match="grad_accum_steps must be >= 1"):
+        TrainConfig(grad_accum_steps=0)
 
 
 def test_trainer_refuses_a_missing_card_unless_asked_for_the_cpu():
@@ -273,11 +278,12 @@ def test_hwcn_batches_are_transposed():
 
 def _four_steps_against_sav_tpu(model_name, overrides, params, backend="fused",
                                 model_overrides=None, image_size=32, batch_stats=None,
-                                base_lr=0.05):
+                                base_lr=0.05, grad_accum_steps=1, batch_size=16):
     """4 f32 steps at ``backend`` from one parameter tree (and, for a
     BatchNorm model, its ``batch_stats``) and one batch stream, on sav_tpu's
     Trainer (8-device CPU mesh, Pallas in interpret mode) and the port's,
-    both models built with ``model_overrides``. Per-step loss, grad norm and
+    both models built with ``model_overrides``, each step over
+    ``grad_accum_steps`` micro-batches of a global ``batch_size``. Per-step loss, grad norm and
     lr, then every parameter, every running statistic and the eval sums,
     agree within f32 tolerances (different
     summation orders over 4 Adam steps; Adam divides by √v, which keeps
@@ -287,11 +293,13 @@ def _four_steps_against_sav_tpu(model_name, overrides, params, backend="fused",
     common = dict(
         model_name=model_name, num_classes=10, image_size=image_size,
         compute_dtype="float32", attention_backend=backend,
-        model_overrides=model_overrides, global_batch_size=16, num_train_images=64, num_epochs=2,
+        model_overrides=model_overrides, global_batch_size=batch_size,
+        num_train_images=4 * batch_size, num_epochs=2,
         warmup_epochs=0, transpose_images=False, base_lr=base_lr, seed=0,
+        grad_accum_steps=grad_accum_steps,
     )
     batches = list(synthetic.synthetic_data_iterator(
-        batch_size=16, image_size=image_size, num_classes=10, seed=11, num_batches=4
+        batch_size=batch_size, image_size=image_size, num_classes=10, seed=11, num_batches=4
     ))
 
     jax_model = jax_create_model(
@@ -441,3 +449,18 @@ def test_train_cli_runs_on_the_cpu(capsys):
     ])
     line = capsys.readouterr().out.strip().splitlines()[-1]
     assert '"step": 2' in line and final["step"] == 2 and np.isfinite(final["loss"])
+
+
+def test_fit_runs_to_num_steps_in_all_and_stops_where_the_feed_ends():
+    """num_steps is the total: from a state at step 2, fit(num_steps=4) runs
+    steps 3 and 4; a feed that ends first stops the loop and closes the log
+    window there (sav_tpu breaks on StopIteration too)."""
+    trainer = _small_trainer(log_every_steps=10)
+    batches = list(synthetic.synthetic_data_iterator(batch_size=16, image_size=32,
+                                                     num_classes=10, num_batches=5))
+    state, _ = trainer.fit(iter(batches[:2]), num_steps=2)
+    state, history = trainer.fit(iter(batches[2:]), num_steps=4, state=state)
+    assert state.step == 4 and [r["step"] for r in history] == [3, 4]
+    state, history = trainer.fit(iter(batches[4:]), num_steps=9, state=state)
+    assert state.step == 5 and [r["step"] for r in history] == [5]
+    assert history[-1]["images_per_sec"] > 0

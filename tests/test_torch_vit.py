@@ -194,15 +194,35 @@ def test_registry_names_and_unported_entries():
     "option,item",
     [
         ({"moe_num_experts": 8}, "A7.7"),
-        ({"dropout_rate": 0.1}, "A4"),
+        ({"dropout_rate": 0.1}, None),  # carried: see the body
         ({"quant": "int8"}, "A8"),
         ({"seq_parallel": "ring"}, "A9"),
         ({"pos_embed": "sincos"}, "A2"),
     ],
 )
 def test_unported_vit_options_raise(option, item):
-    with pytest.raises(NotImplementedError, match=item):
-        ViT(10, 64, 1, 2, (8, 8), image_size=32, **option)
+    """Each option the port does not carry raises, naming its ROADMAP item.
+    ``dropout_rate`` is carried: the ViT builds, its eval forward is
+    sav_tpu's eval forward, and in training it drops (flax's nn.Dropout
+    after the position embedding, in each FF block and on each attention
+    output)."""
+    if item is not None:
+        with pytest.raises(NotImplementedError, match=item):
+            ViT(10, 64, 1, 2, (8, 8), image_size=32, **option)
+        return
+    from sav_tpu_torch.models.layers import set_dropout_generator
+
+    params = small_flax_params()
+    x = np.random.default_rng(3).standard_normal((3, 32, 32, 3)).astype(np.float32)
+    jax_model = jax_create_model("vit_ti_patch16", num_classes=10, dtype=jnp.float32,
+                                 backend="fused", **SMALL, **option)
+    ref = np.asarray(jax_model.apply({"params": params}, x, is_training=False))
+    model = small_port_model(params, backend="fused", **option)
+    assert set_dropout_generator(model, torch.Generator().manual_seed(0)) == 1 + 4 * 2
+    with torch.no_grad():
+        np.testing.assert_allclose(model(torch.from_numpy(x)).numpy(), ref, atol=TOL, rtol=TOL)
+        dropped = model.train()(torch.from_numpy(x)).numpy()
+    assert np.isfinite(dropped).all() and np.abs(dropped - ref).max() > 1e-3
 
 
 def test_create_model_is_deterministic_in_seed():
