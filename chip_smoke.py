@@ -60,12 +60,24 @@ Phases, each of which exits non-zero on failure:
    train shapes; the relative-position kernels beside SDPA with the
    expanded relative bias as its attn_mask.
 5. serve: ServeEngine serves deit_s_patch16, then cait_xxs_24 (bf16, random
-   weights from a seed) to concurrent clients; every attention core must
-   have gone through its forward kernel (the launches per batch are counted
-   from the model's attention modules: DeiT 12 fused; CaiT 24 talking-heads
-   and 2 fused; no backward launch), every launch of #1-#10 on
-   the tensor cores, and 8 rows must agree with the same weights served on
-   the dense attention paths.
+   weights from a seed) to concurrent clients through one captured CUDA
+   graph per bucket (1…32) and the double-buffered feed. The launch
+   counters cannot see a replay, so: every bucket's capture must have
+   recorded one forward's launches, counted from the model's attention
+   modules (DeiT 12 fused; CaiT 24 talking-heads and 2 fused; no backward
+   launch), the startup nothing but two warm-up forwards and one capture
+   per bucket (every launch of #1-#10 on the tensor cores), serving no
+   counter at all, and replays x captured must equal the batches served
+   x one forward's; one replay of bucket 32 under torch.profiler must run
+   exactly those kernels, by name. At every bucket the replayed logits
+   equal the engine's eager infer function on the same batch, bit for
+   bit; 8 rows must agree with the same weights served (also captured) on
+   the dense attention paths; and at buckets 1, 8 and 32 the eager step,
+   the replayed step and a replay's device time are timed. Then the serve
+   bench (``python -m sav_tpu_torch.serve.bench``, through its ``run``) for
+   each model: a flood of 2,048 requests, an open loop at half the flood's
+   throughput, and for DeiT-S a batch-1 arm of 512 that the batched flood
+   must beat in images/s; each run checked as above.
 6. train: Trainer trains deit_s_patch16, then cait_xxs_24 (bf16 over f32
    parameters, global batch 256, CaiT at its recipe's stochastic depth 0.05)
    for 6 steps on synthetic learnable batches through fit(); every step must
@@ -88,7 +100,11 @@ Phases, each of which exits non-zero on failure:
    padded, kernels against the dense path; fit with eval_every_epochs=1
    appends eval records at steps 3 and 6) and dropout (dropout_rate 0.1
    keeps #1/#2's launches; attn_dropout_rate 0.1 trains on the dense path,
-   launching no attention kernel, and evaluates through #1).
+   launching no attention kernel, and evaluates through #1). The resumed
+   run's checkpoint is then served through ServeConfig.checkpoint_dir
+   (params-only restore): its logits equal, bit for bit, an engine given
+   the restored model, and six raw images of mixed sizes through
+   submit_raw equal preprocess_request + submit.
 8. fine-tune: vit_b_patch16 built at 224² is saved with the port's
    Checkpointer, its position table resized by the port's surgery (197 ->
    577 rows, every other tensor unchanged); Trainer.warm_start_from that
@@ -99,8 +115,9 @@ Phases, each of which exits non-zero on failure:
    per step, no fused launch; the dense reference runs with remat and the
    same accumulation. Then one step of 128 with remat and one without give
    the same loss, and their peak memories.
-9. BoTNet: botnet_t3 (full width and depth, 224²) is served in 5, after
-   CaiT (6 relative-position forward launches per batch, no other kernel),
+9. BoTNet: botnet_t3 (full width and depth, 224²) is served and benched in
+   5, after CaiT (6 relative-position forward launches per batch, no other
+   kernel),
    and trained as in 6 from get_preset("botnet_t3_imagenet") at its global
    batch 2048 in 8 micro-batches of 256 (8 x (6 forward, 6 dq and 6 dk/dv)
    launches per step); its first step's running statistics are compared
@@ -137,6 +154,8 @@ sys.path.insert(0, ROOT)
 # torch.use_deterministic_algorithms should an op break bit equality (32
 # MiB of cuBLAS workspace in 8 buffers, what PyTorch takes on Hopper anyway).
 os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+
+from sav_tpu_torch.ops import launch_counts, reset_launches, variant_counts  # noqa: E402
 
 # H100 SXM peaks (NVIDIA data sheet, dense): HBM bytes/s, and FLOP/s by the
 # inputs' type (bf16 on the tensor cores, f32 outside them).
@@ -1608,7 +1627,7 @@ def _serve(engine, images, clients) -> list:
     return results
 
 
-# Launch counters, as _launches() names them.
+# Launch counters, as launch_counts() names them.
 COUNTERS = ("fused", "fused_bwd", "talking_heads", "talking_heads_bwd",
             "talking_heads_bwd_dkv", "flash", "flash_dq", "flash_dkv", "rel", "rel_dq",
             "rel_dkv")
@@ -1650,29 +1669,6 @@ def attention_launches(model, *, train: bool, family: str) -> dict:
     return counts
 
 
-def _reset_launches() -> None:
-    from sav_tpu_torch.ops import flash_attention as flash
-    from sav_tpu_torch.ops import fused_attention as fa
-    from sav_tpu_torch.ops import talking_heads as th
-
-    fa.reset_launches()
-    th.reset_launches()
-    flash.reset_launches()
-
-
-def _launches() -> dict:
-    from sav_tpu_torch.ops import flash_attention as flash
-    from sav_tpu_torch.ops import fused_attention as fa
-    from sav_tpu_torch.ops import talking_heads as th
-
-    return {"fused": fa.LAUNCHES, "fused_bwd": fa.BWD_LAUNCHES,
-            "talking_heads": th.LAUNCHES, "talking_heads_bwd": th.BWD_LAUNCHES,
-            "talking_heads_bwd_dkv": th.BWD_DKV_LAUNCHES,
-            "flash": flash.LAUNCHES, "flash_dq": flash.BWD_DQ_LAUNCHES,
-            "flash_dkv": flash.BWD_DKV_LAUNCHES, "rel": flash.REL_LAUNCHES,
-            "rel_dq": flash.REL_BWD_DQ_LAUNCHES, "rel_dkv": flash.REL_BWD_DKV_LAUNCHES}
-
-
 def _variant_launches(launches: dict) -> dict:
     """The launches of #1 (fused forward), #2 (fused backward), #3 (flash
     forward), #4 (flash dq), #5 (flash dk/dv), #6 (relative-position
@@ -1680,25 +1676,18 @@ def _variant_launches(launches: dict) -> dict:
     #10 (its dq and dk/dv kernels) by the variant that ran, after a bf16 run
     whose counts are ``launches``; fails unless every one of them ran on the
     tensor cores."""
-    from sav_tpu_torch.ops import flash_attention as flash
-    from sav_tpu_torch.ops import fused_attention as fa
-    from sav_tpu_torch.ops import talking_heads as th
+    return _on_tensor_cores(variant_counts(), launches, "bf16")
 
-    variants = {"fused": dict(fa.FWD_VARIANT_LAUNCHES),
-                "fused_bwd": dict(fa.BWD_VARIANT_LAUNCHES),
-                "talking_heads": dict(th.VARIANT_LAUNCHES),
-                "talking_heads_bwd": dict(th.BWD_VARIANT_LAUNCHES),
-                "talking_heads_bwd_dkv": dict(th.BWD_DKV_VARIANT_LAUNCHES),
-                "flash": dict(flash.VARIANT_LAUNCHES),
-                "flash_dq": dict(flash.BWD_DQ_VARIANT_LAUNCHES),
-                "flash_dkv": dict(flash.BWD_DKV_VARIANT_LAUNCHES),
-                "rel": dict(flash.REL_VARIANT_LAUNCHES),
-                "rel_dq": dict(flash.REL_BWD_DQ_VARIANT_LAUNCHES),
-                "rel_dkv": dict(flash.REL_BWD_DKV_VARIANT_LAUNCHES)}
+
+def _on_tensor_cores(variants: dict, launches: dict, what: str) -> dict:
+    """``variants`` (launches by counter and variant), after checking that
+    each counter's launches, ``launches``, all ran on the tensor cores."""
+    from sav_tpu_torch.ops.flash_attention import TENSOR_CORE
+
     for kind, by_variant in variants.items():
-        if by_variant[flash.TENSOR_CORE] != launches[kind] or sum(by_variant.values()) != launches[kind]:
-            raise AssertionError(f"bf16 {kind} launches {launches[kind]} did not all run on the "
-                                 f"tensor cores: {json.dumps(by_variant)}")
+        if by_variant[TENSOR_CORE] != launches[kind] or sum(by_variant.values()) != launches[kind]:
+            raise AssertionError(f"{what} {kind} launches {launches[kind]} did not all run on "
+                                 f"the tensor cores: {json.dumps(by_variant)}")
     return variants
 
 
@@ -1754,12 +1743,182 @@ def _draw_for_agreement(model) -> None:
                 f"variances {variances.min().item():.4f}..{variances.max().item():.3f}")
 
 
+# The KERNEL_GROUPS group each forward counter's kernels are named under.
+FORWARD_GROUPS = {"fused": "attention forward (fused_attention.cu)",
+                  "talking_heads": "talking-heads forward (talking_heads.cu)",
+                  "flash": "flash forward (flash_attention.cu)",
+                  "rel": "rel forward (rel_attention.cu)"}
+# Buckets whose eager step, replayed step and replay device time are timed.
+SERVE_TIMED_BUCKETS = (1, 8, 32)
+
+
+def _check_served_eagerly_nowhere(what: str) -> None:
+    """Serving moves no launch counter: every batch ran as a replay. Read
+    after a run the counters were set to 0 for."""
+    if any(launch_counts().values()):
+        raise AssertionError(f"{what}: serving moved a launch counter "
+                             f"({json.dumps(launch_counts())}): a batch ran eagerly")
+
+
+def _check_capture(report: dict, per_batch: dict, what: str) -> dict:
+    """An engine's ``startup_report``, read with the launch counters set
+    to 0 just before the engine was built: every bucket's capture recorded
+    one forward's launches (``per_batch``), all on the tensor cores by the
+    variant tallies it recorded, and the counters moved by the warm-up's
+    two eager forwards and the capture's one per bucket, nothing else (so,
+    read after serving, serving moved none). Returns the startup's launches
+    by variant (each on the tensor cores)."""
+    captured = report["captured_launches"]
+    if set(captured) != {str(b) for b in report["buckets"]} or any(
+            n != per_batch for n in captured.values()):
+        raise AssertionError(f"{what}: captured launches {json.dumps(captured)}, expected "
+                             f"{json.dumps(per_batch)} in every bucket")
+    for bucket, variants in report["captured_variants"].items():
+        _on_tensor_cores(variants, captured[bucket], f"{what}: bucket {bucket}'s capture,")
+    startup = launch_counts()
+    expected = _times(per_batch, 3 * len(captured))
+    if startup != expected:
+        raise AssertionError(f"{what}: startup launched {json.dumps(startup)}, expected "
+                             f"{json.dumps(expected)} (two warm-up forwards and one capture "
+                             f"in each of {len(captured)} buckets)")
+    return _variant_launches(startup)
+
+
+def _replayed(stats: dict, report: dict, per_batch: dict, what: str) -> tuple:
+    """The kernels' launches while an engine served, replays × captured,
+    after checking that the replays are the batches served and that they
+    come to ``per_batch`` × batches; and the same by variant, replays × each
+    bucket's captured tallies (on the tensor cores)."""
+    captured, replays = report["captured_launches"], stats["replays"]
+    batches = stats["ledger"]["batches"]
+    if sum(replays.values()) != batches:
+        raise AssertionError(f"{what}: {json.dumps(replays)} replays for {batches} batches")
+    launches = {k: sum(replays[b] * captured[b][k] for b in captured) for k in COUNTERS}
+    if launches != _times(per_batch, batches):
+        raise AssertionError(f"{what}: replays x captured {json.dumps(launches)}, expected "
+                             f"{json.dumps(per_batch)} x {batches}")
+    tallies = report["captured_variants"]
+    variants = {k: {v: sum(replays[b] * tallies[b][k][v] for b in tallies)
+                    for v in next(iter(tallies.values()))[k]} for k in COUNTERS}
+    return launches, _on_tensor_cores(variants, launches, f"{what}: replayed")
+
+
+def _add(runs) -> dict:
+    """The sum of launch counts (or of launches by variant), key by key."""
+    out = {}
+    for run in runs:
+        for k, n in run.items():
+            if isinstance(n, dict):
+                out[k] = _add([out.get(k, {}), n])
+            else:
+                out[k] = out.get(k, 0) + n
+    return out
+
+
+def _serve_batch(bucket: int, size: int, seed: int):
+    """A seeded uint8 batch on the card and its validity mask (the last row
+    padding where the bucket has more than one)."""
+    gen = torch.Generator().manual_seed(seed)
+    images = torch.randint(0, 256, (bucket, size, size, 3), generator=gen, dtype=torch.uint8)
+    valid = torch.ones(bucket)
+    if bucket > 1:
+        valid[-1] = 0.0
+    return images.cuda(), valid.cuda()
+
+
+def _check_replay_equals_eager(engine, what: str) -> None:
+    """At every bucket, the replayed logits equal the engine's eager infer
+    function on the same batch, bit for bit."""
+    size = engine.config.image_size
+    for bucket in engine.startup_report["buckets"]:
+        images, valid = _serve_batch(bucket, size, seed=bucket)
+        eager = engine.infer_fn(images, valid).cpu()
+        replayed = engine.graphs.replay(bucket, images, valid).cpu()
+        if not torch.equal(eager, replayed):
+            raise AssertionError(f"{what} bucket {bucket}: replayed logits differ from eager "
+                                 f"ones by up to {(eager - replayed).abs().max().item():.3e}")
+    log(f"{what}: replayed logits equal the eager infer function's, bit for bit, at buckets "
+        f"{engine.startup_report['buckets']}")
+
+
+def _profile_replay(engine, bucket: int, per_batch: dict, what: str) -> dict:
+    """One replay of ``bucket`` under torch.profiler. Counted by the names
+    KERNEL_GROUPS uses, the device's attention kernels must be one
+    forward's (``per_batch``), and no other attention kernel may run.
+    Returns the device busy time and the count by group."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    images, valid = _serve_batch(bucket, engine.config.image_size, seed=0)
+    engine.graphs.replay(bucket, images, valid)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        engine.graphs.replay(bucket, images, valid)
+        torch.cuda.synchronize()
+    counts, busy = {}, 0.0
+    for event in prof.events():
+        if event.device_type == DeviceType.CUDA:
+            busy += event.time_range.elapsed_us() / 1e3
+            group = next((g for g, keys in KERNEL_GROUPS if any(k in event.name for k in keys)),
+                         "other")
+            counts[group] = counts.get(group, 0) + 1
+    if busy == 0.0:
+        raise RuntimeError(f"{what}: the profiler recorded no device time in a replay")
+    attention = [g for g, _ in KERNEL_GROUPS if g.endswith(".cu)")]
+    want = {g: 0 for g in attention}
+    for kind, n in per_batch.items():
+        if n:
+            want[FORWARD_GROUPS[kind]] += n
+    got = {g: counts.get(g, 0) for g in attention}
+    if got != want:
+        raise AssertionError(f"{what}: a profiled replay of bucket {bucket} ran the attention "
+                             f"kernels {json.dumps(got)}, expected {json.dumps(want)}")
+    log(f"{what}: a profiled replay of bucket {bucket} ran {sum(counts.values())} device "
+        f"kernels and copies, busy {busy:.3f} ms; attention kernels "
+        f"{json.dumps({g: n for g, n in got.items() if n})}; by group {json.dumps(counts)}")
+    return {"busy_ms": busy, "kernels": counts}
+
+
+def _host_median_ms(fn, iters=30, warmup=3) -> float:
+    """Median host time of ``fn`` followed by a device synchronise."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(iters):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times)
+
+
+def _serve_steps(engine, buckets) -> dict:
+    """At each bucket: the eager step (the infer function from Python) and
+    the replayed step (copy into the static buffers and one graph launch),
+    host time to a synchronise, median of 30; and the device time of one
+    replay (CUDA events, L2 flushed, median of 30)."""
+    out = {}
+    for bucket in buckets:
+        images, valid = _serve_batch(bucket, engine.config.image_size, seed=bucket)
+
+        def replay(bucket=bucket, images=images, valid=valid):
+            engine.graphs.replay(bucket, images, valid)
+
+        out[str(bucket)] = {
+            "eager_ms": _host_median_ms(lambda: engine.infer_fn(images, valid)),
+            "replay_ms": _host_median_ms(replay),
+            "replay_device_ms": _median_ms(replay),
+        }
+    return out
+
+
 def phase_serve(device="cuda", model_name="deit_s_patch16", requests=SERVE_REQUESTS,
                 max_batch=32, overrides=None, image_size=224, family="fused") -> dict:
-    """Serve ``requests`` seeded images; returns the kernels' launches.
-    ``family``: the kernels this path's plain attention cores take (at
-    224² DeiT's and CaiT's class attention the fused ones, BoTNet the
-    relative-position ones)."""
+    """Serve ``requests`` seeded images through captured programs; returns
+    the kernels' launches (replays × captured). ``family``: the kernels this
+    path's plain attention cores take (at 224² DeiT's and CaiT's class
+    attention the fused ones, BoTNet the relative-position ones)."""
     from sav_tpu_torch import ServeConfig, ServeEngine, create_model
 
     overrides = overrides or {}
@@ -1770,6 +1929,7 @@ def phase_serve(device="cuda", model_name="deit_s_patch16", requests=SERVE_REQUE
     )
     dense.load_state_dict(model.state_dict())
     per_batch = attention_launches(model, train=False, family=family)
+    what = f"serve {model_name}"
 
     def config(**kw):
         # A generous deadline: admission must not shed in a smoke run.
@@ -1780,47 +1940,216 @@ def phase_serve(device="cuda", model_name="deit_s_patch16", requests=SERVE_REQUE
     images = np.random.default_rng(0).integers(
         0, 256, (requests, image_size, image_size, 3), dtype=np.uint8
     )
+    reset_launches()
     engine = ServeEngine(config(max_batch=max_batch), model=model)
-    log(f"serve startup: {json.dumps(engine.startup_report)}")
-    _reset_launches()
+    startup_variants = _check_capture(engine.startup_report, per_batch, what)
+    report = engine.startup_report
+    log(f"{what} startup: {json.dumps(report)}")
+    reset_launches()
     with engine:
         logits = np.stack(_serve(engine, images, CLIENTS))
-    launches = _launches()
-    summary = engine.stats()
-    ledger = summary["ledger"]
-    if summary["errors"] or ledger["requests"] != requests:
-        raise AssertionError(f"serving incomplete: {json.dumps(summary)}")
+    _check_served_eagerly_nowhere(what)
+    stats = engine.stats()
+    ledger = stats["ledger"]
+    if stats["errors"] or ledger["requests"] != requests:
+        raise AssertionError(f"serving incomplete: {json.dumps(stats)}")
     if logits.shape != (requests, model.head.out_features) or not np.isfinite(logits).all():
         raise AssertionError(f"bad logits: shape {logits.shape}, finite {np.isfinite(logits).all()}")
+    launches, variants = _replayed(stats, report, per_batch, what)
     batches = ledger["batches"]
-    expected = _times(per_batch, batches)
-    if launches != expected:
-        raise AssertionError(
-            f"serving {batches} batches launched {json.dumps(launches)}; expected "
-            f"{json.dumps(expected)} ({json.dumps(per_batch)} per batch, no backward launch)"
-        )
-    variants = _variant_launches(launches)
     log(
-        f"serve {model_name} bf16: {requests} requests from {CLIENTS} clients in "
-        f"{batches} batches {json.dumps(ledger['bucket_occupancy'])}; kernel launches "
-        f"{json.dumps(launches)} = {json.dumps(per_batch)} x {batches}, by variant "
-        f"{json.dumps(variants)}; "
-        f"p50 {ledger['latency_ms']['p50']} ms, p99 {ledger['latency_ms']['p99']} ms, "
-        f"{ledger['throughput_rps']} images/s"
+        f"{what} bf16: {requests} requests from {CLIENTS} clients in {batches} batches "
+        f"{json.dumps(ledger['bucket_occupancy'])}, replays {json.dumps(stats['replays'])}; "
+        f"kernel launches (replays x captured) {json.dumps(launches)} = "
+        f"{json.dumps(per_batch)} x {batches}; startup launches by variant "
+        f"{json.dumps(startup_variants)}; p50 {ledger['latency_ms']['p50']} ms, "
+        f"p99 {ledger['latency_ms']['p99']} ms, {ledger['throughput_rps']} images/s"
     )
+    _check_replay_equals_eager(engine, what)
+    profile = _profile_replay(engine, max(report["buckets"]), per_batch, what)
+    steps = _serve_steps(engine, SERVE_TIMED_BUCKETS)
+    log(f"{what} steps by bucket (ms): {json.dumps(steps)}")
+    del engine
+    _release_engines()
 
-    _reset_launches()
-    with ServeEngine(config(max_batch=8, attention_backend="xla"), model=dense) as ref_engine:
+    reset_launches()
+    ref_engine = ServeEngine(config(max_batch=8, attention_backend="xla"), model=dense)
+    _check_capture(ref_engine.startup_report, dict.fromkeys(COUNTERS, 0), f"{what} dense")
+    with ref_engine:
         ref = np.stack(_serve(ref_engine, images[:8], 1))
-    if any(_launches().values()):
-        raise AssertionError("the dense reference engine launched a kernel")
+    if any(launch_counts().values()) or sum(ref_engine.stats()["replays"].values()) == 0:
+        raise AssertionError("the dense reference engine launched a kernel or replayed nothing")
     err = _within(torch.from_numpy(logits[:8]), torch.from_numpy(ref), SERVE_TOL)
     log(
-        f"serve agreement {model_name}, kernels vs dense attention (f32 softmax), 8 rows: "
-        f"max abs err {err:.3e} (tol {SERVE_TOL}), logits max |x| {np.abs(ref).max():.3f}, "
-        f"std {ref.std():.3f}"
+        f"serve agreement {model_name}, kernels vs dense attention (f32 softmax), both "
+        f"replayed, 8 rows: max abs err {err:.3e} (tol {SERVE_TOL}), logits max |x| "
+        f"{np.abs(ref).max():.3f}, std {ref.std():.3f}"
     )
-    return {**launches, "variants": variants}
+    del ref_engine
+    _release_engines()
+    return {**launches, "variants": variants, "per_batch": per_batch,
+            "steps": steps, "profile": profile, "compile_s": report["compile_s"],
+            "bucket_hbm_bytes": report["bucket_hbm_bytes"]}
+
+
+# The serve bench's runs: a flood, an open-loop arm at half the flood's
+# measured throughput, and for DeiT-S the no-batching arm.
+BENCH_REQUESTS = 2048
+BENCH_BATCH1_REQUESTS = 512
+# The open-loop arm's deadline: the engine's default. The flood's is long
+# enough that admission sheds nothing while 2,048 requests wait.
+BENCH_DEADLINE_MS = 100.0
+FLOOD_DEADLINE_MS = 60_000.0
+
+
+def _release_engines() -> None:
+    """Free the serve engines built so far. An engine and its feeder refer
+    to each other, so their device memory (weights, static buffers, the
+    graphs' pool) goes only with a collection; and once no engine holds a
+    stream, no graph is left that kept a cuBLAS workspace, so the
+    workspaces of their streams go too. Neither may count in a later
+    engine's or the train phases' peak memory."""
+    import gc
+
+    from sav_tpu_torch.serve.graphs import streams_held
+
+    gc.collect()
+    if streams_held():
+        raise AssertionError(f"{streams_held()} streams still held: a serve engine outlived "
+                             "its phase")
+    torch._C._cuda_clearCublasWorkspaces()
+    torch.cuda.empty_cache()
+
+
+def _bench(argv: list, per_batch: dict, what: str) -> dict:
+    """One run of ``python -m sav_tpu_torch.serve.bench`` (through its
+    ``run``), checked: every request offered was served, the startup's
+    captures and the replays as in phase_serve."""
+    from sav_tpu_torch.serve import bench
+
+    reset_launches()
+    out = bench.run(bench.parser().parse_args(argv))
+    _release_engines()
+    if out["outcome"] != "ok" or out["requests"] != out["offered"]:
+        raise AssertionError(f"{what}: {json.dumps(out)}")
+    # Read after serving: the startup's launches, and none while serving.
+    _check_capture(out["startup"], per_batch, what)
+    launches, variants = _replayed({"replays": out["replays"], "ledger": out["summary"]},
+                                   out["startup"], per_batch, what)
+    log(f"{what}: {out['serve_throughput']} images/s, p50 {out['p50_latency_ms']} ms, p95 "
+        f"{out['p95_latency_ms']} ms, p99 {out['p99_latency_ms']} ms, occupancy "
+        f"{json.dumps(out['bucket_occupancy'])}, padding waste {out['padding_waste_frac']}, "
+        f"queue depth avg {out['queue_depth_avg']} max {out['queue_depth_max']}, schedule lag "
+        f"{out['schedule_lag_ms']} ms, rejected {out['rejected_at_submit']}, startup "
+        f"{out['startup']['startup_s']} s (capture {out['startup']['compile_s']} s); feeder "
+        f"{json.dumps(out['feeder'])}")
+    return {"result": out, "launches": launches, "variants": variants}
+
+
+def phase_serve_bench(model_name: str, per_batch: dict, *, batch_1=False) -> dict:
+    """``sav_tpu_torch.serve.bench`` on the card at buckets 1…32: a flood of
+    BENCH_REQUESTS, then an open loop at half the flood's throughput; with
+    ``batch_1``, also the ladder [1] arm of BENCH_BATCH1_REQUESTS, which the
+    batched flood must beat in images/s."""
+    common = ["--model", model_name, "--max-batch", "32", "--max-queue", "4096"]
+    runs = {"flood": _bench(common + ["--requests", str(BENCH_REQUESTS), "--deadline-ms",
+                                      str(FLOOD_DEADLINE_MS)], per_batch, f"bench {model_name} flood")}
+    rate = round(runs["flood"]["result"]["serve_throughput"] / 2, 1)
+    runs["open_loop"] = _bench(common + ["--requests", str(BENCH_REQUESTS), "--rate", str(rate),
+                                         "--deadline-ms", str(BENCH_DEADLINE_MS)],
+                               per_batch, f"bench {model_name} open loop at {rate} req/s")
+    if batch_1:
+        runs["batch_1"] = _bench(common + ["--batch-1", "--requests", str(BENCH_BATCH1_REQUESTS),
+                                           "--deadline-ms", str(FLOOD_DEADLINE_MS)],
+                                 per_batch, f"bench {model_name} batch-1 flood")
+        batched = runs["flood"]["result"]["serve_throughput"]
+        single = runs["batch_1"]["result"]["serve_throughput"]
+        if not batched > single:
+            raise AssertionError(f"bench {model_name}: the batched flood ({batched} images/s) "
+                                 f"did not beat the batch-1 arm ({single} images/s)")
+    launches = _add(r["launches"] for r in runs.values())
+    keys = ("serve_throughput", "p50_latency_ms", "p95_latency_ms", "p99_latency_ms",
+            "padding_waste_frac", "bucket_occupancy", "rejected_at_submit", "schedule_lag_ms")
+    return {**launches, "variants": _add(r["variants"] for r in runs.values()), "rate": rate,
+            "runs": {name: {k: r["result"][k] for k in keys} for name, r in runs.items()}}
+
+
+# Raw decoded images of mixed sizes for submit_raw (height, width).
+RAW_SHAPES = ((300, 451), (97, 131), (224, 224), (480, 360), (131, 97), (256, 700))
+
+
+# Requests each of the two checkpoint engines serves at once: 16 batches of
+# 6, so their device loops replay side by side.
+CONCURRENT_REQUESTS = 96
+
+
+def phase_serve_checkpoint(directory: str, per_batch: dict, device="cuda") -> dict:
+    """DeiT-S served from the checkpoint directory phase_resume wrote,
+    through ``checkpoint_dir`` (params-only restore), and at the same time
+    by an engine given the restored model directly, each from its own
+    client: the two engines hold six distinct streams and their logits are
+    equal, bit for bit (graphs sharing a cuBLAS workspace would race). Then
+    raw images of mixed sizes through ``submit_raw`` equal
+    ``preprocess_request`` + ``submit``. Bucket 6: every batch here is full,
+    so none waits out its deadline, and both sides run the same graph at
+    the same rows."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from sav_tpu_torch import ServeConfig, ServeEngine, create_model
+    from sav_tpu_torch.serve.preprocess import preprocess_request
+    from sav_tpu_torch.train import Checkpointer
+
+    def config(**kw):
+        return ServeConfig(model_name="deit_s_patch16", compute_dtype="bfloat16", buckets=[6],
+                           deadline_ms=5000.0, device=device, **kw)
+
+    what = "serve deit_s_patch16 from a checkpoint"
+    reset_launches()
+    served = ServeEngine(config(checkpoint_dir=directory))
+    _check_capture(served.startup_report, per_batch, what)
+    report = served.startup_report
+    if report["params_source"] != f"checkpoint:{directory}":
+        raise AssertionError(f"{what}: params_source {report['params_source']!r}")
+    raw = Checkpointer(directory, read_only=True).restore_raw()
+    model = create_model("deit_s_patch16", seed=1)  # another seed: a missed restore shows
+    model.load_state_dict({**raw["params"], **raw["batch_stats"]}, strict=True)
+    reset_launches()
+    direct = ServeEngine(config(), model=model)
+    _check_capture(direct.startup_report, per_batch, f"{what}: the restored model")
+    streams = [s.cuda_stream for e in (served, direct)
+               for s in (e._feed_stream, e._compute_stream, e.graphs.stream)]
+    if len(set(streams)) != len(streams):
+        raise AssertionError(f"{what}: two live engines share a stream: {streams}")
+    rng = np.random.default_rng(3)
+    images = rng.integers(0, 256, (CONCURRENT_REQUESTS, 224, 224, 3), dtype=np.uint8)
+    raws = [rng.integers(0, 256, (h, w, 3), dtype=np.uint8) for h, w in RAW_SHAPES]
+    reset_launches()
+    with served, direct, ThreadPoolExecutor(2) as clients:
+        both = [clients.submit(_serve, engine, images, 1) for engine in (served, direct)]
+        got, want = (np.stack(f.result(timeout=600)) for f in both)
+        from_raw = np.stack([f.result(timeout=300) for f in [served.submit_raw(r) for r in raws]])
+        prepared = np.stack([f.result(timeout=300) for f in
+                             [served.submit(preprocess_request(r, 224)) for r in raws]])
+    _check_served_eagerly_nowhere(what)
+    runs = [_replayed(e.stats(), e.startup_report, per_batch, f"{what}: {name}")
+            for name, e in (("served", served), ("restored", direct))]
+    launches, variants = _add(r[0] for r in runs), _add(r[1] for r in runs)
+    del served, direct
+    if not np.array_equal(got, want):
+        raise AssertionError(f"{what}: logits differ from the restored model's by up to "
+                             f"{np.abs(got - want).max():.3e}")
+    if not np.array_equal(from_raw, prepared):
+        raise AssertionError(f"{what}: submit_raw differs from preprocess_request + submit by "
+                             f"up to {np.abs(from_raw - prepared).max():.3e}")
+    if not (np.isfinite(got).all() and np.isfinite(from_raw).all()):
+        raise AssertionError(f"{what}: non-finite logits")
+    log(f"{what} (step {raw['step']}, {report['params_source']}): {CONCURRENT_REQUESTS} logits "
+        f"rows, served at the same time as by an engine given the restored model (streams "
+        f"{streams}), equal its rows bit for bit; {len(raws)} raw images {list(RAW_SHAPES)} "
+        f"through submit_raw equal preprocess_request + submit bit for bit; launches (replays "
+        f"x captured) {json.dumps({k: n for k, n in launches.items() if n})}, by variant "
+        f"{json.dumps({k: v for k, v in variants.items() if launches[k]})}")
+    return {**launches, "variants": variants, "step": raw["step"]}
 
 
 def _train_common(model_name, batch_size, steps, image_size, num_classes, overrides) -> dict:
@@ -1900,11 +2229,11 @@ def phase_train(device="cuda", model_name="deit_s_patch16", batch_size=TRAIN_BAT
         dataclasses.replace(config, attention_backend="xla", attention_logits_dtype="float32"),
         model=dense, device=device,
     )
-    _reset_launches()
+    reset_launches()
     ref_state, ref_metrics = ref_trainer.train_step(ref_trainer.init_state(), batches[0])
     ref = {k: float(v) for k, v in ref_metrics.items()}
     ref_stats = {k: v.clone() for k, v in ref_state.batch_stats.items()}
-    if any(_launches().values()):
+    if any(launch_counts().values()):
         raise AssertionError("the dense reference trainer launched a kernel")
     del ref_trainer, ref_state, dense, ref_metrics
     torch.cuda.empty_cache()
@@ -1922,9 +2251,9 @@ def phase_train(device="cuda", model_name="deit_s_patch16", batch_size=TRAIN_BAT
 
     torch.cuda.reset_peak_memory_stats()
     windows = []
-    _reset_launches()
+    reset_launches()
     state, history = trainer.fit(feed(), num_steps=steps, state=state, log_fn=windows.append)
-    launches = _launches()
+    launches = launch_counts()
     peak_gb = torch.cuda.max_memory_allocated() / 2**30
     for record in history:
         log(f"train step {record['step']}: " + json.dumps(
@@ -2044,10 +2373,10 @@ def phase_remat_trade(state_dict, device="cuda") -> dict:
         state = trainer.init_state()
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
-        _reset_launches()
+        reset_launches()
         _, metrics = trainer.train_step(state, batch)
         loss = float(metrics["loss"])
-        launches = _launches()
+        launches = launch_counts()
         want = {**dict.fromkeys(COUNTERS, 0), "flash": blocks * (2 if remat else 1),
                 "flash_dq": blocks, "flash_dkv": blocks}
         if launches != want:
@@ -2129,10 +2458,10 @@ def _resume_run(source, directory, device) -> dict:
     if restored.step != 3:
         raise AssertionError(f"restore_or_init gave step {restored.step}, expected 3")
     per_step = attention_launches(second.model, train=True, family="fused")
-    _reset_launches()
+    reset_launches()
     state, history = second.fit(_resume_feed(restored.step, device), num_steps=TRAIN_STEPS,
                                 state=restored)
-    launches = _launches()
+    launches = launch_counts()
     second.checkpointer.close()
     got = {"losses": [r["loss"] for r in history], "state": _host_tree(state.state_dict())}
     # The resumed run's own save (step 6) finds the pinned host blocks the
@@ -2157,7 +2486,7 @@ def _tree_differences(got, want, path="") -> list:
     return [] if same else [path]
 
 
-def phase_resume(source, device="cuda") -> dict:
+def phase_resume(source, directory, device="cuda") -> dict:
     """DeiT-S bf16 at batch 256 through #1/#2: fit 6 steps uninterrupted;
     fit 3 steps into a checkpoint directory; a fresh Trainer's
     restore_or_init (step 3) and fit on to step 6 from the resumable feed's
@@ -2167,11 +2496,12 @@ def phase_resume(source, device="cuda") -> dict:
     runs again under torch.use_deterministic_algorithms(True), which names
     any op without a deterministic version (CUBLAS_WORKSPACE_CONFIG is set
     before CUDA starts), and the log says so. The resumed run launches 3x a
-    step's kernels."""
+    step's kernels. The checkpoints stay in a directory under ``directory``
+    (returned as ``"directory"``) for phase_serve_checkpoint."""
     deterministic = False
     while True:
-        with tempfile.TemporaryDirectory() as directory:
-            run = _resume_run(source, directory, device)
+        run_dir = os.path.join(directory, "deterministic" if deterministic else "default")
+        run = _resume_run(source, run_dir, device)
         differ = _tree_differences(run["got"], run["want"])
         if not differ:
             break
@@ -2199,6 +2529,7 @@ def phase_resume(source, device="cuda") -> dict:
         f"for {written['bytes']} bytes on disk; restore {run['restore_s'] * 1e3:.1f} ms"
     )
     return {**run["launches"], "variants": run["variants"], "deterministic": deterministic,
+            "directory": run_dir,
             "save_hold_ms": run["hold_s"] * 1e3, "warm_save_hold_ms": run["warm_hold_s"] * 1e3,
             "write_ms": written["write_s"] * 1e3,
             "warm_write_ms": run["warm_written"]["write_s"] * 1e3,
@@ -2245,11 +2576,11 @@ def phase_eval(source, device="cuda") -> dict:
         state = trainer.init_state()
         trainer.evaluate(state, iter(batches[:1]))  # warm
         torch.cuda.synchronize()
-        _reset_launches()
+        reset_launches()
         t0 = time.perf_counter()
         result = trainer.evaluate(state, iter(batches))
         seconds = time.perf_counter() - t0
-        launches = _launches()
+        launches = launch_counts()
         expected = _times(attention_launches(model, train=False, family="fused"),
                           len(batches)) if backend == "kernels" else dict.fromkeys(COUNTERS, 0)
         if launches != expected:
@@ -2308,19 +2639,19 @@ def phase_dropout(source, device="cuda") -> dict:
         trainer = Trainer(_deit_config(model_overrides=overrides), model=model, device=device)
         state = trainer.init_state()
         per_step = attention_launches(model, train=True, family="fused")
-        _reset_launches()
+        reset_launches()
         if rate_name == "dropout_rate":
             state, history = trainer.fit(iter(batches), num_steps=2, state=state)
-            launches, expected = _launches(), _times(per_step, 2)
+            launches, expected = launch_counts(), _times(per_step, 2)
             variants = _variant_launches(launches)
             losses = [r["loss"] for r in history]
         else:
             state, metrics = trainer.train_step(state, batches[0])
             losses = [float(metrics["loss"])]
-            launches, expected = _launches(), dict.fromkeys(COUNTERS, 0)
-            _reset_launches()
+            launches, expected = launch_counts(), dict.fromkeys(COUNTERS, 0)
+            reset_launches()
             trainer.eval_step(state, batches[1])
-            eval_launches = _launches()
+            eval_launches = launch_counts()
             eval_expected = attention_launches(model, train=False, family="fused")
             if eval_launches != eval_expected:
                 raise AssertionError(f"eval under attention dropout launched "
@@ -2436,9 +2767,17 @@ def main() -> None:
     times = phase_timing()
     serve = {"deit": phase_serve(), "cait": phase_serve(model_name="cait_xxs_24"),
              "botnet": phase_serve(model_name=BOTNET_MODEL, family="rel")}
+    benches = {"deit": phase_serve_bench("deit_s_patch16", serve["deit"]["per_batch"],
+                                         batch_1=True),
+               "cait": phase_serve_bench("cait_xxs_24", serve["cait"]["per_batch"]),
+               "botnet": phase_serve_bench(BOTNET_MODEL, serve["botnet"]["per_batch"])}
+    _release_engines()
     train = {"deit": phase_train(), "cait": phase_train(model_name="cait_xxs_24")}
     deit_source = _deit_source()
-    resume = phase_resume(deit_source)
+    with tempfile.TemporaryDirectory() as checkpoints:
+        resume = phase_resume(deit_source, checkpoints)
+        serve_ckpt = phase_serve_checkpoint(resume["directory"], serve["deit"]["per_batch"])
+    _release_engines()
     evaluation = phase_eval(deit_source)
     dropout = phase_dropout(deit_source)
     del deit_source
@@ -2467,6 +2806,8 @@ def main() -> None:
             "serve_botnet": serve["botnet"][kind], "train_botnet": train["botnet"]["launches"][kind],
             "train_resumed_deit": resume[kind], "eval_deit": evaluation[kind],
             "train_dropout_deit": dropout[kind],
+            "serve_bench": benches["deit"][kind], "serve_bench_cait": benches["cait"][kind],
+            "serve_bench_botnet": benches["botnet"][kind], "serve_checkpoint_deit": serve_ckpt[kind],
         }
 
     def total(kind):
@@ -2474,7 +2815,8 @@ def main() -> None:
 
     def by_variant(kind):
         out = {}
-        for run in (*serve.values(), *train.values(), resume, evaluation, dropout):
+        for run in (*serve.values(), *benches.values(), *train.values(), resume, evaluation,
+                    dropout, serve_ckpt):
             for variant, n in run["variants"][kind].items():
                 out[variant] = out.get(variant, 0) + n
         return out
@@ -2653,6 +2995,11 @@ def main() -> None:
              for name, r in train.items()}
     steps["vit384"].update({k: round(v, 2) for k, v in remat.items()})
     log(f"train summary: {json.dumps(steps)}")
+    log("serve summary (bf16, buckets 1-32; steps in ms by bucket; bench: images/s and ms): "
+        + json.dumps({name: {"steps": serve[name]["steps"], "compile_s": serve[name]["compile_s"],
+                             "replay_busy_ms_at_32": round(serve[name]["profile"]["busy_ms"], 4),
+                             "bench_rate": benches[name]["rate"], **benches[name]["runs"]}
+                      for name in serve}))
     log("checkpoint and eval summary: " + json.dumps({
         "resume": {k: resume[k] for k in ("save_hold_ms", "warm_save_hold_ms", "write_ms",
                                           "warm_write_ms", "bytes", "restore_ms",

@@ -91,7 +91,9 @@ class BoTMHSA(nn.Module):
             # The relative logits use the same scaled query as the content
             # logits: q scaled in its own dtype, then an f32 product.
             q_grid = query.reshape(b, height, width, h, d).permute(0, 3, 1, 2, 4)
-            q_grid = q_grid * torch.tensor(scale, dtype=dtype, device=inputs.device)
+            # A 0-dim CPU tensor: the scale rounds to q's dtype and reaches a CUDA op as
+            # a scalar argument, with no host-to-device copy (legal under graph capture).
+            q_grid = q_grid * torch.tensor(scale, dtype=dtype)
             bias = relative_logits_2d(q_grid, self.rel_emb_h.to(dtype), self.rel_emb_w.to(dtype))
             out = dense_attention(query, key, value, bias.reshape(b, h, length, length),
                                   scale=scale, logits_dtype=self.logits_dtype or dtype)

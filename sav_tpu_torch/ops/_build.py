@@ -93,6 +93,12 @@ def build_all(names=None) -> dict:
     return built
 
 
+def loaded() -> list:
+    """The names of the libraries this process has loaded."""
+    with _LOCK:
+        return sorted(_LIBS)
+
+
 def load(name: str) -> ctypes.CDLL:
     """The loaded library of ``csrc/<name>.cu``, built first if missing."""
     with _LOCK:

@@ -69,7 +69,9 @@ def dense_attention(
     if scale is None:
         scale = query.shape[-1] ** -0.5
     logits_dtype = torch.float32 if logits_dtype is None else _as_dtype(logits_dtype)
-    qs = query * torch.tensor(scale, dtype=query.dtype, device=query.device)
+    # A 0-dim CPU tensor: the scale rounds to q's dtype and reaches a CUDA op as
+    # a scalar argument, with no host-to-device copy (legal under graph capture).
+    qs = query * torch.tensor(scale, dtype=query.dtype)
     compute = torch.promote_types(query.dtype, logits_dtype)
     logits = torch.einsum(
         "...qhd,...khd->...hqk", qs.to(compute), key.to(compute)

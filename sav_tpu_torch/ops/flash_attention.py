@@ -1009,7 +1009,9 @@ def flash_botnet_attention(
         raise ValueError(f"L={length} != height*width={height * width}")
     if scale is None:
         scale = dim ** -0.5
-    qs = (query * torch.tensor(scale, dtype=query.dtype, device=query.device)).float()
+    # A 0-dim CPU tensor: the scale rounds to q's dtype and reaches a CUDA op as
+    # a scalar argument, with no host-to-device copy (legal under graph capture).
+    qs = (query * torch.tensor(scale, dtype=query.dtype)).float()
     cw = torch.einsum("blhd,rd->bhlr", qs, rel_k_w.float())
     ch = torch.einsum("blhd,rd->bhlr", qs, rel_k_h.float())
     rw_abs, rh_abs = compact_to_absolute(cw, ch, height, width)

@@ -392,7 +392,9 @@ def dense_talking_heads(query, key, value, w_pre, w_post, *, scale=None, dropout
     dtype."""
     if scale is None:
         scale = query.shape[-1] ** -0.5
-    qs = query * torch.tensor(scale, dtype=query.dtype, device=query.device)
+    # A 0-dim CPU tensor: the scale rounds to q's dtype and reaches a CUDA op as
+    # a scalar argument, with no host-to-device copy (legal under graph capture).
+    qs = query * torch.tensor(scale, dtype=query.dtype)
     logits = torch.einsum("bqhd,bkhd->bhqk", qs.float(), key.float())
     probs = _mix(w_post, torch.softmax(_mix(w_pre, logits), dim=-1))
     if dropout is not None:

@@ -229,6 +229,13 @@ class DynamicBatcher:
         with self._lock:
             self._inflight = max(self._inflight - 1, 0)
 
+    def pending(self) -> int:
+        """Requests not yet resolved: queued, plus drained batches not yet
+        completed (in batch units; nonzero means the device loop still owns
+        work). The engine's ``drain()`` polls this to zero."""
+        with self._lock:
+            return self._queue.qsize() + self._inflight
+
     def close(self) -> None:
         """Stop admission and fail queued-but-unshipped requests. Idempotent."""
         self._closed.set()
@@ -243,6 +250,10 @@ class DynamicBatcher:
             request.future.set_exception(
                 ServeClosedError("engine stopped before this request shipped")
             )
+
+    @property
+    def closed(self) -> bool:
+        return self._closed.is_set()
 
     def stats(self) -> dict:
         with self._lock:

@@ -1,0 +1,174 @@
+"""Serving benchmark: open-loop load against one :class:`ServeEngine`.
+
+The port's twin of the single-engine mode of ``tools/serve_bench.py``. It
+builds an engine (every bucket captured before admission opens), offers a
+synthetic request stream cycling a seeded pool of 16 distinct images, and
+prints ONE JSON line: p50/p95/p99 latency, throughput, bucket occupancy,
+padding waste, queue depth and deadline overruns (the engine's ledger),
+the engine's ``startup_report``, the replays per bucket and the feeder's
+counters, what was offered and refused at submit, and the card's name and
+power limit as ``nvidia-smi`` gives them (null on the CPU).
+
+Arms:
+  --rate 0     flood: every request offered at once (the drain ceiling)
+  --rate R     open loop: request i is due at i/R seconds, whether or not
+               the server keeps up (so a stall shows in the tail);
+               ``schedule_lag_ms`` says how late the generator ran
+  --batch-1    ladder [1], the no-batching baseline
+
+Latency is timed from submit to the future's result. The fleet, chaos,
+int8 and telemetry modes of ``tools/serve_bench.py`` wait for ROADMAP
+queue A5.6-A5.8.
+
+Usage (on the card; ``--device cpu`` runs it on the CPU):
+  python -m sav_tpu_torch.serve.bench --model deit_s_patch16 --max-batch 32 \\
+      --requests 2048 --max-queue 4096 --deadline-ms 60000
+  python -m sav_tpu_torch.serve.bench --checkpoint runs/ckpt --rate 2000
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import shutil
+import subprocess
+import sys
+import time
+from typing import Optional
+
+import numpy as np
+import torch
+
+POOL = 16
+
+
+def card() -> Optional[str]:
+    """``name, power.limit`` of the first card as nvidia-smi prints them;
+    None without a card or without nvidia-smi."""
+    if not torch.cuda.is_available() or shutil.which("nvidia-smi") is None:
+        return None
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=30, check=True,
+    )
+    return out.stdout.strip().splitlines()[0]
+
+
+def run(args: argparse.Namespace) -> dict:
+    """Build the engine ``args`` describe, offer the load, and return the
+    result line as a dict."""
+    from sav_tpu_torch.serve.batcher import QueueFullError
+    from sav_tpu_torch.serve.engine import ServeConfig, ServeEngine
+
+    buckets = [int(b) for b in args.buckets.split(",") if b.strip()] if args.buckets else None
+    if args.batch_1:
+        buckets = [1]
+    config = ServeConfig(
+        model_name=args.model,
+        num_classes=args.num_classes,
+        image_size=args.image_size,
+        attention_backend=None if args.backend == "auto" else args.backend,
+        model_overrides=json.loads(args.model_overrides) if args.model_overrides else None,
+        buckets=buckets,
+        max_batch=args.max_batch,
+        max_queue=args.max_queue,
+        deadline_ms=args.deadline_ms,
+        checkpoint_dir=args.checkpoint,
+        seed=args.seed,
+        device=args.device,
+    )
+    engine = ServeEngine(config)
+    rng = np.random.default_rng(args.seed)
+    pool = rng.integers(0, 256, (min(args.requests, POOL), args.image_size, args.image_size, 3),
+                        dtype=np.uint8)
+    futures, rejected, lag_s = [], 0, 0.0
+    with engine:
+        t0 = time.monotonic()
+        for i in range(args.requests):
+            if args.rate > 0:
+                due = t0 + i / args.rate
+                delay = due - time.monotonic()
+                if delay > 0:
+                    time.sleep(delay)
+                else:
+                    lag_s = max(lag_s, -delay)
+            try:
+                futures.append(engine.submit(pool[i % len(pool)]))
+            except QueueFullError:
+                rejected += 1
+        deadline = time.monotonic() + args.drain_timeout
+        for future in futures:
+            logits = future.result(timeout=max(deadline - time.monotonic(), 0.1))
+            if logits.shape != (args.num_classes,) or not np.isfinite(logits).all():
+                raise RuntimeError(f"bad logits: shape {logits.shape}")
+    stats = engine.stop()
+    summary = stats["ledger"]
+    latency = summary.get("latency_ms", {})
+    ladder = "bs1" if args.batch_1 else (args.buckets or f"pow2<={args.max_batch}")
+    load = f"{args.rate} req/s" if args.rate > 0 else "flood"
+    return {
+        "metric": (f"{args.model} serve p99 ms (buckets {ladder}, {load}, deadline "
+                   f"{args.deadline_ms} ms, {args.requests} reqs)"),
+        "unit": "ms",
+        "outcome": "ok" if not stats["errors"] else "error",
+        "platform": "gpu" if engine.device.type == "cuda" else "cpu",
+        "device": torch.cuda.get_device_name(0) if engine.device.type == "cuda" else "cpu",
+        "card": card() if engine.device.type == "cuda" else None,
+        "p50_latency_ms": latency.get("p50"),
+        "p95_latency_ms": latency.get("p95"),
+        "p99_latency_ms": latency.get("p99"),
+        "serve_throughput": summary["throughput_rps"],
+        "padding_waste_frac": summary["padding_waste_frac"],
+        "bucket_occupancy": summary["bucket_occupancy"],
+        "queue_depth_avg": summary["queue_depth_avg"],
+        "queue_depth_max": summary["queue_depth_max"],
+        "deadline_overruns": summary["deadline_overruns"],
+        "requests": summary["requests"],
+        "offered": args.requests,
+        "rejected_at_submit": rejected,
+        "rate": args.rate,
+        "schedule_lag_ms": round(lag_s * 1e3, 3),
+        "errors": stats["errors"],
+        "summary": summary,
+        "startup": engine.startup_report,
+        "replays": stats["replays"],
+        "feeder": stats["feeder"],
+    }
+
+
+def parser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(description=__doc__,
+                                formatter_class=argparse.RawDescriptionHelpFormatter)
+    p.add_argument("--model", default="deit_s_patch16")
+    p.add_argument("--num-classes", type=int, default=1000)
+    p.add_argument("--image-size", type=int, default=224)
+    p.add_argument("--backend", default="auto", choices=["auto", "xla", "fused", "pallas"],
+                   help="attention backend (auto = the port's dispatch rule)")
+    p.add_argument("--model-overrides", default=None, metavar="JSON")
+    p.add_argument("--buckets", default=None,
+                   help="comma-separated batch-size ladder (default: powers of two up to "
+                        "--max-batch); one captured program per rung")
+    p.add_argument("--max-batch", type=int, default=8)
+    p.add_argument("--batch-1", action="store_true", help="ladder [1]: the no-batching baseline")
+    p.add_argument("--max-queue", type=int, default=256)
+    p.add_argument("--deadline-ms", type=float, default=100.0)
+    p.add_argument("--checkpoint", default=None,
+                   help="training checkpoint directory to serve (params-only restore)")
+    p.add_argument("--requests", type=int, default=512, help="requests to offer")
+    p.add_argument("--rate", type=float, default=0.0,
+                   help="open-loop offered load in req/s (0 = flood everything at once)")
+    p.add_argument("--drain-timeout", type=float, default=120.0,
+                   help="seconds to wait for the last future")
+    p.add_argument("--seed", type=int, default=0, help="weights (fresh init) and request pool")
+    p.add_argument("--device", default="cuda", help="'cuda' (default) or 'cpu'")
+    return p
+
+
+def main(argv=None) -> int:
+    out = run(parser().parse_args(argv))
+    print(json.dumps(out))
+    return 0 if out["outcome"] == "ok" else 1
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,25 +1,38 @@
-"""Serving engine: bucketed dynamic batching over one warmed model.
+"""Serving engine: bucketed dynamic batching over captured programs.
 
 Port of the serving core of ``sav_tpu/serve/engine.py``. One engine owns:
 
-- **A model on the device**, its parameters loaded from a ``sav_tpu`` flax
-  tree (:mod:`sav_tpu_torch.interop`), passed in as a built module, or
-  drawn from ``ServeConfig.seed``; cast to the compute dtype, except the
-  tensors flax keeps f32 (BatchNorm's scale, bias and running statistics,
-  BoTNet's relative tables: :func:`~sav_tpu_torch.models.layers.cast_for_compute`),
+- **A model on the device**, its parameters restored params-only from a
+  training checkpoint (``ServeConfig.checkpoint_dir``, the port's
+  :class:`~sav_tpu_torch.train.checkpoint.Checkpointer`; the optimizer
+  file is never opened), loaded from a ``sav_tpu`` flax tree
+  (:mod:`sav_tpu_torch.interop`), passed in as a built module, or drawn
+  from ``ServeConfig.seed``; cast to the compute dtype, except the tensors
+  flax keeps f32 (BatchNorm's scale, bias and running statistics, BoTNet's
+  relative tables: :func:`~sav_tpu_torch.models.layers.cast_for_compute`),
   and in eval mode, so BatchNorm uses its running statistics.
-- **A bucket ladder**, each rung warmed by one forward at startup, which
-  also seeds the batcher's per-bucket step estimate (``startup_report``).
-- **A deadline-aware dynamic batcher** (:mod:`sav_tpu_torch.serve.batcher`).
-- **One device thread**: it drains a batch, pads it to its bucket in a
-  pinned uint8 host tensor, copies it to the device without blocking,
-  normalises there, runs the model, and does ONE ``.cpu()`` per batch
-  before it resolves the futures. Padded rows are zeroed by the validity
-  mask.
+- **A ladder of captured programs.** On the card, startup warms and
+  captures one CUDA graph per bucket (:mod:`sav_tpu_torch.serve.graphs`)
+  before admission opens, so request time never runs the model from
+  Python; ``startup_report`` says what the capture launched and cost. On
+  the CPU (``device="cpu"``, as the tests ask) the infer function runs
+  eagerly. A CUDA graph cannot be saved to disk, so there is no
+  ``compilation_cache_dir``: a restart captures again, and only the kernel
+  libraries under ``build/`` persist (``compiled_from_scratch`` and
+  ``cache_hits`` count them).
+- **A deadline-aware dynamic batcher** (:mod:`sav_tpu_torch.serve.batcher`),
+  its per-bucket step estimates seeded from timed replays.
+- **A double-buffered feed** (:class:`~sav_tpu_torch.data.feeder.DeviceFeeder`):
+  its worker drains the batcher, pads each batch into pinned host memory
+  and copies it to the card on a CUDA stream of its own, while the device
+  loop runs the batch before. The device loop waits on the batch's event,
+  copies it into its bucket's static buffers, replays the graph on the
+  engine's compute stream and makes ONE copy of the logits to the host per
+  batch before it resolves the futures. Padded rows come out exactly 0
+  (the validity mask).
 
-Not ported yet (ROADMAP queue A5): request telemetry, quality probes, the
-fleet, int8 weights, sharding layouts, a compile/graph cache and the
-double-buffered ``DeviceFeeder``.
+Not ported yet (ROADMAP queue A5.6-A5.8, A10): the run manifest, request
+telemetry, quality probes, int8 weights and sharding layouts.
 """
 
 from __future__ import annotations
@@ -27,15 +40,17 @@ from __future__ import annotations
 import dataclasses
 import threading
 import time
-from typing import Callable, Optional
+from typing import Callable, NamedTuple, Optional
 
 import numpy as np
 import torch
 from torch import nn
 
+from sav_tpu_torch.data.feeder import DeviceFeeder
 from sav_tpu_torch.interop import params_from_flax
 from sav_tpu_torch.models import create_model
 from sav_tpu_torch.models.layers import cast_for_compute
+from sav_tpu_torch.ops import _build
 from sav_tpu_torch.ops.preprocess import normalize_images
 from sav_tpu_torch.serve.batcher import (
     DynamicBatcher,
@@ -44,7 +59,10 @@ from sav_tpu_torch.serve.batcher import (
     ServeClosedError,
 )
 from sav_tpu_torch.serve.bucketing import BucketLadder, default_ladder
+from sav_tpu_torch.serve.graphs import BucketGraphs, held_stream
 from sav_tpu_torch.serve.latency import LatencyLedger
+from sav_tpu_torch.serve.preprocess import preprocess_request
+from sav_tpu_torch.train.checkpoint import Checkpointer
 from sav_tpu_torch.utils.device import COMPUTE_DTYPES, require_device
 
 
@@ -60,11 +78,18 @@ class ServeConfig:
     attention_backend: Optional[str] = None
     # Extra create_model arguments (config overrides, logits_dtype).
     model_overrides: Optional[dict] = None
-    # Batch-size rungs; None = powers of two up to max_batch.
+    # Batch-size rungs, one captured program each; None = powers of two up
+    # to max_batch.
     buckets: Optional[list] = None
     max_batch: int = 8
     max_queue: int = 256
     deadline_ms: float = 100.0
+    # Placed batches buffered beyond the one executing (the DeviceFeeder's
+    # depth: the copy of batch N+1 to the card overlaps the run of N).
+    feed_depth: int = 2
+    # A training checkpoint to serve (params-only restore; the optimizer
+    # state is never read). None = params, model or a fresh init.
+    checkpoint_dir: Optional[str] = None
     seed: int = 0
     device: str = "cuda"
 
@@ -84,7 +109,8 @@ def build_infer_fn(model: nn.Module, compute_dtype: torch.dtype) -> Callable:
 
     Normalisation runs on the device the batch is on; padded rows (valid 0)
     come out exactly 0. Runs under ``torch.inference_mode`` in whichever
-    thread calls it (the mode is thread-local).
+    thread calls it (the mode is thread-local). Nothing in it copies from
+    the host, so it can be captured as a CUDA graph.
     """
 
     def infer(images: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
@@ -100,26 +126,78 @@ def build_infer_fn(model: nn.Module, compute_dtype: torch.dtype) -> Callable:
     return infer
 
 
+def restore_params(model: nn.Module, directory: str) -> None:
+    """Copy the newest checkpoint's ``params`` and ``batch_stats`` in
+    ``directory`` into ``model``'s parameters and buffers, params-only
+    (:meth:`Checkpointer.restore_params_only`: the optimizer file is never
+    opened). Raises ``FileNotFoundError`` when the directory holds no
+    checkpoint."""
+    template = {"params": dict(model.named_parameters()),
+                "batch_stats": dict(model.named_buffers())}
+    ckpt = Checkpointer(directory, read_only=True)
+    try:
+        restored = ckpt.restore_params_only(template)
+    finally:
+        ckpt.close()
+    if restored is None:
+        raise FileNotFoundError(f"no checkpoint found in {directory!r}")
+    with torch.no_grad():
+        for kind in ("params", "batch_stats"):
+            for name, value in restored[kind].items():
+                template[kind][name].copy_(value)
+
+
+class Placed(NamedTuple):
+    """A batch on the engine's device: the padded uint8 images, the
+    validity mask and, on the card, the event its copy recorded."""
+
+    images: torch.Tensor
+    valid: torch.Tensor
+    event: Optional[torch.cuda.Event]
+
+
 class ServeEngine:
-    """One model, one warmed bucket ladder, one batcher, one device thread.
+    """One model, one ladder of captured programs, one batcher, one feeder,
+    one device thread.
 
-    Construction loads the parameters and warms every bucket
-    (:attr:`startup_report`); :meth:`start` opens admission; :meth:`submit`
-    returns a future per request; :meth:`stop` fails what is still queued
-    and joins the device thread. Context manager = start/stop.
+    Construction loads the parameters and, on the card, warms and captures
+    every bucket (:attr:`startup_report`); :meth:`start` opens admission;
+    :meth:`submit` (or :meth:`submit_raw`) returns a future per request;
+    :meth:`drain` waits for what was admitted; :meth:`stop` fails what is
+    still queued and joins the device thread. Context manager = start/stop.
 
-    Parameters come from ``params`` (a flax tree, with ``batch_stats``
-    beside ``params`` for a BatchNorm model, converted by
-    :func:`~sav_tpu_torch.interop.params_from_flax`) loaded into ``model``
+    Parameters come from ``config.checkpoint_dir`` (params-only, through
+    :func:`restore_params`), else from ``params`` (a flax tree, with
+    ``batch_stats`` beside ``params`` for a BatchNorm model, converted by
+    :func:`~sav_tpu_torch.interop.params_from_flax`), loaded into ``model``
     (or a registry model), else from ``model`` as passed, else from a fresh
     init drawn from ``config.seed``.
+
+    Several engines may serve on one device at once: each holds streams
+    of its own (:func:`~sav_tpu_torch.serve.graphs.held_stream`), so their
+    graphs never share a cuBLAS workspace.
+
+    Test seams: ``place_hook`` fires on the feeder thread after a batch is
+    placed, ``execute_hook`` on the device loop before it runs one; the
+    overlap test holds a batch in ``execute_hook`` and waits for the next
+    one's ``place_hook``.
     """
 
-    def __init__(self, config: ServeConfig, *, model: Optional[nn.Module] = None, params=None):
+    def __init__(
+        self,
+        config: ServeConfig,
+        *,
+        model: Optional[nn.Module] = None,
+        params=None,
+        place_hook: Optional[Callable[[FormedBatch], None]] = None,
+        execute_hook: Optional[Callable[[FormedBatch], None]] = None,
+    ):
         self.config = config
         self.device = require_device(config.device)
         self.ladder = config.ladder()
         self.compute_dtype = COMPUTE_DTYPES[config.compute_dtype]
+        self.place_hook = place_hook
+        self.execute_hook = execute_hook
         t0 = time.perf_counter()
         source = "passed"
         if model is None:
@@ -132,14 +210,33 @@ class ServeEngine:
                 **(config.model_overrides or {}),
             )
             source = "init"
-        if params is not None:
+        if config.checkpoint_dir:
+            restore_params(model, config.checkpoint_dir)
+            source = f"checkpoint:{config.checkpoint_dir}"
+        elif params is not None:
             model.load_state_dict(params_from_flax(params), strict=True)
             source = "flax"
         self.model = cast_for_compute(model.to(self.device), self.compute_dtype).eval()
-        self._infer = build_infer_fn(self.model, self.compute_dtype)
-        param_bytes = sum(p.numel() * p.element_size() for p in self.model.parameters())
-        # Two passes over the ladder: the first builds kernels and warms the
-        # libraries, the second times each bucket for the batcher.
+        self.infer_fn = build_infer_fn(self.model, self.compute_dtype)
+        param_bytes = sum(t.numel() * t.element_size() for t in self.model.state_dict().values())
+        on_card = self.device.type == "cuda"
+        # Batches are copied to the card on the feed stream and run on the
+        # compute stream, both held by this engine alone (graphs.held_stream).
+        self._feed_stream = held_stream(self.device, self) if on_card else None
+        self._compute_stream = held_stream(self.device, self) if on_card else None
+        built_before, loaded_before = set(_build.BUILD_LOGS), set(_build.loaded())
+        self.graphs: Optional[BucketGraphs] = None
+        if on_card:
+            self.graphs = BucketGraphs(self.infer_fn, self.ladder.buckets,
+                                       config.image_size, self.device)
+            bucket_hbm = {b: param_bytes + n for b, n in self.graphs.hbm_bytes.items()}
+        else:
+            s = config.image_size
+            bucket_hbm = {b: param_bytes + b * s * s * 3 + b * config.num_classes * 4
+                          for b in self.ladder.buckets}
+        # Two passes over the ladder, through the path that serves (a replay
+        # on the card): the first warms it (on the CPU it is the warm-up),
+        # the second times each bucket for the batcher.
         self._step_est: dict = {}
         warmup_t0 = time.perf_counter()
         for _ in range(2):
@@ -147,6 +244,7 @@ class ServeEngine:
                 t = time.perf_counter()
                 self._run(bucket, [])
                 self._step_est[bucket] = time.perf_counter() - t
+        built = set(_build.BUILD_LOGS) - built_before
         self.startup_report = {
             "model": config.model_name,
             "device": str(self.device),
@@ -155,32 +253,87 @@ class ServeEngine:
             "dtype": config.compute_dtype,
             "param_bytes": param_bytes,
             "startup_s": round(time.perf_counter() - t0, 3),
+            # The capture of every bucket (None: the CPU runs eagerly).
+            "compile_s": round(self.graphs.capture_s, 3) if self.graphs else None,
+            # Kernel libraries nvcc built during this startup, and those
+            # loaded from build/ without a build.
+            "compiled_from_scratch": len(built),
+            "cache_hits": len(set(_build.loaded()) - loaded_before - built),
+            "captured_launches": (
+                {str(b): n for b, n in self.graphs.captured_launches.items()}
+                if self.graphs else None
+            ),
+            "captured_variants": (
+                {str(b): n for b, n in self.graphs.captured_variants.items()}
+                if self.graphs else None
+            ),
+            # A bucket's device memory, its parameters included as in
+            # sav_tpu: on the card the parameters plus the peak over its
+            # warm-up and its static buffers, on the CPU sav_tpu's floor.
+            "bucket_hbm_bytes": {str(b): int(n) for b, n in bucket_hbm.items()},
+            "bucket_hbm_source": "measured" if on_card else "analytic",
             "warmup_s": round(time.perf_counter() - warmup_t0, 3),
             "warmup_step_s": {str(b): round(s, 5) for b, s in self._step_est.items()},
         }
         self.ledger = LatencyLedger()
+        self._replays = dict.fromkeys(self.ladder.buckets, 0)
         self._batcher: Optional[DynamicBatcher] = None
+        self._feeder: Optional[DeviceFeeder] = None
         self._device_thread: Optional[threading.Thread] = None
         self._started = False
         self._stopped = False
         self._errors = 0
 
-    def _run(self, bucket: int, payloads: list) -> np.ndarray:
-        """Pad ``payloads`` to ``bucket`` rows, run the model, return the
-        ``[bucket, num_classes]`` host logits (the one sync of a batch)."""
+    # ------------------------------------------------------------ batches
+
+    def _place(self, bucket: int, payloads: list) -> Placed:
+        """Pad ``payloads`` to ``bucket`` rows in (pinned) host memory and
+        copy them to the device; on the card without a wait, on the feed
+        stream, recording the event the compute stream waits on."""
         s = self.config.image_size
-        pin = self.device.type == "cuda"
-        images = torch.zeros((bucket, s, s, 3), dtype=torch.uint8, pin_memory=pin)
+        on_card = self._feed_stream is not None
+        images = torch.empty((bucket, s, s, 3), dtype=torch.uint8, pin_memory=on_card)
         rows = images.numpy()
         for i, payload in enumerate(payloads):
             rows[i] = payload
-        valid = torch.zeros((bucket,), dtype=torch.float32, pin_memory=pin)
+        rows[len(payloads):] = 0
+        valid = torch.zeros((bucket,), dtype=torch.float32, pin_memory=on_card)
         valid[: len(payloads)] = 1.0
-        logits = self._infer(
-            images.to(self.device, non_blocking=True),
-            valid.to(self.device, non_blocking=True),
-        )
-        return logits.cpu().numpy()
+        if not on_card:
+            return Placed(images, valid, None)
+        with torch.cuda.stream(self._feed_stream):
+            images = images.to(self.device, non_blocking=True)
+            valid = valid.to(self.device, non_blocking=True)
+            event = torch.cuda.Event()
+            event.record()
+        # The compute stream reads them: the caching allocator must not
+        # hand their blocks to the feed stream before it has.
+        images.record_stream(self._compute_stream)
+        valid.record_stream(self._compute_stream)
+        return Placed(images, valid, event)
+
+    def _execute(self, bucket: int, placed: Placed) -> np.ndarray:
+        """Run one placed batch: on the card, replay the bucket's graph on
+        the compute stream after the batch's copy; return the
+        ``[bucket, num_classes]`` host logits (the one sync of a batch)."""
+        if self.graphs is None:
+            return self.infer_fn(placed.images, placed.valid).numpy()
+        with torch.cuda.stream(self._compute_stream):
+            self._compute_stream.wait_event(placed.event)
+            logits = self.graphs.replay(bucket, placed.images, placed.valid)
+            # Into pinned memory, then a wait on the stream: a copy to
+            # pageable memory would hold the feeder's copy to the card
+            # until the replay ended.
+            host = torch.empty(logits.shape, dtype=logits.dtype, pin_memory=True)
+            host.copy_(logits, non_blocking=True)
+            self._compute_stream.synchronize()
+        return host.numpy().copy()
+
+    def _run(self, bucket: int, payloads: list) -> np.ndarray:
+        """Place and execute one batch on the calling thread."""
+        return self._execute(bucket, self._place(bucket, payloads))
+
+    # ------------------------------------------------------------ serving
 
     def start(self) -> "ServeEngine":
         if self._started:
@@ -191,6 +344,12 @@ class ServeEngine:
             max_queue=self.config.max_queue,
             default_deadline_s=self.config.deadline_ms / 1e3,
         )
+        self._feeder = DeviceFeeder(
+            self._formed_batches(),
+            self._place_formed,
+            depth=self.config.feed_depth,
+            name="serve-feeder",
+        )
         self._device_thread = threading.Thread(
             target=self._device_loop, name="serve-device-loop", daemon=True
         )
@@ -199,21 +358,54 @@ class ServeEngine:
         self._device_thread.start()
         return self
 
-    def _device_loop(self):
+    def _formed_batches(self):
+        """The batcher's drain as the feeder's source (on the feeder's
+        worker thread: the drain's wait and the copy of the next batch both
+        overlap the device loop's run)."""
         while True:
             formed = self._batcher.next_batch()
             if formed is None:
                 return
-            t0 = time.perf_counter()
-            try:
-                host = self._run(formed.bucket, [r.payload for r in formed.requests])
-            except Exception as e:  # noqa: BLE001 — fail this batch, serve on
-                self._errors += 1
-                self._batcher.mark_completed()
-                for request in formed.requests:
+            yield formed
+
+    def _place_formed(self, formed: FormedBatch):
+        """Pad and copy one formed batch (the feeder's worker thread)."""
+        try:
+            placed = self._place(formed.bucket, [r.payload for r in formed.requests])
+            if self.place_hook is not None:
+                self.place_hook(formed)
+            return formed, placed
+        except BaseException as e:
+            # A failed placement must not strand its submitters; fail them,
+            # then let the feeder hand the error to the device loop.
+            self._batcher.mark_completed()
+            for request in formed.requests:
+                if not request.future.done():
                     request.future.set_exception(e)
-                continue
-            self._complete(formed, host, t0)
+            raise
+
+    def _device_loop(self):
+        try:
+            for formed, placed in self._feeder:
+                t0 = time.perf_counter()
+                try:
+                    if self.execute_hook is not None:
+                        self.execute_hook(formed)
+                    host = self._execute(formed.bucket, placed)
+                    if self.graphs is not None:
+                        self._replays[formed.bucket] += 1
+                    self._complete(formed, host, t0)
+                except Exception as e:  # noqa: BLE001 — fail this batch, serve on
+                    self._errors += 1
+                    self._batcher.mark_completed()
+                    for request in formed.requests:
+                        if not request.future.done():
+                            request.future.set_exception(e)
+        except Exception:  # noqa: BLE001 — the feeder or a placement died
+            # _place_formed failed the batch in hand; close() fails what is
+            # still queued, so no submitter waits on a future nothing sets.
+            self._errors += 1
+            self._batcher.close()
 
     def _complete(self, formed: FormedBatch, host: np.ndarray, t0: float):
         self._batcher.mark_completed()
@@ -237,14 +429,16 @@ class ServeEngine:
 
     def submit(self, image: np.ndarray, *, deadline_ms: Optional[float] = None):
         """Admit one ``[image_size, image_size, 3]`` uint8 request; returns
-        its future. Raises :class:`QueueFullError` on an admission reject."""
+        its future. Raises :class:`QueueFullError` on an admission reject.
+        Raw decoded images go through :meth:`submit_raw`."""
         if not self._started or self._stopped:
             raise ServeClosedError("engine is not serving (start() first)")
         image = np.asarray(image)
         s = self.config.image_size
         if image.shape != (s, s, 3) or image.dtype != np.uint8:
             raise ValueError(
-                f"expected a [{s}, {s}, 3] uint8 request, got {image.shape} {image.dtype}"
+                f"expected a [{s}, {s}, 3] uint8 request, got {image.shape} {image.dtype}; "
+                "run preprocess_request() (or submit_raw) first"
             )
         deadline_s = (deadline_ms if deadline_ms is not None else self.config.deadline_ms) / 1e3
         try:
@@ -253,21 +447,51 @@ class ServeEngine:
             self.ledger.observe_rejected()
             raise
 
+    def submit_raw(self, image: np.ndarray, *, deadline_ms: Optional[float] = None):
+        """``submit`` for a raw decoded ``[H, W, 3]`` uint8 image: the eval
+        center crop and bicubic resize on the host
+        (:func:`~sav_tpu_torch.serve.preprocess.preprocess_request`), then
+        admission."""
+        return self.submit(preprocess_request(image, self.config.image_size),
+                           deadline_ms=deadline_ms)
+
+    # ----------------------------------------------------------- shutdown
+
+    def drain(self, timeout_s: float = 30.0, *, poll_s: float = 0.02) -> bool:
+        """Wait until every admitted request has resolved (nothing queued,
+        no drained batch still in the feeder or on the device loop). True
+        when drained, False on timeout (:meth:`stop` then fails what is
+        still queued). Polls on the host; no device sync."""
+        if self._batcher is None:
+            return True
+        deadline = time.monotonic() + float(timeout_s)
+        while self._batcher.pending() > 0:
+            if time.monotonic() >= deadline:
+                return False
+            time.sleep(poll_s)
+        return True
+
     def stop(self, timeout_s: float = 30.0) -> dict:
-        """Fail queued requests, let the batch on the device finish, join the
-        device thread. Returns the serving summary. Idempotent."""
+        """Fail queued requests, let the batches already drained finish,
+        join the device thread, close the feeder. Returns the serving
+        summary. Idempotent."""
         if not self._stopped:
             self._stopped = True
             if self._batcher is not None:
                 self._batcher.close()
             if self._device_thread is not None:
                 self._device_thread.join(timeout=timeout_s)
+            if self._feeder is not None:
+                self._feeder.close()
         return self.stats()
 
     def stats(self) -> dict:
-        out = {"ledger": self.ledger.summary(), "errors": self._errors}
+        out = {"ledger": self.ledger.summary(), "errors": self._errors,
+               "replays": {str(b): n for b, n in self._replays.items()}}
         if self._batcher is not None:
             out["batcher"] = self._batcher.stats()
+        if self._feeder is not None:
+            out["feeder"] = self._feeder.stats()
         return out
 
     def __enter__(self) -> "ServeEngine":

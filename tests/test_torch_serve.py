@@ -183,28 +183,25 @@ def test_float_images_are_refused(flax_params):
             engine.submit(np.zeros((16, 16, 3), np.uint8))
 
 
-class _GatedModel(torch.nn.Module):
-    """Holds each forward until ``release`` is set (admission/stop tests)."""
+class _Gate:
+    """Holds the feeder's worker inside the placement of each batch until
+    ``release`` is set (admission/stop tests): the batcher's drain then
+    stops pulling, so later requests stay queued."""
 
-    def __init__(self, inner):
-        super().__init__()
-        self.inner = inner
+    def __init__(self):
         self.entered = threading.Event()
         self.release = threading.Event()
-        self.release.set()
 
-    def forward(self, x):
+    def place_hook(self, formed):
         self.entered.set()
         if not self.release.wait(timeout=30):
             raise TimeoutError("gate never released")
-        return self.inner(x)
 
 
 def _gated_engine(flax_params, **kw):
-    gate = _GatedModel(small_port_model(flax_params))
-    engine = ServeEngine(_config(buckets=[1], deadline_ms=60_000.0, **kw), model=gate)
-    gate.release.clear()
-    gate.entered.clear()
+    gate = _Gate()
+    engine = ServeEngine(_config(buckets=[1], deadline_ms=60_000.0, **kw),
+                         model=small_port_model(flax_params), place_hook=gate.place_hook)
     return engine.start(), gate
 
 
@@ -213,7 +210,7 @@ def test_queue_full_past_max_queue(flax_params):
     image = _images(1)[0]
     try:
         first = engine.submit(image)
-        assert gate.entered.wait(timeout=10)  # the device thread holds it
+        assert gate.entered.wait(timeout=10)  # the feeder's worker holds it
         queued = [engine.submit(image) for _ in range(2)]
         with pytest.raises(QueueFullError, match="capacity"):
             engine.submit(image)
