@@ -5,6 +5,10 @@ Run from the root of the repository on a machine with one NVIDIA Hopper GPU:
 
     python3 chip_smoke.py
 
+``python3 chip_smoke.py --remat-trade`` runs only the device, build and
+remat-trade phases, on ViT-B/16@384's seed-0 weights, and prints the
+trade's peak memories as one JSON line.
+
 Phases, each of which exits non-zero on failure:
 
 1. device: refuse to run without CUDA; print the card's name and power limit
@@ -80,28 +84,41 @@ Phases, each of which exits non-zero on failure:
    must beat in images/s; each run checked as above.
 6. train: Trainer trains deit_s_patch16, then cait_xxs_24 (bf16 over f32
    parameters, global batch 256, CaiT at its recipe's stochastic depth 0.05)
-   for 6 steps on synthetic learnable batches through fit(); every step must
-   launch each forward and backward kernel once per attention module that
-   takes it (#1-#10 on the tensor cores; #10 is two kernels, dq and
-   dk/dv, each launched once per talking-heads module), every loss must be
-   finite, the
-   loss must fall, and the first step's loss and grad norm must agree with
-   the same step on the dense attention paths (f32 softmax, the same
-   stochastic-depth masks). After each counted run, one more step under
-   torch.profiler gives the device's busy time by kernel group and its
-   idle share.
-7. the run path on DeiT-S (bf16, batch 256, #1/#2): resume (fit 6 steps;
-   fit 3 steps into a checkpoint directory; a fresh Trainer's
+   for 6 steps on synthetic learnable batches through fit(), which on the
+   card replays one CUDA graph of the whole step (train/graphs.py): the
+   counters must move by the two eager warm-ups and the capture alone, the
+   capture must hold each forward and backward kernel once per attention
+   module that takes it (#1-#10 on the tensor cores; #10 is two kernels,
+   dq and dk/dv), and replays x captured must be 6 steps' launches; every
+   loss must be finite, the loss must fall, and the first step's loss and
+   grad norm must agree with the same step on the dense attention paths
+   (f32 softmax, the same stochastic-depth masks). From the same start,
+   fit runs again with the eager step (the same losses, bit for bit), and
+   3 captured steps must equal 3 eager ``_train_step_impl`` steps bit for
+   bit: metrics, every parameter, buffer, Adam moment, count and generator
+   state. One step of each fit under torch.profiler gives the device's busy
+   time by kernel group, its idle share and the attention kernels by name.
+7. the run path on DeiT-S (bf16, batch 256, #1/#2): resume (uint8 batches
+   mixed with cutmix_mixup and normalised inside the captured step; fit 6
+   steps; fit 3 steps into a checkpoint directory; a fresh Trainer's
    restore_or_init and fit on to step 6 from the resumable feed: steps 4-6
    bit-equal to the uninterrupted run, losses, parameters, moments and
-   generator state; 3 steps' launches; the save's hold on the training
-   thread, its background write, the bytes and the restore time), eval
-   (Trainer.evaluate over 1,000 held-out images, the last batch of 232
-   padded, kernels against the dense path; fit with eval_every_epochs=1
-   appends eval records at steps 3 and 6) and dropout (dropout_rate 0.1
-   keeps #1/#2's launches; attn_dropout_rate 0.1 trains on the dense path,
-   launching no attention kernel, and evaluates through #1). The resumed
-   run's checkpoint is then served through ServeConfig.checkpoint_dir
+   generator state, the "mix" generator's included; one capture and 3
+   replays; the save's hold on the training thread, its background write,
+   the bytes and the restore time), eval (Trainer.evaluate over 1,000
+   held-out images, the last batch of 232 padded, through one captured
+   eval step, kernels against the dense path; fit with eval_every_epochs=1
+   appends eval records at steps 3 and 6), dropout (dropout_rate 0.1 keeps
+   #1/#2's launches in the captured step; attn_dropout_rate 0.1 trains on
+   the dense path, launching no attention kernel, and evaluates through
+   #1), device preprocessing (uint8 HWCN host batches through the feeder,
+   cutmix_mixup_randaugment_405 and an EMA: 6 captured steps with a
+   falling loss, 3 captured steps equal to 3 eager ones bit for bit, half
+   the bytes of a bf16 batch) and the train bench (``python -m
+   sav_tpu_torch.train.bench`` through its ``main`` for DeiT-S at 256,
+   with bf16 batches and with ``--device-preprocess``: one JSON line each,
+   with the MFU against the card's table peak). The resumed run's
+   checkpoint is then served through ServeConfig.checkpoint_dir
    (params-only restore): its logits equal, bit for bit, an engine given
    the restored model, and six raw images of mixed sizes through
    submit_raw equal preprocess_request + submit.
@@ -112,16 +129,16 @@ Phases, each of which exits non-zero on failure:
    the surgery's, none kept fresh; it trains as in 6 for 6 steps at the
    recipe's global batch 512 in 4 micro-batches of 128: 4 x (24 flash
    forward launches (12 blocks, each recomputed once), 12 dq and 12 dk/dv)
-   per step, no fused launch; the dense reference runs with remat and the
-   same accumulation. Then one step of 128 with remat and one without give
-   the same loss, and their peak memories.
+   per captured step, no fused launch; the dense reference runs with remat
+   and the same accumulation. Then one eager step of 128 with remat and one
+   without give the same loss, and their peak memories, eager and captured.
 9. BoTNet: botnet_t3 (full width and depth, 224²) is served and benched in
    5, after CaiT (6 relative-position forward launches per batch, no other
    kernel),
    and trained as in 6 from get_preset("botnet_t3_imagenet") at its global
    batch 2048 in 8 micro-batches of 256 (8 x (6 forward, 6 dq and 6 dk/dv)
-   launches per step); its first step's running statistics are compared
-   with the dense path's under the same accumulation too.
+   launches per captured step); its first step's running statistics are
+   compared with the dense path's under the same accumulation too.
 
 Before each agreement check the head is drawn at std 0.02, every
 LayerScale scale at 0.05-0.15 (CaiT's init of 1e-5 would hide a wrong trunk),
@@ -136,6 +153,7 @@ is ``{"ok": true, "device": {...}}``.
 from __future__ import annotations
 
 import dataclasses
+import gc
 import json
 import os
 import statistics
@@ -262,6 +280,8 @@ TRAIN_REL_TOL = {"loss": 1e-2, "grad_norm": 5e-2}
 # One step with remat and one without, same weights and batch: remat only
 # changes what the backward recomputes, and the kernels are deterministic.
 REMAT_REL_TOL = 1e-6
+# The dropout rate of the remat trade's second pair of steps.
+REMAT_DROPOUT = 0.1
 # BoTNet's running statistics after the first step, kernels vs dense
 # attention, relative to each tensor's largest entry: only the stage-4
 # BatchNorms after an attention core see different (bf16-rounded) inputs,
@@ -1695,6 +1715,19 @@ def _times(per: dict, n: int) -> dict:
     return {k: v * n for k, v in per.items()}
 
 
+def _nonzero(counts: dict) -> dict:
+    """Launch counts (or counts by variant) without the kernels that did not
+    run, for the log."""
+    out = {}
+    for k, v in counts.items():
+        if isinstance(v, dict):
+            if any(v.values()):
+                out[k] = {var: n for var, n in v.items() if n}
+        elif v:
+            out[k] = v
+    return out
+
+
 def _draw_for_agreement(model) -> None:
     """The head at std 0.02 (DeiT's init for linear layers), every
     LayerScale scale in LAYERSCALE_DRAW and every zero-init bn3 scale in
@@ -1748,6 +1781,15 @@ FORWARD_GROUPS = {"fused": "attention forward (fused_attention.cu)",
                   "talking_heads": "talking-heads forward (talking_heads.cu)",
                   "flash": "flash forward (flash_attention.cu)",
                   "rel": "rel forward (rel_attention.cu)"}
+# The KERNEL_GROUPS group each counter's kernels are named under.
+COUNTER_GROUPS = {**FORWARD_GROUPS,
+                  "fused_bwd": "attention backward (fused_attention_bwd.cu)",
+                  "talking_heads_bwd": "talking-heads backward dq (talking_heads_bwd.cu)",
+                  "talking_heads_bwd_dkv": "talking-heads backward dk/dv (talking_heads_bwd.cu)",
+                  "flash_dq": "flash backward dq (flash_attention_bwd.cu)",
+                  "flash_dkv": "flash backward dk/dv (flash_attention_bwd.cu)",
+                  "rel_dq": "rel backward dq (rel_attention_bwd.cu)",
+                  "rel_dkv": "rel backward dk/dv (rel_attention_bwd.cu)"}
 # Buckets whose eager step, replayed step and replay device time are timed.
 SERVE_TIMED_BUCKETS = (1, 8, 32)
 
@@ -2011,13 +2053,25 @@ def _release_engines() -> None:
     engine's or the train phases' peak memory."""
     import gc
 
-    from sav_tpu_torch.serve.graphs import streams_held
+    from sav_tpu_torch.utils.graphs import streams_held
 
     gc.collect()
     if streams_held():
         raise AssertionError(f"{streams_held()} streams still held: a serve engine outlived "
                              "its phase")
     torch._C._cuda_clearCublasWorkspaces()
+    torch.cuda.empty_cache()
+
+
+def _free_device_memory() -> None:
+    """Collect what earlier phases left, and with no stream held by a live
+    engine or trainer, the cuBLAS workspaces of their streams too: a train
+    phase's peak memory counts none of it."""
+    from sav_tpu_torch.utils.graphs import streams_held
+
+    gc.collect()
+    if not streams_held():
+        torch._C._cuda_clearCublasWorkspaces()
     torch.cuda.empty_cache()
 
 
@@ -2174,6 +2228,98 @@ def _train_batches(batch_size, image_size, num_classes, device, num_batches) -> 
     ]
 
 
+# Steps of the captured-equals-eager check in each train cell.
+EQUAL_STEPS = 3
+# The metrics a train step returns, in the order they are compared.
+TRAIN_METRICS = ("loss", "top_1_acc", "top_5_acc", "learning_rate", "grad_norm", "aux_loss")
+
+
+def _snapshot(trainer, state) -> dict:
+    """Device copies of every tensor a train step updates in place, and the
+    states of the trainer's generators."""
+    with torch.no_grad():
+        tensors = [t.detach().clone() for t in trainer._state_tensors(state)]
+    return {"tensors": tensors,
+            "generators": {k: g.get_state() for k, g in trainer.generators.items()}}
+
+
+def _restore(trainer, state, snap) -> None:
+    """Put ``snap`` back into the state's own tensors, in place (so the
+    captured graphs stay bound to them), and into the generators."""
+    with torch.no_grad():
+        for live, saved in zip(trainer._state_tensors(state), snap["tensors"]):
+            live.copy_(saved)
+    for name, generator in trainer.generators.items():
+        generator.set_state(snap["generators"][name])
+    torch.cuda.synchronize()
+
+
+def _check_train_capture(trainer, per_step: dict, counters: dict, what: str, *,
+                         kind="train") -> dict:
+    """A trainer's captured ``kind`` step, read with the launch counters set
+    to 0 just before the run that captured it: one signature, whose capture
+    recorded ``per_step`` launches, all on the tensor cores, and counters
+    moved by the two eager warm-ups and the capture, nothing else (every
+    step ran as a replay). Returns the graphs' summary."""
+    graphs = trainer.train_graphs if kind == "train" else trainer.eval_graphs
+    summary = graphs.summary()
+    if summary["signatures"] != 1 or summary["captured_launches"] != per_step:
+        raise AssertionError(f"{what}: captured {json.dumps(summary)}, expected one signature "
+                             f"of {json.dumps(per_step)}")
+    _on_tensor_cores(summary["captured_variants"], per_step, f"{what}: the capture,")
+    expected = _times(per_step, 3)
+    if counters != expected:
+        raise AssertionError(f"{what}: the counters moved {json.dumps(counters)}, expected "
+                             f"{json.dumps(expected)} (two warm-ups and one capture)")
+    return summary
+
+
+def _replay_launches(trainer, what: str, *, kind="train") -> tuple:
+    """The launches the replays of a trainer's ``kind`` step ran (replays ×
+    captured) and the same by variant, on the tensor cores."""
+    graphs = trainer.train_graphs if kind == "train" else trainer.eval_graphs
+    launches = {k: graphs.total_launches().get(k, 0) for k in COUNTERS}
+    variants = graphs.total_variants()
+    return launches, _on_tensor_cores({k: variants[k] for k in COUNTERS}, launches,
+                                      f"{what}: replayed")
+
+
+def _captured_equals_eager(trainer, state, start: dict, batches: list, what: str, *,
+                           recaptures: int = 0) -> dict:
+    """EQUAL_STEPS captured steps (``train_step``: replays) and
+    EQUAL_STEPS calls of ``_train_step_impl`` (eager), each from ``start``
+    and on the same batches: the same metrics, and after them every
+    parameter, buffer (the BatchNorm statistics), Adam moment, EMA, count
+    and generator state, bit for bit; the trainer has captured again
+    ``recaptures`` times by then. Returns the BatchNorm statistics after
+    the first captured step and the captured run's metrics."""
+    runs = {}
+    first_stats = {}
+    for name, step in (("captured", trainer.train_step), ("eager", trainer._train_step_impl)):
+        _restore(trainer, state, start)
+        s, metrics = state, []
+        for i, batch in enumerate(batches[:EQUAL_STEPS]):
+            s, m = step(s, batch)
+            metrics.append(torch.stack([m[k].float() for k in TRAIN_METRICS]).cpu())
+            if i == 0 and name == "captured":
+                first_stats = {k: v.clone() for k, v in s.batch_stats.items()}
+        runs[name] = {"metrics": torch.stack(metrics), "state": _host_tree(s.state_dict())}
+    differ = _tree_differences(runs["captured"]["state"], runs["eager"]["state"])
+    if not torch.equal(runs["captured"]["metrics"], runs["eager"]["metrics"]):
+        differ.append("metrics")
+    if differ or trainer.recaptures != recaptures:
+        raise AssertionError(f"{what}: {EQUAL_STEPS} captured steps differ from as many eager "
+                             f"ones at {len(differ)} entries ({differ[:6]}); recaptures "
+                             f"{trainer.recaptures}")
+    state_dict = runs["eager"]["state"]
+    log(f"{what}: {EQUAL_STEPS} captured steps equal {EQUAL_STEPS} eager _train_step_impl "
+        f"steps bit for bit (metrics {runs['eager']['metrics'][:, 0].tolist()} losses; "
+        f"{len(state_dict['params'])} parameters, {len(state_dict['batch_stats'])} buffers, "
+        f"moments{', EMA' if 'ema' in state_dict['opt_state'] else ''}, count "
+        f"{state_dict['opt_state']['count']}, generators {sorted(state_dict['generators'])})")
+    return {"first_stats": first_stats, "metrics": runs["captured"]["metrics"]}
+
+
 def phase_train(device="cuda", model_name="deit_s_patch16", batch_size=TRAIN_BATCH,
                 steps=TRAIN_STEPS, image_size=224, num_classes=1000, overrides=None,
                 state_dict=None, family="fused", grad_accum=1, config=None,
@@ -2182,13 +2328,16 @@ def phase_train(device="cuda", model_name="deit_s_patch16", batch_size=TRAIN_BAT
     ``state_dict``, or through ``Trainer.warm_start_from`` a directory,
     ``warm_start = (directory, expected state dict)``: every tensor must come
     out bit-equal to the expected one, none kept fresh), at global
-    ``batch_size`` in ``grad_accum`` micro-batches, then profile one step;
-    returns the launches, the first loss, the step time, the peak memory and
-    the profile. ``config`` replaces the smoke run's recipe (a preset's
-    TrainConfig)."""
+    ``batch_size`` in ``grad_accum`` micro-batches: on the card fit replays
+    the step captured at its first step. Then, from the same start,
+    EQUAL_STEPS captured steps must equal as many eager ones bit for bit,
+    and fit runs once more with the eager step for the comparison; one step
+    of each is profiled. Returns the launches (replays × captured), the
+    first loss, both fits' step times, peak memories and profiles. ``config``
+    replaces the smoke run's recipe (a preset's TrainConfig)."""
     from sav_tpu_torch import TrainConfig, Trainer, create_model
 
-    torch.cuda.empty_cache()
+    _free_device_memory()
     overrides = overrides or {}
     model = create_model(model_name, num_classes=num_classes, image_size=image_size,
                          seed=0, **overrides)
@@ -2221,16 +2370,18 @@ def phase_train(device="cuda", model_name="deit_s_patch16", batch_size=TRAIN_BAT
     dense.load_state_dict(model.state_dict())
     per_step = _times(attention_launches(model, train=True, family=family), grad_accum)
     batches = _train_batches(batch_size, image_size, num_classes, device, TRAIN_DISTINCT_BATCHES)
+    what = f"train {model_name}"
 
-    # The same first step on the dense attention paths with f32 softmax; the
-    # stochastic-depth masks come from a generator seeded from config.seed
-    # on both sides, drawn in the same order, so they are the same masks.
+    # The same first step on the dense attention paths with f32 softmax,
+    # eagerly; the stochastic-depth masks come from a generator seeded from
+    # config.seed on both sides, drawn in the same order, so they are the
+    # same masks.
     ref_trainer = Trainer(
         dataclasses.replace(config, attention_backend="xla", attention_logits_dtype="float32"),
         model=dense, device=device,
     )
     reset_launches()
-    ref_state, ref_metrics = ref_trainer.train_step(ref_trainer.init_state(), batches[0])
+    ref_state, ref_metrics = ref_trainer._train_step_impl(ref_trainer.init_state(), batches[0])
     ref = {k: float(v) for k, v in ref_metrics.items()}
     ref_stats = {k: v.clone() for k, v in ref_state.batch_stats.items()}
     if any(launch_counts().values()):
@@ -2238,48 +2389,67 @@ def phase_train(device="cuda", model_name="deit_s_patch16", batch_size=TRAIN_BAT
     del ref_trainer, ref_state, dense, ref_metrics
     torch.cuda.empty_cache()
 
-    first_stats = {}
+    start, start_state = _snapshot(trainer, state), state
+    runs = {}
+    for mode in ("captured", "eager"):
+        state = start_state
+        _restore(trainer, state, start)
+        if mode == "eager":
+            # fit's step taken eagerly, for the comparison only.
+            def eager_step(state, placed):
+                trainer._await(placed)
+                return trainer._train_step_impl(state, placed)
 
-    def feed():
-        # fit asks for batch 2 after it has launched step 1, and the copies
-        # below are ordered after step 1 on the stream: they are the
-        # running statistics after the first step.
-        for i, batch in enumerate(batches * (steps // len(batches))):
-            if i == 1:
-                first_stats.update({k: v.clone() for k, v in state.batch_stats.items()})
-            yield batch
-
-    torch.cuda.reset_peak_memory_stats()
-    windows = []
-    reset_launches()
-    state, history = trainer.fit(feed(), num_steps=steps, state=state, log_fn=windows.append)
-    launches = launch_counts()
-    peak_gb = torch.cuda.max_memory_allocated() / 2**30
-    for record in history:
-        log(f"train step {record['step']}: " + json.dumps(
-            {k: round(v, 6) for k, v in record.items() if k != "step"}))
-    losses = [r["loss"] for r in history]
-    if len(history) != steps or not np.isfinite(losses).all():
-        raise AssertionError(f"train losses not all finite over {steps} steps: {losses}")
-    n = len(batches)
-    if not all(losses[i + n] < losses[i] for i in range(steps - n)):
-        raise AssertionError(f"the loss did not fall on a batch seen again: {losses}")
-    expected = _times(per_step, steps)
-    if launches != expected:
-        raise AssertionError(
-            f"{steps} train steps launched {json.dumps(launches)}; expected "
-            f"{json.dumps(expected)} ({json.dumps(per_step)} per step)"
-        )
-    variants = _variant_launches(launches)
-    first = history[0]
+            trainer.train_step_placed = eager_step
+        torch.cuda.reset_peak_memory_stats()
+        windows = []
+        reset_launches()
+        state, history = trainer.fit(iter(batches * (steps // len(batches))), num_steps=steps,
+                                     state=state, log_fn=windows.append)
+        counters = launch_counts()
+        peak_gb = torch.cuda.max_memory_allocated() / 2**30
+        losses = [r["loss"] for r in history]
+        if len(history) != steps or not np.isfinite(losses).all():
+            raise AssertionError(f"{what} ({mode}): losses not all finite over {steps} steps: "
+                                 f"{losses}")
+        n = len(batches)
+        if not all(losses[i + n] < losses[i] for i in range(steps - n)):
+            raise AssertionError(f"{what} ({mode}): the loss did not fall on a batch seen "
+                                 f"again: {losses}")
+        if mode == "captured":
+            capture = _check_train_capture(trainer, per_step, counters, what)
+            launches, variants = _replay_launches(trainer, what)
+            if capture["replays"] != steps or launches != _times(per_step, steps):
+                raise AssertionError(f"{what}: {capture['replays']} replays, launches "
+                                     f"{json.dumps(launches)}; expected {steps} x "
+                                     f"{json.dumps(per_step)}")
+            for record in history:
+                log(f"{what} step {record['step']}: " + json.dumps(
+                    {k: round(v, 6) for k, v in record.items() if k != "step"}))
+            first = history[0]
+        else:
+            del trainer.train_step_placed
+            if counters != _times(per_step, steps):
+                raise AssertionError(f"{what} (eager): launched {json.dumps(counters)}, "
+                                     f"expected {steps} x {json.dumps(per_step)}")
+            if losses != [r["loss"] for r in runs["captured"]["history"]]:
+                raise AssertionError(f"{what}: eager fit's losses {losses} differ from the "
+                                     f"captured fit's")
+        profile = profile_step(trainer, state, batches[0], per_step, eager=mode == "eager")
+        steady = windows[-1]
+        runs[mode] = {"history": history, "step_ms": steady["step_s"] * 1e3,
+                      "images_per_sec": steady["images_per_sec"], "peak_gb": peak_gb,
+                      "profile": profile, "first_window_ms": windows[0]["step_s"] * 1e3}
     for key, tol in TRAIN_REL_TOL.items():
         rel = abs(first[key] - ref[key]) / abs(ref[key])
         log(f"train step 1 {model_name} {key}: kernels {first[key]:.6f}, dense {ref[key]:.6f}, "
             f"relative difference {rel:.3e} (tol {tol})")
         if rel > tol:
             raise AssertionError(f"train step 1 {key} disagrees with the dense path")
+    equal = _captured_equals_eager(trainer, start_state, start, batches, what)
     if ref_stats:
         # Each running statistic after step 1, relative to its largest entry.
+        first_stats = equal["first_stats"]
         worst = max(((first_stats[k] - v).abs().max().item() / v.abs().max().item(), k)
                     for k, v in ref_stats.items())
         log(f"train step 1 {model_name} running statistics ({len(ref_stats)} tensors): largest "
@@ -2287,25 +2457,30 @@ def phase_train(device="cuda", model_name="deit_s_patch16", batch_size=TRAIN_BAT
             f"{worst[1]} (tol {BATCH_STATS_REL_TOL})")
         if worst[0] > BATCH_STATS_REL_TOL:
             raise AssertionError("train step 1 running statistics disagree with the dense path")
-    steady = windows[-1]
-    profile = profile_step(trainer, state, batches[0])
+    cap, eag = runs["captured"], runs["eager"]
     log(
         f"train {model_name} bf16 batch {batch_size} ({grad_accum} x {batch_size // grad_accum}): "
         f"{steps} steps via fit(), losses "
-        f"{[round(x, 4) for x in losses]}; launches {json.dumps(launches)} = "
-        f"{json.dumps(per_step)} x {steps}, by variant {json.dumps(variants)}; steady window (steps "
-        f"{steps - steps // 2 + 1}-{steps}) {steady['step_s'] * 1e3:.2f} ms/step, "
-        f"{steady['images_per_sec']:.1f} images/s; first window "
-        f"{windows[0]['step_s'] * 1e3:.2f} ms/step; peak memory {peak_gb:.2f} GiB"
+        f"{[round(r['loss'], 4) for r in cap['history']]}; capture {capture['capture_s']:.2f} s "
+        f"(warm-ups included) of {json.dumps(_nonzero(per_step))} per step, replays x captured "
+        f"{json.dumps(_nonzero(launches))}, by variant {json.dumps(_nonzero(variants))}; steady "
+        f"window (steps "
+        f"{steps - steps // 2 + 1}-{steps}) captured {cap['step_ms']:.2f} ms/step, "
+        f"{cap['images_per_sec']:.1f} images/s, eager {eag['step_ms']:.2f} ms/step, "
+        f"{eag['images_per_sec']:.1f} images/s; first window captured "
+        f"{cap['first_window_ms']:.2f}, eager {eag['first_window_ms']:.2f} ms/step; peak memory "
+        f"captured {cap['peak_gb']:.2f} GiB, eager {eag['peak_gb']:.2f} GiB"
     )
     return {
         "launches": launches,
         "variants": variants,
         "first_loss": first["loss"],
-        "step_ms": steady["step_s"] * 1e3,
-        "images_per_sec": steady["images_per_sec"],
-        "peak_gb": peak_gb,
-        "profile": profile,
+        "capture_s": capture["capture_s"],
+        "step_ms": cap["step_ms"],
+        "images_per_sec": cap["images_per_sec"],
+        "peak_gb": cap["peak_gb"],
+        "profile": cap["profile"],
+        "eager": {k: eag[k] for k in ("step_ms", "images_per_sec", "peak_gb", "profile")},
     }
 
 
@@ -2352,50 +2527,100 @@ def phase_surgery(directory, device="cuda") -> dict:
     return adapted
 
 
+def _clone_state_in_capture() -> str:
+    """Whether this torch copies a CUDA generator's state during a graph
+    capture (which would let a recompute rewind without twins)."""
+    generator = torch.Generator(device="cuda")
+    graph = torch.cuda.CUDAGraph()
+    graph.register_generator_state(generator)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    try:
+        with torch.cuda.graph(graph, stream=side):
+            torch.rand(1024, device="cuda", generator=generator)
+            generator.clone_state()
+    except RuntimeError as e:
+        return f"raises ({str(e).splitlines()[0][:120]})"
+    finally:
+        torch.cuda.synchronize()
+    return "is allowed"
+
+
 def phase_remat_trade(state_dict, device="cuda") -> dict:
     """One train step of the 384² ViT-B/16 from ``state_dict`` with remat on
     and one with it off, on one batch of VIT384_BATCH (the fine-tune run's
-    micro-batch): the same loss (within REMAT_REL_TOL), the flash forward
-    launched twice per block with remat and once without, and each step's
-    peak device memory."""
+    micro-batch), each eagerly (``_train_step_impl``) and then captured
+    (``train_step``: two warm-ups and the capture, then a replay), without
+    dropout and with dropout_rate REMAT_DROPOUT: the same eager loss
+    (within REMAT_REL_TOL), the flash forward launched twice per block with
+    remat and once without, and each step's peak device memory, eager and
+    captured (the graph's pool and the warm-ups' state copies come on top).
+    With dropout and remat, EQUAL_STEPS captured steps also equal as many
+    eager ones bit for bit: the recompute's twin generators, put where the
+    forward drew before each replay, draw the forward's masks."""
     from sav_tpu_torch import TrainConfig, Trainer, create_model
 
+    log(f"remat trade: Generator.clone_state during a capture {_clone_state_in_capture()} "
+        "(so the recompute's twins are made before the capture and put in place before "
+        "each replay)")
     batch = _train_batches(VIT384_BATCH, 384, 1000, device, 1)[0]
     out = {}
-    for remat in (True, False):
-        torch.cuda.empty_cache()
-        model = create_model(VIT384_MODEL, image_size=384, seed=0, remat=remat)
-        model.load_state_dict(state_dict, strict=True)
-        blocks = len(model.encoder.blocks)
-        common = _train_common(VIT384_MODEL, VIT384_BATCH, TRAIN_STEPS, 384, 1000,
-                               {"remat": remat})
-        trainer = Trainer(TrainConfig(**common), model=model, device=device)
-        state = trainer.init_state()
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        reset_launches()
-        _, metrics = trainer.train_step(state, batch)
-        loss = float(metrics["loss"])
-        launches = launch_counts()
-        want = {**dict.fromkeys(COUNTERS, 0), "flash": blocks * (2 if remat else 1),
-                "flash_dq": blocks, "flash_dkv": blocks}
-        if launches != want:
-            raise AssertionError(f"remat={remat}: one step launched {json.dumps(launches)}, "
-                                 f"expected {json.dumps(want)}")
-        out[remat] = {"loss": loss, "peak_gb": torch.cuda.max_memory_allocated() / 2**30}
-        del trainer, model, state, metrics
-    if abs(out[True]["loss"] - out[False]["loss"]) > REMAT_REL_TOL * abs(out[False]["loss"]):
-        raise AssertionError(f"the step with remat has loss {out[True]['loss']}, the step "
-                             f"without {out[False]['loss']}")
-    log(
-        f"remat trade {VIT384_MODEL}@384 bf16 batch {VIT384_BATCH}, one step: loss with remat "
-        f"{out[True]['loss']:.7f}, without {out[False]['loss']:.7f} (tol {REMAT_REL_TOL} "
-        f"relative); flash forward launches "
-        f"{2 * blocks} vs {blocks}; "
-        f"peak memory {out[True]['peak_gb']:.2f} GiB with remat, {out[False]['peak_gb']:.2f} "
-        f"GiB without"
-    )
-    return {"peak_gb_remat": out[True]["peak_gb"], "peak_gb_no_remat": out[False]["peak_gb"]}
+    for rate in (0.0, REMAT_DROPOUT):
+        for remat in (True, False):
+            _free_device_memory()
+            overrides = {"remat": remat, "dropout_rate": rate}
+            model = create_model(VIT384_MODEL, image_size=384, seed=0, **overrides)
+            model.load_state_dict(state_dict, strict=True)
+            blocks = len(model.encoder.blocks)
+            common = _train_common(VIT384_MODEL, VIT384_BATCH, TRAIN_STEPS, 384, 1000, overrides)
+            trainer = Trainer(TrainConfig(**common), model=model, device=device)
+            state = trainer.init_state()
+            want = {**dict.fromkeys(COUNTERS, 0), "flash": blocks * (2 if remat else 1),
+                    "flash_dq": blocks, "flash_dkv": blocks}
+            what = f"remat={remat} dropout_rate={rate}"
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            reset_launches()
+            state, metrics = trainer._train_step_impl(state, batch)
+            loss = float(metrics["loss"])
+            launches = launch_counts()
+            if launches != want:
+                raise AssertionError(f"{what}: one step launched {json.dumps(launches)}, "
+                                     f"expected {json.dumps(want)}")
+            eager_gb = torch.cuda.max_memory_allocated() / 2**30
+            del metrics
+            torch.cuda.reset_peak_memory_stats()
+            reset_launches()
+            state, metrics = trainer.train_step(state, batch)
+            if not np.isfinite(float(metrics["loss"])):
+                raise AssertionError(f"{what}: the captured step's loss is not finite")
+            _check_train_capture(trainer, want, launch_counts(), what)
+            out[rate, remat] = {"loss": loss, "peak_gb": eager_gb,
+                                "captured_peak_gb": torch.cuda.max_memory_allocated() / 2**30}
+            if rate and remat:  # after the peaks: its copies and batches are not in them
+                batches = _train_batches(VIT384_BATCH, 384, 1000, device, EQUAL_STEPS)
+                _captured_equals_eager(trainer, state, _snapshot(trainer, state), batches,
+                                       f"{VIT384_MODEL}@384 {what}")
+                del batches
+            del trainer, model, state, metrics
+        with_remat, without = out[rate, True], out[rate, False]
+        if abs(with_remat["loss"] - without["loss"]) > REMAT_REL_TOL * abs(without["loss"]):
+            raise AssertionError(f"dropout_rate={rate}: the step with remat has loss "
+                                 f"{with_remat['loss']}, the step without {without['loss']}")
+        log(
+            f"remat trade {VIT384_MODEL}@384 bf16 batch {VIT384_BATCH} dropout_rate {rate}, one "
+            f"step: loss with remat {with_remat['loss']:.7f}, without {without['loss']:.7f} (tol "
+            f"{REMAT_REL_TOL} relative); flash forward launches {2 * blocks} vs {blocks}; peak "
+            f"memory eager {with_remat['peak_gb']:.2f} GiB with remat, {without['peak_gb']:.2f} "
+            f"GiB without; captured (warm-ups, capture and a replay) "
+            f"{with_remat['captured_peak_gb']:.2f} and {without['captured_peak_gb']:.2f} GiB"
+        )
+    result = {}
+    for (rate, remat), r in out.items():
+        suffix = ("_remat" if remat else "_no_remat") + ("_dropout" if rate else "")
+        result["peak_gb" + suffix] = r["peak_gb"]
+        result["captured_peak_gb" + suffix] = r["captured_peak_gb"]
+    return result
 
 
 def _deit_source() -> dict:
@@ -2415,15 +2640,21 @@ def _deit_config(**kw):
                                           {}), **kw})
 
 
+# The resume phase's recipe: uint8 batches mixed and normalised on the card,
+# so the "mix" generator is drawn from and must resume too.
+RESUME_CONFIG = {"device_preprocess": True, "augment": "cutmix_mixup_randaugment_405"}
+
+
 def _resume_feed(start_step, device):
-    """The resumable synthetic feed from ``start_step``: batch k is a pure
-    function of (seed, k), so a resumed run reads what the uninterrupted
-    run read."""
+    """The resumable synthetic feed from ``start_step`` as uint8 (the
+    synthetic values mapped onto 0..255): batch k is a pure function of
+    (seed, k), so a resumed run reads what the uninterrupted run read."""
     from sav_tpu_torch.data.synthetic import synth_resumable_iterator
 
     for b in synth_resumable_iterator(seed=0, start_step=start_step, batch_size=TRAIN_BATCH,
                                       image_size=224, num_classes=1000):
-        yield {"images": torch.from_numpy(b["images"]).to(device),
+        images = np.clip(b["images"] * 40.0 + 128.0, 0, 255).astype(np.uint8)
+        yield {"images": torch.from_numpy(images).to(device),
                "labels": torch.from_numpy(b["labels"]).to(device)}
 
 
@@ -2438,18 +2669,18 @@ def _resume_run(source, directory, device) -> dict:
         model.load_state_dict(source)
         return Trainer(config, model=model, device=device)
 
-    full = trainer(_deit_config())
+    full = trainer(_deit_config(**RESUME_CONFIG))
     state, history = full.fit(_resume_feed(0, device), num_steps=TRAIN_STEPS,
                               state=full.init_state())
     want = {"losses": [r["loss"] for r in history][3:], "state": _host_tree(state.state_dict())}
     del full, state
-    first = trainer(_deit_config(checkpoint_dir=directory))
+    first = trainer(_deit_config(checkpoint_dir=directory, **RESUME_CONFIG))
     first.fit(_resume_feed(0, device), num_steps=3, state=first.init_state())
     hold_s, written = first.checkpointer.last_hold_s, first.checkpointer.written[-1]
     first.checkpointer.close()
     del first
     torch.cuda.empty_cache()
-    second = trainer(_deit_config(checkpoint_dir=directory))
+    second = trainer(_deit_config(checkpoint_dir=directory, **RESUME_CONFIG))
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     restored = second.restore_or_init()
@@ -2461,7 +2692,8 @@ def _resume_run(source, directory, device) -> dict:
     reset_launches()
     state, history = second.fit(_resume_feed(restored.step, device), num_steps=TRAIN_STEPS,
                                 state=restored)
-    launches = launch_counts()
+    _check_train_capture(second, per_step, launch_counts(), "resumed fit")
+    launches, variants = _replay_launches(second, "resumed fit")
     second.checkpointer.close()
     got = {"losses": [r["loss"] for r in history], "state": _host_tree(state.state_dict())}
     # The resumed run's own save (step 6) finds the pinned host blocks the
@@ -2470,7 +2702,8 @@ def _resume_run(source, directory, device) -> dict:
             "steps": [r["step"] for r in history], "hold_s": hold_s, "written": written,
             "warm_hold_s": second.checkpointer.last_hold_s,
             "warm_written": second.checkpointer.written[-1],
-            "restore_s": restore_s, "variants": _variant_launches(launches)}
+            "restore_s": restore_s, "variants": variants,
+            "generators": sorted(got["state"]["generators"])}
 
 
 def _host_tree(tree):
@@ -2487,16 +2720,19 @@ def _tree_differences(got, want, path="") -> list:
 
 
 def phase_resume(source, directory, device="cuda") -> dict:
-    """DeiT-S bf16 at batch 256 through #1/#2: fit 6 steps uninterrupted;
+    """DeiT-S bf16 at batch 256 through #1/#2, on uint8 batches mixed
+    (cutmix_mixup) and normalised inside the captured step
+    (RESUME_CONFIG): fit 6 steps uninterrupted;
     fit 3 steps into a checkpoint directory; a fresh Trainer's
     restore_or_init (step 3) and fit on to step 6 from the resumable feed's
-    position 3. Steps 4-6 must match the uninterrupted run bit for bit: the
-    losses and, after step 6, every parameter, Adam moment and generator
-    state. Should an op outside the port's kernels break that, the phase
+    position 3, its step captured anew. Steps 4-6 must match the
+    uninterrupted run bit for bit: the losses and, after step 6, every
+    parameter, Adam moment and generator state (the "mix" generator's
+    included). Should an op outside the port's kernels break that, the phase
     runs again under torch.use_deterministic_algorithms(True), which names
     any op without a deterministic version (CUBLAS_WORKSPACE_CONFIG is set
-    before CUDA starts), and the log says so. The resumed run launches 3x a
-    step's kernels. The checkpoints stay in a directory under ``directory``
+    before CUDA starts), and the log says so. The resumed run captures one
+    step's kernels and replays them 3 times. The checkpoints stay in a directory under ``directory``
     (returned as ``"directory"``) for phase_serve_checkpoint."""
     deterministic = False
     while True:
@@ -2514,15 +2750,19 @@ def phase_resume(source, directory, device="cuda") -> dict:
         deterministic = True
     torch.use_deterministic_algorithms(False)
     expected = _times(run["per_step"], 3)
-    if run["steps"] != [4, 5, 6] or run["launches"] != expected:
+    if run["steps"] != [4, 5, 6] or run["launches"] != expected or "mix" not in run["generators"]:
         raise AssertionError(f"resumed fit ran steps {run['steps']} with launches "
-                             f"{json.dumps(run['launches'])}, expected {json.dumps(expected)}")
+                             f"{json.dumps(run['launches'])} (replays x captured), expected "
+                             f"{json.dumps(expected)}; generators {run['generators']}")
     written = run["written"]
     log(
-        f"resume deit_s_patch16 bf16 batch {TRAIN_BATCH}: steps 4-6 after a restore of step 3 "
+        f"resume deit_s_patch16 bf16 batch {TRAIN_BATCH}, uint8 mixed and normalised in the "
+        f"captured step: steps 4-6 after a restore of step 3 "
         f"bit-equal to the uninterrupted run (losses {run['got']['losses']}, every parameter, "
-        f"moment and generator state){' under deterministic algorithms' if deterministic else ''}; "
-        f"launches {json.dumps(run['launches'])} = 3 x {json.dumps(run['per_step'])}; the first "
+        f"moment and generator state, generators {run['generators']})"
+        f"{' under deterministic algorithms' if deterministic else ''}; "
+        f"launches (replays x captured) {json.dumps(run['launches'])} = 3 x "
+        f"{json.dumps(run['per_step'])}; the first "
         f"save held the training thread {run['hold_s'] * 1e3:.1f} ms (pinning its host "
         f"buffers), a later one {run['warm_hold_s'] * 1e3:.1f} ms; background write "
         f"{written['write_s'] * 1e3:.1f} ms (later {run['warm_written']['write_s'] * 1e3:.1f} ms) "
@@ -2557,8 +2797,9 @@ def phase_eval(source, device="cuda") -> dict:
     """Trainer.evaluate of DeiT-S over EVAL_IMAGES held-out images (3 x 256
     and a short batch of 232, padded) with the kernels and on the dense path
     (f32 softmax), same weights: eval_count 1000 on both, eval_loss within
-    TRAIN_REL_TOL['loss'], top-1 within one point; each batch launches the
-    fused forward once per attention module. Then fit with
+    TRAIN_REL_TOL['loss'], top-1 within one point; one captured eval step
+    (the fused forward once per attention module) serves every batch, the
+    padded one included, as replays. Then fit with
     eval_every_epochs=1 over two 3-step epochs appends eval records at steps
     3 and 6."""
     from sav_tpu_torch import TrainConfig, Trainer, create_model
@@ -2574,22 +2815,32 @@ def phase_eval(source, device="cuda") -> dict:
                                     "attention_logits_dtype": "float32"}))
         trainer = Trainer(config, model=model, device=device)
         state = trainer.init_state()
-        trainer.evaluate(state, iter(batches[:1]))  # warm
+        per_batch = (attention_launches(model, train=False, family="fused")
+                     if backend == "kernels" else dict.fromkeys(COUNTERS, 0))
+        reset_launches()
+        trainer.evaluate(state, iter(batches[:1]))  # warm: captures the eval step
         torch.cuda.synchronize()
+        _check_train_capture(trainer, per_batch, launch_counts(), f"eval ({backend})",
+                             kind="eval")
         reset_launches()
         t0 = time.perf_counter()
         result = trainer.evaluate(state, iter(batches))
         seconds = time.perf_counter() - t0
-        launches = launch_counts()
-        expected = _times(attention_launches(model, train=False, family="fused"),
-                          len(batches)) if backend == "kernels" else dict.fromkeys(COUNTERS, 0)
-        if launches != expected:
-            raise AssertionError(f"evaluate ({backend}) launched {json.dumps(launches)}, "
-                                 f"expected {json.dumps(expected)}")
+        if any(launch_counts().values()) or trainer.eval_graphs.summary()["signatures"] != 1:
+            raise AssertionError(f"evaluate ({backend}) ran eagerly or captured again: "
+                                 f"{json.dumps(launch_counts())}")
+        replays = trainer.eval_graphs.summary()["replays"] - 1
+        launches = _times(per_batch, replays)
+        if replays != len(batches):
+            raise AssertionError(f"evaluate ({backend}) replayed {replays} times for "
+                                 f"{len(batches)} batches")
         results[backend] = {**result, "images_per_sec": EVAL_IMAGES / seconds,
                             "launches": launches}
         if backend == "kernels":
-            variants = _variant_launches(launches)
+            variants = {k: {v: n * replays for v, n in by.items()} for k, by in
+                        trainer.eval_graphs.summary()["captured_variants"].items()}
+            variants = _on_tensor_cores({k: variants[k] for k in COUNTERS}, launches,
+                                        "eval replays")
         del trainer, model, state
     ours, ref = results["kernels"], results["dense"]
     loss_rel = abs(ours["eval_loss"] - ref["eval_loss"]) / abs(ref["eval_loss"])
@@ -2603,7 +2854,7 @@ def phase_eval(source, device="cuda") -> dict:
         f"{ours['images_per_sec']:.1f} images/s; dense loss {ref['eval_loss']:.6f} (relative "
         f"difference {loss_rel:.3e}, tol {TRAIN_REL_TOL['loss']}), top-1 "
         f"{ref['eval_top_1_acc']:.4f}, {ref['images_per_sec']:.1f} images/s; launches "
-        f"{json.dumps(ours['launches'])}")
+        f"(replays x captured) {json.dumps(ours['launches'])}")
 
     model = create_model("deit_s_patch16")
     model.load_state_dict(source)
@@ -2623,11 +2874,12 @@ def phase_eval(source, device="cuda") -> dict:
 
 
 def phase_dropout(source, device="cuda") -> dict:
-    """DeiT-S with dropout_rate=0.1 for 2 steps still runs #1/#2 (the
-    launches of 2 steps); with attn_dropout_rate=0.1 under auto a train step
-    launches no attention kernel (the dense path, as sav_tpu's kernels_ok)
-    and eval launches the fused forward as before. Prints the kept share of
-    one drawn mask."""
+    """DeiT-S with dropout_rate=0.1 for 2 captured steps still runs #1/#2
+    (replays x captured: the launches of 2 steps; the dropout generator is
+    registered with the graph); with attn_dropout_rate=0.1 under auto a
+    train step launches no attention kernel (the dense path, as sav_tpu's
+    kernels_ok) and the captured eval step launches the fused forward as
+    before. Prints the kept share of one drawn mask."""
     from sav_tpu_torch import Trainer, create_model
 
     batches = _train_batches(TRAIN_BATCH, 224, 1000, device, 2)
@@ -2642,8 +2894,9 @@ def phase_dropout(source, device="cuda") -> dict:
         reset_launches()
         if rate_name == "dropout_rate":
             state, history = trainer.fit(iter(batches), num_steps=2, state=state)
-            launches, expected = launch_counts(), _times(per_step, 2)
-            variants = _variant_launches(launches)
+            _check_train_capture(trainer, per_step, launch_counts(), rate_name)
+            launches, variants = _replay_launches(trainer, rate_name)
+            expected = _times(per_step, 2)
             losses = [r["loss"] for r in history]
         else:
             state, metrics = trainer.train_step(state, batches[0])
@@ -2651,18 +2904,15 @@ def phase_dropout(source, device="cuda") -> dict:
             launches, expected = launch_counts(), dict.fromkeys(COUNTERS, 0)
             reset_launches()
             trainer.eval_step(state, batches[1])
-            eval_launches = launch_counts()
             eval_expected = attention_launches(model, train=False, family="fused")
-            if eval_launches != eval_expected:
-                raise AssertionError(f"eval under attention dropout launched "
-                                     f"{json.dumps(eval_launches)}, expected "
-                                     f"{json.dumps(eval_expected)}")
+            _check_train_capture(trainer, eval_expected, launch_counts(),
+                                 "eval under attention dropout", kind="eval")
         if launches != expected or not np.isfinite(losses).all():
             raise AssertionError(f"{rate_name}=0.1: launches {json.dumps(launches)}, expected "
                                  f"{json.dumps(expected)}; losses {losses}")
         out[rate_name] = launches
-        log(f"dropout deit_s_patch16 {rate_name}=0.1: losses {[round(x, 6) for x in losses]}, "
-            f"train launches {json.dumps(launches)}")
+        log(f"dropout deit_s_patch16 {rate_name}=0.1 (captured): losses "
+            f"{[round(x, 6) for x in losses]}, train launches {json.dumps(launches)}")
         if rate_name == "dropout_rate":
             # One mask of the position-embedding dropout, from the trainer's generator.
             ones = torch.ones((TRAIN_BATCH, 197, 384), device=device, dtype=torch.bfloat16)
@@ -2674,6 +2924,135 @@ def phase_dropout(source, device="cuda") -> dict:
                 f"(0.9 ± {sigma:.2e})")
         del trainer, model, state
     return {**out["dropout_rate"], "variants": variants, "kept_share": kept}
+
+
+# The device-preprocessing phase's recipe (uint8 HWCN batches, the default
+# augment string's mixes, a parameter EMA).
+DEVPRE_CONFIG = {"device_preprocess": True, "augment": "cutmix_mixup_randaugment_405",
+                 "transpose_images": True, "ema_decay": 0.999}
+
+
+def _uint8_batches(n: int, seed: int) -> list:
+    """``n`` host batches of TRAIN_BATCH uint8 HWCN images at 224², the class
+    carried by the brightness (so the loss can fall), as numpy."""
+    from sav_tpu_torch.data.synthetic import synthetic_data_iterator
+
+    out = []
+    for b in synthetic_data_iterator(batch_size=TRAIN_BATCH, image_size=224, num_classes=1000,
+                                     seed=seed, num_batches=n, transpose=True):
+        out.append({"images": np.clip(b["images"] * 40.0 + 128.0, 0, 255).astype(np.uint8),
+                    "labels": b["labels"]})
+    return out
+
+
+def phase_device_preprocess(source, device="cuda") -> dict:
+    """DeiT-S bf16 at batch 256 with ``device_preprocess`` and
+    ``cutmix_mixup_randaugment_405`` (DEVPRE_CONFIG): host batches of uint8
+    HWCN images go through the async feeder, and the captured step
+    transposes, mixes (MixUp on one half, CutMix on the other, from the
+    "mix" generator) and normalises them on the card. fit runs 6 captured
+    steps (finite loss that falls from the first three steps to the last
+    three; two warm-ups and one capture on the counters, 6 replays); then
+    EQUAL_STEPS captured steps equal as many eager ones from the same start,
+    bit for bit, the EMA and the "mix" generator included; a fresh
+    ``init_state`` (new tensors) is captured again once and equals eager
+    too. A batch moves half the bytes of the same batch in bf16."""
+    from sav_tpu_torch import Trainer, create_model
+
+    model = create_model("deit_s_patch16")
+    model.load_state_dict(source)
+    trainer = Trainer(_deit_config(**DEVPRE_CONFIG), model=model, device=device)
+    state = trainer.init_state()
+    per_step = attention_launches(model, train=True, family="fused")
+    batches = _uint8_batches(TRAIN_DISTINCT_BATCHES, seed=2)
+    what = "train deit_s_patch16 device_preprocess"
+    start, start_state = _snapshot(trainer, state), state
+    windows = []
+    reset_launches()
+    state, history = trainer.fit(iter(batches * 2), num_steps=TRAIN_STEPS, state=state,
+                                 log_fn=windows.append)
+    capture = _check_train_capture(trainer, per_step, launch_counts(), what)
+    launches, variants = _replay_launches(trainer, what)
+    losses = [r["loss"] for r in history]
+    if (capture["replays"] != TRAIN_STEPS or not np.isfinite(losses).all()
+            or np.mean(losses[3:]) >= np.mean(losses[:3])):
+        raise AssertionError(f"{what}: {capture['replays']} replays, losses {losses}")
+    _captured_equals_eager(trainer, start_state, start, batches, what)
+    # A state with other tensors (init_state makes new moments): the step is
+    # captured again, once, and still equals the eager one.
+    fresh = trainer.init_state()
+    _captured_equals_eager(trainer, fresh, _snapshot(trainer, fresh), batches,
+                           f"{what} after init_state", recaptures=1)
+    uint8_bytes = batches[0]["images"].nbytes
+    bf16_bytes = batches[0]["images"].size * 2
+    if 2 * uint8_bytes != bf16_bytes:
+        raise AssertionError(f"{what}: a uint8 batch moves {uint8_bytes} bytes, bf16 {bf16_bytes}")
+    last = history[-1]
+    log(f"{what} (cutmix_mixup_randaugment_405, EMA 0.999): losses "
+        f"{[round(x, 4) for x in losses]}; replays x captured {json.dumps(_nonzero(launches))}; "
+        f"steady "
+        f"window {last['step_s'] * 1e3:.2f} ms/step, {last['images_per_sec']:.1f} images/s; "
+        f"images {uint8_bytes} bytes a batch (bf16: {bf16_bytes}); feeder "
+        f"{json.dumps({k: v for k, v in last.items() if k.startswith('feeder_')})}")
+    return {**launches, "variants": variants, "step_ms": last["step_s"] * 1e3,
+            "images_per_sec": last["images_per_sec"], "transfer_bytes": uint8_bytes}
+
+
+# The train bench's runs: DeiT-S at 256, bench.py's default windows.
+TRAIN_BENCH_ARGS = ["--model", "deit_s_patch16", "--batch-size", str(TRAIN_BATCH)]
+TRAIN_BENCH_STEPS, TRAIN_BENCH_REPS = 20, 4
+
+
+def phase_train_bench() -> dict:
+    """``python -m sav_tpu_torch.train.bench`` (through its ``main``, which
+    prints its one JSON line) for DeiT-S at 256, with bf16 batches and with
+    ``--device-preprocess``: outcome ok, an MFU against the card's table
+    peak, one captured step of DeiT-S's launches, and the uint8 batch half
+    the bf16 one's bytes (labels aside). Returns each run's line and the
+    launches its replays ran, as the bench counted them (2 warm-ups and the
+    windows)."""
+    from sav_tpu_torch.train import bench
+
+    from sav_tpu_torch import create_model
+
+    per_step = attention_launches(create_model("deit_s_patch16"), train=True, family="fused")
+    out = {}
+    for name, extra in (("bf16", []), ("uint8", ["--device-preprocess"])):
+        reset_launches()
+        line = bench.main(TRAIN_BENCH_ARGS + extra + ["--steps", str(TRAIN_BENCH_STEPS),
+                                                      "--reps", str(TRAIN_BENCH_REPS)])
+        captured = {**dict.fromkeys(COUNTERS, 0), **line["captured_launches"]}
+        if (line["outcome"] != "ok" or not line["mfu"] or line["platform"] != "cuda"
+                or not line["peak_source"].startswith("device-table") or captured != per_step
+                or launch_counts() != _times(per_step, 3)):
+            raise AssertionError(f"train bench ({name}): {json.dumps(line)}; counters "
+                                 f"{json.dumps(launch_counts())}")
+        # The replays the bench counted where it launched them: two warm-up
+        # steps and the windows'.
+        replays = line["replays"]
+        launches = {**dict.fromkeys(COUNTERS, 0), **line["replayed_launches"]}
+        if replays != 2 + TRAIN_BENCH_STEPS * TRAIN_BENCH_REPS or launches != _times(captured,
+                                                                                     replays):
+            raise AssertionError(f"train bench ({name}): {replays} replays ran "
+                                 f"{json.dumps(launches)}, expected "
+                                 f"{2 + TRAIN_BENCH_STEPS * TRAIN_BENCH_REPS} of "
+                                 f"{json.dumps(captured)}")
+        # The line leaves out the variants that did not run.
+        variants = {k: {v: line["replayed_variants"].get(k, {}).get(v, 0) for v in by_variant}
+                    for k, by_variant in variant_counts().items()}
+        out[name] = {"line": line, "launches": launches,
+                     "variants": _on_tensor_cores(variants, launches, f"train bench ({name})")}
+        _free_device_memory()
+    labels = 4 * TRAIN_BATCH
+    ratio = ((out["uint8"]["line"]["transfer_bytes_per_batch"] - labels)
+             / (out["bf16"]["line"]["transfer_bytes_per_batch"] - labels))
+    if ratio != 0.5:
+        raise AssertionError(f"uint8 images move {ratio} of the bf16 images' bytes")
+    log("train bench deit_s_patch16 256: " + json.dumps(
+        {name: {k: r["line"][k] for k in ("value", "median_img_per_sec", "step_ms", "mfu",
+                                          "transfer_bytes_per_batch", "capture_s")}
+         for name, r in out.items()}))
+    return out
 
 
 # Kernel-name fragments → the group a device kernel is counted under.
@@ -2712,25 +3091,31 @@ KERNEL_GROUPS = (
 )
 
 
-def profile_step(trainer, state, batch) -> dict:
+def profile_step(trainer, state, batch, per_step: dict, *, eager=False) -> dict:
     """One train step under torch.profiler: device busy time per kernel group
-    (summed kernel self time) against the step's wall time."""
+    (summed kernel self time) against the step's wall time. The step is the
+    trainer's (a replay on the card), or with ``eager`` its eager body;
+    counted by name, its attention kernels must be ``per_step``'s."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    trainer.train_step(state, batch)  # warm, outside the window
+    step = trainer._train_step_impl if eager else trainer.train_step
+    step(state, batch)  # warm, outside the window
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        trainer.train_step(state, batch)
+        step(state, batch)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     # Device-side events only (kernels, copies, fills): an operator's row
     # in key_averages would count its kernels a second time.
-    kernels = {}
+    kernels, counts = {}, {}
     for event in prof.events():
         if event.device_type == DeviceType.CUDA:
             kernels[event.name] = kernels.get(event.name, 0.0) + event.time_range.elapsed_us() / 1e3
+            group = next((g for g, keys in KERNEL_GROUPS if any(k in event.name for k in keys)),
+                         "other")
+            counts[group] = counts.get(group, 0) + 1
     busy = sum(kernels.values())
     if busy == 0.0:
         raise RuntimeError("the profiler recorded no device time")
@@ -2738,15 +3123,27 @@ def profile_step(trainer, state, batch) -> dict:
     for name, ms in kernels.items():
         group = next((g for g, keys in KERNEL_GROUPS if any(k in name for k in keys)), "other")
         groups[group] = groups.get(group, 0.0) + ms
+    attention = [g for g, _ in KERNEL_GROUPS if g.endswith(".cu)")]
+    want = dict.fromkeys(attention, 0)
+    for kind, n in per_step.items():
+        want[COUNTER_GROUPS[kind]] += n
+    got = {g: counts.get(g, 0) for g in attention}
+    if got != want:
+        raise AssertionError(f"a profiled {'eager' if eager else 'captured'} step ran the "
+                             f"attention kernels {json.dumps(got)}, expected {json.dumps(want)}")
     top = sorted(kernels.items(), key=lambda kv: -kv[1])[:8]
     log(
-        f"train step profile (one step, torch.profiler): wall {wall_ms:.2f} ms, device busy "
+        f"train step profile ({'eager' if eager else 'captured'} step, torch.profiler): wall "
+        f"{wall_ms:.2f} ms, device busy "
         f"{busy:.2f} ms, idle {100 * (1 - busy / wall_ms):.1f} %; by group "
         + json.dumps({g: round(ms, 3) for g, ms in sorted(groups.items(), key=lambda kv: -kv[1])})
     )
     for name, ms in top:
         log(f"  {ms:8.3f} ms  {name[:110]}")
-    return {"wall_ms": wall_ms, "busy_ms": busy, "groups": groups}
+    log(f"  attention kernels by name: {json.dumps({g: n for g, n in got.items() if n})} of "
+        f"{sum(counts.values())} device kernels and copies")
+    return {"wall_ms": wall_ms, "busy_ms": busy, "groups": groups,
+            "idle_pct": 100 * (1 - busy / wall_ms)}
 
 
 def _timed(entry: dict) -> dict:
@@ -2780,7 +3177,9 @@ def main() -> None:
     _release_engines()
     evaluation = phase_eval(deit_source)
     dropout = phase_dropout(deit_source)
+    devpre = phase_device_preprocess(deit_source)
     del deit_source
+    train_bench = phase_train_bench()
     with tempfile.TemporaryDirectory() as pretrain:
         adapted = phase_surgery(pretrain)
         train["vit384"] = phase_train(
@@ -2805,7 +3204,9 @@ def main() -> None:
             "train_vit384": train["vit384"]["launches"][kind],
             "serve_botnet": serve["botnet"][kind], "train_botnet": train["botnet"]["launches"][kind],
             "train_resumed_deit": resume[kind], "eval_deit": evaluation[kind],
-            "train_dropout_deit": dropout[kind],
+            "train_dropout_deit": dropout[kind], "train_device_preprocess_deit": devpre[kind],
+            "train_bench_deit": train_bench["bf16"]["launches"][kind],
+            "train_bench_uint8_deit": train_bench["uint8"]["launches"][kind],
             "serve_bench": benches["deit"][kind], "serve_bench_cait": benches["cait"][kind],
             "serve_bench_botnet": benches["botnet"][kind], "serve_checkpoint_deit": serve_ckpt[kind],
         }
@@ -2816,7 +3217,7 @@ def main() -> None:
     def by_variant(kind):
         out = {}
         for run in (*serve.values(), *benches.values(), *train.values(), resume, evaluation,
-                    dropout, serve_ckpt):
+                    dropout, serve_ckpt, devpre, *train_bench.values()):
             for variant, n in run["variants"][kind].items():
                 out[variant] = out.get(variant, 0) + n
         return out
@@ -2989,12 +3390,19 @@ def main() -> None:
                 key: {"shape": list(shape), **_timed(times[f"rel {key} serve"])}
                 for key, shape in REL_SERVE_SHAPES.items()}
         rel_records.append(record)
-    steps = {name: {"step_ms": round(r["step_ms"], 3), "images_per_sec": round(r["images_per_sec"], 1),
-                    "peak_gb": round(r["peak_gb"], 2),
-                    "device_idle_pct": round(100 * (1 - r["profile"]["busy_ms"] / r["profile"]["wall_ms"]), 2)}
+    steps = {name: {mode: {"step_ms": round(run["step_ms"], 3),
+                           "images_per_sec": round(run["images_per_sec"], 1),
+                           "peak_gb": round(run["peak_gb"], 2),
+                           "busy_ms": round(run["profile"]["busy_ms"], 3),
+                           "device_idle_pct": round(run["profile"]["idle_pct"], 2)}
+                     for mode, run in (("captured", r), ("eager", r["eager"]))}
              for name, r in train.items()}
+    for name, r in train.items():
+        steps[name]["capture_s"] = round(r["capture_s"], 3)
     steps["vit384"].update({k: round(v, 2) for k, v in remat.items()})
-    log(f"train summary: {json.dumps(steps)}")
+    steps["device_preprocess_deit"] = {"step_ms": round(devpre["step_ms"], 3),
+                                       "images_per_sec": round(devpre["images_per_sec"], 1)}
+    log(f"train summary (fit's steady window; one profiled step each): {json.dumps(steps)}")
     log("serve summary (bf16, buckets 1-32; steps in ms by bucket; bench: images/s and ms): "
         + json.dumps({name: {"steps": serve[name]["steps"], "compile_s": serve[name]["compile_s"],
                              "replay_busy_ms_at_32": round(serve[name]["profile"]["busy_ms"], 4),
@@ -3020,5 +3428,22 @@ def main() -> None:
     }))
 
 
+def main_remat_trade() -> None:
+    """``--remat-trade``: the remat trade alone, on seed-0 weights."""
+    from sav_tpu_torch import create_model
+
+    phase_device()
+    phase_build()
+    state_dict = create_model(VIT384_MODEL, image_size=384, seed=0).state_dict()
+    print(json.dumps({k: round(v, 4) for k, v in phase_remat_trade(state_dict).items()}),
+          flush=True)
+
+
 if __name__ == "__main__":
-    main()
+    if sys.argv[1:] == ["--remat-trade"]:
+        main_remat_trade()
+    elif sys.argv[1:]:
+        raise SystemExit(f"chip_smoke: unknown arguments {sys.argv[1:]}; it takes none, or "
+                         "--remat-trade")
+    else:
+        main()

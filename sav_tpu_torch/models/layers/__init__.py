@@ -17,8 +17,10 @@ from sav_tpu_torch.models.layers.normalization import (
 from sav_tpu_torch.models.layers.position_embed import AddAbsPosEmbed
 from sav_tpu_torch.models.layers.regularization import (
     Dropout,
+    RecomputeGenerators,
     StochasticDepthBlock,
     set_dropout_generator,
+    set_recompute_generators,
     set_stochastic_depth_generator,
 )
 from sav_tpu_torch.models.layers.squeeze_excite import SqueezeExciteBlock
@@ -35,6 +37,7 @@ __all__ = [
     "FFBlock",
     "LayerScaleBlock",
     "PatchEmbedBlock",
+    "RecomputeGenerators",
     "SameConv2d",
     "SelfAttentionBlock",
     "SqueezeExciteBlock",
@@ -44,5 +47,6 @@ __all__ = [
     "max_pool_same",
     "same_pads",
     "set_dropout_generator",
+    "set_recompute_generators",
     "set_stochastic_depth_generator",
 ]

@@ -7,11 +7,14 @@
 ``torch.Generator`` on the device (:func:`set_stochastic_depth_generator`,
 :func:`set_dropout_generator`), never from the global RNG. The draws cannot
 match ``jax.random``'s, so tests compare at rate 0 or through
-``apply_mask`` with an injected mask.
+``apply_mask`` with an injected mask. A recomputed block draws its masks
+again from twins of those generators (:class:`RecomputeGenerators`, see
+``models/vit.py::remat_block``).
 """
 
 from __future__ import annotations
 
+import functools
 from typing import Optional
 
 import torch
@@ -81,7 +84,7 @@ class Dropout(nn.Module):
         set, 0 elsewhere."""
         if self.rate == 1.0:
             return torch.zeros_like(inputs)
-        keep = torch.tensor(1.0 - self.rate, dtype=inputs.dtype, device=inputs.device)
+        keep = _keep_scale(1.0 - self.rate, inputs.dtype, inputs.device)
         return torch.where(mask, inputs / keep, torch.zeros_like(keep))
 
     def forward(self, inputs: torch.Tensor) -> torch.Tensor:
@@ -92,8 +95,19 @@ class Dropout(nn.Module):
                 "dropout draws its masks from an explicit generator; call "
                 "set_dropout_generator(model, generator) first (the Trainer does)"
             )
-        draw = torch.rand(inputs.shape, generator=self.generator, device=inputs.device)
-        return self.apply_mask(inputs, draw < 1.0 - self.rate)
+        # The f32 draw (4 bytes an element) is freed before the mask is
+        # applied, so it adds nothing to the peak of what apply_mask makes.
+        mask = torch.rand(inputs.shape, generator=self.generator, device=inputs.device) < (
+            1.0 - self.rate)
+        return self.apply_mask(inputs, mask)
+
+
+@functools.cache
+def _keep_scale(keep: float, dtype: torch.dtype, device: torch.device) -> torch.Tensor:
+    """``keep`` as a 0-d tensor of ``dtype`` on ``device``, made once: a
+    train step captured as a CUDA graph cannot hold the host-to-device copy
+    that making it on every call would be."""
+    return torch.tensor(keep, dtype=dtype, device=device)
 
 
 def set_dropout_generator(model: nn.Module, generator: torch.Generator) -> int:
@@ -115,3 +129,98 @@ def module_generators(module: nn.Module) -> list:
         if generator is not None and all(generator is not g for g in found):
             found.append(generator)
     return found
+
+
+class RecomputeGenerators:
+    """The generators that recomputed blocks draw their masks from again.
+
+    A block recomputed in the backward (``models/vit.py::remat_block``)
+    must draw the masks its forward drew. Rewinding its layers' generators
+    for that takes ``Generator.set_state``, which a CUDA graph capture
+    refuses, and keeping the forward's masks until the backward costs a
+    byte an element. So every forward of a recomputed block in a step gets
+    twins of the generators its layers draw from (:meth:`twins`), standing
+    where those stood when the forward began, and its recompute draws from
+    the twins:
+
+    - run eagerly, each twin is set to its generator's state there, and on
+      the card the generator's offset from the step's start
+      (:meth:`begin_step`) is recorded;
+    - in a captured step the twins are registered with the graph
+      (:meth:`generators`: a replay reads a registered generator's offset
+      when it is launched), and before each replay :meth:`position` puts
+      each twin at its generator's offset plus the recorded one: where the
+      replayed forward draws.
+
+    The twins are made by eager steps (the warm-ups before a capture); a
+    capture that finds none for a forward raises."""
+
+    def __init__(self):
+        # Per forward of a recomputed block in a step: (generator, twin)
+        # pairs, and each generator's offset there from the step's start.
+        self._pairs: list = []
+        self._offsets: list = []
+        self._start: list = []
+        self._next = 0
+
+    def begin_step(self, generators) -> None:
+        """Start a step whose layers draw from ``generators``."""
+        self._next = 0
+        if not _capturing():
+            self._start = [(g, g.get_offset()) for g in generators if g.device.type == "cuda"]
+
+    def twins(self, generators: list) -> list:
+        """At the forward of a recomputed block, before it draws: a twin of
+        each of ``generators`` standing where that generator stands."""
+        capturing = _capturing()
+        k = self._next
+        self._next += 1
+        if k == len(self._pairs) or not _same(generators, [g for g, _ in self._pairs[k]]):
+            if capturing:
+                raise RuntimeError("a recomputed block has no twin generators made for it: "
+                                   "run the step eagerly before capturing it")
+            del self._pairs[k:], self._offsets[k:]
+            self._pairs.append([(g, torch.Generator(device=g.device)) for g in generators])
+            self._offsets.append([0] * len(generators))
+        pairs = self._pairs[k]
+        if not capturing:
+            for i, (g, twin) in enumerate(pairs):
+                twin.set_state(g.get_state())
+                if g.device.type == "cuda":
+                    start = next(o for s, o in self._start if s is g)
+                    self._offsets[k][i] = g.get_offset() - start
+        return [twin for _, twin in pairs]
+
+    def generators(self) -> list:
+        """Every twin, to register with a graph."""
+        return [twin for pairs in self._pairs for _, twin in pairs]
+
+    def offsets(self) -> list:
+        """The offsets the last eager step recorded, for :meth:`position`."""
+        return [list(o) for o in self._offsets]
+
+    def position(self, offsets: list) -> None:
+        """Before a replay of a step whose eager run recorded ``offsets``:
+        each twin at its generator's offset plus the recorded one."""
+        for pairs, offs in zip(self._pairs, offsets):
+            for (g, twin), off in zip(pairs, offs):
+                twin.set_state(g.get_state())
+                twin.set_offset(g.get_offset() + off)
+
+
+def _same(a: list, b: list) -> bool:
+    return len(a) == len(b) and all(x is y for x, y in zip(a, b))
+
+
+def _capturing() -> bool:
+    return torch.cuda.is_available() and torch.cuda.is_current_stream_capturing()
+
+
+def set_recompute_generators(model: nn.Module, recompute: RecomputeGenerators) -> int:
+    """Give every block of ``model`` that remat may recompute (a module
+    with a ``recompute_generators`` attribute) the twins' keeper; returns
+    how many there are."""
+    found = [m for m in model.modules() if hasattr(m, "recompute_generators")]
+    for m in found:
+        m.recompute_generators = recompute
+    return len(found)

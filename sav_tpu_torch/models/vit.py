@@ -37,7 +37,11 @@ from sav_tpu_torch.models.layers import (
     SelfAttentionBlock,
 )
 from sav_tpu_torch.models.layers.initializers import lecun_normal_
-from sav_tpu_torch.models.layers.regularization import module_generators
+from sav_tpu_torch.models.layers.regularization import (
+    RecomputeGenerators,
+    StochasticDepthBlock,
+    module_generators,
+)
 
 # flax.linen.LayerNorm's epsilon (torch's default is 1e-5).
 LN_EPS = 1e-6
@@ -82,29 +86,40 @@ class LayerNorm(nn.LayerNorm):
 
 def remat_block(block: nn.Module, inputs: torch.Tensor) -> torch.Tensor:
     """``block(inputs)`` under non-reentrant activation checkpointing whose
-    recompute draws the masks the forward drew. ``checkpoint`` restores
-    only the default generators; the block's dropout and stochastic-depth
-    layers draw from their own, so the recompute rewinds each of those to
-    where it stood when the forward began, and afterwards puts it back
-    where it was: the generators end where they end without remat."""
+    recompute draws the masks the forward drew. The block's dropout and
+    stochastic-depth layers draw from generators of their own, which
+    ``checkpoint`` does not restore, so the recompute draws from twins of
+    them that stood where they stood when the forward began
+    (:class:`RecomputeGenerators`: the block's ``recompute_generators``,
+    the trainer's, or one made for this call): no mask is kept until the
+    backward, no generator is rewound (a CUDA graph capture would refuse
+    that), and the generators move once, as without remat. Nothing in the port's models
+    draws from the default generators, so ``checkpoint`` keeps no state of
+    them (``preserve_rng_state=False``, which a capture also needs)."""
     generators = module_generators(block)
-    start = [g.get_state() for g in generators]
-    calls = []
+    recompute = getattr(block, "recompute_generators", None)
+    if recompute is None:
+        recompute = RecomputeGenerators()
+        recompute.begin_step(generators)
+    twin_of = dict(zip(map(id, generators), recompute.twins(generators)))
+    layers = [m for m in block.modules()
+              if isinstance(m, (Dropout, StochasticDepthBlock)) and m.generator is not None]
+    passes = []
 
     def run(x):
-        if not calls:
-            calls.append(1)
+        if not passes:
+            passes.append(1)
             return block(x)
-        now = [g.get_state() for g in generators]
-        for g, state in zip(generators, start):
-            g.set_state(state)
+        own = [layer.generator for layer in layers]
+        for layer in layers:
+            layer.generator = twin_of[id(layer.generator)]
         try:
             return block(x)
         finally:
-            for g, state in zip(generators, now):
-                g.set_state(state)
+            for layer, generator in zip(layers, own):
+                layer.generator = generator
 
-    return checkpoint(run, inputs, use_reentrant=False)
+    return checkpoint(run, inputs, use_reentrant=False, preserve_rng_state=False)
 
 
 class EncoderBlock(nn.Module):
@@ -121,6 +136,10 @@ class EncoderBlock(nn.Module):
         )
         self.norm2 = LayerNorm(dim)
         self.ff = FFBlock(dim, expand_ratio=expand_ratio, dropout_rate=dropout_rate)
+        # Where a recompute of this block under remat finds its twin
+        # generators: the trainer's (set_recompute_generators), else one
+        # made per call (remat_block).
+        self.recompute_generators: Optional[RecomputeGenerators] = None
 
     def forward(self, inputs: torch.Tensor) -> torch.Tensor:
         x = self.attn(self.norm1(inputs)) + inputs

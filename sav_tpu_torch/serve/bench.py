@@ -30,28 +30,15 @@ from __future__ import annotations
 
 import argparse
 import json
-import shutil
-import subprocess
 import sys
 import time
-from typing import Optional
 
 import numpy as np
 import torch
 
+from sav_tpu_torch.utils.device import card
+
 POOL = 16
-
-
-def card() -> Optional[str]:
-    """``name, power.limit`` of the first card as nvidia-smi prints them;
-    None without a card or without nvidia-smi."""
-    if not torch.cuda.is_available() or shutil.which("nvidia-smi") is None:
-        return None
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, timeout=30, check=True,
-    )
-    return out.stdout.strip().splitlines()[0]
 
 
 def run(args: argparse.Namespace) -> dict:

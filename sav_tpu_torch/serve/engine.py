@@ -59,11 +59,12 @@ from sav_tpu_torch.serve.batcher import (
     ServeClosedError,
 )
 from sav_tpu_torch.serve.bucketing import BucketLadder, default_ladder
-from sav_tpu_torch.serve.graphs import BucketGraphs, held_stream
+from sav_tpu_torch.serve.graphs import BucketGraphs
 from sav_tpu_torch.serve.latency import LatencyLedger
 from sav_tpu_torch.serve.preprocess import preprocess_request
 from sav_tpu_torch.train.checkpoint import Checkpointer
 from sav_tpu_torch.utils.device import COMPUTE_DTYPES, require_device
+from sav_tpu_torch.utils.graphs import held_stream
 
 
 @dataclasses.dataclass
@@ -174,7 +175,7 @@ class ServeEngine:
     init drawn from ``config.seed``.
 
     Several engines may serve on one device at once: each holds streams
-    of its own (:func:`~sav_tpu_torch.serve.graphs.held_stream`), so their
+    of its own (:func:`~sav_tpu_torch.utils.graphs.held_stream`), so their
     graphs never share a cuBLAS workspace.
 
     Test seams: ``place_hook`` fires on the feeder thread after a batch is
@@ -221,7 +222,7 @@ class ServeEngine:
         param_bytes = sum(t.numel() * t.element_size() for t in self.model.state_dict().values())
         on_card = self.device.type == "cuda"
         # Batches are copied to the card on the feed stream and run on the
-        # compute stream, both held by this engine alone (graphs.held_stream).
+        # compute stream, both held by this engine alone (utils.graphs.held_stream).
         self._feed_stream = held_stream(self.device, self) if on_card else None
         self._compute_stream = held_stream(self.device, self) if on_card else None
         built_before, loaded_before = set(_build.BUILD_LOGS), set(_build.loaded())

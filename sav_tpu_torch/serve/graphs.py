@@ -34,16 +34,10 @@ hundred from Python.
   (:attr:`BucketGraphs.captured_launches`) and the tallies' by variant
   (:attr:`BucketGraphs.captured_variants`), and a caller counts the
   kernels a replay runs as replays × captured.
-- **Streams held by one owner.** A graph keeps the address of the cuBLAS
-  workspace of the stream it was captured on, and cuBLAS keeps one
-  workspace per stream for the life of the process. Two engines whose
-  graphs shared a capture stream would race on one workspace when they
-  replay at once, and work queued on a stream while another engine
-  captures on it would land in that graph. PyTorch hands out streams from
-  a pool of :data:`POOL_STREAMS` per device, round robin, so every stream
-  an engine uses comes from :func:`held_stream`: one that no live owner
-  holds, freed for the next owner when its own is collected. The
-  workspaces so stay bounded by the engines alive at once.
+- **Streams held by one owner.** Every stream an engine uses (feed,
+  compute, capture) comes from
+  :func:`sav_tpu_torch.utils.graphs.held_stream`, one that no other live
+  owner holds, so two engines' graphs never share a cuBLAS workspace.
 
 A CUDA graph lives in its process and cannot be written to disk, so there
 is no counterpart of ``sav_tpu``'s ``compilation_cache_dir``: a restart
@@ -53,62 +47,14 @@ captures again. What does persist is the kernel libraries nvcc built under
 
 from __future__ import annotations
 
-import itertools
-import threading
 import time
-import weakref
 from typing import Callable
 
 import torch
 
-from sav_tpu_torch.ops import launch_counts, variant_counts
+from sav_tpu_torch.utils.graphs import capture, held_stream
 
 WARMUP_RUNS = 2
-# Streams in PyTorch's pool per device and priority, handed out round robin.
-POOL_STREAMS = 32
-
-# Streams held by a live owner, by device: the pointers in use, and those
-# freed by a collected owner, kept for the next one (their workspaces with
-# them).
-_HELD: dict = {}
-_FREE: dict = {}
-_HELD_LOCK = threading.Lock()
-
-
-def held_stream(device: torch.device, owner, new_stream: Callable = torch.cuda.Stream):
-    """A stream of ``device`` that no other live owner holds, held until
-    ``owner`` is collected: a freed one if there is one, else the next of
-    PyTorch's pool (``new_stream(device)``) that nobody holds. Raises when
-    owners hold every stream of the pool."""
-    if device.index is None:
-        device = torch.device(device.type, torch.cuda.current_device())
-    with _HELD_LOCK:
-        held = _HELD.setdefault(device, set())
-        free = _FREE.setdefault(device, [])
-        # A freed stream first (its workspace is made already), then the pool.
-        candidates = itertools.chain(reversed(free),
-                                     (new_stream(device) for _ in range(POOL_STREAMS)))
-        stream = next((s for s in candidates if s.cuda_stream not in held), None)
-        if stream is None:
-            raise RuntimeError(f"every one of the {POOL_STREAMS} pool streams of {device} is "
-                               "held by a live serving engine")
-        held.add(stream.cuda_stream)
-        _FREE[device] = [s for s in free if s.cuda_stream not in held]
-    weakref.finalize(owner, _release, device, stream)
-    return stream
-
-
-def streams_held() -> int:
-    """The streams that live owners hold, on every device: 0 once every
-    engine is collected, and with it every graph that kept a workspace."""
-    with _HELD_LOCK:
-        return sum(len(held) for held in _HELD.values())
-
-
-def _release(device: torch.device, stream) -> None:
-    with _HELD_LOCK:
-        _HELD[device].discard(stream.cuda_stream)
-        _FREE[device].append(stream)
 
 
 class BucketGraphs:
@@ -156,17 +102,11 @@ class BucketGraphs:
         t0 = time.perf_counter()
         pool = torch.cuda.graph_pool_handle()
         for bucket in reversed(self.buckets):
-            graph = torch.cuda.CUDAGraph()
-            before, variants_before = launch_counts(), variant_counts()
-            with torch.inference_mode(), torch.cuda.graph(
-                graph, pool=pool, stream=side, capture_error_mode="thread_local"
-            ):
-                out = infer(*self._static[bucket])
-            after, variants_after = launch_counts(), variant_counts()
-            self.captured_launches[bucket] = {k: after[k] - before[k] for k in after}
-            self.captured_variants[bucket] = {
-                k: {v: n - variants_before[k][v] for v, n in by_variant.items()}
-                for k, by_variant in variants_after.items()}
+            with torch.inference_mode():
+                graph, out, launches, variants = capture(
+                    lambda: infer(*self._static[bucket]), pool=pool, stream=side)
+            self.captured_launches[bucket] = launches
+            self.captured_variants[bucket] = variants
             self._graphs[bucket] = graph
             self._outputs[bucket] = out
         torch.cuda.synchronize(device)

@@ -20,10 +20,8 @@ from sav_tpu_torch.utils.device import COMPUTE_DTYPES
 _NOT_CARRIED = {
     "attention_tune_cache": "queue A2 (the port's dispatch rule has no tune cache)",
     "quant": "queue A8 (int8)",
-    "device_preprocess": "queue A6 (device feed and on-device mixing)",
-    "async_feed": "queue A6 (device feed and on-device mixing)",
-    "feed_depth": "queue A6 (device feed and on-device mixing)",
-    "compilation_cache_dir": "queue A10 (infra)",
+    # A CUDA graph lives in its process: there is nothing to write to disk.
+    "compilation_cache_dir": "queue A10 (infra; a captured CUDA graph cannot be cached on disk)",
     "mesh_axes": "queue A9 (parallelism)",
     "layout_preset": "queue A9 (parallelism)",
     "sequence_parallel": "queue A9 (parallelism)",
@@ -60,13 +58,16 @@ class TrainConfig:
     quant: Optional[str] = None
     # Extra create_model arguments (e.g. {'num_layers': 2}).
     model_overrides: Optional[dict] = None
+    # Batches arrive as post-augment uint8; the train step applies the
+    # augment string's mixes and normalises on the device.
     device_preprocess: bool = False
+    # fit/evaluate place batches on a feeder thread, feed_depth ahead.
     async_feed: bool = True
     feed_depth: int = 2
     compilation_cache_dir: Optional[str] = None
 
-    # Data. ``augment`` names the host pipeline's augmentation, which the
-    # trainer never reads: it takes batches as given.
+    # Data. ``augment`` names the augmentation; the trainer reads its mixes
+    # under device_preprocess and otherwise takes batches as given.
     global_batch_size: int = 1024
     num_train_images: int = 1_281_167  # ImageNet-1k train
     augment: str = "cutmix_mixup_randaugment_405"
@@ -138,6 +139,8 @@ class TrainConfig:
                 )
         if self.grad_accum_steps < 1:
             raise ValueError(f"grad_accum_steps must be >= 1, got {self.grad_accum_steps}")
+        if self.feed_depth < 1:
+            raise ValueError(f"feed_depth must be >= 1, got {self.feed_depth}")
         if self.compute_dtype not in COMPUTE_DTYPES:
             raise ValueError(
                 f"compute_dtype must be one of {sorted(COMPUTE_DTYPES)}, got {self.compute_dtype!r}"

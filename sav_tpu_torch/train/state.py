@@ -3,11 +3,17 @@
 from __future__ import annotations
 
 import dataclasses
+import logging
 
 import torch
 from torch import nn
 
 from sav_tpu_torch.train.optimizer import OptState, copy_checked
+
+
+# Generators a checkpoint may lack: added after checkpoints were first
+# written (device_preprocess's mixes).
+OPTIONAL_GENERATORS = ("mix",)
 
 
 @dataclasses.dataclass
@@ -16,13 +22,15 @@ class TrainState:
     the optimizer state, ``batch_stats``: the model's buffers by name, the
     BatchNorm running statistics (empty for ViT and CaiT), and
     ``generators``: the trainer's generators by stream name
-    (``stochastic_depth``, ``dropout``), whose states resume the masks.
+    (``stochastic_depth``, ``dropout``, ``mix``), whose states resume the
+    masks and the mixes' draws.
 
     ``sav_tpu``'s state is an immutable pytree; here the model and the
     optimizer state are updated in place by each step, and the step count
-    is a host integer, so reading it never waits on the device. The
-    ``batch_stats`` tensors are the model's own buffers, updated in place by
-    each train step."""
+    is a host integer, so reading it never waits on the device (the
+    optimizer keeps its own count on the device). The ``batch_stats``
+    tensors are the model's own buffers, updated in place by each train
+    step."""
 
     step: int
     model: nn.Module
@@ -51,7 +59,10 @@ class TrainState:
     def load_state_dict(self, state: dict) -> "TrainState":
         """Copy ``state`` (from :meth:`state_dict`, any device) into this
         state's tensors and generators in place; returns the state at the
-        saved step. Names and shapes must match (``ValueError``)."""
+        saved step. Names and shapes must match (``ValueError``). A
+        checkpoint written before the ``mix`` generator existed restores
+        without it: that generator keeps its state (the trainer's fresh one
+        from the seed), with a warning."""
         params = self.params
         with torch.no_grad():
             for kind, live in (("params", params), ("batch_stats", self.batch_stats)):
@@ -68,6 +79,10 @@ class TrainState:
         saved = state.get("generators", {})
         for name, generator in self.generators.items():
             if name not in saved:
+                if name in OPTIONAL_GENERATORS:
+                    logging.warning("the checkpoint holds no state of the %r generator; it "
+                                    "keeps its fresh state", name)
+                    continue
                 raise ValueError(f"the checkpoint holds no state of the {name!r} generator")
             generator.set_state(saved[name])
         return dataclasses.replace(self, step=int(state["step"]), opt_state=opt_state)

@@ -7,23 +7,39 @@ kernel and, in the backward, its backward kernels
 :mod:`sav_tpu_torch.ops.flash_attention`, and for CaiT's talking-heads
 trunk :mod:`sav_tpu_torch.ops.talking_heads`, for BoTNet's relative-position
 attention the rel kernels of :mod:`sav_tpu_torch.ops.flash_attention`). A
-model with BatchNorm (BoTNet) updates its running statistics in
-:meth:`Trainer.train_step` (train mode) and uses them in
-:meth:`Trainer.eval_step` (eval mode); the state's ``batch_stats`` are those
-buffers. A ViT built with
+model with BatchNorm (BoTNet) updates its running statistics in a train
+step (train mode) and uses them in an eval step (eval mode); the state's
+``batch_stats`` are those buffers. A ViT built with
 ``model_overrides={'remat': True}`` recomputes each encoder block in the
-backward pass. Stochastic depth and dropout draw their masks from two
-generators on the device, used by nothing else (``sav_tpu``'s
-``'stochastic_depth'`` and ``'dropout'`` streams): the first seeded from
-``config.seed``, the second from a seed derived from it
-(:func:`stream_seed`). Their states are part of the train state and of
-every checkpoint, so a restored run draws the masks the uninterrupted run
-would have drawn. The step is ``sav_tpu``'s ``_train_step_impl``: one-hot
-f32 labels (mixed by ``mix_labels``/``ratio`` when the batch has them),
-label smoothing, f32 cross entropy, backward, the masked AdamW of
+backward pass. Stochastic depth, dropout and the device mixes draw from
+three generators on the device, used by nothing else (``sav_tpu``'s
+``'stochastic_depth'`` and ``'dropout'`` streams and its dedicated mix
+fold): the first seeded from ``config.seed``, the others from seeds derived
+from it (:func:`stream_seed`). Their states are part of the train state and
+of every checkpoint, so a restored run draws what the uninterrupted run
+would have drawn.
+
+The step is ``sav_tpu``'s ``_train_step_impl``: with ``device_preprocess``
+the uint8 batch is mixed (the augment string's MixUp/CutMix) and
+normalised on the device first; then one-hot f32 labels (mixed by
+``mix_labels``/``ratio`` when the batch has them), label smoothing, f32
+cross entropy, backward, the masked AdamW of
 :mod:`sav_tpu_torch.train.optimizer`; with ``grad_accum_steps > 1`` the
 batch is split into micro-batches whose f32 gradients are averaged before
 one update (BatchNorm statistics thread through them in order).
+
+On the card :meth:`Trainer.train_step` and :meth:`Trainer.eval_step`
+replay CUDA graphs (:mod:`sav_tpu_torch.train.graphs`), captured once per
+batch signature as ``jax.jit`` compiles once per shape; ``_train_step_impl``
+and ``_eval_step_impl`` are the eager bodies they capture, which run as
+they are on the CPU. The graphs hold the addresses of the state's tensors,
+so a state that brings other tensors (``restore_or_init``,
+``warm_start_from`` and ``init_state`` all make new ones) is captured
+again, and :attr:`Trainer.recaptures` counts it. :meth:`Trainer.fit` and
+:meth:`Trainer.evaluate` take their batches through the async
+:class:`~sav_tpu_torch.data.feeder.DeviceFeeder` when ``config.async_feed``
+(the default): placement of batch N+1 (pinned memory, a copy on a stream
+of the trainer's own) overlaps step N.
 
 Metrics stay on the device as 0-d tensors; :meth:`Trainer.fit` brings a log
 window's metrics to the host in one copy, and saves checkpoints
@@ -31,8 +47,8 @@ window's metrics to the host in one copy, and saves checkpoints
 config sets. Without a card the trainer refuses to run unless the caller
 passes ``device="cpu"``.
 
-Not ported yet (ROADMAP queue A4/A6/A9/A10): the supervisor, the async
-device feed, on-device mixing, meshes and the telemetry.
+Not ported yet (ROADMAP queue A4/A9/A10): the supervisor, meshes and the
+telemetry.
 """
 
 from __future__ import annotations
@@ -43,6 +59,7 @@ import json
 import logging
 import os
 import time
+import weakref
 from typing import Callable, Iterator, Optional
 
 import numpy as np
@@ -50,11 +67,20 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from sav_tpu_torch.data.augment_spec import parse_augment_spec
+from sav_tpu_torch.data.feeder import DeviceFeeder
 from sav_tpu_torch.models import create_model
-from sav_tpu_torch.models.layers import set_dropout_generator, set_stochastic_depth_generator
+from sav_tpu_torch.models.layers import (
+    RecomputeGenerators,
+    set_dropout_generator,
+    set_recompute_generators,
+    set_stochastic_depth_generator,
+)
 from sav_tpu_torch.models.surgery import adapt_pos_embeds
+from sav_tpu_torch.ops.preprocess import apply_mixes, normalize_images
 from sav_tpu_torch.train.checkpoint import Checkpointer
 from sav_tpu_torch.train.config import TrainConfig
+from sav_tpu_torch.train.graphs import StepGraphs
 from sav_tpu_torch.train.optimizer import (
     global_norm,
     make_optimizer,
@@ -63,8 +89,10 @@ from sav_tpu_torch.train.optimizer import (
 )
 from sav_tpu_torch.train.state import TrainState
 from sav_tpu_torch.utils.device import COMPUTE_DTYPES, require_device
+from sav_tpu_torch.utils.graphs import held_stream
 from sav_tpu_torch.utils.metrics import cross_entropy, topk_correct
 
+_TRAIN_KEYS = ("loss", "top_1_acc", "top_5_acc", "learning_rate", "grad_norm", "aux_loss")
 _EVAL_KEYS = ("loss_sum", "top_1_sum", "top_5_sum", "count")
 
 
@@ -73,6 +101,31 @@ def stream_seed(seed: int, stream: str) -> int:
     the first 8 bytes of ``sha256(f"{seed}/{stream}")``, so no stream shares
     a seed with another run's."""
     return int.from_bytes(hashlib.sha256(f"{seed}/{stream}".encode()).digest()[:8], "little")
+
+
+class PlacedBatch(dict):
+    """A batch on the trainer's device (:meth:`Trainer.shard_batch`). On the
+    card ``event`` marks the end of its copy, which the step that reads it
+    waits on."""
+
+    event: Optional["torch.cuda.Event"] = None
+
+
+@dataclasses.dataclass
+class CompiledStep:
+    """The train step captured for one batch signature
+    (:meth:`Trainer.compile_train_step`): call it as ``step(state, placed)``.
+    ``capture_s`` is the capture's time, warm-ups included, and
+    ``captured_launches``/``captured_variants`` the kernel launches one
+    replay runs (empty on the CPU, where the step runs eagerly)."""
+
+    step: Callable
+    capture_s: float
+    captured_launches: dict
+    captured_variants: dict
+
+    def __call__(self, state: TrainState, placed: dict):
+        return self.step(state, placed)
 
 
 class Trainer:
@@ -105,10 +158,17 @@ class Trainer:
         self.generators = {
             "stochastic_depth": torch.Generator(device=self.device),
             "dropout": torch.Generator(device=self.device),
+            "mix": torch.Generator(device=self.device),
         }
         self._seed_generators()
+        # device_preprocess: the host ships post-augment uint8 and the step
+        # applies the augment string's mixes, then normalises.
+        self._mix_spec = parse_augment_spec(config.augment) if config.device_preprocess else None
         set_stochastic_depth_generator(self.model, self.generators["stochastic_depth"])
         set_dropout_generator(self.model, self.generators["dropout"])
+        # The twins that blocks recomputed under remat draw from again.
+        self.recompute_generators = RecomputeGenerators()
+        set_recompute_generators(self.model, self.recompute_generators)
         self.schedule = warmup_cosine_schedule(
             config.learning_rate,
             steps_per_epoch=config.steps_per_epoch,
@@ -131,11 +191,21 @@ class Trainer:
         self.checkpointer = checkpointer
         if checkpointer is None and config.checkpoint_dir:
             self.checkpointer = Checkpointer(config.checkpoint_dir, keep=config.checkpoint_keep)
+        on_card = self.device.type == "cuda"
+        # Batches are copied to the card on a stream of the trainer's own.
+        self._feed_stream = held_stream(self.device, self) if on_card else None
+        # {"train"|"eval": (state key, StepGraphs)} on the card.
+        self._graphs: dict = {}
+        # Captures made again because a state brought other tensors.
+        self.recaptures = 0
+        # The feeder's stats() of the last fit (None without async_feed).
+        self.last_feeder_stats: Optional[dict] = None
 
     def _seed_generators(self) -> None:
         seed = self.config.seed
         self.generators["stochastic_depth"].manual_seed(seed)
         self.generators["dropout"].manual_seed(stream_seed(seed, "dropout"))
+        self.generators["mix"].manual_seed(stream_seed(seed, "mix"))
 
     # ------------------------------------------------------------------ init
 
@@ -220,8 +290,10 @@ class Trainer:
         images = torch.as_tensor(images)
         if images.dtype == torch.uint8:
             raise ValueError(
-                "got uint8 images; the trainer takes normalized float batches "
-                "(on-device normalisation for training is ROADMAP queue A6)"
+                "got uint8 images with device_preprocess=False; either set "
+                "TrainConfig.device_preprocess=True or feed normalized "
+                "float batches (load(device_preprocess=...) must match the "
+                "trainer)"
             )
         if self.config.transpose_images and images.ndim == 4:
             images = images.permute(3, 0, 1, 2)  # HWCN → NHWC
@@ -243,12 +315,47 @@ class Trainer:
             probs = (1.0 - alpha) * probs + alpha / num_classes
         return probs
 
-    def train_step(self, state: TrainState, batch: dict):
-        """One update on a host (numpy) or device batch
-        (``images``, ``labels``, optional ``mix_labels``/``ratio``).
-        Updates the model and optimizer state in place; returns the state at
-        ``step + 1`` and the step's metrics as 0-d device tensors (and the
-        schedule's learning rate as a float).
+    def _device_preprocess(self, batch: dict, training: bool) -> dict:
+        """A uint8 batch → mixed (in training, as the augment string says)
+        and normalised NHWC images in the compute dtype, on the device
+        (``sav_tpu``'s ``_device_preprocess``; the mixes draw from the
+        ``"mix"`` generator)."""
+        images = torch.as_tensor(batch["images"]).to(self.device, non_blocking=True)
+        if images.dtype != torch.uint8:
+            raise ValueError(
+                "device_preprocess=True expects uint8 batches from the "
+                f"matching pipeline mode, got {images.dtype}; feed "
+                "load(device_preprocess=True) / "
+                "savrec_train_iterator(normalize=False) batches, or turn "
+                "device_preprocess off"
+            )
+        if self.config.transpose_images and images.ndim == 4:
+            images = images.permute(3, 0, 1, 2)  # HWCN → NHWC
+        batch = dict(batch)
+        if training and self._mix_spec is not None and self._mix_spec.mixes:
+            images, mix_labels, ratio = apply_mixes(
+                images, self._labels(batch), self._mix_spec, generator=self.generators["mix"])
+            if mix_labels is not None:
+                batch["mix_labels"] = mix_labels
+                batch["ratio"] = ratio
+        batch["images"] = normalize_images(images, self.compute_dtype)
+        return batch
+
+    def _inputs(self, batch: dict, training: bool) -> tuple:
+        """``(batch, NHWC images in the compute dtype)``: the batch with the
+        mixes' labels when ``device_preprocess`` added them."""
+        if self.config.device_preprocess:
+            batch = self._device_preprocess(batch, training)
+            return batch, batch["images"]
+        return batch, self._prep_images(batch["images"])
+
+    def _train_step_impl(self, state: TrainState, batch: dict):
+        """One update, eagerly: the body that :meth:`train_step` captures on
+        the card and runs as it is on the CPU. Takes a host (numpy) or
+        device batch (``images``, ``labels``, optional
+        ``mix_labels``/``ratio``); updates the model and optimizer state in
+        place; returns the state at ``step + 1`` and the step's metrics as
+        0-d device tensors.
 
         With ``grad_accum_steps`` > 1 the batch is split into that many
         micro-batches, run in order (each BatchNorm normalises by its
@@ -259,7 +366,8 @@ class Trainer:
         update and ``grad_norm`` use the averaged gradients."""
         model = state.model
         model.train()
-        images = self._prep_images(batch["images"])
+        self.recompute_generators.begin_step(self.generators.values())
+        batch, images = self._inputs(batch, training=True)
         labels = self._labels(batch)
         label_probs = self._label_probs(batch, labels)
         params = list(model.parameters())
@@ -286,26 +394,29 @@ class Trainer:
             loss = loss / accum
         with torch.no_grad():
             grad_norm = global_norm(grads)  # before the clip, as sav_tpu logs it
+            learning_rate = self.schedule(state.opt_state.count)  # the update's, as sav_tpu's
             opt_state = self.tx.step(
-                params, grads, self._decay_mask, state.opt_state, grad_norm=grad_norm
+                params, grads, self._decay_mask, state.opt_state, grad_norm=grad_norm,
+                lr=learning_rate,
             )
             acc = topk_correct(torch.cat(logits).float(), labels)
         metrics = {
             "loss": loss,
             "top_1_acc": acc["top_1_acc"].mean(),
             "top_5_acc": acc["top_5_acc"].mean(),
-            "learning_rate": self.schedule(state.step),
+            "learning_rate": learning_rate,
             "grad_norm": grad_norm,
             "aux_loss": aux_loss,
         }
         return dataclasses.replace(state, step=state.step + 1, opt_state=opt_state), metrics
 
     @torch.no_grad()
-    def eval_step(self, state: TrainState, batch: dict) -> dict:
+    def _eval_step_impl(self, state: TrainState, batch: dict) -> dict:
         """Summed loss (no label smoothing), top-1/top-5 hits and count over
         the batch's valid rows (``valid``, default all), as device tensors;
-        on the parameter EMA when configured."""
-        images = self._prep_images(batch["images"])
+        on the parameter EMA when configured. The eager body of
+        :meth:`eval_step`."""
+        batch, images = self._inputs(batch, training=False)
         model = state.model
         model.eval()
         if state.opt_state.ema is not None:
@@ -328,6 +439,166 @@ class Trainer:
             "top_5_sum": (acc["top_5_acc"] * valid).sum(),
             "count": valid.sum(),
         }
+
+    # ------------------------------------------------------- placement, graphs
+
+    def shard_batch(self, batch: dict) -> PlacedBatch:
+        """Place a host batch on the trainer's device (``sav_tpu``'s name;
+        one device, so nothing is sharded). On the card each host array is
+        copied into pinned memory and from there to the card on the
+        trainer's own stream, without a wait; the batch's ``event`` marks
+        the end of the copies. A tensor already on the device is taken as
+        it is. Safe to call from the feeder's thread."""
+        if isinstance(batch, PlacedBatch):
+            return batch
+        placed = PlacedBatch()
+        if self._feed_stream is None:
+            placed.update({k: torch.as_tensor(v).to(self.device) for k, v in batch.items()})
+            return placed
+        with torch.cuda.stream(self._feed_stream):
+            for key, value in batch.items():
+                value = torch.as_tensor(value)
+                if value.device.type == "cpu":
+                    if not value.is_pinned():
+                        pinned = torch.empty(value.shape, dtype=value.dtype, pin_memory=True)
+                        pinned.copy_(value)
+                        value = pinned
+                    value = value.to(self.device, non_blocking=True)
+                placed[key] = value
+            placed.event = torch.cuda.Event()
+            placed.event.record()
+        return placed
+
+    def _await(self, placed: dict) -> None:
+        """Order the current stream after ``placed``'s copies, and keep the
+        allocator from reusing their blocks before it has read them."""
+        event = getattr(placed, "event", None)
+        if event is not None:
+            stream = torch.cuda.current_stream(self.device)
+            stream.wait_event(event)
+            for value in placed.values():
+                value.record_stream(stream)
+
+    def _state_tensors(self, state: TrainState) -> list:
+        """Every tensor a train step updates in place: parameters, buffers
+        (the BatchNorm statistics), Adam moments, the EMA and the count."""
+        opt = state.opt_state
+        return [*state.model.parameters(), *state.model.buffers(), *opt.mu, *opt.nu,
+                *(opt.ema or ()), opt.count]
+
+    def _step_graphs(self, state: TrainState, kind: str) -> StepGraphs:
+        """The trainer's ``StepGraphs`` of ``kind`` ("train" or "eval") for
+        ``state``: kept while the state's tensors are the ones it was
+        captured on. A state that brings others drops the graphs of both
+        kinds, and this one is captured anew (counted in
+        :attr:`recaptures`)."""
+        tensors = self._state_tensors(state)
+        key = (id(state.model), tuple(t.data_ptr() for t in tensors))
+        if any(held_key != key for held_key, _ in self._graphs.values()):
+            # Every graph of the old state goes, of either kind: each keeps
+            # that state's tensors and its pool alive.
+            self.recaptures += 1
+            self._graphs.clear()
+            logging.info("%s step: the state brings other tensors; capturing again", kind)
+        if kind in self._graphs:
+            return self._graphs[kind][1]
+        # The graphs reach the trainer through a weak reference: a cycle
+        # would keep the trainer's device memory until a collection.
+        body = weakref.WeakMethod(self._train_body if kind == "train" else self._eval_body)
+
+        def step(batch: dict) -> torch.Tensor:
+            return body()(state, batch)
+
+        if kind == "train":
+            graphs = StepGraphs(step, self.device, tensors=tensors,
+                                generators=list(self.generators.values()),
+                                recompute=self.recompute_generators)
+        else:
+            graphs = StepGraphs(step, self.device)
+        self._graphs[kind] = (key, graphs)
+        return graphs
+
+    def _train_body(self, state: TrainState, batch: dict) -> torch.Tensor:
+        _, metrics = self._train_step_impl(state, batch)
+        return torch.stack([metrics[k].float() for k in _TRAIN_KEYS])
+
+    def _eval_body(self, state: TrainState, batch: dict) -> torch.Tensor:
+        sums = self._eval_step_impl(state, batch)
+        return torch.stack([sums[k] for k in _EVAL_KEYS])
+
+    @property
+    def train_graphs(self) -> Optional[StepGraphs]:
+        """The captured train step's graphs (None before the first step on
+        the card)."""
+        held = self._graphs.get("train")
+        return None if held is None else held[1]
+
+    @property
+    def eval_graphs(self) -> Optional[StepGraphs]:
+        held = self._graphs.get("eval")
+        return None if held is None else held[1]
+
+    # ----------------------------------------------------------- step API
+
+    def train_step(self, state: TrainState, batch: dict):
+        """One update on a host (numpy) or device batch (``images``,
+        ``labels``, optional ``mix_labels``/``ratio``): placed
+        (:meth:`shard_batch`), then :meth:`train_step_placed`. Returns the
+        state at ``step + 1`` and the step's metrics as 0-d device
+        tensors."""
+        return self.train_step_placed(state, self.shard_batch(batch))
+
+    def train_step_placed(self, state: TrainState, placed: dict):
+        """One update on a batch already on the device (from
+        :meth:`shard_batch`, or the feeder). On the card it replays the step
+        captured for the batch's signature (capturing it first); on the CPU
+        it runs :meth:`_train_step_impl`. The state's tensors are updated in
+        place either way."""
+        if self._feed_stream is None:
+            return self._train_step_impl(state, placed)
+        self._await(placed)
+        packed = self._step_graphs(state, "train")(placed).clone()
+        return (dataclasses.replace(state, step=state.step + 1),
+                dict(zip(_TRAIN_KEYS, packed.unbind())))
+
+    def compile_train_step(self, state: TrainState, placed: dict) -> CompiledStep:
+        """Capture the train step for ``placed``'s signature now (warm-ups
+        and capture, which leave the state as it was) and return it: the
+        counterpart of ``sav_tpu``'s AOT ``compile_train_step``, with the
+        capture's time and the launches one replay runs."""
+        if self._feed_stream is None:
+            return CompiledStep(self.train_step_placed, 0.0, {}, {})
+        self._await(placed)
+        graphs = self._step_graphs(state, "train")
+        key = graphs.capture(placed)
+        return CompiledStep(self.train_step_placed, graphs.capture_s[key],
+                            graphs.captured_launches[key], graphs.captured_variants[key])
+
+    def train_many_steps(self, state: TrainState, batches: dict):
+        """``K`` steps over ``batches`` whose leaves carry a leading
+        ``[K, ...]`` axis, placed in one copy: ``K`` replays on the card (K
+        eager steps on the CPU). Returns the state and the metrics stacked
+        ``[K]``, as ``sav_tpu``'s ``lax.scan``."""
+        placed = self.shard_batch(batches)
+        self._await(placed)
+        steps = len(placed["labels"])
+        per_step = []
+        for i in range(steps):
+            state, metrics = self.train_step_placed(state, {k: v[i] for k, v in placed.items()})
+            per_step.append(metrics)
+        return state, {k: torch.stack([m[k] for m in per_step]) for k in _TRAIN_KEYS}
+
+    def eval_step(self, state: TrainState, batch: dict) -> dict:
+        """Summed loss (no label smoothing), top-1/top-5 hits and count over
+        the batch's valid rows (``valid``, default all), as device tensors;
+        on the parameter EMA when configured. On the card a replay of the
+        eval step captured for the batch's signature."""
+        if self._feed_stream is None:
+            return self._eval_step_impl(state, batch)
+        placed = self.shard_batch(batch)
+        self._await(placed)
+        packed = self._step_graphs(state, "eval")(placed).clone()
+        return dict(zip(_EVAL_KEYS, packed.unbind()))
 
     def _pad_eval_batch(self, batch: dict, target: int) -> dict:
         """A short batch zero-padded to ``target`` rows, with ``valid`` 1 on
@@ -355,28 +626,47 @@ class Trainer:
     def evaluate(self, state: TrainState, eval_iter: Iterator[dict]) -> dict:
         """One evaluation pass: ``{"eval_loss", "eval_top_1_acc",
         "eval_top_5_acc", "eval_count"}``. The first batch fixes the batch
-        size; a shorter batch is padded (:meth:`_pad_eval_batch`). The
-        per-batch sums stay on the device and reach the host in one copy at
-        the end; the host runs at most ``feed_depth + 1`` batches ahead of
-        the device (each batch in flight holds its inputs there)."""
+        size; a shorter batch is padded (:meth:`_pad_eval_batch`) and every
+        other batch gets an all-ones ``valid``, so on the card one captured
+        eval step serves the pass. With ``config.async_feed`` padding and
+        placement run on the feeder's thread. The per-batch sums stay on
+        the device and reach the host in one copy at the end; the host runs
+        at most ``feed_depth + 1`` batches ahead of the device (each batch
+        in flight holds its inputs there)."""
         batch_size: Optional[int] = None
-        sums, fences = [], []
-        max_inflight = self.config.feed_depth + 1
-        retired = 0
-        for batch in eval_iter:
+
+        def place(batch: dict) -> dict:
+            # The one feeder worker places in order: the first batch fixes
+            # the size before any other is padded.
+            nonlocal batch_size
             n = len(batch["labels"])
             if batch_size is None:
                 batch_size = n
             if n < batch_size:
                 batch = self._pad_eval_batch(batch, batch_size)
-            step_sums = self.eval_step(state, batch)
-            sums.append(torch.stack([step_sums[k] for k in _EVAL_KEYS]))
-            if self.device.type == "cuda":
-                fences.append(torch.cuda.Event())
-                fences[-1].record()
-                if len(fences) - retired >= max_inflight:
-                    fences[retired].synchronize()
-                    retired += 1
+            elif "valid" not in batch:
+                batch = {**batch, "valid": np.ones(n, np.float32)}
+            return self.shard_batch(batch)
+
+        sums, fences = [], []
+        max_inflight = self.config.feed_depth + 1
+        retired = 0
+        eval_iter = iter(eval_iter)
+        feeder = (DeviceFeeder(eval_iter, place, depth=self.config.feed_depth, name="eval-feeder")
+                  if self.config.async_feed else None)
+        try:
+            for placed in (feeder if feeder is not None else map(place, eval_iter)):
+                step_sums = self.eval_step(state, placed)
+                sums.append(torch.stack([step_sums[k] for k in _EVAL_KEYS]))
+                if self.device.type == "cuda":
+                    fences.append(torch.cuda.Event())
+                    fences[-1].record()
+                    if len(fences) - retired >= max_inflight:
+                        fences[retired].synchronize()
+                        retired += 1
+        finally:
+            if feeder is not None:
+                feeder.close()
         totals = (torch.stack(sums).cpu().numpy().astype(np.float64).sum(axis=0)
                   if sums else np.zeros(len(_EVAL_KEYS)))
         totals = dict(zip(_EVAL_KEYS, totals.tolist()))
@@ -411,8 +701,9 @@ class Trainer:
             "rng": {
                 "derivation":
                     "torch.Generator(device).manual_seed(seed) for 'stochastic_depth', "
-                    "manual_seed(stream_seed(seed, 'dropout')) for 'dropout'; both "
-                    "resume from the states saved in generators.pt",
+                    "manual_seed(stream_seed(seed, 'dropout')) for 'dropout', "
+                    "manual_seed(stream_seed(seed, 'mix')) for 'mix' (device_preprocess's "
+                    "mixes); each resumes from its state saved in generators.pt",
                 "generators": sorted(state.generators),
             },
             "saved_unix": round(time.time(), 3),
@@ -442,6 +733,14 @@ class Trainer:
         from ``state.step``, and stops early when ``train_iter`` ends (closing
         the log window there).
 
+        With ``config.async_feed`` (the default) a
+        :class:`~sav_tpu_torch.data.feeder.DeviceFeeder` fetches and places
+        the batches (:meth:`shard_batch`) on its own thread, at most
+        ``feed_depth + 1`` ahead of the step; it is closed when the loop
+        ends, early or by an exception (which propagates), and its
+        ``stats()`` join the last train record as ``feeder_*`` keys.
+        Without it the loop fetches, places and steps in turn.
+
         A log window closes where ``(step + 1) % log_every_steps == 0`` and at
         the last step, on the global step: its metrics reach the host in one
         copy, each step's become a record in the returned history, and
@@ -465,8 +764,10 @@ class Trainer:
         timed = 0  # steps since t_last
         last_saved = None
         spe = max(cfg.steps_per_epoch, 1)
+        feeder = (DeviceFeeder(train_iter, self.shard_batch, depth=cfg.feed_depth,
+                               name="train-feeder") if cfg.async_feed else None)
 
-        def close_window() -> float:
+        def close_window(last: bool) -> float:
             nonlocal window, t_last, timed
             records = _to_host(window)
             now = time.perf_counter()
@@ -475,46 +776,62 @@ class Trainer:
                 record["step"] = state.step - len(records) + offset + 1
             records[-1]["step_s"] = step_s
             records[-1]["images_per_sec"] = cfg.global_batch_size / step_s
+            if last and feeder is not None:
+                records[-1].update({f"feeder_{k}": v for k, v in feeder.stats().items()})
             history.extend(records)
             if log_fn is not None:
                 log_fn(records[-1])
             window, t_last, timed = [], now, 0
             return now
 
-        for step in range(start_step, num_steps):
-            try:
-                batch = next(train_iter)
-            except StopIteration:
-                break
-            state, metrics = self.train_step(state, batch)
-            window.append(metrics)
-            timed += 1
-            if (step + 1) % cfg.log_every_steps == 0 or step + 1 == num_steps:
-                now = close_window()
-                if self.checkpointer is not None and state.step != last_saved:
-                    since = state.step - (start_step if last_saved is None else last_saved)
-                    due = (cfg.checkpoint_every_steps and since >= cfg.checkpoint_every_steps) or (
-                        cfg.checkpoint_every_secs is not None
-                        and now - t_last_ckpt >= cfg.checkpoint_every_secs
-                    )
-                    if due:
+        try:
+            for step in range(start_step, num_steps):
+                try:
+                    placed = (next(feeder) if feeder is not None
+                              else self.shard_batch(next(train_iter)))
+                except StopIteration:
+                    break
+                state, metrics = self.train_step_placed(state, placed)
+                del placed
+                window.append(metrics)
+                timed += 1
+                if (step + 1) % cfg.log_every_steps == 0 or step + 1 == num_steps:
+                    now = close_window(last=step + 1 == num_steps)
+                    if self.checkpointer is not None and state.step != last_saved:
+                        since = state.step - (start_step if last_saved is None else last_saved)
+                        due = (cfg.checkpoint_every_steps
+                               and since >= cfg.checkpoint_every_steps) or (
+                            cfg.checkpoint_every_secs is not None
+                            and now - t_last_ckpt >= cfg.checkpoint_every_secs
+                        )
+                        if due:
+                            self._save_with_stamp(state.step, state)
+                            last_saved, t_last_ckpt = state.step, time.perf_counter()
+                if (step + 1) % spe == 0:
+                    epoch = (step + 1) // spe
+                    if eval_iter_fn is not None and epoch % cfg.eval_every_epochs == 0:
+                        record = self.evaluate(state, eval_iter_fn())
+                        record["step"] = step + 1
+                        history.append(record)
+                        if log_fn is not None:
+                            log_fn(record)
+                    if (self.checkpointer is not None and epoch % cfg.checkpoint_every_epochs == 0
+                            and state.step != last_saved):
                         self._save_with_stamp(state.step, state)
                         last_saved, t_last_ckpt = state.step, time.perf_counter()
-            if (step + 1) % spe == 0:
-                epoch = (step + 1) // spe
-                if eval_iter_fn is not None and epoch % cfg.eval_every_epochs == 0:
-                    record = self.evaluate(state, eval_iter_fn())
-                    record["step"] = step + 1
-                    history.append(record)
-                    if log_fn is not None:
-                        log_fn(record)
-                if (self.checkpointer is not None and epoch % cfg.checkpoint_every_epochs == 0
-                        and state.step != last_saved):
-                    self._save_with_stamp(state.step, state)
-                    last_saved, t_last_ckpt = state.step, time.perf_counter()
-                t_last, timed = time.perf_counter(), 0
-        if window:  # the feed ended before num_steps
-            close_window()
+                    t_last, timed = time.perf_counter(), 0
+            if window:  # the feed ended before num_steps
+                close_window(last=True)
+        finally:
+            if feeder is not None:
+                self.last_feeder_stats = feeder.stats()
+                feeder.close()
+        if feeder is not None:
+            # The feed ended on a log boundary: its stats join the last
+            # train record.
+            trained = [r for r in history if "loss" in r]
+            if trained and "feeder_batches" not in trained[-1]:
+                trained[-1].update({f"feeder_{k}": v for k, v in self.last_feeder_stats.items()})
         if self.checkpointer is not None:
             if state.step != last_saved and state.step > start_step:
                 self._save_with_stamp(state.step, state)

@@ -4,6 +4,10 @@ dtypes its configs name."""
 
 from __future__ import annotations
 
+import shutil
+import subprocess
+from typing import Optional
+
 import torch
 
 COMPUTE_DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
@@ -22,3 +26,15 @@ def require_device(device: str) -> torch.device:
     elif dev.type != "cpu":
         raise ValueError(f"the port runs on 'cuda' or 'cpu', got {device!r}")
     return dev
+
+
+def card() -> Optional[str]:
+    """``name, power.limit`` of the first card as nvidia-smi prints them;
+    None without a card or without nvidia-smi."""
+    if not torch.cuda.is_available() or shutil.which("nvidia-smi") is None:
+        return None
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=30, check=True,
+    )
+    return out.stdout.strip().splitlines()[0]

@@ -195,7 +195,7 @@ def test_resume_json_and_config_beside_the_steps(tmp_path):
                           "feeder_position", "rng", "saved_unix"}
     assert (stamp["step"], stamp["epoch"], stamp["step_in_epoch"], stamp["steps_per_epoch"],
             stamp["seed"], stamp["feeder_position"]) == (5, 1, 2, 3, 0, 5)
-    assert stamp["rng"]["generators"] == ["dropout", "stochastic_depth"]
+    assert stamp["rng"]["generators"] == ["dropout", "mix", "stochastic_depth"]
     assert "stream_seed(seed, 'dropout')" in stamp["rng"]["derivation"]
     saved = json.loads((tmp_path / "5" / "config.json").read_text())
     assert saved == json.loads(trainer.config.to_json())

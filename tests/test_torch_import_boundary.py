@@ -45,6 +45,11 @@ def test_importing_the_port_loads_no_jax():
     assert "sav_tpu_torch.ops.fused_attention" in report["modules"]
     assert "sav_tpu_torch.ops.flash_attention" in report["modules"]
     assert "sav_tpu_torch.models.surgery" in report["modules"]
+    for name in ("sav_tpu_torch.train.graphs", "sav_tpu_torch.train.bench",
+                 "sav_tpu_torch.obs.costs", "sav_tpu_torch.utils.flops",
+                 "sav_tpu_torch.utils.graphs", "sav_tpu_torch.data.augment_spec",
+                 "sav_tpu_torch.ops.preprocess"):
+        assert name in report["modules"]
     leaked = {m for m in report["loaded"] if m.split(".")[0] in FORBIDDEN}
     assert not leaked, f"the port pulled in {sorted(leaked)}"
 

@@ -46,9 +46,10 @@ from sav_tpu_torch.serve import bench
 from sav_tpu_torch.serve import preprocess
 from sav_tpu_torch.serve.batcher import ServeClosedError
 from sav_tpu_torch.serve.engine import ServeConfig, ServeEngine
-from sav_tpu_torch.serve.graphs import POOL_STREAMS, BucketGraphs, held_stream, streams_held
+from sav_tpu_torch.serve.graphs import BucketGraphs
 from sav_tpu_torch.train import TrainConfig, Trainer
 from sav_tpu_torch.train.checkpoint import OPT_STATE_FILE, PARAMS_FILE
+from sav_tpu_torch.utils.graphs import POOL_STREAMS, held_stream, streams_held
 from test_torch_vit import SMALL, small_flax_params, small_port_model
 
 torch.set_num_threads(2)
@@ -163,7 +164,7 @@ def test_held_stream_raises_when_every_pool_stream_is_held():
     device, pool = torch.device("cuda", 103), _Pool(list(range(1, POOL_STREAMS + 1)))
     owners = [_Owner() for _ in range(POOL_STREAMS)]
     assert len({held_stream(device, o, new_stream=pool).cuda_stream for o in owners}) == POOL_STREAMS
-    with pytest.raises(RuntimeError, match="held by a live serving engine"):
+    with pytest.raises(RuntimeError, match="held by a live owner"):
         held_stream(device, _Owner(), new_stream=pool)
     del owners
     gc.collect()
@@ -375,7 +376,7 @@ def test_drain_waits_for_admitted_requests(flax_params):
 
 def test_a_stopped_engine_is_collected(flax_params):
     """Stopped and dropped, an engine is collected: on the card that frees
-    the streams it holds (graphs.held_stream) for the next engine."""
+    the streams it holds (utils.graphs.held_stream) for the next engine."""
     engine = ServeEngine(_config(buckets=[4], deadline_ms=50.0),
                          model=small_port_model(flax_params))
     with engine:

@@ -222,7 +222,7 @@ def test_train_config_mirrors_sav_tpu_and_refuses_what_it_does_not_carry():
         ref.steps_per_epoch, ref.total_steps, ref.learning_rate)
     assert TrainConfig.from_json(cfg.to_json()) == cfg
     for field, value, item in (
-        ("quant", "int8", "A8"), ("device_preprocess", True, "A6"),
+        ("quant", "int8", "A8"), ("profile_dir", "prof", "A10"),
         ("mesh_axes", {"data": 8}, "A9"), ("diagnostics", True, "A10"),
     ):
         with pytest.raises(NotImplementedError, match=item):
