@@ -52,7 +52,12 @@ Phases, each of which exits non-zero on failure:
    stage-4 train shapes (L=196 and L=49, 4 heads of 128) in bf16 and f32,
    on grids of 7×9, 5×6, 2×130 and 78×78 (the f32 band's edge at head dim
    128) and on strided views, each bf16 case also beside a float64 twin and
-   each backward launch counted under the variant its dtype takes. Each
+   each backward launch counted under the variant its dtype takes; the
+   shapes CvT-13 and CeiT-S give (q_len != kv_len): the flash kernels at
+   stage 1's (B, 3136 queries, 784 keys, 1, 64) in bf16 and f32 and its
+   serve forward, the fused forward and backward at stages 2 and 3 (784
+   over 196, 3 heads; 197 over 50, 6 heads) and at CeiT-S's class
+   attention (1 over 12, 6 heads), train and serve, bf16 and f32. Each
    backward, and each tensor-core forward, runs twice on the same inputs
    and must give the same bits.
 4. timing: each kernel, its plain version and, where one exists, one PyTorch
@@ -62,7 +67,9 @@ Phases, each of which exits non-zero on failure:
    serve shapes, beside #1; the backward crossover: #2 beside #4 + #5 (and
    the whole flash backward, delta included) at the ViT-B/16@384 and DeiT
    train shapes; the relative-position kernels beside SDPA with the
-   expanded relative bias as its attn_mask.
+   expanded relative bias as its attn_mask; CvT-13's and CeiT-S's shapes,
+   and at each CvT-13 shape the forward auto does not take beside the one
+   it does (#1 at stage 1, #3 at stages 2 and 3).
 5. serve: ServeEngine serves deit_s_patch16, then cait_xxs_24 (bf16, random
    weights from a seed) to concurrent clients through one captured CUDA
    graph per bucket (1…32) and the double-buffered feed. The launch
@@ -139,12 +146,25 @@ Phases, each of which exits non-zero on failure:
    batch 2048 in 8 micro-batches of 256 (8 x (6 forward, 6 dq and 6 dk/dv)
    launches per captured step); its first step's running statistics are
    compared with the dense path's under the same accumulation too.
+10. CvT and CeiT: cvt-13 and ceit_s (full width and depth, 224²) are served
+   and benched in 5, after BoTNet (CvT-13: 1 flash forward for stage 1's
+   3,136 queries over 784 keys and 12 fused forwards for stages 2 and 3;
+   CeiT-S: 13 fused forwards, the last the class attention of one query
+   over the 12 collected CLS tokens), and trained as in 6 from
+   get_preset("cvt_13_imagenet") at its global batch 2048 in 8
+   micro-batches of 256 (8 x (1 #3, 1 #4, 1 #5, 12 #1, 12 #2) launches per
+   captured step) and from get_preset("ceit_s_imagenet") at 1024 in 4
+   (4 x (13 #1, 13 #2)); their first step's running statistics (the
+   depthwise convs' and LeFF's BatchNorms) are compared with the dense
+   path's too. Their kernel shapes (q_len != kv_len) are checked in 3 and
+   timed in 4.
 
 Before each agreement check the head is drawn at std 0.02, every
 LayerScale scale at 0.05-0.15 (CaiT's init of 1e-5 would hide a wrong trunk),
 and for BoTNet every bn3 scale at 0.05-0.15 (its init of 0 would hide the
-whole trunk, the attention included) and every BatchNorm's running mean and
-variance taken from a train-mode forward of drawn images (away from their
+whole trunk, the attention included) and, for BoTNet, CvT and CeiT, every
+BatchNorm's running mean and variance taken from a train-mode forward of
+drawn images (away from their
 0/1 init, and the statistics the eval forward needs to keep logits O(1)).
 The line before the last is the ``{"kernels": [...]}`` record; the last line
 is ``{"ok": true, "device": {...}}``.
@@ -212,6 +232,29 @@ BOTNET_ACCUM = 8
 REL_ERR_KEYS = {"fwd": ("fwd", "lse"), "dq": ("dq", "d_rw", "d_rh"), "dkv": ("dk", "dv")}
 REL_TRAIN_SHAPES = {"L=196": (256, 14, 14, 4, 128), "L=49": (256, 7, 7, 4, 128)}
 REL_SERVE_SHAPES = {"L=196": (32, 14, 14, 4, 128), "L=49": (32, 7, 7, 4, 128)}
+# CvT-13 at 224² (embed 64/192/384, 1/2/10 blocks, 1/3/6 heads of 64): each
+# stage's attention at the train micro-batch and the top serve bucket, K/V
+# strided 2× (B, Lq, Lkv, H, D). Stage 1 attends 56² queries over 28² keys,
+# past the fused forward's band (kv 679 at head dim 64): the flash kernels;
+# stages 2 and 3 the fused ones (kv 196 and 7² + CLS, within both bands).
+CVT_MODEL = "cvt-13"
+CVT_PRESET = "cvt_13_imagenet"
+# The preset's global batch 2048 (sav_tpu/train/presets.py) in 8 micro-batches.
+CVT_ACCUM = 8
+CVT_TRAIN_SHAPES = {"stage 1": (256, 3136, 784, 1, 64), "stage 2": (256, 784, 196, 3, 64),
+                    "stage 3": (256, 197, 50, 6, 64)}
+CVT_SERVE_SHAPES = {k: (32, *v[1:]) for k, v in CVT_TRAIN_SHAPES.items()}
+# The kernel family each CvT-13 attention core takes, by the first prefix
+# of its module name that matches (attention_launches).
+CVT_FAMILY = {"stages.0.": "flash", "": "fused"}
+# CeiT-S at 224²: a DeiT-S-shaped trunk (197 tokens, 6 heads of 64:
+# TRAIN_SHAPE) and the layer-wise class attention, one query over the 12
+# collected CLS tokens; the preset's global batch 1024 in 4 micro-batches.
+CEIT_MODEL = "ceit_s"
+CEIT_PRESET = "ceit_s_imagenet"
+CEIT_ACCUM = 4
+LCA_TRAIN_SHAPE = (256, 1, 12, 6, 64)
+LCA_SERVE_SHAPE = (32, 1, 12, 6, 64)
 SERVE_REQUESTS = 96
 CLIENTS = 4
 TRAIN_BATCH = 256
@@ -476,12 +519,22 @@ def phase_build() -> None:
             if c_variant != py_rule(itemsize):
                 raise AssertionError(f"{what} variant rule differs at itemsize {itemsize}: "
                                      f"kernel {c_variant}, Python {py_rule(itemsize)}")
-    # Every main-path shape of #1 in bf16 takes the tensor-core variant.
-    for q_len, kv_len, dim in ((197, 197, 64), (1, 197, 48), (577, 577, 64), (1, 577, 48)):
+    # Every main-path shape of #1 in bf16 takes the tensor-core variant; at
+    # the shapes with q_len != kv_len (CvT-13's stages 2 and 3, CeiT-S's
+    # class attention) #2's tensor-core shared memory holds every q row's
+    # lse and delta beside the slice's K and V.
+    for q_len, kv_len, dim in ((197, 197, 64), (1, 197, 48), (577, 577, 64), (1, 577, 48),
+                               (784, 196, 64), (197, 50, 64), (1, 12, 64)):
         if not (fa.fused_eligible(q_len, kv_len, dim, itemsize=2)
                 and fa.fused_fwd_variant(dim, 2) == fa.TENSOR_CORE):
             raise AssertionError(f"#1 at ({q_len}, {kv_len}, {dim}) bf16 is outside the "
                                  "tensor-core band")
+        c_value = bwd.sav_fused_attention_bwd_mma_smem_bytes(q_len, kv_len, dim)
+        if (c_value != fa.fused_bwd_mma_smem_bytes(q_len, kv_len, dim)
+                or not fa.fused_eligible(q_len, kv_len, dim, itemsize=2, backward=True)):
+            raise AssertionError(f"#2 at ({q_len}, {kv_len}, {dim}) bf16: kernel {c_value} "
+                                 f"bytes, Python {fa.fused_bwd_mma_smem_bytes(q_len, kv_len, dim)}, "
+                                 f"or outside the backward's band")
     log_mma_builds()
     # BoTNet's grids, the JAX tests' grids and the f32 band's edges at head
     # dims 128 and 64 (W + Hg = 156 and 284); the bf16 band contains the f32
@@ -696,7 +749,19 @@ def phase_kernels(device="cuda", serve_shape=SERVE_SHAPE, train_shape=TRAIN_SHAP
     check_kernel("ragged-50", (2, 50, 50, 2, 32), bf16, device)
     check_kernel("short-kv+lse", (2, 196, 49, 2, 64), bf16, device, with_lse=True)
     check_kernel("d256 cuda-core", (2, 40, 40, 2, 256), bf16, device)
-    return {"serve": serve_err, "train": train_err, "cait_class": class_err}
+    # CvT-13's stages 2 and 3 (q tiles over 784 and 197 rows, kv tails of 196
+    # and 50) and CeiT-S's class attention (one query over 12), train and
+    # serve, bf16 and f32.
+    new_shapes = {}
+    for key, shape in (*((f"cvt {k}", v) for k, v in CVT_TRAIN_SHAPES.items() if k != "stage 1"),
+                       ("ceit lca", LCA_TRAIN_SHAPE)):
+        new_shapes[key] = check_kernel(f"{key} train+lse", shape, bf16, device, with_lse=True)
+        check_kernel(f"{key} train+lse", shape, f32, device, with_lse=True)
+    for key, shape in (*((f"cvt {k}", v) for k, v in CVT_SERVE_SHAPES.items() if k != "stage 1"),
+                       ("ceit lca", LCA_SERVE_SHAPE)):
+        new_shapes[f"{key} serve"] = check_kernel(f"{key} serve", shape, bf16, device)
+        check_kernel(f"{key} serve", shape, f32, device)
+    return {"serve": serve_err, "train": train_err, "cait_class": class_err, **new_shapes}
 
 
 def check_bwd_kernel(name, shape, dtype, device, *, packed=False):
@@ -754,7 +819,13 @@ def phase_bwd_kernels(device="cuda", serve_shape=SERVE_SHAPE, train_shape=TRAIN_
     check_bwd_kernel("two-rounds", (2, 300, 300, 2, 64), bf16, device)
     check_bwd_kernel("d256", (2, 40, 40, 2, 256), bf16, device)
     class_err = check_bwd_kernel("cait-class-attention", CLASS_TRAIN_SHAPE, bf16, device)
-    return {"train": train_err, "cait_class": class_err}
+    # CvT-13's stages 2 and 3 and CeiT-S's class attention, bf16 and f32.
+    new_shapes = {}
+    for key, shape in (("cvt stage 2", CVT_TRAIN_SHAPES["stage 2"]),
+                       ("cvt stage 3", CVT_TRAIN_SHAPES["stage 3"]), ("ceit lca", LCA_TRAIN_SHAPE)):
+        new_shapes[key] = check_bwd_kernel(key, shape, bf16, device)
+        check_bwd_kernel(key, shape, f32, device)
+    return {"train": train_err, "cait_class": class_err, **new_shapes}
 
 
 def _th_inputs(shape, dtype, seed, device, *, packed=False):
@@ -1049,7 +1120,16 @@ def phase_flash_kernels(device="cuda") -> dict:
             check_flash_kernels(f"bias{bias_shape[:2]}", (2, 130, 150, 4, 32), dtype, device,
                                 bias_shape=bias_shape, backward=False)
     check_flash_kernels("packed-qkv+strided-dO", (8, 577, 577, 12, 64), bf16, device, packed=True)
-    return {"fwd": train["fwd"], "dq": train["dq"], "dkv": max(train["dk"], train["dv"])}
+    # CvT-13's stage 1: 49 q tiles over 13 kv tiles (the last of 16 rows),
+    # train in bf16 and f32, serve forward in bf16.
+    stage1 = check_flash_kernels("cvt stage 1 train", CVT_TRAIN_SHAPES["stage 1"], bf16, device)
+    check_flash_kernels("cvt stage 1 train", CVT_TRAIN_SHAPES["stage 1"], f32, device)
+    serve1 = check_flash_kernels("cvt stage 1 serve", CVT_SERVE_SHAPES["stage 1"], bf16, device,
+                                 backward=False)
+    return {"fwd": train["fwd"], "dq": train["dq"], "dkv": max(train["dk"], train["dv"]),
+            "cvt stage 1": {"fwd": stage1["fwd"], "dq": stage1["dq"],
+                            "dkv": max(stage1["dk"], stage1["dv"]),
+                            "fwd serve": serve1["fwd"]}}
 
 
 def _rel_inputs(shape, dtype, seed, device, *, packed=False):
@@ -1601,6 +1681,30 @@ def phase_timing() -> dict:
         **{f"rel {key} serve": time_rel(shape, backward=False)["fwd"]
            for key, shape in REL_SERVE_SHAPES.items()},
     }
+    # CvT-13 (q_len != kv_len): stage 1 on the flash kernels, train and the
+    # serve forward; stages 2 and 3 on the fused ones, train (forward with
+    # the lse, backward) and serve; CeiT-S's class attention (one query over
+    # 12) on the fused ones. At each CvT shape the forward auto did not take
+    # is timed too: #1 at stage 1 (kv 784 is inside the tensor-core #1's
+    # band, 800, and outside the crossover auto keeps, 679), #3 at stages 2
+    # and 3.
+    times["cvt stage 1"] = time_flash(CVT_TRAIN_SHAPES["stage 1"])
+    times["cvt stage 1 serve"] = time_flash(CVT_SERVE_SHAPES["stage 1"], backward=False)["fwd"]
+    times["cvt stage 1 fused"] = time_fwd(CVT_TRAIN_SHAPES["stage 1"], with_lse=True)
+    for key in ("stage 2", "stage 3"):
+        times[f"cvt {key} fwd"] = time_fwd(CVT_TRAIN_SHAPES[key], with_lse=True)
+        times[f"cvt {key} bwd"] = time_bwd(CVT_TRAIN_SHAPES[key])
+        times[f"cvt {key} serve"] = time_fwd(CVT_SERVE_SHAPES[key], with_lse=False)
+        times[f"cvt {key} flash"] = time_flash(CVT_TRAIN_SHAPES[key], backward=False)["fwd"]
+    times["ceit lca fwd"] = time_fwd(LCA_TRAIN_SHAPE, with_lse=True)
+    times["ceit lca bwd"] = time_bwd(LCA_TRAIN_SHAPE)
+    times["ceit lca serve"] = time_fwd(LCA_SERVE_SHAPE, with_lse=False)
+    for key, shape in CVT_TRAIN_SHAPES.items():
+        fused, flash = ((times["cvt stage 1 fused"], times["cvt stage 1"]["fwd"])
+                        if key == "stage 1" else (times[f"cvt {key} fwd"], times[f"cvt {key} flash"]))
+        log(f"forward at CvT-13's {key} train shape {shape} bf16 (with lse): auto takes "
+            f"{'#3' if key == 'stage 1' else '#1'}; #1 {fused['ms']:.4f} ms, #3 "
+            f"{flash['ms']:.4f} ms, #1/#3 {fused['ms'] / flash['ms']:.2f}")
     # The forward crossover auto does not move: #1 against #3 at DeiT's shapes.
     times["flash_fwd_deit_train"] = times["flash_deit_train"]["fwd"]
     for name, shape, fused, flash in (("train", TRAIN_SHAPE, "fwd_train", "flash_fwd_deit_train"),
@@ -1659,30 +1763,35 @@ FAMILIES = {"fused": ("fused", ("fused_bwd",)), "flash": ("flash", ("flash_dq", 
             "rel": ("rel", ("rel_dq", "rel_dkv"))}
 
 
-def attention_launches(model, *, train: bool, family: str) -> dict:
+def attention_launches(model, *, train: bool, family) -> dict:
     """Kernel launches, by counter, that one forward (``train=False``) or one
     train step (``train=True``) of ``model`` in bf16 makes: one forward and,
-    in training, one backward per attention module (``AttentionBlock`` or
-    BoTNet's ``BoTMHSA``). Talking-heads cores take the talking-heads
-    kernels; every other core takes ``family``, which each path states (DeiT
-    and CaiT at 224² the fused kernels, ViT-B/16@384 in training the flash
-    ones, BoTNet the relative-position ones) rather than asks of the port's
-    dispatch rule, so a change of that rule that moves a path to other
-    kernels fails the run. With remat each encoder block's forward runs
-    again in the backward pass."""
-    from sav_tpu_torch.models.layers import AttentionBlock, BoTMHSA
+    in training, one backward per attention module (``AttentionBlock``,
+    BoTNet's ``BoTMHSA`` or CvT's ``CvTAttentionBlock``). Talking-heads cores
+    take the talking-heads kernels; every other core takes ``family``, which
+    each path states (DeiT, CaiT and CeiT at 224² the fused kernels,
+    ViT-B/16@384 in training the flash ones, BoTNet the relative-position
+    ones; for CvT-13 a ``{module-name prefix: family}`` dict, the first
+    matching prefix deciding: stage 1 flash, the rest fused) rather than
+    asks of the port's dispatch rule, so a change of that rule that moves a
+    path to other kernels fails the run. With remat each encoder block's
+    forward runs again in the backward pass."""
+    from sav_tpu_torch.models.layers import AttentionBlock, BoTMHSA, CvTAttentionBlock
 
     counts = dict.fromkeys(COUNTERS, 0)
     encoder = getattr(model, "encoder", None)
     forwards = 2 if train and encoder is not None and encoder.remat else 1
-    for m in model.modules():
-        if not isinstance(m, (AttentionBlock, BoTMHSA)):
+    for name, m in model.named_modules():
+        if not isinstance(m, (AttentionBlock, BoTMHSA, CvTAttentionBlock)):
             continue
         if getattr(m, "talking_heads", False):
             # In bf16 #10 is two kernels: dq, then dk/dv.
             fwd, bwd = "talking_heads", ("talking_heads_bwd", "talking_heads_bwd_dkv")
-        else:
+        elif isinstance(family, str):
             fwd, bwd = FAMILIES[family]
+        else:
+            fwd, bwd = FAMILIES[next(f for prefix, f in family.items()
+                                     if name.startswith(prefix))]
         counts[fwd] += forwards
         for kind in bwd if train else ():
             counts[kind] += 1
@@ -3079,6 +3188,10 @@ KERNEL_GROUPS = (
     ("rel forward (rel_attention.cu)", ("rel_attention_fwd_kernel",
                                         "rel_attention_fwd_mma_kernel")),
     ("batch norm", ("batch_norm", "batchnorm", "bn_fw", "bn_bw")),
+    # CvT's and CeiT's f32 depthwise convs: cuDNN names its wgrad
+    # "depthwise" and its forward and dgrad for one channel a group "c1_k1"
+    # (PyTorch's own kernel says "depthwise" too).
+    ("depthwise convolution", ("depthwise", "_c1_k1_")),
     # Before matmul: cuDNN's convolution kernels are implicit GEMMs, named
     # like cuBLAS's (xmma, cutlass) with fprop/dgrad/wgrad in the name.
     ("convolution (cuDNN)", ("conv", "cudnn", "implicit", "fprop", "wgrad", "dgrad")),
@@ -3163,11 +3276,15 @@ def main() -> None:
     rel_err = phase_rel_kernels()
     times = phase_timing()
     serve = {"deit": phase_serve(), "cait": phase_serve(model_name="cait_xxs_24"),
-             "botnet": phase_serve(model_name=BOTNET_MODEL, family="rel")}
+             "botnet": phase_serve(model_name=BOTNET_MODEL, family="rel"),
+             "cvt": phase_serve(model_name=CVT_MODEL, family=CVT_FAMILY),
+             "ceit": phase_serve(model_name=CEIT_MODEL)}
     benches = {"deit": phase_serve_bench("deit_s_patch16", serve["deit"]["per_batch"],
                                          batch_1=True),
                "cait": phase_serve_bench("cait_xxs_24", serve["cait"]["per_batch"]),
-               "botnet": phase_serve_bench(BOTNET_MODEL, serve["botnet"]["per_batch"])}
+               "botnet": phase_serve_bench(BOTNET_MODEL, serve["botnet"]["per_batch"]),
+               "cvt": phase_serve_bench(CVT_MODEL, serve["cvt"]["per_batch"]),
+               "ceit": phase_serve_bench(CEIT_MODEL, serve["ceit"]["per_batch"])}
     _release_engines()
     train = {"deit": phase_train(), "cait": phase_train(model_name="cait_xxs_24")}
     deit_source = _deit_source()
@@ -3196,6 +3313,20 @@ def main() -> None:
     train["botnet"] = phase_train(model_name=BOTNET_MODEL, family="rel",
                                   batch_size=preset.global_batch_size, grad_accum=BOTNET_ACCUM,
                                   config=preset)
+    # CvT-13 and CeiT-S at their recipes' global batches, in micro-batches of
+    # TRAIN_BATCH.
+    for key, model_name, preset_name, accum, family in (
+            ("cvt", CVT_MODEL, CVT_PRESET, CVT_ACCUM, CVT_FAMILY),
+            ("ceit", CEIT_MODEL, CEIT_PRESET, CEIT_ACCUM, "fused")):
+        preset = get_preset(preset_name, num_train_images=accum * TRAIN_BATCH * TRAIN_STEPS,
+                            warmup_epochs=0, transpose_images=False,
+                            log_every_steps=TRAIN_STEPS // 2, seed=0)
+        if preset.global_batch_size != accum * TRAIN_BATCH:
+            raise AssertionError(f"{preset_name}'s global batch {preset.global_batch_size} is "
+                                 f"not {accum} x {TRAIN_BATCH}")
+        train[key] = phase_train(model_name=model_name, family=family,
+                                 batch_size=preset.global_batch_size, grad_accum=accum,
+                                 config=preset)
 
     def by_path(kind):
         return {
@@ -3209,6 +3340,10 @@ def main() -> None:
             "train_bench_uint8_deit": train_bench["uint8"]["launches"][kind],
             "serve_bench": benches["deit"][kind], "serve_bench_cait": benches["cait"][kind],
             "serve_bench_botnet": benches["botnet"][kind], "serve_checkpoint_deit": serve_ckpt[kind],
+            "serve_cvt": serve["cvt"][kind], "train_cvt": train["cvt"]["launches"][kind],
+            "serve_bench_cvt": benches["cvt"][kind],
+            "serve_ceit": serve["ceit"][kind], "train_ceit": train["ceit"]["launches"][kind],
+            "serve_bench_ceit": benches["ceit"][kind],
         }
 
     def total(kind):
@@ -3246,6 +3381,22 @@ def main() -> None:
             **_timed(times["fwd_class_train"]),
             "at_serve_shape": {"shape": list(CLASS_SERVE_SHAPE), **_timed(times["fwd_class_serve"])},
         },
+        **{f"at_cvt_{key.replace(' ', '')}": {
+            "shape": list(CVT_TRAIN_SHAPES[key]), "max_abs_err": fwd_err[f"cvt {key}"],
+            **_timed(times[f"cvt {key} fwd"]),
+            "at_serve_shape": {"shape": list(CVT_SERVE_SHAPES[key]),
+                               "max_abs_err": fwd_err[f"cvt {key} serve"],
+                               **_timed(times[f"cvt {key} serve"])},
+        } for key in ("stage 2", "stage 3")},
+        "at_cvt_stage1_not_taken": {"shape": list(CVT_TRAIN_SHAPES["stage 1"]),
+                                    **_timed(times["cvt stage 1 fused"])},
+        "at_ceit_class_attention": {
+            "shape": list(LCA_TRAIN_SHAPE), "max_abs_err": fwd_err["ceit lca"],
+            **_timed(times["ceit lca fwd"]),
+            "at_serve_shape": {"shape": list(LCA_SERVE_SHAPE),
+                               "max_abs_err": fwd_err["ceit lca serve"],
+                               **_timed(times["ceit lca serve"])},
+        },
     }
     bwd = {
         "name": "fused_attention_bwd",
@@ -3266,6 +3417,12 @@ def main() -> None:
             **_timed(times["bwd_class_train"]),
         },
         "at_vit384_train_shape": {"shape": list(VIT384_SHAPE), **_timed(times["bwd_vit384"])},
+        **{f"at_cvt_{key.replace(' ', '')}": {
+            "shape": list(CVT_TRAIN_SHAPES[key]), "max_abs_err": bwd_err[f"cvt {key}"],
+            **_timed(times[f"cvt {key} bwd"]),
+        } for key in ("stage 2", "stage 3")},
+        "at_ceit_class_attention": {"shape": list(LCA_TRAIN_SHAPE), "max_abs_err": bwd_err["ceit lca"],
+                                    **_timed(times["ceit lca bwd"])},
     }
     th_fwd = {
         "name": "talking_heads_fwd",
@@ -3326,6 +3483,15 @@ def main() -> None:
         **_timed(flash_times["fwd"]),
         "at_deit_train_shape": {"shape": list(TRAIN_SHAPE), **_timed(times["flash_fwd_deit_train"])},
         "at_deit_serve_shape": {"shape": list(SERVE_SHAPE), **_timed(times["flash_fwd_deit_serve"])},
+        "at_cvt_stage1": {"shape": list(CVT_TRAIN_SHAPES["stage 1"]),
+                          "max_abs_err": flash_err["cvt stage 1"]["fwd"],
+                          **_timed(times["cvt stage 1"]["fwd"]),
+                          "at_serve_shape": {"shape": list(CVT_SERVE_SHAPES["stage 1"]),
+                                             "max_abs_err": flash_err["cvt stage 1"]["fwd serve"],
+                                             **_timed(times["cvt stage 1 serve"])}},
+        **{f"at_cvt_{key.replace(' ', '')}_not_taken": {
+            "shape": list(CVT_TRAIN_SHAPES[key]), **_timed(times[f"cvt {key} flash"])}
+           for key in ("stage 2", "stage 3")},
     }
     flash_dq = {
         "name": "flash_attention_bwd_dq",
@@ -3341,6 +3507,9 @@ def main() -> None:
         **_timed(flash_times["dq"]),
         "at_deit_train_shape": {"shape": list(TRAIN_SHAPE),
                                 **_timed(times["flash_deit_train"]["dq"])},
+        "at_cvt_stage1": {"shape": list(CVT_TRAIN_SHAPES["stage 1"]),
+                          "max_abs_err": flash_err["cvt stage 1"]["dq"],
+                          **_timed(times["cvt stage 1"]["dq"])},
     }
     flash_dkv = {
         "name": "flash_attention_bwd_dkv",
@@ -3356,6 +3525,9 @@ def main() -> None:
         **_timed(flash_times["dkv"]),
         "at_deit_train_shape": {"shape": list(TRAIN_SHAPE),
                                 **_timed(times["flash_deit_train"]["dkv"])},
+        "at_cvt_stage1": {"shape": list(CVT_TRAIN_SHAPES["stage 1"]),
+                          "max_abs_err": flash_err["cvt stage 1"]["dkv"],
+                          **_timed(times["cvt stage 1"]["dkv"])},
     }
     def rel_timed(kind):
         return {key: {"shape": list(shape), "max_abs_err": max(

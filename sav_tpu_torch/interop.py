@@ -1,13 +1,14 @@
-"""Convert ``sav_tpu`` (flax) ViT, CaiT and BoTNet variables into the port's
-``state_dict`` (:func:`params_from_flax`), and back (:func:`flax_from_params`,
-the exact inverse under the same rules).
+"""Convert ``sav_tpu`` (flax) ViT, CaiT, BoTNet, CeiT and CvT variables into
+the port's ``state_dict`` (:func:`params_from_flax`), and back
+(:func:`flax_from_params`, the exact inverse under the same rules).
 
 The tree comes as nested dicts of arrays (numpy, or anything
 ``numpy.asarray`` takes): the ``params`` alone, or ``{"params": ...}``
-with, for BoTNet, ``"batch_stats"`` beside it. The family is read off the
-params' top level (``Encoder_0``: ViT; ``block_i``/``ca_block_i``: CaiT;
-``stem_conv``: BoTNet) and only that family's rules apply. Every leaf must
-be consumed; an unknown key raises.
+with, for the BatchNorm families (BoTNet, CeiT, CvT), ``"batch_stats"``
+beside it. The family is read off the params' top level (``Encoder_0``:
+ViT; ``block_i``/``ca_block_i``: CaiT; ``stem_conv``: BoTNet;
+``Image2TokenBlock_0``: CeiT; ``stage_0``: CvT) and only that family's
+rules apply. Every leaf must be consumed; an unknown key raises.
 
 ViT:
 
@@ -59,6 +60,47 @@ flax key                                                    port key            
 ``head/{kernel,bias}``                                      ``head.{weight,bias}``            ``[in, out]`` → ``[out, in]``
 batch_stats ``…/{mean,var}``                                ``….running_{mean,var}``          as is
 ==========================================================  ================================  ==========
+
+CeiT (``S`` = ``Image2TokenBlock_0/``, ``B`` = ``block_i/``, ``F`` = ``B LeFFBlock_0/``):
+
+======================================================  =====================================  ==========
+flax key                                                port key                               conversion
+======================================================  =====================================  ==========
+``S stem_conv/kernel``, ``S patch_embed/proj/kernel``   ``stem.….weight``                      HWIO → OIHW
+``S patch_embed/proj/bias``                             ``stem.patch_embed.proj.bias``         as is
+``S stem_bn/…``, ``F bn{1,2,3}/{scale,bias}``           ``….{weight,bias}``                    scale → weight
+``cls``, ``AddAbsPosEmbed_0/pos_embed``                 ``cls``, ``pos_embed.pos_embed``       as is
+``B LayerNorm_{0,1}/{scale,bias}``                      ``blocks.i.norm{1,2}.*``               scale → weight
+``B SelfAttentionBlock_0/to_{qkv,out}/kernel``          ``blocks.i.attn.to_{qkv,out}``         as is
+``F {expand,project}/{kernel,bias}``                    ``blocks.i.leff.{expand,project}.*``   ``[in, out]`` → ``[out, in]``
+``F dwconv/kernel``                                     ``blocks.i.leff.dwconv.weight``        ``[kh, kw, 1, C]`` → ``[C, 1, kh, kw]``
+``lca/to_{q,k,v,out}/kernel``                           ``lca.to_{q,k,v,out}``                 as is
+``LayerNorm_0``, ``head``                               ``norm``, ``head``                     as for ViT
+batch_stats ``…/{mean,var}``                            ``….running_{mean,var}``               as is
+======================================================  =====================================  ==========
+
+CvT (``T`` = ``stage_s/``, ``B`` = ``T block_i/``, ``P`` = ``B CvTSelfAttentionBlock_0/to_{q,k,v}/``):
+
+======================================================  =========================================  ==========
+flax key                                                port key                                   conversion
+======================================================  =========================================  ==========
+``T ConvTokenEmbedBlock_0/proj/{kernel,bias}``          ``stages.s.embed.proj.{weight,bias}``      HWIO → OIHW
+``T ConvTokenEmbedBlock_0/LayerNorm_0/…``               ``stages.s.embed.norm.*``                  scale → weight
+``T cls`` (the last stage)                              ``stages.s.cls``                           as is
+``B LayerNorm_{0,1}/…``                                 ``stages.s.blocks.i.norm{1,2}.*``          scale → weight
+``P depthwise/kernel``                                  ``….attn.to_{q,k,v}.depthwise.weight``     ``[kh, kw, 1, C]`` → ``[C, 1, kh, kw]``
+``P bn/{scale,bias}``                                   ``….attn.to_{q,k,v}.bn.{weight,bias}``     scale → weight
+``P pointwise/kernel``                                  ``….attn.to_{q,k,v}.pointwise``            as is, ``[C, H, D]``
+``B CvTSelfAttentionBlock_0/to_out/kernel``             ``stages.s.blocks.i.attn.to_out``          as is, ``[H, D, out]``
+``B CvTSelfAttentionBlock_0/{pre,post}_softmax/kernel`` ``….attn.{pre,post}_softmax.kernel``       as is, ``[H, H]``
+``B FFBlock_0/fc{1,2}/{kernel,bias}``                   ``stages.s.blocks.i.ff.fc{1,2}.*``         ``[in, out]`` → ``[out, in]``
+``LayerNorm_0``, ``head``                               ``norm``, ``head``                         as for ViT
+batch_stats ``P bn/{mean,var}``                         ``….bn.running_{mean,var}``                as is
+======================================================  =========================================  ==========
+
+``to_out`` is a ``DenseGeneral`` that contracts two axes, ``(-2, -1)``;
+its kernel keeps flax's ``[H, D, out]`` and the port contracts it as one
+``[H·D, out]`` matrix, so it converts by copying.
 """
 
 from __future__ import annotations
@@ -149,10 +191,68 @@ _BOTNET_RULES = [
     (r"head/kernel", "head.weight", _dense),
     (r"head/bias", "head.bias", _as_is),
 ]
-_BOTNET_STATS_RULES = [
-    (rf"(stem_bn|{_BOT}/(?:bn[123]|proj_bn))/mean", r"\1.running_mean", _as_is),
-    (rf"(stem_bn|{_BOT}/(?:bn[123]|proj_bn))/var", r"\1.running_var", _as_is),
+
+
+def _bn_stats_rules(flax_prefix: str, port_prefix: str) -> list:
+    return [
+        (rf"{flax_prefix}/mean", rf"{port_prefix}.running_mean", _as_is),
+        (rf"{flax_prefix}/var", rf"{port_prefix}.running_var", _as_is),
+    ]
+
+
+_BOTNET_STATS_RULES = _bn_stats_rules(rf"(stem_bn|{_BOT}/(?:bn[123]|proj_bn))", r"\1")
+
+_STEM = r"Image2TokenBlock_0"
+_LEFF = r"block_(\d+)/LeFFBlock_0"
+_CEIT_RULES = [
+    (rf"{_STEM}/stem_conv/kernel", "stem.stem_conv.weight", _conv),
+    *_norm_rule(rf"{_STEM}/stem_bn", "stem.stem_bn"),
+    (rf"{_STEM}/patch_embed/proj/kernel", "stem.patch_embed.proj.weight", _conv),
+    (rf"{_STEM}/patch_embed/proj/bias", "stem.patch_embed.proj.bias", _as_is),
+    (r"cls", "cls", _as_is),
+    (r"AddAbsPosEmbed_0/pos_embed", "pos_embed.pos_embed", _as_is),
+    *_norm_rule(r"block_(\d+)/LayerNorm_0", r"blocks.\1.norm1"),
+    *_norm_rule(r"block_(\d+)/LayerNorm_1", r"blocks.\1.norm2"),
+    (r"block_(\d+)/SelfAttentionBlock_0/to_(qkv|out)/kernel", r"blocks.\1.attn.to_\2", _as_is),
+    (rf"{_LEFF}/(expand|project)/kernel", r"blocks.\1.leff.\2.weight", _dense),
+    (rf"{_LEFF}/(expand|project)/bias", r"blocks.\1.leff.\2.bias", _as_is),
+    *_norm_rule(rf"{_LEFF}/(bn[123])", r"blocks.\1.leff.\2"),
+    (rf"{_LEFF}/dwconv/kernel", r"blocks.\1.leff.dwconv.weight", _conv),
+    (r"lca/to_(q|k|v|out)/kernel", r"lca.to_\1", _as_is),
+    *_norm_rule(r"LayerNorm_0", "norm"),
+    (r"head/kernel", "head.weight", _dense),
+    (r"head/bias", "head.bias", _as_is),
 ]
+_CEIT_STATS_RULES = [
+    *_bn_stats_rules(rf"{_STEM}/stem_bn", "stem.stem_bn"),
+    *_bn_stats_rules(rf"{_LEFF}/(bn[123])", r"blocks.\1.leff.\2"),
+]
+
+_STAGE = r"stage_(\d)"
+_CVT_BLOCK = rf"{_STAGE}/block_(\d+)"
+_CVT_PROJ = rf"{_CVT_BLOCK}/CvTSelfAttentionBlock_0/to_(q|k|v)"
+_CVT_RULES = [
+    (rf"{_STAGE}/ConvTokenEmbedBlock_0/proj/kernel", r"stages.\1.embed.proj.weight", _conv),
+    (rf"{_STAGE}/ConvTokenEmbedBlock_0/proj/bias", r"stages.\1.embed.proj.bias", _as_is),
+    *_norm_rule(rf"{_STAGE}/ConvTokenEmbedBlock_0/LayerNorm_0", r"stages.\1.embed.norm"),
+    (rf"{_STAGE}/cls", r"stages.\1.cls", _as_is),
+    *_norm_rule(rf"{_CVT_BLOCK}/LayerNorm_0", r"stages.\1.blocks.\2.norm1"),
+    *_norm_rule(rf"{_CVT_BLOCK}/LayerNorm_1", r"stages.\1.blocks.\2.norm2"),
+    (rf"{_CVT_PROJ}/depthwise/kernel", r"stages.\1.blocks.\2.attn.to_\3.depthwise.weight", _conv),
+    *_norm_rule(rf"{_CVT_PROJ}/bn", r"stages.\1.blocks.\2.attn.to_\3.bn"),
+    (rf"{_CVT_PROJ}/pointwise/kernel", r"stages.\1.blocks.\2.attn.to_\3.pointwise", _as_is),
+    # to_out: a DenseGeneral contracting (-2, -1), kept [H, D, out].
+    (rf"{_CVT_BLOCK}/CvTSelfAttentionBlock_0/to_out/kernel", r"stages.\1.blocks.\2.attn.to_out",
+     _as_is),
+    (rf"{_CVT_BLOCK}/CvTSelfAttentionBlock_0/(pre|post)_softmax/kernel",
+     r"stages.\1.blocks.\2.attn.\3_softmax.kernel", _as_is),
+    (rf"{_CVT_BLOCK}/FFBlock_0/fc(1|2)/kernel", r"stages.\1.blocks.\2.ff.fc\3.weight", _dense),
+    (rf"{_CVT_BLOCK}/FFBlock_0/fc(1|2)/bias", r"stages.\1.blocks.\2.ff.fc\3.bias", _as_is),
+    *_norm_rule(r"LayerNorm_0", "norm"),
+    (r"head/kernel", "head.weight", _dense),
+    (r"head/bias", "head.bias", _as_is),
+]
+_CVT_STATS_RULES = _bn_stats_rules(rf"{_CVT_PROJ}/bn", r"stages.\1.blocks.\2.attn.to_\3.bn")
 
 
 def _family_rules(tree) -> tuple:
@@ -161,12 +261,16 @@ def _family_rules(tree) -> tuple:
         return "ViT", _VIT_RULES, []
     if "stem_conv" in tree:
         return "BoTNet", _BOTNET_RULES, _BOTNET_STATS_RULES
+    if "Image2TokenBlock_0" in tree:
+        return "CeiT", _CEIT_RULES, _CEIT_STATS_RULES
+    if "stage_0" in tree:
+        return "CvT", _CVT_RULES, _CVT_STATS_RULES
     if any(re.fullmatch(r"(ca_)?block_\d+", str(name)) for name in tree):
         return "CaiT", _CAIT_RULES, []
     raise KeyError(
-        f"not a ViT or CaiT parameter tree, nor a BoTNet one (top-level keys "
+        f"not a ViT or CaiT parameter tree, nor a BoTNet, CeiT or CvT one (top-level keys "
         f"{sorted(map(str, tree))}); "
-        "the port converts those three families"
+        "the port converts those five families"
     )
 
 
@@ -193,10 +297,11 @@ def _convert(tree, rules, state, unknown, prefix="") -> None:
 
 
 def params_from_flax(tree) -> dict:
-    """flax ViT, CaiT or BoTNet variables → a ``state_dict`` for
+    """flax ViT, CaiT, BoTNet, CeiT or CvT variables → a ``state_dict`` for
     ``load_state_dict(strict=True)``: the params tree, or
-    ``{"params": ..., "batch_stats": ...}`` (a BoTNet's running statistics
-    go into its BatchNorm buffers; its strict load needs them)."""
+    ``{"params": ..., "batch_stats": ...}`` (the running statistics of a
+    BoTNet, CeiT or CvT go into its BatchNorm buffers; its strict load
+    needs them)."""
     stats = {}
     if "params" in tree and set(tree) <= {"params", "batch_stats"}:
         stats = tree.get("batch_stats") or {}
@@ -216,6 +321,8 @@ _FAMILY_RULES = {
     "ViT": (_VIT_RULES, []),
     "CaiT": (_CAIT_RULES, []),
     "BoTNet": (_BOTNET_RULES, _BOTNET_STATS_RULES),
+    "CeiT": (_CEIT_RULES, _CEIT_STATS_RULES),
+    "CvT": (_CVT_RULES, _CVT_STATS_RULES),
 }
 
 
@@ -295,8 +402,9 @@ def _nest(flat: dict) -> dict:
 
 
 def flax_from_params(state_dict: dict, family: str) -> dict:
-    """A port ``state_dict`` of ``family`` ('ViT', 'CaiT' or 'BoTNet') →
-    flax variables ``{"params": ...}`` (with ``"batch_stats"`` for BoTNet)
+    """A port ``state_dict`` of ``family`` ('ViT', 'CaiT', 'BoTNet', 'CeiT'
+    or 'CvT') → flax variables ``{"params": ...}`` (with ``"batch_stats"``
+    for the BatchNorm families)
     as nested dicts of f32 numpy arrays: the exact inverse of
     :func:`params_from_flax` under the same rules. Every entry must be
     consumed; an unknown key raises."""

@@ -6,9 +6,18 @@ from sav_tpu_torch.models.layers.attention import (
     TalkingHeadsBlock,
 )
 from sav_tpu_torch.models.layers.bot_attention import BoTMHSA
-from sav_tpu_torch.models.layers.class_attention import ClassSelfAttentionBlock
+from sav_tpu_torch.models.layers.class_attention import (
+    ClassSelfAttentionBlock,
+    LCSelfAttentionBlock,
+)
 from sav_tpu_torch.models.layers.convolution import SameConv2d, max_pool_same, same_pads
-from sav_tpu_torch.models.layers.feedforward import Dense, FFBlock
+from sav_tpu_torch.models.layers.cvt_attention import (
+    ConvProjectionBlock,
+    CvTAttentionBlock,
+    CvTSelfAttentionBlock,
+)
+from sav_tpu_torch.models.layers.depthwise import DepthwiseConv2D
+from sav_tpu_torch.models.layers.feedforward import Dense, FFBlock, LeFFBlock
 from sav_tpu_torch.models.layers.normalization import (
     BatchNorm,
     LayerScaleBlock,
@@ -24,7 +33,7 @@ from sav_tpu_torch.models.layers.regularization import (
     set_stochastic_depth_generator,
 )
 from sav_tpu_torch.models.layers.squeeze_excite import SqueezeExciteBlock
-from sav_tpu_torch.models.layers.stems import PatchEmbedBlock
+from sav_tpu_torch.models.layers.stems import Image2TokenBlock, PatchEmbedBlock
 
 __all__ = [
     "AddAbsPosEmbed",
@@ -32,10 +41,17 @@ __all__ = [
     "BatchNorm",
     "BoTMHSA",
     "ClassSelfAttentionBlock",
+    "ConvProjectionBlock",
+    "CvTAttentionBlock",
+    "CvTSelfAttentionBlock",
     "Dense",
+    "DepthwiseConv2D",
     "Dropout",
     "FFBlock",
+    "Image2TokenBlock",
+    "LCSelfAttentionBlock",
     "LayerScaleBlock",
+    "LeFFBlock",
     "PatchEmbedBlock",
     "RecomputeGenerators",
     "SameConv2d",

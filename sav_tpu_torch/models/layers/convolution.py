@@ -35,16 +35,18 @@ def _pad_same(x: torch.Tensor, kernel: int, stride: int, value: float):
 
 
 class SameConv2d(nn.Conv2d):
-    """A square-kernel conv without bias and with ``SAME`` padding, computed
-    in the input's dtype (the weight, OIHW where flax's is HWIO, cast at
-    use)."""
+    """A square-kernel conv with ``SAME`` padding, without bias unless
+    ``bias`` (CvT's token embedding has one), computed in the input's dtype
+    (the weight, OIHW where flax's is HWIO, and the bias cast at use)."""
 
-    def __init__(self, in_ch: int, out_ch: int, kernel: int, stride: int = 1):
-        super().__init__(in_ch, out_ch, kernel, stride=stride, bias=False)
+    def __init__(self, in_ch: int, out_ch: int, kernel: int, stride: int = 1, *,
+                 bias: bool = False):
+        super().__init__(in_ch, out_ch, kernel, stride=stride, bias=bias)
 
     def forward(self, inputs: torch.Tensor) -> torch.Tensor:
         x, padding = _pad_same(inputs, self.kernel_size[0], self.stride[0], 0.0)
-        return F.conv2d(x, self.weight.to(inputs.dtype), None, self.stride, padding)
+        bias = None if self.bias is None else self.bias.to(inputs.dtype)
+        return F.conv2d(x, self.weight.to(inputs.dtype), bias, self.stride, padding)
 
 
 def max_pool_same(x: torch.Tensor, kernel: int, stride: int) -> torch.Tensor:

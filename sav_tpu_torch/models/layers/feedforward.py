@@ -1,4 +1,5 @@
-"""Transformer MLP block (port of ``sav_tpu/models/layers/feedforward.py``)."""
+"""Feed-forward blocks: the transformer MLP and CeiT's locally-enhanced FF
+(port of ``sav_tpu/models/layers/feedforward.py``)."""
 
 from __future__ import annotations
 
@@ -8,6 +9,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from sav_tpu_torch.models.layers.depthwise import DepthwiseConv2D
+from sav_tpu_torch.models.layers.normalization import BatchNorm
 from sav_tpu_torch.models.layers.regularization import Dropout
 
 
@@ -43,3 +46,40 @@ class FFBlock(nn.Module):
     def forward(self, inputs: torch.Tensor) -> torch.Tensor:
         x = self.drop1(F.gelu(self.fc1(inputs), approximate="tanh"))
         return self.drop2(self.fc2(x))
+
+
+class LeFFBlock(nn.Module):
+    """CeiT's locally-enhanced feed-forward on ``[B, 1 + side², C]``: the
+    CLS token is split off; the patch tokens are expanded, normalised,
+    GELU'd, put on their ``side × side`` grid for a 5×5 depthwise conv,
+    normalised and GELU'd, projected back, normalised and GELU'd; then the
+    CLS token is joined back, untouched. Each BatchNorm reduces over the
+    batch and the tokens (the tokens as ``[B·L, C]`` rows), with f32
+    statistics; GELU is the tanh form (flax's ``nn.gelu``)."""
+
+    def __init__(self, in_ch: int, expand_ratio: Optional[float] = 4.0,
+                 hidden_ch: Optional[int] = None, kernel_size=(5, 5)):
+        super().__init__()
+        hidden = hidden_ch or int(in_ch * expand_ratio)
+        self.expand = Dense(in_ch, hidden)
+        self.bn1 = BatchNorm(hidden)
+        self.dwconv = DepthwiseConv2D(hidden, kernel_size)
+        self.bn2 = BatchNorm(hidden)
+        self.project = Dense(hidden, in_ch)
+        self.bn3 = BatchNorm(in_ch)
+
+    def forward(self, inputs: torch.Tensor) -> torch.Tensor:
+        cls_tok, tokens = inputs[:, :1], inputs[:, 1:]
+        b, length, _ = tokens.shape
+        side = int(round(length ** 0.5))
+        if side * side != length:
+            raise ValueError(f"LeFF requires a square token grid, got {length} tokens")
+
+        def norm_act(bn, x):
+            return F.gelu(bn(x.reshape(-1, x.shape[-1])), approximate="tanh")
+
+        x = norm_act(self.bn1, self.expand(tokens))
+        x = self.dwconv(x.view(b, side, side, -1))
+        x = norm_act(self.bn2, x).view(b, length, -1)
+        x = norm_act(self.bn3, self.project(x)).view(b, length, -1)
+        return torch.cat([cls_tok, x], dim=1)

@@ -1,5 +1,5 @@
 """LayerScale and BatchNorm (port of ``sav_tpu/models/layers/normalization.py``
-and of flax's ``nn.BatchNorm`` as BoTNet uses it)."""
+and of flax's ``nn.BatchNorm`` as BoTNet, CeiT and CvT use it)."""
 
 from __future__ import annotations
 
@@ -26,7 +26,9 @@ class LayerScaleBlock(nn.Module):
 
 class BatchNorm(nn.Module):
     """flax ``nn.BatchNorm(momentum=0.9, epsilon=1e-5)`` over the channel
-    axis of an ``[N, C, H, W]`` tensor (any memory format).
+    axis of an ``[N, C, H, W]`` tensor (any memory format) or of ``[N, C]``
+    rows (tokens ``[B, L, C]`` reshaped to ``[B·L, C]``: flax's BatchNorm
+    on channel-last tokens reduces over B and L).
 
     - The scale (``weight``), the bias and the running statistics are f32
       and stay f32 under a bf16 input: statistics and normalisation are
@@ -88,8 +90,9 @@ def cast_for_compute(model: nn.Module, dtype: torch.dtype) -> nn.Module:
     """Cast the floating parameters and buffers of ``model`` to ``dtype`` in
     place, except those a module names in its ``F32_TENSORS``, which stay
     f32: a :class:`BatchNorm`'s scale, bias and statistics (flax keeps them
-    f32 under a bf16 ``dtype``) and BoTMHSA's relative tables (the kernels'
-    path reads them in f32). Returns ``model``."""
+    f32 under a bf16 ``dtype``), BoTMHSA's relative tables (the kernels'
+    path reads them in f32) and a DepthwiseConv2D's kernel (``sav_tpu``
+    multiplies by it in f32). Returns ``model``."""
     with torch.no_grad():
         for module in model.modules():
             keep = getattr(module, "F32_TENSORS", ())

@@ -1,8 +1,8 @@
 """Named model registry (port of ``sav_tpu/models/registry.py``).
 
-The plain ViT, the ten CaiT and the three BoTNet entries are ported. Every
-other ``sav_tpu`` name is known here and raises ``NotImplementedError``
-naming the ROADMAP queue item it waits on.
+The plain ViT, the ten CaiT, the three BoTNet, the three CeiT and the three
+CvT entries are ported. Every other ``sav_tpu`` name is known here and
+raises ``NotImplementedError`` naming the ROADMAP queue item it waits on.
 """
 
 from __future__ import annotations
@@ -14,6 +14,8 @@ from torch import nn
 
 from sav_tpu_torch.models.botnet import BoTNet
 from sav_tpu_torch.models.cait import CaiT
+from sav_tpu_torch.models.ceit import CeiT
+from sav_tpu_torch.models.cvt import CvT
 from sav_tpu_torch.models.vit import ViT
 
 # name -> (embed_dim, num_layers, num_heads, patch)
@@ -50,12 +52,26 @@ _BOTNET = {
     "botnet_t5": (3, 4, 23, 12),
 }
 
+# name -> (embed_dim, num_layers, num_heads); 4×4 patches after the conv
+# stem (sav_tpu/models/registry.py:86-88).
+_CEIT = {
+    "ceit_t": (192, 12, 3),
+    "ceit_s": (384, 12, 6),
+    "ceit_b": (768, 12, 12),
+}
+
+# name -> (embed_dims, num_layers, num_heads) of the three stages
+# (sav_tpu/models/registry.py:117-129).
+_CVT = {
+    "cvt-13": ((64, 192, 384), (1, 2, 10), (1, 3, 6)),
+    "cvt-21": ((64, 192, 384), (1, 4, 16), (1, 3, 6)),
+    "cvt-w24": ((192, 768, 1024), (2, 2, 20), (3, 12, 16)),
+}
+
 _NOT_PORTED = {
     "vit_s_patch16_rope": "queue A2 (ops/rotary.py)",
     "vit_moe_s_patch16_e8": "queue A7.7 (MoE)",
     **{n: "queue A7.2 (TNT)" for n in ("tnt_s_patch16", "tnt_b_patch16")},
-    **{n: "queue A7.4 (CeiT)" for n in ("ceit_t", "ceit_s", "ceit_b")},
-    **{n: "queue A7.5 (CvT)" for n in ("cvt-13", "cvt-21", "cvt-w24")},
     **{
         f"mixer_{size}_patch{p}": "queue A7.3 (MLP-Mixer)"
         for size in ("s", "b", "l")
@@ -66,7 +82,7 @@ _NOT_PORTED = {
 
 def model_names() -> list:
     """The names :func:`create_model` can build."""
-    return sorted([*_VIT, *_CAIT, *_BOTNET])
+    return sorted([*_VIT, *_CAIT, *_BOTNET, *_CEIT, *_CVT])
 
 
 def create_model(
@@ -88,18 +104,23 @@ def create_model(
     reach every attention block. ``overrides`` replace config fields
     (``embed_dim``, ``num_layers``, ``num_heads``, ``patch_shape``, and for
     CaiT ``num_layers_token_only``, ``stoch_depth_rate``, ...; for ViT
-    ``remat``; for BoTNet ``stage_sizes``, ``num_heads``, ``se_ratio``).
+    ``remat``; for BoTNet ``stage_sizes``, ``num_heads``, ``se_ratio``; for
+    CeiT ``stem_ch``; for CvT ``embed_dims``, ``num_layers`` and
+    ``num_heads`` of the three stages).
     """
     if model_name in _NOT_PORTED:
         raise NotImplementedError(
             f"{model_name!r} is not ported yet: ROADMAP {_NOT_PORTED[model_name]}"
         )
+    common = dict(image_size=image_size, backend=backend, logits_dtype=logits_dtype)
     if model_name in _BOTNET:
-        cls = BoTNet
-        kwargs = dict(stage_sizes=_BOTNET[model_name], image_size=image_size,
-                      backend=backend, logits_dtype=logits_dtype)
-        kwargs.update(overrides)
-        return _build(cls, num_classes, kwargs, seed)
+        kwargs = dict(stage_sizes=_BOTNET[model_name], **common)
+        return _build(BoTNet, num_classes, {**kwargs, **overrides}, seed)
+    if model_name in _CVT:
+        embed_dims, num_layers, num_heads = _CVT[model_name]
+        kwargs = dict(embed_dims=embed_dims, num_layers=num_layers, num_heads=num_heads,
+                      **common)
+        return _build(CvT, num_classes, {**kwargs, **overrides}, seed)
     if model_name in _VIT:
         cls = ViT
         embed_dim, num_layers, num_heads, patch = _VIT[model_name]
@@ -109,18 +130,15 @@ def create_model(
         embed_dim, num_layers, num_heads, sd_rate, ls_eps = _CAIT[model_name]
         kwargs = dict(num_layers_token_only=2, patch_shape=(16, 16),
                       stoch_depth_rate=sd_rate, layerscale_eps=ls_eps)
+    elif model_name in _CEIT:
+        cls = CeiT
+        embed_dim, num_layers, num_heads = _CEIT[model_name]
+        kwargs = dict(patch_shape=(4, 4))
     else:
         raise ValueError(
             f"unknown model {model_name!r}; available: {', '.join(model_names())}"
         )
-    kwargs.update(
-        embed_dim=embed_dim,
-        num_layers=num_layers,
-        num_heads=num_heads,
-        image_size=image_size,
-        backend=backend,
-        logits_dtype=logits_dtype,
-    )
+    kwargs.update(embed_dim=embed_dim, num_layers=num_layers, num_heads=num_heads, **common)
     kwargs.update(overrides)
     return _build(cls, num_classes, kwargs, seed)
 

@@ -306,8 +306,8 @@ def test_presets_refuse_what_trainconfig_refuses():
     assert str(from_preset.value) == str(from_config.value)
     with pytest.raises(ValueError, match="unknown preset"):
         get_preset("nope")
-    with pytest.raises(NotImplementedError, match="A7.5"):
-        create_model(get_preset("cvt_13_imagenet").model_name)
+    with pytest.raises(NotImplementedError, match="A7.3"):
+        create_model(get_preset("mixer_b_imagenet").model_name)
     botnet = get_preset("botnet_t3_imagenet", num_train_images=2048 * 6, warmup_epochs=0)
     assert (botnet.global_batch_size, botnet.learning_rate, botnet.steps_per_epoch) == (2048, 1e-3, 6)
 

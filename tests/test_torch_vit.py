@@ -183,7 +183,7 @@ def test_layernorm_eps_is_flax_default():
 def test_registry_names_and_unported_entries():
     assert "deit_s_patch16" in model_names()
     assert "tnt_s_patch16" not in model_names()
-    for name, item in (("tnt_s_patch16", "A7.2"), ("cvt-13", "A7.5"), ("vit_s_patch16_rope", "A2")):
+    for name, item in (("tnt_s_patch16", "A7.2"), ("mixer_s_patch16", "A7.3"), ("vit_s_patch16_rope", "A2")):
         with pytest.raises(NotImplementedError, match=item):
             create_model(name)
     with pytest.raises(ValueError, match="unknown model"):
