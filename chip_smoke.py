@@ -57,9 +57,13 @@ Phases, each of which exits non-zero on failure:
    stage 1's (B, 3136 queries, 784 keys, 1, 64) in bf16 and f32 and its
    serve forward, the fused forward and backward at stages 2 and 3 (784
    over 196, 3 heads; 197 over 50, 6 heads) and at CeiT-S's class
-   attention (1 over 12, 6 heads), train and serve, bf16 and f32. Each
-   backward, and each tensor-core forward, runs twice on the same inputs
-   and must give the same bits.
+   attention (1 over 12, 6 heads), train and serve, bf16 and f32; and
+   TNT's inner attention (16 pixel tokens a patch, one slice per patch:
+   B·196, 4 heads of 6 for TNT-S at the train batch and the top serve
+   bucket, of 10 for TNT-B at the train batch), the head dim zero-padded
+   to 8 and 16 by the wrappers and held against the plain version at the
+   true head dim, bf16 and f32. Each backward, and each tensor-core
+   forward, runs twice on the same inputs and must give the same bits.
 4. timing: each kernel, its plain version and, where one exists, one PyTorch
    library call (yardstick only) at the shapes the main paths give it,
    beside the card's bound; the talking-heads kernels also beside the port's
@@ -69,7 +73,9 @@ Phases, each of which exits non-zero on failure:
    train shapes; the relative-position kernels beside SDPA with the
    expanded relative bias as its attn_mask; CvT-13's and CeiT-S's shapes,
    and at each CvT-13 shape the forward auto does not take beside the one
-   it does (#1 at stage 1, #3 at stages 2 and 3).
+   it does (#1 at stage 1, #3 at stages 2 and 3); TNT's inner shapes, the
+   wrapper's whole call (pad, kernel, slice) beside the plain version and
+   SDPA at the true head dim, the bound by the true head dim's work.
 5. serve: ServeEngine serves deit_s_patch16, then cait_xxs_24 (bf16, random
    weights from a seed) to concurrent clients through one captured CUDA
    graph per bucket (1…32) and the double-buffered feed. The launch
@@ -158,6 +164,16 @@ Phases, each of which exits non-zero on failure:
    depthwise convs' and LeFF's BatchNorms) are compared with the dense
    path's too. Their kernel shapes (q_len != kv_len) are checked in 3 and
    timed in 4.
+11. TNT and MLP-Mixer: tnt_s_patch16 and mixer_b_patch16 (full width and
+   depth, 224²) are served and benched in 5, after CeiT (TNT-S: 24 fused
+   forwards, 12 at the inner shape and 12 at DeiT-S's; Mixer-B/16: no
+   attention, so every counter and every capture must read 0), and trained
+   as in 6 from get_preset("tnt_s_imagenet") at 1024 in 4 micro-batches (4
+   x (24 #1, 24 #2) launches per captured step) and from
+   get_preset("mixer_b_imagenet") at 4096 in 16 (none). Mixer has no
+   attention path to hold the kernels against, so its first train step is
+   held against the same step in f32 from the same weights, and its served
+   logits against the same weights served in f32.
 
 Before each agreement check the head is drawn at std 0.02, every
 LayerScale scale at 0.05-0.15 (CaiT's init of 1e-5 would hide a wrong trunk),
@@ -255,6 +271,22 @@ CEIT_PRESET = "ceit_s_imagenet"
 CEIT_ACCUM = 4
 LCA_TRAIN_SHAPE = (256, 1, 12, 6, 64)
 LCA_SERVE_SHAPE = (32, 1, 12, 6, 64)
+# TNT-S at 224²: the outer stream is DeiT-S's shape (TRAIN_SHAPE); the inner
+# stream attends over each patch's 16 pixel tokens, 4 heads of 6 (TNT-B: of
+# 10), one (batch, head) slice per patch: B·196 of them, the head dim
+# zero-padded to 8 (16) in the wrappers. The preset's global batch 1024 in 4
+# micro-batches.
+TNT_MODEL = "tnt_s_patch16"
+TNT_PRESET = "tnt_s_imagenet"
+TNT_ACCUM = 4
+TNT_TRAIN_SHAPE = (256 * 196, 16, 16, 4, 6)
+TNT_SERVE_SHAPE = (32 * 196, 16, 16, 4, 6)
+TNT_B_TRAIN_SHAPE = (256 * 196, 16, 16, 4, 10)
+# Mixer-B/16 at 224²: no attention (every launch counter must read 0); the
+# preset's global batch 4096 in 16 micro-batches.
+MIXER_MODEL = "mixer_b_patch16"
+MIXER_PRESET = "mixer_b_imagenet"
+MIXER_ACCUM = 16
 SERVE_REQUESTS = 96
 CLIENTS = 4
 TRAIN_BATCH = 256
@@ -523,11 +555,14 @@ def phase_build() -> None:
     # the shapes with q_len != kv_len (CvT-13's stages 2 and 3, CeiT-S's
     # class attention) #2's tensor-core shared memory holds every q row's
     # lse and delta beside the slice's K and V.
-    for q_len, kv_len, dim in ((197, 197, 64), (1, 197, 48), (577, 577, 64), (1, 577, 48),
-                               (784, 196, 64), (197, 50, 64), (1, 12, 64)):
-        if not (fa.fused_eligible(q_len, kv_len, dim, itemsize=2)
+    # TNT's inner heads of 6 and 10 run zero-padded to 8 and 16.
+    for q_len, kv_len, true_dim in ((197, 197, 64), (1, 197, 48), (577, 577, 64), (1, 577, 48),
+                                    (784, 196, 64), (197, 50, 64), (1, 12, 64), (16, 16, 6),
+                                    (16, 16, 10)):
+        dim = fa.padded_dim(true_dim)
+        if not (fa.fused_eligible(q_len, kv_len, true_dim, itemsize=2)
                 and fa.fused_fwd_variant(dim, 2) == fa.TENSOR_CORE):
-            raise AssertionError(f"#1 at ({q_len}, {kv_len}, {dim}) bf16 is outside the "
+            raise AssertionError(f"#1 at ({q_len}, {kv_len}, {true_dim}) bf16 is outside the "
                                  "tensor-core band")
         c_value = bwd.sav_fused_attention_bwd_mma_smem_bytes(q_len, kv_len, dim)
         if (c_value != fa.fused_bwd_mma_smem_bytes(q_len, kv_len, dim)
@@ -535,6 +570,13 @@ def phase_build() -> None:
             raise AssertionError(f"#2 at ({q_len}, {kv_len}, {dim}) bf16: kernel {c_value} "
                                  f"bytes, Python {fa.fused_bwd_mma_smem_bytes(q_len, kv_len, dim)}, "
                                  f"or outside the backward's band")
+    from sav_tpu_torch.ops.attention import resolve_attention_backend
+
+    for dim in (6, 10):
+        for dtype in (torch.bfloat16, torch.float32):
+            if resolve_attention_backend(16, 16, dim, dtype=dtype, backward=True) != "fused":
+                raise AssertionError(f"auto does not take #1/#2 at TNT's inner (16, 16, {dim}) "
+                                     f"in {dtype}")
     log_mma_builds()
     # BoTNet's grids, the JAX tests' grids and the f32 band's edges at head
     # dims 128 and 64 (W + Hg = 156 and 284); the bf16 band contains the f32
@@ -761,6 +803,16 @@ def phase_kernels(device="cuda", serve_shape=SERVE_SHAPE, train_shape=TRAIN_SHAP
                        ("ceit lca", LCA_SERVE_SHAPE)):
         new_shapes[f"{key} serve"] = check_kernel(f"{key} serve", shape, bf16, device)
         check_kernel(f"{key} serve", shape, f32, device)
+    # TNT's inner attention: 16 pixel tokens a patch, 4 heads of 6
+    # (TNT-S, train and serve) and of 10 (TNT-B, train), zero-padded to 8
+    # and 16 in the wrapper, held against the plain version at the true head
+    # dim; bf16 and f32.
+    for key, shape, with_lse in (("tnt-s inner", TNT_TRAIN_SHAPE, True),
+                                 ("tnt-s inner serve", TNT_SERVE_SHAPE, False),
+                                 ("tnt-b inner", TNT_B_TRAIN_SHAPE, True)):
+        new_shapes[key] = check_kernel(key + ("+lse" if with_lse else ""), shape, bf16, device,
+                                       with_lse=with_lse)
+        check_kernel(key + ("+lse" if with_lse else ""), shape, f32, device, with_lse=with_lse)
     return {"serve": serve_err, "train": train_err, "cait_class": class_err, **new_shapes}
 
 
@@ -823,6 +875,10 @@ def phase_bwd_kernels(device="cuda", serve_shape=SERVE_SHAPE, train_shape=TRAIN_
     new_shapes = {}
     for key, shape in (("cvt stage 2", CVT_TRAIN_SHAPES["stage 2"]),
                        ("cvt stage 3", CVT_TRAIN_SHAPES["stage 3"]), ("ceit lca", LCA_TRAIN_SHAPE)):
+        new_shapes[key] = check_bwd_kernel(key, shape, bf16, device)
+        check_bwd_kernel(key, shape, f32, device)
+    # TNT-S's and TNT-B's inner attention, the head dim zero-padded.
+    for key, shape in (("tnt-s inner", TNT_TRAIN_SHAPE), ("tnt-b inner", TNT_B_TRAIN_SHAPE)):
         new_shapes[key] = check_bwd_kernel(key, shape, bf16, device)
         check_bwd_kernel(key, shape, f32, device)
     return {"train": train_err, "cait_class": class_err, **new_shapes}
@@ -1699,6 +1755,15 @@ def phase_timing() -> dict:
     times["ceit lca fwd"] = time_fwd(LCA_TRAIN_SHAPE, with_lse=True)
     times["ceit lca bwd"] = time_bwd(LCA_TRAIN_SHAPE)
     times["ceit lca serve"] = time_fwd(LCA_SERVE_SHAPE, with_lse=False)
+    # TNT's inner attention: the wrapper's whole call (the zero pad, the
+    # kernel on the padded head dim, the slice) against the plain version
+    # and SDPA at the true head dim; the bound by the true head dim's bytes
+    # and operations.
+    times["tnt-s inner fwd"] = time_fwd(TNT_TRAIN_SHAPE, with_lse=True)
+    times["tnt-s inner bwd"] = time_bwd(TNT_TRAIN_SHAPE)
+    times["tnt-s inner serve"] = time_fwd(TNT_SERVE_SHAPE, with_lse=False)
+    times["tnt-b inner fwd"] = time_fwd(TNT_B_TRAIN_SHAPE, with_lse=True)
+    times["tnt-b inner bwd"] = time_bwd(TNT_B_TRAIN_SHAPE)
     for key, shape in CVT_TRAIN_SHAPES.items():
         fused, flash = ((times["cvt stage 1 fused"], times["cvt stage 1"]["fwd"])
                         if key == "stage 1" else (times[f"cvt {key} fwd"], times[f"cvt {key} flash"]))
@@ -2065,11 +2130,15 @@ def _serve_steps(engine, buckets) -> dict:
 
 
 def phase_serve(device="cuda", model_name="deit_s_patch16", requests=SERVE_REQUESTS,
-                max_batch=32, overrides=None, image_size=224, family="fused") -> dict:
+                max_batch=32, overrides=None, image_size=224, family="fused",
+                reference="dense") -> dict:
     """Serve ``requests`` seeded images through captured programs; returns
     the kernels' launches (replays × captured). ``family``: the kernels this
     path's plain attention cores take (at 224² DeiT's and CaiT's class
-    attention the fused ones, BoTNet the relative-position ones)."""
+    attention the fused ones, BoTNet the relative-position ones).
+    ``reference``: what the served logits are held against, the same
+    weights served on the dense attention paths (``"dense"``), or, for a
+    model without attention, served in f32 (``"f32"``)."""
     from sav_tpu_torch import ServeConfig, ServeEngine, create_model
 
     overrides = overrides or {}
@@ -2084,9 +2153,9 @@ def phase_serve(device="cuda", model_name="deit_s_patch16", requests=SERVE_REQUE
 
     def config(**kw):
         # A generous deadline: admission must not shed in a smoke run.
-        return ServeConfig(model_name=model_name, image_size=image_size,
-                           compute_dtype="bfloat16", deadline_ms=5000.0,
-                           device=device, **kw)
+        return ServeConfig(**{**dict(model_name=model_name, image_size=image_size,
+                                     compute_dtype="bfloat16", deadline_ms=5000.0,
+                                     device=device), **kw})
 
     images = np.random.default_rng(0).integers(
         0, 256, (requests, image_size, image_size, 3), dtype=np.uint8
@@ -2124,17 +2193,21 @@ def phase_serve(device="cuda", model_name="deit_s_patch16", requests=SERVE_REQUE
     _release_engines()
 
     reset_launches()
-    ref_engine = ServeEngine(config(max_batch=8, attention_backend="xla"), model=dense)
-    _check_capture(ref_engine.startup_report, dict.fromkeys(COUNTERS, 0), f"{what} dense")
+    ref_config = (config(max_batch=8, attention_backend="xla") if reference == "dense"
+                  else config(max_batch=8, compute_dtype="float32"))
+    ref_engine = ServeEngine(ref_config, model=dense)
+    _check_capture(ref_engine.startup_report, dict.fromkeys(COUNTERS, 0), f"{what} {reference}")
     with ref_engine:
         ref = np.stack(_serve(ref_engine, images[:8], 1))
     if any(launch_counts().values()) or sum(ref_engine.stats()["replays"].values()) == 0:
-        raise AssertionError("the dense reference engine launched a kernel or replayed nothing")
+        raise AssertionError(f"the {reference} reference engine launched a kernel or replayed "
+                             "nothing")
     err = _within(torch.from_numpy(logits[:8]), torch.from_numpy(ref), SERVE_TOL)
+    against = ("kernels vs dense attention (f32 softmax), both replayed" if reference == "dense"
+               else "no attention: bf16 vs the same weights served in f32, both replayed")
     log(
-        f"serve agreement {model_name}, kernels vs dense attention (f32 softmax), both "
-        f"replayed, 8 rows: max abs err {err:.3e} (tol {SERVE_TOL}), logits max |x| "
-        f"{np.abs(ref).max():.3f}, std {ref.std():.3f}"
+        f"serve agreement {model_name}, {against}, 8 rows: max abs err {err:.3e} (tol "
+        f"{SERVE_TOL}), logits max |x| {np.abs(ref).max():.3f}, std {ref.std():.3f}"
     )
     del ref_engine
     _release_engines()
@@ -2432,7 +2505,7 @@ def _captured_equals_eager(trainer, state, start: dict, batches: list, what: str
 def phase_train(device="cuda", model_name="deit_s_patch16", batch_size=TRAIN_BATCH,
                 steps=TRAIN_STEPS, image_size=224, num_classes=1000, overrides=None,
                 state_dict=None, family="fused", grad_accum=1, config=None,
-                warm_start=None) -> dict:
+                warm_start=None, reference="dense") -> dict:
     """Train ``steps`` steps through Trainer.fit from seed-0 weights (or from
     ``state_dict``, or through ``Trainer.warm_start_from`` a directory,
     ``warm_start = (directory, expected state dict)``: every tensor must come
@@ -2443,7 +2516,10 @@ def phase_train(device="cuda", model_name="deit_s_patch16", batch_size=TRAIN_BAT
     and fit runs once more with the eager step for the comparison; one step
     of each is profiled. Returns the launches (replays × captured), the
     first loss, both fits' step times, peak memories and profiles. ``config``
-    replaces the smoke run's recipe (a preset's TrainConfig)."""
+    replaces the smoke run's recipe (a preset's TrainConfig). The first step
+    is held against the same step on the dense attention paths
+    (``reference="dense"``) or, for a model without attention, in f32
+    (``"f32"``)."""
     from sav_tpu_torch import TrainConfig, Trainer, create_model
 
     _free_device_memory()
@@ -2481,12 +2557,13 @@ def phase_train(device="cuda", model_name="deit_s_patch16", batch_size=TRAIN_BAT
     batches = _train_batches(batch_size, image_size, num_classes, device, TRAIN_DISTINCT_BATCHES)
     what = f"train {model_name}"
 
-    # The same first step on the dense attention paths with f32 softmax,
-    # eagerly; the stochastic-depth masks come from a generator seeded from
-    # config.seed on both sides, drawn in the same order, so they are the
-    # same masks.
+    # The same first step on the dense attention paths with f32 softmax (or,
+    # without attention, in f32), eagerly; the stochastic-depth masks come
+    # from a generator seeded from config.seed on both sides, drawn in the
+    # same order, so they are the same masks.
     ref_trainer = Trainer(
-        dataclasses.replace(config, attention_backend="xla", attention_logits_dtype="float32"),
+        dataclasses.replace(config, attention_backend="xla", attention_logits_dtype="float32")
+        if reference == "dense" else dataclasses.replace(config, compute_dtype="float32"),
         model=dense, device=device,
     )
     reset_launches()
@@ -2549,12 +2626,13 @@ def phase_train(device="cuda", model_name="deit_s_patch16", batch_size=TRAIN_BAT
         runs[mode] = {"history": history, "step_ms": steady["step_s"] * 1e3,
                       "images_per_sec": steady["images_per_sec"], "peak_gb": peak_gb,
                       "profile": profile, "first_window_ms": windows[0]["step_s"] * 1e3}
+    sides = ("kernels", "dense") if reference == "dense" else ("bf16", "f32 (no attention)")
     for key, tol in TRAIN_REL_TOL.items():
         rel = abs(first[key] - ref[key]) / abs(ref[key])
-        log(f"train step 1 {model_name} {key}: kernels {first[key]:.6f}, dense {ref[key]:.6f}, "
-            f"relative difference {rel:.3e} (tol {tol})")
+        log(f"train step 1 {model_name} {key}: {sides[0]} {first[key]:.6f}, {sides[1]} "
+            f"{ref[key]:.6f}, relative difference {rel:.3e} (tol {tol})")
         if rel > tol:
-            raise AssertionError(f"train step 1 {key} disagrees with the dense path")
+            raise AssertionError(f"train step 1 {key} disagrees with the {reference} step")
     equal = _captured_equals_eager(trainer, start_state, start, batches, what)
     if ref_stats:
         # Each running statistic after step 1, relative to its largest entry.
@@ -3267,25 +3345,38 @@ def _timed(entry: dict) -> dict:
 
 
 def main() -> None:
+    start = time.perf_counter()
+
+    def mark(what: str) -> None:
+        log(f"clock: {what} done at {time.perf_counter() - start:.1f} s")
+
     smi = phase_device()
     phase_build()
+    mark("build")
     fwd_err = phase_kernels()
     bwd_err = phase_bwd_kernels()
     th_err = phase_th_kernels()
     flash_err = phase_flash_kernels()
     rel_err = phase_rel_kernels()
+    mark("kernel checks")
     times = phase_timing()
+    mark("timing")
     serve = {"deit": phase_serve(), "cait": phase_serve(model_name="cait_xxs_24"),
              "botnet": phase_serve(model_name=BOTNET_MODEL, family="rel"),
              "cvt": phase_serve(model_name=CVT_MODEL, family=CVT_FAMILY),
-             "ceit": phase_serve(model_name=CEIT_MODEL)}
+             "ceit": phase_serve(model_name=CEIT_MODEL),
+             "tnt": phase_serve(model_name=TNT_MODEL),
+             "mixer": phase_serve(model_name=MIXER_MODEL, reference="f32")}
     benches = {"deit": phase_serve_bench("deit_s_patch16", serve["deit"]["per_batch"],
                                          batch_1=True),
                "cait": phase_serve_bench("cait_xxs_24", serve["cait"]["per_batch"]),
                "botnet": phase_serve_bench(BOTNET_MODEL, serve["botnet"]["per_batch"]),
                "cvt": phase_serve_bench(CVT_MODEL, serve["cvt"]["per_batch"]),
-               "ceit": phase_serve_bench(CEIT_MODEL, serve["ceit"]["per_batch"])}
+               "ceit": phase_serve_bench(CEIT_MODEL, serve["ceit"]["per_batch"]),
+               "tnt": phase_serve_bench(TNT_MODEL, serve["tnt"]["per_batch"]),
+               "mixer": phase_serve_bench(MIXER_MODEL, serve["mixer"]["per_batch"])}
     _release_engines()
+    mark("serve and serve benches")
     train = {"deit": phase_train(), "cait": phase_train(model_name="cait_xxs_24")}
     deit_source = _deit_source()
     with tempfile.TemporaryDirectory() as checkpoints:
@@ -3297,6 +3388,7 @@ def main() -> None:
     devpre = phase_device_preprocess(deit_source)
     del deit_source
     train_bench = phase_train_bench()
+    mark("DeiT-S and CaiT-XXS training, the run path and the train bench")
     with tempfile.TemporaryDirectory() as pretrain:
         adapted = phase_surgery(pretrain)
         train["vit384"] = phase_train(
@@ -3305,6 +3397,7 @@ def main() -> None:
             warm_start=(pretrain, adapted), family="flash")
     remat = phase_remat_trade(adapted)
     del adapted
+    mark("ViT-B/16@384 fine-tune and remat trade")
     from sav_tpu_torch.train import get_preset
 
     preset = get_preset(BOTNET_PRESET, num_train_images=BOTNET_ACCUM * TRAIN_BATCH * TRAIN_STEPS,
@@ -3313,11 +3406,14 @@ def main() -> None:
     train["botnet"] = phase_train(model_name=BOTNET_MODEL, family="rel",
                                   batch_size=preset.global_batch_size, grad_accum=BOTNET_ACCUM,
                                   config=preset)
-    # CvT-13 and CeiT-S at their recipes' global batches, in micro-batches of
-    # TRAIN_BATCH.
+    # CvT-13, CeiT-S, TNT-S and Mixer-B/16 at their recipes' global batches,
+    # in micro-batches of TRAIN_BATCH; Mixer's first step against itself in
+    # f32 (it has no attention path to compare).
     for key, model_name, preset_name, accum, family in (
             ("cvt", CVT_MODEL, CVT_PRESET, CVT_ACCUM, CVT_FAMILY),
-            ("ceit", CEIT_MODEL, CEIT_PRESET, CEIT_ACCUM, "fused")):
+            ("ceit", CEIT_MODEL, CEIT_PRESET, CEIT_ACCUM, "fused"),
+            ("tnt", TNT_MODEL, TNT_PRESET, TNT_ACCUM, "fused"),
+            ("mixer", MIXER_MODEL, MIXER_PRESET, MIXER_ACCUM, "fused")):
         preset = get_preset(preset_name, num_train_images=accum * TRAIN_BATCH * TRAIN_STEPS,
                             warmup_epochs=0, transpose_images=False,
                             log_every_steps=TRAIN_STEPS // 2, seed=0)
@@ -3326,7 +3422,9 @@ def main() -> None:
                                  f"not {accum} x {TRAIN_BATCH}")
         train[key] = phase_train(model_name=model_name, family=family,
                                  batch_size=preset.global_batch_size, grad_accum=accum,
-                                 config=preset)
+                                 config=preset,
+                                 reference="f32" if key == "mixer" else "dense")
+    mark("BoTNet-T3, CvT-13, CeiT-S, TNT-S and Mixer-B/16 training")
 
     def by_path(kind):
         return {
@@ -3344,6 +3442,10 @@ def main() -> None:
             "serve_bench_cvt": benches["cvt"][kind],
             "serve_ceit": serve["ceit"][kind], "train_ceit": train["ceit"]["launches"][kind],
             "serve_bench_ceit": benches["ceit"][kind],
+            "serve_tnt": serve["tnt"][kind], "train_tnt": train["tnt"]["launches"][kind],
+            "serve_bench_tnt": benches["tnt"][kind],
+            "serve_mixer": serve["mixer"][kind], "train_mixer": train["mixer"]["launches"][kind],
+            "serve_bench_mixer": benches["mixer"][kind],
         }
 
     def total(kind):
@@ -3397,6 +3499,16 @@ def main() -> None:
                                "max_abs_err": fwd_err["ceit lca serve"],
                                **_timed(times["ceit lca serve"])},
         },
+        "at_tnt_s_inner": {
+            "shape": list(TNT_TRAIN_SHAPE), "padded_head_dim": 8,
+            "max_abs_err": fwd_err["tnt-s inner"], **_timed(times["tnt-s inner fwd"]),
+            "at_serve_shape": {"shape": list(TNT_SERVE_SHAPE),
+                               "max_abs_err": fwd_err["tnt-s inner serve"],
+                               **_timed(times["tnt-s inner serve"])},
+        },
+        "at_tnt_b_inner": {"shape": list(TNT_B_TRAIN_SHAPE), "padded_head_dim": 16,
+                           "max_abs_err": fwd_err["tnt-b inner"],
+                           **_timed(times["tnt-b inner fwd"])},
     }
     bwd = {
         "name": "fused_attention_bwd",
@@ -3423,6 +3535,10 @@ def main() -> None:
         } for key in ("stage 2", "stage 3")},
         "at_ceit_class_attention": {"shape": list(LCA_TRAIN_SHAPE), "max_abs_err": bwd_err["ceit lca"],
                                     **_timed(times["ceit lca bwd"])},
+        **{f"at_tnt_{v}_inner": {"shape": list(shape), "padded_head_dim": pad,
+                                 "max_abs_err": bwd_err[f"tnt-{v} inner"],
+                                 **_timed(times[f"tnt-{v} inner bwd"])}
+           for v, shape, pad in (("s", TNT_TRAIN_SHAPE, 8), ("b", TNT_B_TRAIN_SHAPE, 16))},
     }
     th_fwd = {
         "name": "talking_heads_fwd",

@@ -1,4 +1,4 @@
-"""Convert ``sav_tpu`` (flax) ViT, CaiT, BoTNet, CeiT and CvT variables into
+"""Convert ``sav_tpu`` (flax) ViT, CaiT, BoTNet, TNT, CeiT, CvT and MLP-Mixer variables into
 the port's ``state_dict`` (:func:`params_from_flax`), and back
 (:func:`flax_from_params`, the exact inverse under the same rules).
 
@@ -8,7 +8,8 @@ with, for the BatchNorm families (BoTNet, CeiT, CvT), ``"batch_stats"``
 beside it. The family is read off the params' top level (``Encoder_0``:
 ViT; ``block_i``/``ca_block_i``: CaiT; ``stem_conv``: BoTNet;
 ``Image2TokenBlock_0``: CeiT; ``stage_0``: CvT) and only that family's
-rules apply. Every leaf must be consumed; an unknown key raises.
+rules apply (also ``PixelEmbedBlock_0``: TNT; ``block_i/token_mixing``:
+MLP-Mixer). Every leaf must be consumed; an unknown key raises.
 
 ViT:
 
@@ -96,6 +97,33 @@ flax key                                                port key                
 ``B FFBlock_0/fc{1,2}/{kernel,bias}``                   ``stages.s.blocks.i.ff.fc{1,2}.*``         ``[in, out]`` → ``[out, in]``
 ``LayerNorm_0``, ``head``                               ``norm``, ``head``                         as for ViT
 batch_stats ``P bn/{mean,var}``                         ``….bn.running_{mean,var}``                as is
+======================================================  =========================================  ==========
+
+TNT (``B`` = ``block_i/``; LayerNorm ``k`` of a block is ``inner_norm1``,
+``inner_norm2``, ``outer_norm1``, ``outer_norm2`` for k = 0…3):
+
+======================================================  =========================================  ==========
+flax key                                                port key                                   conversion
+======================================================  =========================================  ==========
+``{Pixel,Patch}EmbedBlock_0/proj/{kernel,bias}``        ``{pixel,patch}_embed.proj.{weight,bias}``  HWIO → OIHW
+``cls``, ``{inner,outer}_pos_embed/pos_embed``          ``cls``, ``{inner,outer}_pos_embed.pos_embed``  as is
+``B LayerNorm_k/{scale,bias}``                          ``blocks.i.{inner,outer}_norm{1,2}.*``     scale → weight
+``B {inner,outer}_attn/to_{qkv,out}/kernel``            ``blocks.i.{inner,outer}_attn.to_*``       as is
+``B {inner,outer}_ff/fc{1,2}/{kernel,bias}``            ``blocks.i.{inner,outer}_ff.fc{1,2}.*``    ``[in, out]`` → ``[out, in]``
+``B Inner2OuterBlock_0/LayerNorm_0/…``                  ``blocks.i.inner2outer.norm.*``            scale → weight
+``B Inner2OuterBlock_0/proj/{kernel,bias}``             ``blocks.i.inner2outer.proj.*``            ``[in, out]`` → ``[out, in]``
+``LayerNorm_0``, ``head``                               ``norm``, ``head``                         as for ViT
+======================================================  =========================================  ==========
+
+MLP-Mixer (``B`` = ``block_i/``):
+
+======================================================  =========================================  ==========
+flax key                                                port key                                   conversion
+======================================================  =========================================  ==========
+``PatchEmbedBlock_0/proj/{kernel,bias}``                ``patch_embed.proj.{weight,bias}``         HWIO → OIHW
+``B LayerNorm_{0,1}/{scale,bias}``                      ``blocks.i.norm{1,2}.*``                   scale → weight
+``B {token,channel}_mixing/fc{1,2}/{kernel,bias}``      ``blocks.i.{token,channel}_mixing.fc*``    ``[in, out]`` → ``[out, in]``
+``LayerNorm_0``, ``head``                               ``norm``, ``head``                         as for ViT
 ======================================================  =========================================  ==========
 
 ``to_out`` is a ``DenseGeneral`` that contracts two axes, ``(-2, -1)``;
@@ -254,6 +282,48 @@ _CVT_RULES = [
 ]
 _CVT_STATS_RULES = _bn_stats_rules(rf"{_CVT_PROJ}/bn", r"stages.\1.blocks.\2.attn.to_\3.bn")
 
+_HEAD_RULES = [
+    *_norm_rule(r"LayerNorm_0", "norm"),
+    (r"head/kernel", "head.weight", _dense),
+    (r"head/bias", "head.bias", _as_is),
+]
+
+
+def _ff_rules(flax_ff: str, port_ff: str, fc: int) -> list:
+    """An FFBlock's two Dense layers; ``fc`` numbers their group, after
+    ``flax_ff``'s own."""
+    return [
+        (rf"{flax_ff}/fc(1|2)/kernel", rf"{port_ff}.fc\{fc}.weight", _dense),
+        (rf"{flax_ff}/fc(1|2)/bias", rf"{port_ff}.fc\{fc}.bias", _as_is),
+    ]
+
+
+_TNT_BLOCK = r"block_(\d+)"
+_TNT_RULES = [
+    *_COMMON[:2],
+    (r"PixelEmbedBlock_0/proj/kernel", "pixel_embed.proj.weight", _conv),
+    (r"PixelEmbedBlock_0/proj/bias", "pixel_embed.proj.bias", _as_is),
+    (r"cls", "cls", _as_is),
+    (r"(inner|outer)_pos_embed/pos_embed", r"\1_pos_embed.pos_embed", _as_is),
+    *[rule for k, name in enumerate(("inner_norm1", "inner_norm2", "outer_norm1", "outer_norm2"))
+      for rule in _norm_rule(rf"{_TNT_BLOCK}/LayerNorm_{k}", rf"blocks.\1.{name}")],
+    (rf"{_TNT_BLOCK}/(inner|outer)_attn/to_(qkv|out)/kernel", r"blocks.\1.\2_attn.to_\3",
+     _as_is),
+    *_ff_rules(rf"{_TNT_BLOCK}/(inner|outer)_ff", r"blocks.\1.\2_ff", 3),
+    *_norm_rule(rf"{_TNT_BLOCK}/Inner2OuterBlock_0/LayerNorm_0", r"blocks.\1.inner2outer.norm"),
+    (rf"{_TNT_BLOCK}/Inner2OuterBlock_0/proj/kernel", r"blocks.\1.inner2outer.proj.weight", _dense),
+    (rf"{_TNT_BLOCK}/Inner2OuterBlock_0/proj/bias", r"blocks.\1.inner2outer.proj.bias", _as_is),
+    *_HEAD_RULES,
+]
+
+_MIXER_RULES = [
+    *_COMMON[:2],
+    *_norm_rule(r"block_(\d+)/LayerNorm_0", r"blocks.\1.norm1"),
+    *_norm_rule(r"block_(\d+)/LayerNorm_1", r"blocks.\1.norm2"),
+    *_ff_rules(r"block_(\d+)/(token|channel)_mixing", r"blocks.\1.\2_mixing", 3),
+    *_HEAD_RULES,
+]
+
 
 def _family_rules(tree) -> tuple:
     """``(family, params rules, batch_stats rules)`` of a params tree."""
@@ -265,12 +335,15 @@ def _family_rules(tree) -> tuple:
         return "CeiT", _CEIT_RULES, _CEIT_STATS_RULES
     if "stage_0" in tree:
         return "CvT", _CVT_RULES, _CVT_STATS_RULES
+    if "PixelEmbedBlock_0" in tree:
+        return "TNT", _TNT_RULES, []
+    if any(isinstance(block, dict) and "token_mixing" in block for block in tree.values()):
+        return "MLPMixer", _MIXER_RULES, []
     if any(re.fullmatch(r"(ca_)?block_\d+", str(name)) for name in tree):
         return "CaiT", _CAIT_RULES, []
     raise KeyError(
-        f"not a ViT or CaiT parameter tree, nor a BoTNet, CeiT or CvT one (top-level keys "
-        f"{sorted(map(str, tree))}); "
-        "the port converts those five families"
+        f"not a ViT or CaiT parameter tree, nor a BoTNet, TNT, CeiT, CvT or MLP-Mixer one "
+        f"(top-level keys {sorted(map(str, tree))}); the port converts those seven families"
     )
 
 
@@ -297,7 +370,7 @@ def _convert(tree, rules, state, unknown, prefix="") -> None:
 
 
 def params_from_flax(tree) -> dict:
-    """flax ViT, CaiT, BoTNet, CeiT or CvT variables → a ``state_dict`` for
+    """flax ViT, CaiT, BoTNet, TNT, CeiT, CvT or MLP-Mixer variables → a ``state_dict`` for
     ``load_state_dict(strict=True)``: the params tree, or
     ``{"params": ..., "batch_stats": ...}`` (the running statistics of a
     BoTNet, CeiT or CvT go into its BatchNorm buffers; its strict load
@@ -323,6 +396,8 @@ _FAMILY_RULES = {
     "BoTNet": (_BOTNET_RULES, _BOTNET_STATS_RULES),
     "CeiT": (_CEIT_RULES, _CEIT_STATS_RULES),
     "CvT": (_CVT_RULES, _CVT_STATS_RULES),
+    "TNT": (_TNT_RULES, []),
+    "MLPMixer": (_MIXER_RULES, []),
 }
 
 
@@ -402,8 +477,8 @@ def _nest(flat: dict) -> dict:
 
 
 def flax_from_params(state_dict: dict, family: str) -> dict:
-    """A port ``state_dict`` of ``family`` ('ViT', 'CaiT', 'BoTNet', 'CeiT'
-    or 'CvT') → flax variables ``{"params": ...}`` (with ``"batch_stats"``
+    """A port ``state_dict`` of ``family`` ('ViT', 'CaiT', 'BoTNet', 'TNT',
+    'CeiT', 'CvT' or 'MLPMixer', the model's class name) → flax variables ``{"params": ...}`` (with ``"batch_stats"``
     for the BatchNorm families)
     as nested dicts of f32 numpy arrays: the exact inverse of
     :func:`params_from_flax` under the same rules. Every entry must be

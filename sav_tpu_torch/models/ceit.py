@@ -61,8 +61,8 @@ def token_grid(image_size: int, patch_shape) -> int:
 
 
 def reset_conv_model(model: nn.Module, generator: torch.Generator) -> None:
-    """flax's initialisers from an explicit generator, for CeiT and CvT:
-    lecun-normal (truncated) kernels (the depthwise convs' and the
+    """flax's initialisers from an explicit generator, for CeiT, CvT, TNT
+    and MLP-Mixer: lecun-normal (truncated) kernels (the depthwise convs' and the
     projections' too), zero biases, unit LayerNorm scales, BatchNorm at
     flax's init, normal(0.02) position tables; then a zero head. The CLS
     tokens are left to the model."""

@@ -1,8 +1,9 @@
 """Named model registry (port of ``sav_tpu/models/registry.py``).
 
-The plain ViT, the ten CaiT, the three BoTNet, the three CeiT and the three
-CvT entries are ported. Every other ``sav_tpu`` name is known here and
-raises ``NotImplementedError`` naming the ROADMAP queue item it waits on.
+The plain ViT, the ten CaiT, the three BoTNet, the two TNT, the three CeiT,
+the three CvT and the six MLP-Mixer entries are ported. Every other
+``sav_tpu`` name is known here and raises ``NotImplementedError`` naming the
+ROADMAP queue item it waits on.
 """
 
 from __future__ import annotations
@@ -16,6 +17,8 @@ from sav_tpu_torch.models.botnet import BoTNet
 from sav_tpu_torch.models.cait import CaiT
 from sav_tpu_torch.models.ceit import CeiT
 from sav_tpu_torch.models.cvt import CvT
+from sav_tpu_torch.models.mlp_mixer import MLPMixer
+from sav_tpu_torch.models.tnt import TNT
 from sav_tpu_torch.models.vit import ViT
 
 # name -> (embed_dim, num_layers, num_heads, patch)
@@ -68,21 +71,32 @@ _CVT = {
     "cvt-w24": ((192, 768, 1024), (2, 2, 20), (3, 12, 16)),
 }
 
+# name -> (embed_dim, inner_ch, num_layers, num_heads, inner_num_heads), patch
+# 16; TNT-S and TNT-B as the paper has them (sav_tpu/models/registry.py:72-83
+# un-swaps the reference's).
+_TNT = {
+    "tnt_s_patch16": (384, 24, 12, 6, 4),
+    "tnt_b_patch16": (640, 40, 12, 10, 4),
+}
+
+# name -> (embed_dim, num_layers, tokens_hidden_ch, channels_hidden_ch, patch)
+# (sav_tpu/models/registry.py:131-147).
+_MIXER = {
+    f"mixer_{size}_patch{patch}": (*widths, patch)
+    for size, widths in (("s", (512, 8, 256, 2048)), ("b", (768, 12, 384, 3072)),
+                         ("l", (1024, 24, 512, 4096)))
+    for patch in (32, 16)
+}
+
 _NOT_PORTED = {
     "vit_s_patch16_rope": "queue A2 (ops/rotary.py)",
     "vit_moe_s_patch16_e8": "queue A7.7 (MoE)",
-    **{n: "queue A7.2 (TNT)" for n in ("tnt_s_patch16", "tnt_b_patch16")},
-    **{
-        f"mixer_{size}_patch{p}": "queue A7.3 (MLP-Mixer)"
-        for size in ("s", "b", "l")
-        for p in (32, 16)
-    },
 }
 
 
 def model_names() -> list:
     """The names :func:`create_model` can build."""
-    return sorted([*_VIT, *_CAIT, *_BOTNET, *_CEIT, *_CVT])
+    return sorted([*_VIT, *_CAIT, *_BOTNET, *_TNT, *_CEIT, *_CVT, *_MIXER])
 
 
 def create_model(
@@ -106,7 +120,9 @@ def create_model(
     CaiT ``num_layers_token_only``, ``stoch_depth_rate``, ...; for ViT
     ``remat``; for BoTNet ``stage_sizes``, ``num_heads``, ``se_ratio``; for
     CeiT ``stem_ch``; for CvT ``embed_dims``, ``num_layers`` and
-    ``num_heads`` of the three stages).
+    ``num_heads`` of the three stages; for TNT ``inner_ch`` and
+    ``inner_num_heads``; for MLP-Mixer ``tokens_hidden_ch`` and
+    ``channels_hidden_ch``).
     """
     if model_name in _NOT_PORTED:
         raise NotImplementedError(
@@ -121,6 +137,18 @@ def create_model(
         kwargs = dict(embed_dims=embed_dims, num_layers=num_layers, num_heads=num_heads,
                       **common)
         return _build(CvT, num_classes, {**kwargs, **overrides}, seed)
+    if model_name in _TNT:
+        embed_dim, inner_ch, num_layers, num_heads, inner_heads = _TNT[model_name]
+        kwargs = dict(embed_dim=embed_dim, inner_ch=inner_ch, num_layers=num_layers,
+                      num_heads=num_heads, inner_num_heads=inner_heads, patch_shape=(16, 16),
+                      **common)
+        return _build(TNT, num_classes, {**kwargs, **overrides}, seed)
+    if model_name in _MIXER:
+        embed_dim, num_layers, tokens_ch, channels_ch, patch = _MIXER[model_name]
+        kwargs = dict(embed_dim=embed_dim, num_layers=num_layers, tokens_hidden_ch=tokens_ch,
+                      channels_hidden_ch=channels_ch, patch_shape=(patch, patch),
+                      image_size=image_size)
+        return _build(MLPMixer, num_classes, {**kwargs, **overrides}, seed)
     if model_name in _VIT:
         cls = ViT
         embed_dim, num_layers, num_heads, patch = _VIT[model_name]

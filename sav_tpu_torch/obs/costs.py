@@ -51,11 +51,22 @@ _PATCH_MARKERS = ("patchembed", "patch_embed", "stem", "conv_stem")
 _QKV_KERNEL_MARKERS = ("to_qkv", "to_q", "query")
 
 # interop's family names, by the port's model class.
-_FAMILIES = ("ViT", "CaiT", "BoTNet", "CeiT", "CvT")
-# Families whose step the analytic cost would count wrong: it takes one
-# trunk length from the patch embedding, and CeiT's conv stem and CvT's
-# three stages of other lengths do not fit it (ROADMAP queue A10).
-_NO_ANALYTIC_COST = ("CeiT", "CvT")
+_FAMILIES = ("ViT", "CaiT", "BoTNet", "TNT", "CeiT", "CvT", "MLPMixer")
+# Families whose step the analytic cost would count wrong (ROADMAP queue
+# A10), each with why:
+_NO_ANALYTIC_COST = {
+    # It takes one trunk length from the patch embedding; CeiT's conv stem
+    # and CvT's three stages of other lengths do not fit it.
+    "CeiT": "its conv stem's token count is not the patch embedding's",
+    "CvT": "its three stages run at lengths other than the patch embedding's",
+    # infer_num_tokens takes the first pos_embed table in sorted key order,
+    # inner_pos_embed (L = 16): the whole trunk would count at 16 tokens.
+    "TNT": "sav_tpu's count takes the inner position table's 16 tokens as the trunk's length",
+    # The token-mixing kernel (196, hidden) runs across the 768 channels,
+    # not over 196 tokens: the count would be 3.9x low at Mixer-B/16.
+    "MLPMixer": "sav_tpu's count runs the token-mixing kernels over the tokens, not across "
+                "the channels",
+}
 
 
 def resolve_peak_flops(override: Optional[float] = None,
@@ -99,8 +110,8 @@ class StepCost:
 
 
 def model_params_tree(model: torch.nn.Module) -> dict:
-    """The flax ``params`` tree of a port model (ViT, CaiT, BoTNet, CeiT or
-    CvT), as nested dicts of f32 numpy arrays under ``sav_tpu``'s names."""
+    """The flax ``params`` tree of a port model (any family of
+    :data:`_FAMILIES`), as nested dicts of f32 numpy arrays under ``sav_tpu``'s names."""
     from sav_tpu_torch.interop import flax_from_params
 
     family = type(model).__name__
@@ -214,16 +225,29 @@ def analytic_train_step_cost(params: Any, *, batch_size: int, image_size: int,
     )
 
 
+def analytic_cost_refusal(model: torch.nn.Module) -> Optional[str]:
+    """Why :func:`train_step_cost` refuses ``model``'s family (CeiT, CvT,
+    TNT, MLP-Mixer: it would count their step wrong), naming ROADMAP A10;
+    None where it counts it."""
+    family = type(model).__name__
+    if family not in _NO_ANALYTIC_COST:
+        return None
+    return (f"no analytic step cost for {family} yet: {_NO_ANALYTIC_COST[family]} "
+            "(ROADMAP queue A10)")
+
+
+def has_analytic_cost(model: torch.nn.Module) -> bool:
+    """True where :func:`train_step_cost` counts ``model``'s step."""
+    return analytic_cost_refusal(model) is None
+
+
 def train_step_cost(model: torch.nn.Module, *, batch_size: int, image_size: int,
                     n_devices: int = 1, training: bool = True) -> StepCost:
     """:func:`analytic_train_step_cost` of a port model's parameters; raises
-    ``NotImplementedError`` for CeiT and CvT, whose step it would count
-    wrong."""
-    family = type(model).__name__
-    if family in _NO_ANALYTIC_COST:
-        raise NotImplementedError(
-            f"no analytic step cost for {family} yet: sav_tpu's reads one trunk length off "
-            "the patch embedding, which its stages do not have (ROADMAP queue A10)")
+    ``NotImplementedError`` with :func:`analytic_cost_refusal`'s reason
+    where :func:`has_analytic_cost` is False."""
+    if not has_analytic_cost(model):
+        raise NotImplementedError(analytic_cost_refusal(model))
     return analytic_train_step_cost(model_params_tree(model), batch_size=batch_size,
                                     image_size=image_size, n_devices=n_devices,
                                     training=training)

@@ -10,7 +10,7 @@ Port of :mod:`sav_tpu.ops.attention`. Layout everywhere:
     of ``sav_tpu``'s ``xla_attention``. Opt-in only: ``auto`` never picks it.
   - ``'pallas'`` — the blocked flash kernels
     (:mod:`sav_tpu_torch.ops.flash_attention`): any sequence length, head
-    dims that are multiples of 8 up to 128.
+    dims up to 128.
   - ``'auto'``/``None`` — :func:`resolve_attention_backend`: the fused kernel
     wherever it is eligible (when an input requires grad, the CUDA-core
     backward's band counts too: :func:`~sav_tpu_torch.ops.fused_attention.fused_auto_eligible`),
@@ -18,6 +18,12 @@ Port of :mod:`sav_tpu.ops.attention`. Layout everywhere:
     versions) and on CUDA alike. The TPU tune cache and the TPU's
     dense-logits threshold are not carried over: they record TPU
     measurements.
+
+Head dims: both kernel families are built for multiples of 8, and their
+wrappers zero-pad any other head dim to the next one with the scale of the
+true head dim (:func:`~sav_tpu_torch.ops.fused_attention.pad_head_dim`;
+TNT's inner heads of 6 and 10 run at 8 and 16). The rule below judges a
+shape by the padded head dim's budget.
 
 Attention dropout (a ``dropout`` layer on the probabilities, active in
 training only) runs on the dense path, as in ``sav_tpu`` (``kernels_ok``):
@@ -157,7 +163,8 @@ def resolve_attention_backend(
     raise NotImplementedError(
         f"auto attention at q_len={q_len}, kv_len={kv_len}, head_dim={dim} is "
         f"outside the fused kernel's band{' for training' if backward else ''}, and "
-        f"the flash kernels take head dims that are multiples of 8 up to {_flash.MAX_DIM}"
+        f"the flash kernels take head dims up to {_flash.MAX_DIM} (zero-padded to "
+        f"multiples of {_fused.DIM_ALIGN})"
     )
 
 

@@ -78,12 +78,15 @@ import torch
 
 from sav_tpu_torch.ops import _build
 from sav_tpu_torch.ops.fused_attention import (
+    DIM_ALIGN,
     SMEM_LIMIT,
     _check_dtypes,
     _check_strides,
     _DTYPE_CODES,
     _device_of,
     _raise_on_error,
+    pad_head_dim,
+    padded_dim,
     requires_backward,
 )
 from sav_tpu_torch.ops.relative import rel_to_abs
@@ -208,13 +211,15 @@ def flash_smem_bytes(dim: int, itemsize: int = 4) -> dict:
 
 def flash_eligible(dim: int, itemsize: int = 4) -> bool:
     """True when the kernels take the head dim for inputs of ``itemsize``
-    bytes: a multiple of 8 up to :data:`MAX_DIM`, with every block of
-    :func:`flash_smem_bytes` within the 227 KB a block may have (at
-    :data:`MAX_DIM` the largest is 170,496 bytes in f32 and 104,448 in
-    bf16). Every sequence length is taken."""
+    bytes: up to :data:`MAX_DIM` once zero-padded to a multiple of 8
+    (:func:`~sav_tpu_torch.ops.fused_attention.padded_dim`, as the wrappers
+    pad it), with every block of :func:`flash_smem_bytes` at the padded dim
+    within the 227 KB a block may have (at :data:`MAX_DIM` the largest is
+    170,496 bytes in f32 and 104,448 in bf16). Every sequence length is
+    taken."""
+    dim = padded_dim(dim)
     return (
-        dim % 8 == 0
-        and 0 < dim <= MAX_DIM
+        0 < dim <= MAX_DIM
         and max(flash_smem_bytes(dim, itemsize).values()) <= SMEM_LIMIT
     )
 
@@ -370,8 +375,8 @@ def _bwd_lib() -> ctypes.CDLL:
 def _check_dim(dim: int) -> None:
     if not flash_eligible(dim):
         raise ValueError(
-            f"head_dim={dim} does not fit the flash kernels: they take a "
-            f"multiple of 8 up to {MAX_DIM}"
+            f"head_dim={dim} does not fit the flash kernels: they take head dims "
+            f"up to {MAX_DIM}, zero-padded to a multiple of {DIM_ALIGN}"
         )
 
 
@@ -491,8 +496,13 @@ def _forward(query, key, value, bias, scale, with_lse):
 def flash_attention_bwd_dq(query, key, value, grad, lse, delta, *, scale):
     """dq of :func:`flash_attention` (no bias) from the forward's f32 lse and
     ``delta`` (:func:`bwd_delta`), both ``[B, H, Lq]``. The plain version on
-    CPU tensors, the dq kernel on CUDA tensors."""
-    _check_dim(query.shape[-1])
+    CPU tensors, the dq kernel on CUDA tensors; a head dim off the multiple
+    of 8 is zero-padded first (:func:`pad_head_dim`)."""
+    dim = query.shape[-1]
+    _check_dim(dim)
+    if dim % DIM_ALIGN:
+        return flash_attention_bwd_dq(*pad_head_dim(query, key, value, grad), lse, delta,
+                                      scale=scale)[..., :dim]
     if _device_of(query, key, value, grad, lse, delta) == "cpu":
         return flash_bwd_dq_reference(query, key, value, grad, lse, delta, scale=scale)
     return _launch_bwd_dq(query, key, value, grad, lse, delta, scale)
@@ -501,7 +511,12 @@ def flash_attention_bwd_dq(query, key, value, grad, lse, delta, *, scale):
 def flash_attention_bwd_dkv(query, key, value, grad, lse, delta, *, scale):
     """``(dk, dv)`` of :func:`flash_attention` (no bias); see
     :func:`flash_attention_bwd_dq`. The dk/dv kernel on CUDA tensors."""
-    _check_dim(query.shape[-1])
+    dim = query.shape[-1]
+    _check_dim(dim)
+    if dim % DIM_ALIGN:
+        dk, dv = flash_attention_bwd_dkv(*pad_head_dim(query, key, value, grad), lse, delta,
+                                         scale=scale)
+        return dk[..., :dim], dv[..., :dim]
     if _device_of(query, key, value, grad, lse, delta) == "cpu":
         return flash_bwd_dkv_reference(query, key, value, grad, lse, delta, scale=scale)
     return _launch_bwd_dkv(query, key, value, grad, lse, delta, scale)
@@ -564,8 +579,9 @@ def flash_attention(
 
     Args:
       query: ``[B, q_len, heads, head_dim]``.
-      key, value: ``[B, kv_len, heads, head_dim]``, any kv_len; head_dim a
-        multiple of 8 up to :data:`MAX_DIM` (:func:`flash_eligible`).
+      key, value: ``[B, kv_len, heads, head_dim]``, any kv_len; head_dim
+        up to :data:`MAX_DIM` (:func:`flash_eligible`); off the multiple of
+        8 it runs zero-padded with its own scale (:func:`pad_head_dim`).
       bias: optional additive bias broadcastable to
         ``[B, heads, q_len, kv_len]``; read through its broadcast strides.
       scale: logit scale, default ``head_dim ** -0.5``, applied to the f32
@@ -592,6 +608,10 @@ def flash_attention(
     _check_dim(dim)
     if scale is None:
         scale = dim ** -0.5
+    if dim % DIM_ALIGN:
+        got = flash_attention(*pad_head_dim(query, key, value), bias, scale=scale,
+                              with_lse=with_lse)
+        return (got[0][..., :dim], got[1]) if with_lse else got[..., :dim]
     if not requires_backward(query, key, value, bias):
         return _forward(query, key, value, bias, scale, with_lse)
     if with_lse:
@@ -672,13 +692,14 @@ def rel_smem_bytes(dim: int, height: int, width: int, itemsize: int = 4) -> dict
 
 def rel_eligible(dim: int, height: int, width: int, itemsize: int = 4) -> bool:
     """True when the relative-position kernels take the head dim and grid
-    for inputs of ``itemsize`` bytes: a head dim :func:`flash_eligible`
-    takes, and every block of :func:`rel_smem_bytes` within the 227 KB a
-    block may have. In f32 the dq block is the largest, so at head dim 128
+    for inputs of ``itemsize`` bytes: a head dim that is a multiple of 8
+    up to :data:`MAX_DIM` (these kernels are not padded), and every block
+    of :func:`rel_smem_bytes` within the 227 KB a block may have. In f32
+    the dq block is the largest, so at head dim 128
     the band is W + Hg ≤ 156 (BoTNet's 14 + 14 and 7 + 7 are well inside;
     2 + 130 fits), at head dim 64 W + Hg ≤ 284; every bf16 block is smaller
     than the f32 dq block, so the bf16 band contains the f32 one."""
-    return flash_eligible(dim) and max(
+    return dim % DIM_ALIGN == 0 and flash_eligible(dim) and max(
         rel_smem_bytes(dim, height, width, itemsize).values()) <= SMEM_LIMIT
 
 

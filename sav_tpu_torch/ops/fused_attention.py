@@ -27,6 +27,17 @@ backward is the dense recompute
 (:func:`sav_tpu_torch.ops.attention.dense_recompute_bwd`), which also gives
 the bias gradient.
 
+Head dims: the kernels are built for multiples of 8. :func:`fused_attention`
+and :func:`fused_attention_bwd` take any other head dim up to the largest
+(TNT's inner heads: 6 and 10) by zero-padding q, k, v (and O, dO) to the
+next multiple of 8 (:func:`pad_head_dim`) with the scale of the true head
+dim, and slicing the outputs back: the padded columns add 0 to every Q·Kᵀ
+and give 0 in every output column past the true one, so the result is the
+unpadded attention. The pad comes before the CPU/CUDA split, so the plain
+versions see the padded tensors too; through autograd the gradients come
+back sliced. ``sav_tpu``'s own wrapper pads the head dim to 128 lanes
+(``sav_tpu/ops/fused_attention.py:221-231``).
+
 Every wrapper runs its plain version on CPU tensors, and only there; on CUDA
 tensors it launches its kernel or raises.
 """
@@ -60,6 +71,9 @@ _MMA_FWD_WARPS = 4
 _MMA_Q_ROWS = 32
 # Dynamic shared memory one block may use on Hopper (227 KB).
 SMEM_LIMIT = 232448
+# The kernels take head dims that are multiples of this; the wrappers pad
+# any other head dim up to one (pad_head_dim).
+DIM_ALIGN = 8
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -96,6 +110,23 @@ def _count_bwd_launch(variant: str) -> None:
     with _LAUNCH_LOCK:
         BWD_LAUNCHES += 1
         BWD_VARIANT_LAUNCHES[variant] += 1
+
+
+def padded_dim(dim: int) -> int:
+    """The head dim the kernels run at: ``dim`` rounded up to a multiple of
+    :data:`DIM_ALIGN`."""
+    return -(-dim // DIM_ALIGN) * DIM_ALIGN
+
+
+def pad_head_dim(*tensors: torch.Tensor) -> tuple:
+    """Each ``[..., D]`` tensor with zero columns up to :func:`padded_dim`
+    (``F.pad``: autograd slices its gradient back to D); tensors whose D is
+    a multiple of :data:`DIM_ALIGN` pass as they are."""
+    return tuple(
+        t if t.shape[-1] % DIM_ALIGN == 0
+        else torch.nn.functional.pad(t, (0, padded_dim(t.shape[-1]) - t.shape[-1]))
+        for t in tensors
+    )
 
 
 def fused_fwd_variant(dim: int, itemsize: int) -> str:
@@ -207,18 +238,20 @@ def _bwd_bytes(q_len: int, kv_len: int, dim: int, itemsize: int) -> int:
 def fused_eligible(
     q_len: int, kv_len: int, dim: int, *, itemsize: int = 2, backward: bool = False
 ) -> bool:
-    """True when the kernel takes the shape: a head dim that is a multiple of
-    8 up to 256, and the whole kv sequence within one block's shared memory
-    of the forward's variant (replaces the TPU's 8 MiB VMEM estimate; in
-    bf16 the tensor-core forward takes kv_len up to 800 at head dim 64, and
-    every shape the CUDA-core forward's band takes). ``backward=True`` also counts
-    the backward kernel's bytes for its variant: the tensor-core variant
-    keeps bf16 K/V (kv_len up to 640 at head dim 64), the CUDA-core one f32
-    dK/dV too (kv_len up to 203 at head dim 64 in f32)."""
+    """True when the kernel takes the shape: a head dim up to 256, padded
+    to a multiple of 8 (:func:`padded_dim`; the budgets below are the
+    padded dim's), and the whole kv sequence within one block's shared
+    memory of the forward's variant (replaces the TPU's 8 MiB VMEM
+    estimate; in bf16 the tensor-core forward takes kv_len up to 800 at
+    head dim 64, and every shape the CUDA-core forward's band takes).
+    ``backward=True`` also counts the backward kernel's bytes for its
+    variant: the tensor-core variant keeps bf16 K/V (kv_len up to 640 at
+    head dim 64), the CUDA-core one f32 dK/dV too (kv_len up to 203 at head
+    dim 64 in f32)."""
+    dim = padded_dim(dim)
     return (
         q_len >= 1
         and kv_len >= 1
-        and dim % 8 == 0
         and 0 < dim <= MAX_DIM
         and fused_smem_bytes(kv_len, dim, itemsize) <= SMEM_LIMIT
         and (not backward or _bwd_bytes(q_len, kv_len, dim, itemsize) <= SMEM_LIMIT)
@@ -231,18 +264,20 @@ def fused_auto_eligible(
     """``auto``'s rule for the fused kernels: :func:`fused_eligible` within
     the bands of the CUDA-core kernels whatever the variant: the forward's
     (kv_len up to 679 at head dim 64 in bf16) and, for a backward, the
-    backward's (up to 264). The tensor-core variants take wider bands
-    (kv_len up to 800 forward, 640 backward), and every shape inside the
-    narrow bands is inside the wide ones, but ``auto``'s crossover to the
-    flash kernels stays where it was. The backward's is to move only after
-    the flash backward kernels (#4, #5) are redesigned: at 264 it keeps
-    ViT-B/16@384 training (kv 577) on #3-#5, the only main path that runs
-    them, and a crossover set now would hold #2 against #4/#5 before their
-    redesign. The forward's is measured (#1 against #3) but not moved."""
+    backward's (up to 264), each at the padded head dim. The tensor-core
+    variants take wider bands (kv_len up to 800 forward, 640 backward), and
+    every shape inside the narrow bands is inside the wide ones, but
+    ``auto``'s crossover to the flash kernels stays where it was. The
+    backward's is to move only after the flash backward kernels (#4, #5)
+    are redesigned: at 264 it keeps ViT-B/16@384 training (kv 577) on
+    #3-#5, the only main path that runs them, and a crossover set now would
+    hold #2 against #4/#5 before their redesign. The forward's is measured
+    (#1 against #3) but not moved."""
+    padded = padded_dim(dim)
     return (
         fused_eligible(q_len, kv_len, dim, itemsize=itemsize, backward=backward)
-        and _cuda_core_smem_bytes(kv_len, dim, itemsize) <= SMEM_LIMIT
-        and (not backward or fused_bwd_rows(kv_len, dim, itemsize) > 0)
+        and _cuda_core_smem_bytes(kv_len, padded, itemsize) <= SMEM_LIMIT
+        and (not backward or fused_bwd_rows(kv_len, padded, itemsize) > 0)
     )
 
 
@@ -535,10 +570,16 @@ def fused_attention_bwd(
     """Gradients of :func:`fused_attention` (no bias) from its saved output
     and f32 row logsumexp ``[B, H, Lq]``: returns ``(dq, dk, dv)``, each in
     ``[B, L, H, D]`` and the dtype of its input. The plain version on CPU
-    tensors, the backward kernel on CUDA tensors."""
+    tensors, the backward kernel on CUDA tensors; a head dim off the
+    multiple of 8 is zero-padded first (:func:`pad_head_dim`)."""
+    dim = query.shape[-1]
     if scale is None:
-        scale = query.shape[-1] ** -0.5
-    _check_bwd_band(query.shape[1], key.shape[1], query.shape[-1], query.element_size())
+        scale = dim ** -0.5
+    _check_bwd_band(query.shape[1], key.shape[1], dim, query.element_size())
+    if dim % DIM_ALIGN:
+        grads = fused_attention_bwd(*pad_head_dim(query, key, value, out), lse,
+                                    *pad_head_dim(grad), scale=scale)
+        return tuple(g[..., :dim] for g in grads)
     if _device_of(query, key, value, out, lse, grad) == "cpu":
         return fused_attention_bwd_reference(
             query, key, value, out, lse, grad, scale=scale
@@ -595,11 +636,12 @@ def fused_attention(
       query: ``[B, q_len, heads, head_dim]``.
       key, value: ``[B, kv_len, heads, head_dim]``; the whole kv sequence
         must fit one block's shared memory (:func:`fused_eligible`, with
-        ``backward=True`` when an input requires grad).
+        ``backward=True`` when an input requires grad). A head dim off the
+        multiple of 8 runs zero-padded (:func:`pad_head_dim`).
       bias: optional additive bias broadcastable to
         ``[B, heads, q_len, kv_len]``; read through its broadcast strides.
-      scale: logit scale, default ``head_dim ** -0.5``, applied to the f32
-        product.
+      scale: logit scale, default ``head_dim ** -0.5`` (the true head
+        dim's), applied to the f32 product.
       with_lse: also return the f32 row logsumexp ``[B, heads, q_len]``
         (forward only: not with inputs that require grad).
 
@@ -623,13 +665,17 @@ def fused_attention(
     if not fused_eligible(q_len, kv_len, dim, itemsize=itemsize):
         raise ValueError(
             f"kv_len={kv_len}, head_dim={dim} does not fit the fused kernel: it "
-            f"needs head_dim % 8 == 0 and <= {MAX_DIM}, and "
-            f"{fused_smem_bytes(kv_len, dim, itemsize)} bytes of shared memory "
+            f"needs head_dim <= {MAX_DIM} (zero-padded to a multiple of {DIM_ALIGN}), and "
+            f"{fused_smem_bytes(kv_len, padded_dim(dim), itemsize)} bytes of shared memory "
             f"against {SMEM_LIMIT}; longer sequences run through the flash "
             "kernels (sav_tpu_torch.ops.flash_attention, backend='pallas')"
         )
     if scale is None:
         scale = dim ** -0.5
+    if dim % DIM_ALIGN:
+        got = fused_attention(*pad_head_dim(query, key, value), bias, scale=scale,
+                              with_lse=with_lse)
+        return (got[0][..., :dim], got[1]) if with_lse else got[..., :dim]
     if not requires_backward(query, key, value, bias):
         return _forward(query, key, value, bias, scale, with_lse)
     if with_lse:

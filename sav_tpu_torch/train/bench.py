@@ -11,7 +11,9 @@ CUDA graph per step. It prints exactly one JSON line:
   ``median_img_per_sec`` and ``step_ms`` (the best window's ms per step);
 - ``mfu``: the analytic step FLOPs (:mod:`sav_tpu_torch.obs.costs`) over
   the best step time over the card's peak, with ``peak_flops`` and
-  ``peak_source``;
+  ``peak_source``; for a family the cost model would count wrong (CeiT,
+  CvT, TNT, MLP-Mixer) ``mfu`` and ``step_flops`` are null and
+  ``cost_source`` says why;
 - ``transfer_bytes_per_batch``: the bytes a batch moves to the card:
   uint8 with ``--device-preprocess`` (the step mixes and normalises on the
   card), bf16 without, so the first is half the second;
@@ -76,7 +78,12 @@ def _host_batches(batch_size: int, image_size: int, num_classes: int,
 
 def run(args: argparse.Namespace) -> dict:
     from sav_tpu_torch.data.feeder import DeviceFeeder
-    from sav_tpu_torch.obs.costs import resolve_peak_flops, train_step_cost
+    from sav_tpu_torch.obs.costs import (
+        analytic_cost_refusal,
+        has_analytic_cost,
+        resolve_peak_flops,
+        train_step_cost,
+    )
     from sav_tpu_torch.train import TrainConfig, Trainer
     from sav_tpu_torch.utils.device import card
 
@@ -92,6 +99,11 @@ def run(args: argparse.Namespace) -> dict:
         augment=AUGMENT, seed=0, model_overrides=args.model_overrides,
     )
     trainer = Trainer(config, device=str(device))
+    # Decided before the windows run: a family the cost model would count
+    # wrong still gets its line, without an MFU.
+    cost = (train_step_cost(trainer.model, batch_size=args.batch_size,
+                            image_size=args.image_size)
+            if has_analytic_cost(trainer.model) else None)
     state = trainer.init_state()
     batches = _host_batches(args.batch_size, args.image_size, args.num_classes,
                             args.device_preprocess)
@@ -130,7 +142,6 @@ def run(args: argparse.Namespace) -> dict:
     # the CPU, where every step runs eagerly).
     graphs = trainer.train_graphs
     replays = graphs.summary()["replays"] if graphs is not None else 0
-    cost = train_step_cost(trainer.model, batch_size=args.batch_size, image_size=args.image_size)
     peak, peak_source = resolve_peak_flops(args.peak_flops, device)
     smi = card() if device.type == "cuda" else None
     feed = "synthetic" + (" uint8+device-preprocess" if args.device_preprocess else " bf16")
@@ -144,10 +155,11 @@ def run(args: argparse.Namespace) -> dict:
         "median_img_per_sec": round(args.batch_size / statistics.median(windows), 1),
         "step_ms": round(best * 1e3, 3),
         "window_step_ms": [round(w * 1e3, 3) for w in windows],
-        "mfu": round(cost.flops / best / peak, 4) if peak else None,
-        "step_flops": cost.flops,
-        "cost_source": cost.source,
-        "flops_attribution": {k: round(v, 4) for k, v in cost.attribution.items()},
+        "mfu": round(cost.flops / best / peak, 4) if peak and cost else None,
+        "step_flops": cost.flops if cost else None,
+        "cost_source": cost.source if cost else f"none: {analytic_cost_refusal(trainer.model)}",
+        "flops_attribution": ({k: round(v, 4) for k, v in cost.attribution.items()}
+                              if cost else None),
         "peak_flops": peak,
         "peak_source": peak_source,
         "transfer_bytes_per_batch": transfer_bytes,

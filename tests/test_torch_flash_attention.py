@@ -216,7 +216,8 @@ def test_wrappers_run_plain_versions_on_cpu_and_count_no_launch():
 
 def test_eligibility_and_shared_memory_rule():
     assert all(port_flash.flash_eligible(d) for d in (8, 16, 32, 40, 48, 64, 128))
-    assert not port_flash.flash_eligible(60)  # not a multiple of 8
+    assert port_flash.flash_eligible(60)  # zero-padded to 64 by the wrappers
+    assert not port_flash.flash_eligible(130)  # padded to 136: over MAX_DIM
     assert not port_flash.flash_eligible(256)  # over MAX_DIM
     # 64-row f32 tiles at a row stride of D + 4, and 64 x 68 score tiles.
     assert port_flash.flash_smem_bytes(64) == {"fwd": 69632, "bwd_dq": 87040, "bwd_dkv": 104960}
@@ -231,7 +232,7 @@ def test_eligibility_and_shared_memory_rule():
     assert port_flash.flash_smem_bytes(128, itemsize=2)["fwd"] == 104448
     assert all(port_flash.flash_eligible(d, itemsize=2) for d in (8, 16, 32, 40, 48, 64, 128))
     assert not port_flash.flash_eligible(136, itemsize=2)
-    q, k, v = _port(_qkv(1, 8, 8, 1, 60))
+    q, k, v = _port(_qkv(1, 8, 8, 1, 130))
     with pytest.raises(ValueError, match="multiple of 8"):
         port_flash.flash_attention(q, k, v)
     with pytest.raises(ValueError, match="forward-only"):

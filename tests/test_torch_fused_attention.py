@@ -107,8 +107,10 @@ def test_scale_is_applied_to_the_f32_product():
 def test_fused_eligible_band_and_budget_error():
     assert port_fused.fused_eligible(197, 197, 64, itemsize=2)
     assert port_fused.fused_eligible(197, 197, 64, itemsize=4)
-    assert not port_fused.fused_eligible(197, 197, 60)  # D not a multiple of 8
+    # D off the multiple of 8 runs zero-padded, within the padded D's budget.
+    assert port_fused.fused_eligible(197, 197, 60) == port_fused.fused_eligible(197, 197, 64)
     assert not port_fused.fused_eligible(197, 197, 512)  # D over 256
+    assert not port_fused.fused_eligible(8, 8, 257)  # padded to 264: over 256
     assert not port_fused.fused_eligible(4096, 4096, 64)  # K/V over 227 KB
     # bf16 takes the tensor-core forward (208 bf16 rows of 72 for K and for
     # V); f32 the CUDA-core one (K, V and each warp's f32 q and score rows).

@@ -306,8 +306,10 @@ def test_presets_refuse_what_trainconfig_refuses():
     assert str(from_preset.value) == str(from_config.value)
     with pytest.raises(ValueError, match="unknown preset"):
         get_preset("nope")
-    with pytest.raises(NotImplementedError, match="A7.3"):
-        create_model(get_preset("mixer_b_imagenet").model_name)
+    mixer = get_preset("mixer_b_imagenet")
+    model = create_model(mixer.model_name, num_classes=mixer.num_classes,
+                         image_size=mixer.image_size)
+    assert type(model).__name__ == "MLPMixer" and len(model.blocks) == 12
     botnet = get_preset("botnet_t3_imagenet", num_train_images=2048 * 6, warmup_epochs=0)
     assert (botnet.global_batch_size, botnet.learning_rate, botnet.steps_per_epoch) == (2048, 1e-3, 6)
 

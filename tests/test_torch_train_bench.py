@@ -46,3 +46,32 @@ def test_bench_refuses_the_feeds_it_does_not_carry(capsys, feed):
     with pytest.raises(SystemExit):
         bench.main(TOY + ["--feed", feed])
     assert "A6" in capsys.readouterr().err
+
+
+NO_COST = [
+    ("tnt_s_patch16", {"num_layers": 1, "embed_dim": 32, "inner_ch": 12, "num_heads": 2,
+                       "inner_num_heads": 2}, "TNT"),
+    ("mixer_s_patch16", {"num_layers": 1, "embed_dim": 32, "tokens_hidden_ch": 8,
+                         "channels_hidden_ch": 64}, "MLPMixer"),
+    ("cvt-13", {"embed_dims": [16, 32, 32], "num_layers": [1, 1, 1], "num_heads": [1, 1, 2]},
+     "CvT"),
+]
+
+
+@pytest.mark.parametrize("model,overrides,family", NO_COST)
+def test_bench_prints_its_line_for_a_family_without_an_analytic_cost(capsys, model, overrides,
+                                                                    family):
+    """The cost model refuses TNT, MLP-Mixer, CvT and CeiT (it would count
+    their step wrong); the bench decides that before its windows and still
+    prints its one line, without an MFU and saying why."""
+    result = bench.main(["--device", "cpu", "--model", model, "--image-size", "32",
+                         "--num-classes", "10", "--batch-size", "2", "--steps", "1",
+                         "--reps", "1", "--model-overrides", json.dumps(overrides)])
+    lines = capsys.readouterr().out.strip().splitlines()
+    assert len(lines) == 1
+    line = json.loads(lines[0])
+    assert line == json.loads(json.dumps(result)) and KEYS <= set(line)
+    assert line["outcome"] == "ok" and line["value"] > 0
+    assert line["mfu"] is None and line["step_flops"] is None
+    assert line["cost_source"].startswith(f"none: no analytic step cost for {family}")
+    assert "A10" in line["cost_source"]

@@ -182,8 +182,10 @@ def test_layernorm_eps_is_flax_default():
 
 def test_registry_names_and_unported_entries():
     assert "deit_s_patch16" in model_names()
-    assert "tnt_s_patch16" not in model_names()
-    for name, item in (("tnt_s_patch16", "A7.2"), ("mixer_s_patch16", "A7.3"), ("vit_s_patch16_rope", "A2")):
+    assert "tnt_s_patch16" in model_names() and "tnt_b_patch16" in model_names()
+    assert {f"mixer_{s}_patch{p}" for s in "sbl" for p in (32, 16)} <= set(model_names())
+    assert "vit_s_patch16_rope" not in model_names()
+    for name, item in (("vit_s_patch16_rope", "A2"), ("vit_moe_s_patch16_e8", "A7.7")):
         with pytest.raises(NotImplementedError, match=item):
             create_model(name)
     with pytest.raises(ValueError, match="unknown model"):
