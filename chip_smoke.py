@@ -174,6 +174,20 @@ Phases, each of which exits non-zero on failure:
    attention path to hold the kernels against, so its first train step is
    held against the same step in f32 from the same weights, and its served
    logits against the same weights served in f32.
+12. rotary and MoE: vit_s_patch16_rope (RoPE on q and k in every block) and
+   vit_moe_s_patch16_e8 (8 experts, top 2, in blocks 1, 3, ..., 11; 62
+   slots an expert and row) are served in 5, after Mixer (12 fused forwards
+   a batch each), the MoE model also benched, and trained as in 6 at the
+   DeiT-S recipe's 256 (12 #1, 12 #2 a step each; the MoE's balance and
+   router z-losses in the loss and the aux_loss metric). Where the kernel
+   path and the dense path route a token differently (a near tie the bf16
+   difference tips), the count of differing (token, choice) assignments is
+   printed beside each agreement. Before them, the routing on the card at
+   the train cell's shape (256 rows of 197 tokens, 8 experts, 62 slots):
+   a zero router's tie picks experts 0 and 1 in token order; the assignment
+   of the card's router probabilities equals the CPU's on the same
+   probabilities, every kept and dropped choice; an MoE block's backward
+   twice gives the same bits.
 
 Before each agreement check the head is drawn at std 0.02, every
 LayerScale scale at 0.05-0.15 (CaiT's init of 1e-5 would hide a wrong trunk),
@@ -287,6 +301,10 @@ TNT_B_TRAIN_SHAPE = (256 * 196, 16, 16, 4, 10)
 MIXER_MODEL = "mixer_b_patch16"
 MIXER_PRESET = "mixer_b_imagenet"
 MIXER_ACCUM = 16
+# DeiT-S's trunk with RoPE, and with 8 routed experts in every other block:
+# #1/#2 at DeiT-S's shape (12 a forward, 12 a backward); trained at 256.
+ROPE_MODEL = "vit_s_patch16_rope"
+MOE_MODEL = "vit_moe_s_patch16_e8"
 SERVE_REQUESTS = 96
 CLIENTS = 4
 TRAIN_BATCH = 256
@@ -2057,27 +2075,58 @@ def _check_replay_equals_eager(engine, what: str) -> None:
         f"{engine.startup_report['buckets']}")
 
 
-def _profile_replay(engine, bucket: int, per_batch: dict, what: str) -> dict:
-    """One replay of ``bucket`` under torch.profiler. Counted by the names
-    KERNEL_GROUPS uses, the device's attention kernels must be one
-    forward's (``per_batch``), and no other attention kernel may run.
-    Returns the device busy time and the count by group."""
+# Host time between the two runs of a profiled session.
+PROFILE_GAP_S = 0.05
+
+
+def _device_events(run) -> tuple:
+    """``(wall ms, device events)`` of one ``run()`` under torch.profiler.
+    Late in a long process the profiler loses the first device events of a
+    session (on the card, after ~800 s, a profiled replay of a train step
+    missed its first ~47 kernels, block 0's #1 among them, in every
+    session): so ``run`` goes twice in one session, PROFILE_GAP_S apart on
+    the host, and the events after the longest idle gap on the device, the
+    second run's, are read; its wall time is the second run's."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        run()
+        torch.cuda.synchronize()
+        time.sleep(PROFILE_GAP_S)
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    events = sorted((e for e in prof.events() if e.device_type == DeviceType.CUDA),
+                    key=lambda e: e.time_range.start)
+    if len(events) < 2:
+        raise RuntimeError(f"the profiler recorded {len(events)} device events in two runs")
+    # Idle time before each event: its start less the latest end before it.
+    gaps, latest = [], events[0].time_range.end
+    for event in events[1:]:
+        gaps.append(event.time_range.start - latest)
+        latest = max(latest, event.time_range.end)
+    split = max(range(len(gaps)), key=gaps.__getitem__) + 1
+    return wall_ms, events[split:]
+
+
+def _profile_replay(engine, bucket: int, per_batch: dict, what: str) -> dict:
+    """One replay of ``bucket`` under torch.profiler
+    (:func:`_device_events`). Counted by the names KERNEL_GROUPS uses, the
+    device's attention kernels must be one forward's (``per_batch``), and
+    no other attention kernel may run. Returns the device busy time and the
+    count by group."""
     images, valid = _serve_batch(bucket, engine.config.image_size, seed=0)
     engine.graphs.replay(bucket, images, valid)
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        engine.graphs.replay(bucket, images, valid)
-        torch.cuda.synchronize()
+    _, events = _device_events(lambda: engine.graphs.replay(bucket, images, valid))
     counts, busy = {}, 0.0
-    for event in prof.events():
-        if event.device_type == DeviceType.CUDA:
-            busy += event.time_range.elapsed_us() / 1e3
-            group = next((g for g, keys in KERNEL_GROUPS if any(k in event.name for k in keys)),
-                         "other")
-            counts[group] = counts.get(group, 0) + 1
+    for event in events:
+        busy += event.time_range.elapsed_us() / 1e3
+        group = next((g for g, keys in KERNEL_GROUPS if any(k in event.name for k in keys)),
+                     "other")
+        counts[group] = counts.get(group, 0) + 1
     if busy == 0.0:
         raise RuntimeError(f"{what}: the profiler recorded no device time in a replay")
     attention = [g for g, _ in KERNEL_GROUPS if g.endswith(".cu)")]
@@ -2129,6 +2178,142 @@ def _serve_steps(engine, buckets) -> dict:
     return out
 
 
+def _moe_blocks(model) -> list:
+    from sav_tpu_torch.models.layers import MoEFFBlock
+
+    return [m for m in model.modules() if isinstance(m, MoEFFBlock)]
+
+
+def _moe_block_inputs(model, images) -> list:
+    """``[(block, its input)]`` for each MoE block of one no-grad forward of
+    ``model`` on ``images``, in the model's mode (a model with BatchNorm
+    would move its running statistics in train mode: call it only for a
+    model with MoE blocks)."""
+    blocks = _moe_blocks(model)
+    seen = []
+    hooks = [b.register_forward_pre_hook(lambda m, args: seen.append(args[0].detach().clone()))
+             for b in blocks]
+    try:
+        with torch.no_grad():
+            model(images)
+    finally:
+        for hook in hooks:
+            hook.remove()
+    return list(zip(blocks, seen))
+
+
+def routing_differences(model, other, images) -> dict:
+    """How the MoE blocks of ``model`` and ``other`` (the same weights, other
+    attention paths) route the tokens of ``images``, each block's own input
+    through its router: ``assignments``, the (token, choice) pairs in all;
+    ``experts_differ``, those given another expert; ``kept_differ``, those
+    kept on one side and dropped on the other (a kept choice's position in
+    its expert's buffer does not change what it computes); ``cls_rows``,
+    rows whose CLS token differs in either way in some block; ``dropped``,
+    the choices ``model`` drops. None for a model without MoE blocks, which
+    runs no forward."""
+    if not _moe_blocks(model):
+        return None
+    ours = _moe_block_inputs(model, images)
+    theirs = _moe_block_inputs(other, images)
+    out = dict.fromkeys(("assignments", "experts_differ", "kept_differ", "dropped"), 0)
+    cls_rows = torch.zeros(images.shape[0], dtype=torch.bool, device=images.device)
+    with torch.no_grad():
+        for (block, x), (_, y) in zip(ours, theirs):
+            spare = block.num_experts * block.capacity(x.shape[1])
+            _, _, experts, slots = block.route(x)
+            _, _, other_experts, other_slots = block.route(y)
+            differ = (experts != other_experts) | ((slots == spare) != (other_slots == spare))
+            out["assignments"] += slots.numel()
+            out["experts_differ"] += int((experts != other_experts).sum())
+            out["kept_differ"] += int(((slots == spare) != (other_slots == spare)).sum())
+            out["dropped"] += int((slots == spare).sum())
+            cls_rows |= differ[:, 0].any(dim=-1)
+    out["cls_rows"] = int(cls_rows.sum())
+    return out
+
+
+def phase_moe_routing(device="cuda") -> dict:
+    """The MoE routing on the card at the train cell's shape (TRAIN_BATCH
+    rows of 197 tokens, vit_moe_s_patch16_e8's block 1: 8 experts, top 2,
+    62 slots): a zero router's tie picks experts 0 and 1 in token order,
+    the first 62 tokens kept; the card's assignment of its router
+    probabilities equals the CPU's assignment of the same probabilities,
+    every expert, slot and kept or dropped choice; the card's probabilities
+    are the CPU's softmax of the same logits within f32 rounding; and the
+    block's backward run twice (bf16 input, both sown losses in the loss)
+    gives the same bits."""
+    from sav_tpu_torch import create_model
+    from sav_tpu_torch.models.layers import sow_losses
+    from sav_tpu_torch.models.layers.moe import assign, route
+
+    block = create_model(MOE_MODEL, seed=0).encoder.blocks[1].ff.to(device).train()
+    g, s, d = TRAIN_BATCH, 197, block.router.shape[0]
+    e, k, c = block.num_experts, block.top_k, block.capacity(s)
+    spare = e * c
+    tokens = torch.arange(s, device=device)
+    _, gates, experts, slots = route(torch.zeros(g, s, e, device=device), k, c)
+    want = torch.stack([torch.where(tokens < c, tokens + i * c, spare) for i in range(k)], -1)
+    if not (torch.equal(experts, torch.arange(k, device=device).expand(g, s, k))
+            and torch.equal(slots, want.expand(g, s, k))):
+        raise AssertionError("moe routing: a zero router's tie did not pick experts 0 and 1 "
+                             "in token order")
+    gen = torch.Generator(device=device).manual_seed(7)
+    x = torch.randn(g, s, d, generator=gen, device=device).bfloat16()
+    logits = block.router_logits(x)
+    probs = torch.softmax(logits, dim=-1)
+    card = assign(probs, k, c)
+    host = assign(probs.cpu(), k, c)
+    for name, got, ref in zip(("gates", "experts", "slots"), card, host):
+        if not torch.equal(got.cpu(), ref):
+            raise AssertionError(f"moe routing: the card's {name} differ from the CPU's at "
+                                 f"{int((got.cpu() != ref).sum())} of {ref.numel()} entries")
+    softmax_err = (probs.cpu() - torch.softmax(logits.cpu(), dim=-1)).abs().max().item()
+    if softmax_err > 1e-6:
+        raise AssertionError(f"moe routing: the card's softmax is {softmax_err:.3e} off the CPU's")
+    dropped = int((card[2] == spare).sum())
+    runs = []
+    for _ in range(2):
+        block.zero_grad()
+        xg = x.clone().requires_grad_()
+        with sow_losses(block) as sown:
+            y = block(xg)
+        ((y.float() ** 2).sum() + sum(sown)).backward()
+        runs.append([xg.grad, *(p.grad.clone() for p in block.parameters())])
+    if not all(torch.equal(a, b) for a, b in zip(*runs)):
+        raise AssertionError("moe routing: two backward runs of the MoE block differ")
+    result = {"shape": [g, s, d], "experts": e, "top_k": k, "capacity": c,
+              "dropped": dropped, "assignments": g * s * k, "softmax_max_abs_err": softmax_err}
+    log(f"moe routing on the card: a zero router picks experts 0 and 1 in token order, "
+        f"{c} of {s} kept; the card's assignment of its router probabilities equals the "
+        f"CPU's (experts, slots, gates; {dropped} of {g * s * k} choices dropped); softmax "
+        f"{softmax_err:.3e} off the CPU's; two backward runs bit-equal: {json.dumps(result)}")
+    return result
+
+
+def _serve_routing(model, dense, requests, image_size, what):
+    """For a model with MoE blocks, :func:`routing_differences` of the bf16
+    kernel path and the bf16 dense path on the 8 rows the serve agreement
+    compares (the same seeded images, normalised as the engine normalises
+    them), eagerly on copies; None for a model without."""
+    import copy
+
+    from sav_tpu_torch.models.layers import cast_for_compute
+    from sav_tpu_torch.ops.preprocess import normalize_images
+
+    if not _moe_blocks(model):
+        return None
+    images = np.random.default_rng(0).integers(
+        0, 256, (requests, image_size, image_size, 3), dtype=np.uint8)[:8]
+    images = normalize_images(torch.from_numpy(images).cuda(), torch.bfloat16)
+    ours, theirs = (cast_for_compute(copy.deepcopy(m).cuda(), torch.bfloat16).eval()
+                    for m in (model, dense))
+    routing = routing_differences(ours, theirs, images)
+    log(f"{what}: kernel vs dense path routing on the 8 compared rows, bf16: "
+        f"{json.dumps(routing)}")
+    return routing
+
+
 def phase_serve(device="cuda", model_name="deit_s_patch16", requests=SERVE_REQUESTS,
                 max_batch=32, overrides=None, image_size=224, family="fused",
                 reference="dense") -> dict:
@@ -2150,6 +2335,7 @@ def phase_serve(device="cuda", model_name="deit_s_patch16", requests=SERVE_REQUE
     dense.load_state_dict(model.state_dict())
     per_batch = attention_launches(model, train=False, family=family)
     what = f"serve {model_name}"
+    routing = _serve_routing(model, dense, requests, image_size, what)
 
     def config(**kw):
         # A generous deadline: admission must not shed in a smoke run.
@@ -2208,10 +2394,11 @@ def phase_serve(device="cuda", model_name="deit_s_patch16", requests=SERVE_REQUE
     log(
         f"serve agreement {model_name}, {against}, 8 rows: max abs err {err:.3e} (tol "
         f"{SERVE_TOL}), logits max |x| {np.abs(ref).max():.3f}, std {ref.std():.3f}"
+        + ("" if routing is None else f"; routing differences {json.dumps(routing)}")
     )
     del ref_engine
     _release_engines()
-    return {**launches, "variants": variants, "per_batch": per_batch,
+    return {**launches, "variants": variants, "per_batch": per_batch, "routing": routing,
             "steps": steps, "profile": profile, "compile_s": report["compile_s"],
             "bucket_hbm_bytes": report["bucket_hbm_bytes"]}
 
@@ -2566,6 +2753,14 @@ def phase_train(device="cuda", model_name="deit_s_patch16", batch_size=TRAIN_BAT
         if reference == "dense" else dataclasses.replace(config, compute_dtype="float32"),
         model=dense, device=device,
     )
+    # Where the kernel path and the dense path route the first batch's
+    # tokens differently (MoE blocks only), from the same start.
+    routing = routing_differences(
+        trainer.model.train(), ref_trainer.model.train(),
+        batches[0]["images"][:batch_size // grad_accum].to(trainer.compute_dtype))
+    if routing is not None:
+        log(f"{what}: kernel vs dense path routing of step 1's first micro-batch: "
+            f"{json.dumps(routing)}")
     reset_launches()
     ref_state, ref_metrics = ref_trainer._train_step_impl(ref_trainer.init_state(), batches[0])
     ref = {k: float(v) for k, v in ref_metrics.items()}
@@ -2668,6 +2863,8 @@ def phase_train(device="cuda", model_name="deit_s_patch16", batch_size=TRAIN_BAT
         "peak_gb": cap["peak_gb"],
         "profile": cap["profile"],
         "eager": {k: eag[k] for k in ("step_ms", "images_per_sec", "peak_gb", "profile")},
+        "routing": routing,
+        "first_aux_loss": first["aux_loss"],
     }
 
 
@@ -3283,30 +3480,23 @@ KERNEL_GROUPS = (
 
 
 def profile_step(trainer, state, batch, per_step: dict, *, eager=False) -> dict:
-    """One train step under torch.profiler: device busy time per kernel group
-    (summed kernel self time) against the step's wall time. The step is the
+    """One train step under torch.profiler (:func:`_device_events`): device
+    busy time per kernel group (summed
+    kernel self time) against the step's wall time. The step is the
     trainer's (a replay on the card), or with ``eager`` its eager body;
     counted by name, its attention kernels must be ``per_step``'s."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
     step = trainer._train_step_impl if eager else trainer.train_step
     step(state, batch)  # warm, outside the window
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        step(state, batch)
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
     # Device-side events only (kernels, copies, fills): an operator's row
     # in key_averages would count its kernels a second time.
+    wall_ms, events = _device_events(lambda: step(state, batch))
     kernels, counts = {}, {}
-    for event in prof.events():
-        if event.device_type == DeviceType.CUDA:
-            kernels[event.name] = kernels.get(event.name, 0.0) + event.time_range.elapsed_us() / 1e3
-            group = next((g for g, keys in KERNEL_GROUPS if any(k in event.name for k in keys)),
-                         "other")
-            counts[group] = counts.get(group, 0) + 1
+    for event in events:
+        kernels[event.name] = kernels.get(event.name, 0.0) + event.time_range.elapsed_us() / 1e3
+        group = next((g for g, keys in KERNEL_GROUPS if any(k in event.name for k in keys)),
+                     "other")
+        counts[group] = counts.get(group, 0) + 1
     busy = sum(kernels.values())
     if busy == 0.0:
         raise RuntimeError("the profiler recorded no device time")
@@ -3358,6 +3548,7 @@ def main() -> None:
     th_err = phase_th_kernels()
     flash_err = phase_flash_kernels()
     rel_err = phase_rel_kernels()
+    moe_routing = phase_moe_routing()
     mark("kernel checks")
     times = phase_timing()
     mark("timing")
@@ -3366,7 +3557,9 @@ def main() -> None:
              "cvt": phase_serve(model_name=CVT_MODEL, family=CVT_FAMILY),
              "ceit": phase_serve(model_name=CEIT_MODEL),
              "tnt": phase_serve(model_name=TNT_MODEL),
-             "mixer": phase_serve(model_name=MIXER_MODEL, reference="f32")}
+             "mixer": phase_serve(model_name=MIXER_MODEL, reference="f32"),
+             "rope": phase_serve(model_name=ROPE_MODEL),
+             "moe": phase_serve(model_name=MOE_MODEL)}
     benches = {"deit": phase_serve_bench("deit_s_patch16", serve["deit"]["per_batch"],
                                          batch_1=True),
                "cait": phase_serve_bench("cait_xxs_24", serve["cait"]["per_batch"]),
@@ -3374,7 +3567,8 @@ def main() -> None:
                "cvt": phase_serve_bench(CVT_MODEL, serve["cvt"]["per_batch"]),
                "ceit": phase_serve_bench(CEIT_MODEL, serve["ceit"]["per_batch"]),
                "tnt": phase_serve_bench(TNT_MODEL, serve["tnt"]["per_batch"]),
-               "mixer": phase_serve_bench(MIXER_MODEL, serve["mixer"]["per_batch"])}
+               "mixer": phase_serve_bench(MIXER_MODEL, serve["mixer"]["per_batch"]),
+               "moe": phase_serve_bench(MOE_MODEL, serve["moe"]["per_batch"])}
     _release_engines()
     mark("serve and serve benches")
     train = {"deit": phase_train(), "cait": phase_train(model_name="cait_xxs_24")}
@@ -3425,6 +3619,11 @@ def main() -> None:
                                  config=preset,
                                  reference="f32" if key == "mixer" else "dense")
     mark("BoTNet-T3, CvT-13, CeiT-S, TNT-S and Mixer-B/16 training")
+    # The rotary and MoE ViTs at the smoke run's DeiT-S recipe (256, no
+    # accumulation): 12 #1 and 12 #2 a step each.
+    train["rope"] = phase_train(model_name=ROPE_MODEL)
+    train["moe"] = phase_train(model_name=MOE_MODEL)
+    mark("rotary and MoE ViT training")
 
     def by_path(kind):
         return {
@@ -3446,6 +3645,9 @@ def main() -> None:
             "serve_bench_tnt": benches["tnt"][kind],
             "serve_mixer": serve["mixer"][kind], "train_mixer": train["mixer"]["launches"][kind],
             "serve_bench_mixer": benches["mixer"][kind],
+            "serve_rope": serve["rope"][kind], "train_rope": train["rope"]["launches"][kind],
+            "serve_moe": serve["moe"][kind], "train_moe": train["moe"]["launches"][kind],
+            "serve_bench_moe": benches["moe"][kind],
         }
 
     def total(kind):
@@ -3687,6 +3889,9 @@ def main() -> None:
              for name, r in train.items()}
     for name, r in train.items():
         steps[name]["capture_s"] = round(r["capture_s"], 3)
+        if r["routing"] is not None:
+            steps[name]["routing_vs_dense"] = r["routing"]
+            steps[name]["first_aux_loss"] = r["first_aux_loss"]
     steps["vit384"].update({k: round(v, 2) for k, v in remat.items()})
     steps["device_preprocess_deit"] = {"step_ms": round(devpre["step_ms"], 3),
                                        "images_per_sec": round(devpre["images_per_sec"], 1)}
@@ -3694,8 +3899,12 @@ def main() -> None:
     log("serve summary (bf16, buckets 1-32; steps in ms by bucket; bench: images/s and ms): "
         + json.dumps({name: {"steps": serve[name]["steps"], "compile_s": serve[name]["compile_s"],
                              "replay_busy_ms_at_32": round(serve[name]["profile"]["busy_ms"], 4),
-                             "bench_rate": benches[name]["rate"], **benches[name]["runs"]}
+                             **({"routing_vs_dense": serve[name]["routing"]}
+                                if serve[name]["routing"] else {}),
+                             **({"bench_rate": benches[name]["rate"], **benches[name]["runs"]}
+                                if name in benches else {})}
                       for name in serve}))
+    log(f"moe routing on the card: {json.dumps(moe_routing)}")
     log("checkpoint and eval summary: " + json.dumps({
         "resume": {k: resume[k] for k in ("save_hold_ms", "warm_save_hold_ms", "write_ms",
                                           "warm_write_ms", "bytes", "restore_ms",

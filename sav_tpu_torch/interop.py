@@ -23,9 +23,15 @@ flax key                                                port key                
 ``Encoder_0/block_i/SelfAttentionBlock_0/to_qkv/kernel``  ``encoder.blocks.i.attn.to_qkv``        as is, ``[in, 3, H, D]``
 ``Encoder_0/block_i/SelfAttentionBlock_0/to_out/kernel``  ``encoder.blocks.i.attn.to_out``        as is, ``[H, D, out]``
 ``Encoder_0/block_i/FFBlock_0/fc{1,2}/{kernel,bias}``   ``encoder.blocks.i.ff.fc{1,2}.*``        ``[in, out]`` → ``[out, in]``
+``Encoder_0/block_i/MoEFFBlock_0/{router,experts_*}``     ``encoder.blocks.i.ff.{router,experts_*}``  as is
 ``Encoder_0/LayerNorm_0/{scale,bias}``                  ``encoder.norm.*``                       scale → weight
 ``head/{kernel,bias}``                                  ``head.{weight,bias}``                   ``[in, out]`` → ``[out, in]``
 ======================================================  =======================================  ==========
+
+A ViT with ``pos_embed`` ``"rotary"``, ``"sincos"`` or ``"none"`` has no
+``AddAbsPosEmbed_0`` (its fixed tables are buffers, not parameters); an
+MoE block's ``router [D, E]``, ``experts_w1 [E, D, H]``, ``experts_b1 [E,
+H]``, ``experts_w2 [E, H, D]`` and ``experts_b2 [E, D]`` keep their shapes.
 
 CaiT (``B`` = ``block_i/``, ``CA`` = ``ca_block_i/``; ``X`` = ``B`` or ``CA``):
 
@@ -176,6 +182,7 @@ _VIT_RULES = [
     (rf"{_BLOCK}/SelfAttentionBlock_0/to_out/kernel", r"encoder.blocks.\1.attn.to_out", _as_is),
     (rf"{_BLOCK}/FFBlock_0/fc(1|2)/kernel", r"encoder.blocks.\1.ff.fc\2.weight", _dense),
     (rf"{_BLOCK}/FFBlock_0/fc(1|2)/bias", r"encoder.blocks.\1.ff.fc\2.bias", _as_is),
+    (rf"{_BLOCK}/MoEFFBlock_0/(router|experts_[wb][12])", r"encoder.blocks.\1.ff.\2", _as_is),
     *_norm_rule(r"Encoder_0/LayerNorm_0", "encoder.norm"),
 ]
 

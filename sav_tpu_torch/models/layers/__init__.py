@@ -23,7 +23,12 @@ from sav_tpu_torch.models.layers.normalization import (
     LayerScaleBlock,
     cast_for_compute,
 )
-from sav_tpu_torch.models.layers.position_embed import AddAbsPosEmbed
+from sav_tpu_torch.models.layers.moe import MoEFFBlock, sow_losses
+from sav_tpu_torch.models.layers.position_embed import (
+    AddAbsPosEmbed,
+    FixedPositionalEmbedding,
+    RotaryPositionalEmbedding,
+)
 from sav_tpu_torch.models.layers.regularization import (
     Dropout,
     RecomputeGenerators,
@@ -48,12 +53,15 @@ __all__ = [
     "DepthwiseConv2D",
     "Dropout",
     "FFBlock",
+    "FixedPositionalEmbedding",
     "Image2TokenBlock",
     "LCSelfAttentionBlock",
     "LayerScaleBlock",
     "LeFFBlock",
+    "MoEFFBlock",
     "PatchEmbedBlock",
     "RecomputeGenerators",
+    "RotaryPositionalEmbedding",
     "SameConv2d",
     "SelfAttentionBlock",
     "SqueezeExciteBlock",
@@ -65,4 +73,5 @@ __all__ = [
     "set_dropout_generator",
     "set_recompute_generators",
     "set_stochastic_depth_generator",
+    "sow_losses",
 ]

@@ -18,6 +18,11 @@ the core is the seam of :mod:`sav_tpu_torch.ops.attention`.
 ``attn_dropout_rate`` drops attention probabilities in training, on the
 dense path only (``auto`` takes it; a kernel backend raises), and
 ``out_dropout_rate`` the merged output, as ``sav_tpu``'s blocks do.
+
+With ``use_rotary=True`` q and k are rotated (RoPE) after the projections
+and before the core, each at its own length, in their ``[B, L, H, D]``
+layout; the tables are buffers made for ``rotary_length`` positions (the
+model's length).
 """
 
 from __future__ import annotations
@@ -28,6 +33,7 @@ import torch
 from torch import nn
 
 from sav_tpu_torch.models.layers.initializers import lecun_normal_
+from sav_tpu_torch.models.layers.position_embed import RotaryPositionalEmbedding
 from sav_tpu_torch.models.layers.regularization import Dropout
 from sav_tpu_torch.ops import talking_heads as _th
 from sav_tpu_torch.ops.attention import dot_product_attention
@@ -59,6 +65,8 @@ class AttentionBlock(nn.Module):
         out_ch: Optional[int] = None,
         talking_heads: bool = False,
         fused_qkv: bool = True,
+        use_rotary: bool = False,
+        rotary_length: Optional[int] = None,
         backend: Optional[str] = None,
         logits_dtype=None,
         attn_dropout_rate: float = 0.0,
@@ -84,6 +92,7 @@ class AttentionBlock(nn.Module):
             self.pre_softmax = TalkingHeadsBlock(h)
             self.post_softmax = TalkingHeadsBlock(h)
         self.to_out = nn.Parameter(torch.empty(h, d, out_ch or in_ch))
+        self.rotary = RotaryPositionalEmbedding(rotary_length, d) if use_rotary else None
         self.attn_drop = Dropout(attn_dropout_rate)
         self.out_drop = Dropout(out_dropout_rate)
 
@@ -146,6 +155,8 @@ class AttentionBlock(nn.Module):
             query = proj(inputs_q, self.to_q.to(dtype), q_len)
             key = proj(inputs_kv, self.to_k.to(dtype), kv_len)
             value = proj(inputs_kv, self.to_v.to(dtype), kv_len)
+        if self.rotary is not None:
+            query, key = self.rotary(query), self.rotary(key)
         out = self._core(query, key, value)
         w_out = self.to_out.to(out.dtype).reshape(h * d, -1)
         return self.out_drop(torch.matmul(out.reshape(b, q_len, h * d), w_out))

@@ -1,9 +1,8 @@
 """Named model registry (port of ``sav_tpu/models/registry.py``).
 
-The plain ViT, the ten CaiT, the three BoTNet, the two TNT, the three CeiT,
-the three CvT and the six MLP-Mixer entries are ported. Every other
-``sav_tpu`` name is known here and raises ``NotImplementedError`` naming the
-ROADMAP queue item it waits on.
+Every ``sav_tpu`` name is ported: the plain ViT, its rotary and MoE
+variants, the ten CaiT, the three BoTNet, the two TNT, the three CeiT, the
+three CvT and the six MLP-Mixer entries.
 """
 
 from __future__ import annotations
@@ -31,6 +30,15 @@ _VIT = {
     "vit_b_patch16": (768, 12, 12, 16),
     "vit_l_patch32": (1024, 24, 16, 32),
     "vit_l_patch16": (1024, 24, 16, 16),
+    # RoPE on q and k in every block, no learned table.
+    "vit_s_patch16_rope": (384, 12, 6, 16),
+    # DeiT-S's trunk with a top-2-routed 8-expert FF on every other block.
+    "vit_moe_s_patch16_e8": (384, 12, 6, 16),
+}
+# ViT options of a _VIT name beyond its widths (sav_tpu/models/registry.py:56-65).
+_VIT_OPTIONS = {
+    "vit_s_patch16_rope": dict(pos_embed="rotary"),
+    "vit_moe_s_patch16_e8": dict(moe_num_experts=8, moe_top_k=2),
 }
 
 # name -> (embed_dim, num_layers, num_heads, stoch_depth_rate, layerscale_eps);
@@ -88,12 +96,6 @@ _MIXER = {
     for patch in (32, 16)
 }
 
-_NOT_PORTED = {
-    "vit_s_patch16_rope": "queue A2 (ops/rotary.py)",
-    "vit_moe_s_patch16_e8": "queue A7.7 (MoE)",
-}
-
-
 def model_names() -> list:
     """The names :func:`create_model` can build."""
     return sorted([*_VIT, *_CAIT, *_BOTNET, *_TNT, *_CEIT, *_CVT, *_MIXER])
@@ -118,16 +120,12 @@ def create_model(
     reach every attention block. ``overrides`` replace config fields
     (``embed_dim``, ``num_layers``, ``num_heads``, ``patch_shape``, and for
     CaiT ``num_layers_token_only``, ``stoch_depth_rate``, ...; for ViT
-    ``remat``; for BoTNet ``stage_sizes``, ``num_heads``, ``se_ratio``; for
+    ``remat``, ``pos_embed`` and the ``moe_*`` options; for BoTNet ``stage_sizes``, ``num_heads``, ``se_ratio``; for
     CeiT ``stem_ch``; for CvT ``embed_dims``, ``num_layers`` and
     ``num_heads`` of the three stages; for TNT ``inner_ch`` and
     ``inner_num_heads``; for MLP-Mixer ``tokens_hidden_ch`` and
     ``channels_hidden_ch``).
     """
-    if model_name in _NOT_PORTED:
-        raise NotImplementedError(
-            f"{model_name!r} is not ported yet: ROADMAP {_NOT_PORTED[model_name]}"
-        )
     common = dict(image_size=image_size, backend=backend, logits_dtype=logits_dtype)
     if model_name in _BOTNET:
         kwargs = dict(stage_sizes=_BOTNET[model_name], **common)
@@ -152,7 +150,7 @@ def create_model(
     if model_name in _VIT:
         cls = ViT
         embed_dim, num_layers, num_heads, patch = _VIT[model_name]
-        kwargs = dict(patch_shape=(patch, patch))
+        kwargs = dict(patch_shape=(patch, patch), **_VIT_OPTIONS.get(model_name, {}))
     elif model_name in _CAIT:
         cls = CaiT
         embed_dim, num_layers, num_heads, sd_rate, ls_eps = _CAIT[model_name]

@@ -1,8 +1,12 @@
 """ViT — Vision Transformer (port of ``sav_tpu/models/vit.py``).
 
-Pre-LN encoder, learned absolute position embeddings, zero-init CLS token
-and head, with every self-attention core on the backend-dispatched seam of
-:mod:`sav_tpu_torch.ops.attention`. Inputs are NHWC, as in ``sav_tpu``.
+Pre-LN encoder, zero-init CLS token and head, with every self-attention
+core on the backend-dispatched seam of :mod:`sav_tpu_torch.ops.attention`.
+Inputs are NHWC, as in ``sav_tpu``. ``pos_embed`` is ``"learned"`` (the
+absolute table), ``"sincos"`` (the fixed sinusoidal table), ``"rotary"``
+(RoPE on q and k in every block) or ``"none"``. With ``moe_num_experts``
+every ``moe_every``-th block (blocks ``moe_every - 1``, ``2·moe_every - 1``,
+...) routes its FF through a :class:`~sav_tpu_torch.models.layers.moe.MoEFFBlock`.
 ``remat=True`` recomputes each encoder block in the backward pass (flax's
 ``nn.remat``): activation memory drops to the blocks' boundaries for one
 more forward of every block, so each attention core's forward kernel runs
@@ -33,7 +37,10 @@ from sav_tpu_torch.models.layers import (
     Dense,
     Dropout,
     FFBlock,
+    FixedPositionalEmbedding,
+    MoEFFBlock,
     PatchEmbedBlock,
+    RotaryPositionalEmbedding,
     SelfAttentionBlock,
 )
 from sav_tpu_torch.models.layers.initializers import lecun_normal_
@@ -49,7 +56,6 @@ LN_EPS = 1e-6
 # sav_tpu ViT options this port does not carry yet, and the ROADMAP item
 # each waits on. Setting one raises NotImplementedError.
 _NOT_PORTED = {
-    "moe_num_experts": "queue A7.7 (MoE)",
     "seq_parallel": "queue A9 (parallelism)",
     "seq_mesh": "queue A9 (parallelism)",
     "layout": "queue A9 (parallelism)",
@@ -123,19 +129,30 @@ def remat_block(block: nn.Module, inputs: torch.Tensor) -> torch.Tensor:
 
 
 class EncoderBlock(nn.Module):
-    """Pre-LN transformer block: LN→MHSA→res, LN→FF→res."""
+    """Pre-LN transformer block: LN→MHSA→res, LN→FF→res; the FF is an
+    :class:`MoEFFBlock` when ``moe_num_experts`` is set, and q and k are
+    rotated when ``use_rotary``."""
 
     def __init__(self, dim: int, num_heads: int, *, expand_ratio: float = 4.0,
                  backend: Optional[str] = None, logits_dtype=None,
-                 attn_dropout_rate: float = 0.0, dropout_rate: float = 0.0):
+                 attn_dropout_rate: float = 0.0, dropout_rate: float = 0.0,
+                 use_rotary: bool = False, length: int = 0,
+                 moe_num_experts: Optional[int] = None, moe_top_k: int = 2,
+                 moe_router_z_loss_weight: float = 0.1):
         super().__init__()
         self.norm1 = LayerNorm(dim)
         self.attn = SelfAttentionBlock(
             dim, num_heads, backend=backend, logits_dtype=logits_dtype,
             attn_dropout_rate=attn_dropout_rate, out_dropout_rate=dropout_rate,
+            use_rotary=use_rotary, rotary_length=length,
         )
         self.norm2 = LayerNorm(dim)
-        self.ff = FFBlock(dim, expand_ratio=expand_ratio, dropout_rate=dropout_rate)
+        if moe_num_experts:
+            self.ff = MoEFFBlock(dim, moe_num_experts, top_k=moe_top_k,
+                                 expand_ratio=expand_ratio, dropout_rate=dropout_rate,
+                                 router_z_loss_weight=moe_router_z_loss_weight)
+        else:
+            self.ff = FFBlock(dim, expand_ratio=expand_ratio, dropout_rate=dropout_rate)
         # Where a recompute of this block under remat finds its twin
         # generators: the trainer's (set_recompute_generators), else one
         # made per call (remat_block).
@@ -147,29 +164,45 @@ class EncoderBlock(nn.Module):
 
 
 class Encoder(nn.Module):
-    """Learned abs pos-emb and dropout, N pre-LN blocks, final LN. With
-    ``remat``, each block runs under :func:`remat_block` whenever grad is
-    enabled; the parameter names stay ``blocks.i``, as flax's ``nn.remat``
-    keeps ``block_i``."""
+    """Position embedding (``pos_embed``: the learned table, the sinusoidal
+    one, or none where q and k are rotated or nothing is added) and dropout,
+    N pre-LN blocks, final LN. With ``remat``, each block runs under
+    :func:`remat_block` whenever grad is enabled; the parameter names stay
+    ``blocks.i``, as flax's ``nn.remat`` keeps ``block_i``."""
 
     def __init__(self, length: int, dim: int, num_layers: int, num_heads: int, *,
                  expand_ratio: float = 4.0, backend: Optional[str] = None,
                  logits_dtype=None, remat: bool = False,
-                 attn_dropout_rate: float = 0.0, dropout_rate: float = 0.0):
+                 attn_dropout_rate: float = 0.0, dropout_rate: float = 0.0,
+                 pos_embed: str = "learned", moe_num_experts: Optional[int] = None,
+                 moe_top_k: int = 2, moe_router_z_loss_weight: float = 0.1,
+                 moe_every: int = 2):
         super().__init__()
         self.remat = remat
-        self.pos_embed = AddAbsPosEmbed(length, dim)
+        if pos_embed == "learned":
+            self.pos_embed = AddAbsPosEmbed(length, dim)
+        elif pos_embed == "sincos":
+            self.pos_embed = FixedPositionalEmbedding(length, dim)
+        elif pos_embed in ("rotary", "none"):
+            self.pos_embed = None
+        else:
+            raise ValueError(f"unknown pos_embed mode: {pos_embed!r}")
         self.pos_drop = Dropout(dropout_rate)
         self.blocks = nn.ModuleList(
             EncoderBlock(dim, num_heads, expand_ratio=expand_ratio,
                          backend=backend, logits_dtype=logits_dtype,
-                         attn_dropout_rate=attn_dropout_rate, dropout_rate=dropout_rate)
-            for _ in range(num_layers)
+                         attn_dropout_rate=attn_dropout_rate, dropout_rate=dropout_rate,
+                         use_rotary=pos_embed == "rotary", length=length,
+                         moe_num_experts=(moe_num_experts
+                                          if i % moe_every == moe_every - 1 else None),
+                         moe_top_k=moe_top_k, moe_router_z_loss_weight=moe_router_z_loss_weight)
+            for i in range(num_layers)
         )
         self.norm = LayerNorm(dim)
 
     def forward(self, inputs: torch.Tensor) -> torch.Tensor:
-        x = self.pos_drop(self.pos_embed(inputs))
+        x = inputs if self.pos_embed is None else self.pos_embed(inputs)
+        x = self.pos_drop(x)
         for block in self.blocks:
             if self.remat and torch.is_grad_enabled():
                 x = remat_block(block, x)
@@ -201,15 +234,15 @@ class ViT(nn.Module):
         remat: bool = False,
         attn_dropout_rate: float = 0.0,
         dropout_rate: float = 0.0,
+        moe_num_experts: Optional[int] = None,
+        moe_top_k: int = 2,
+        moe_router_z_loss_weight: float = 0.1,
+        moe_every: int = 2,
         **unported,
     ):
         super().__init__()
         refuse_unported("ViT", unported, _NOT_PORTED)
-        if pos_embed != "learned":
-            raise NotImplementedError(
-                f"pos_embed={pos_embed!r} is not ported yet (sincos and rotary "
-                "come with ops/rotary.py, ROADMAP queue A2); only 'learned' is"
-            )
+        self.moe_num_experts = moe_num_experts
         ph, pw = patch_shape
         if image_size % ph or image_size % pw:
             raise ValueError(f"image {image_size} not divisible by patch {patch_shape}")
@@ -220,13 +253,16 @@ class ViT(nn.Module):
             length, embed_dim, num_layers, num_heads,
             expand_ratio=expand_ratio, backend=backend, logits_dtype=logits_dtype,
             remat=remat, attn_dropout_rate=attn_dropout_rate, dropout_rate=dropout_rate,
+            pos_embed=pos_embed, moe_num_experts=moe_num_experts, moe_top_k=moe_top_k,
+            moe_router_z_loss_weight=moe_router_z_loss_weight, moe_every=moe_every,
         )
         self.head = Dense(embed_dim, num_classes)
 
     def reset_parameters(self, generator: torch.Generator) -> None:
         """flax's initialisers from an explicit generator: lecun-normal
         (truncated) kernels, zero biases, unit LayerNorm scales, normal(0.02)
-        position table, zero CLS token and zero head."""
+        position table, the MoE blocks' own, zero CLS token and zero head;
+        the fixed position tables are made anew."""
         for module in self.modules():
             if isinstance(module, (nn.Linear, nn.Conv2d)):
                 lecun_normal_(module.weight, module.weight[0].numel(), generator)
@@ -237,8 +273,10 @@ class ViT(nn.Module):
                 nn.init.zeros_(module.bias)
             elif isinstance(module, SelfAttentionBlock):
                 module.reset_parameters(generator)
-            elif isinstance(module, AddAbsPosEmbed):
+            elif isinstance(module, (AddAbsPosEmbed, MoEFFBlock)):
                 module.reset_parameters(generator)
+            elif isinstance(module, (FixedPositionalEmbedding, RotaryPositionalEmbedding)):
+                module.reset_buffers()
         nn.init.zeros_(self.cls)
         nn.init.zeros_(self.head.weight)
         nn.init.zeros_(self.head.bias)

@@ -225,15 +225,25 @@ def analytic_train_step_cost(params: Any, *, batch_size: int, image_size: int,
     )
 
 
+# A ViT with routed experts: sav_tpu's count charges every expert matrix for
+# every token (2·tokens·E·D·H), where each expert runs only its capacity's
+# slots: at E = 8, k = 2 and 62 slots over 197 tokens, ~3.2x the routed work.
+_MOE_REFUSAL = ("its MoE blocks would be charged every expert for every token, not the "
+                "routed slots")
+
+
 def analytic_cost_refusal(model: torch.nn.Module) -> Optional[str]:
-    """Why :func:`train_step_cost` refuses ``model``'s family (CeiT, CvT,
-    TNT, MLP-Mixer: it would count their step wrong), naming ROADMAP A10;
-    None where it counts it."""
+    """Why :func:`train_step_cost` refuses ``model`` (CeiT, CvT, TNT,
+    MLP-Mixer, and a ViT with ``moe_num_experts``: it would count their
+    step wrong), naming ROADMAP A10; None where it counts it."""
     family = type(model).__name__
-    if family not in _NO_ANALYTIC_COST:
+    if family == "ViT" and getattr(model, "moe_num_experts", None):
+        reason = _MOE_REFUSAL
+    elif family in _NO_ANALYTIC_COST:
+        reason = _NO_ANALYTIC_COST[family]
+    else:
         return None
-    return (f"no analytic step cost for {family} yet: {_NO_ANALYTIC_COST[family]} "
-            "(ROADMAP queue A10)")
+    return f"no analytic step cost for {family} yet: {reason} (ROADMAP queue A10)"
 
 
 def has_analytic_cost(model: torch.nn.Module) -> bool:

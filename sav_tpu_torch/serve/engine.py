@@ -63,6 +63,7 @@ from sav_tpu_torch.serve.graphs import BucketGraphs
 from sav_tpu_torch.serve.latency import LatencyLedger
 from sav_tpu_torch.serve.preprocess import preprocess_request
 from sav_tpu_torch.train.checkpoint import Checkpointer
+from sav_tpu_torch.train.state import persistent_buffers
 from sav_tpu_torch.utils.device import COMPUTE_DTYPES, require_device
 from sav_tpu_torch.utils.graphs import held_stream
 
@@ -134,7 +135,7 @@ def restore_params(model: nn.Module, directory: str) -> None:
     opened). Raises ``FileNotFoundError`` when the directory holds no
     checkpoint."""
     template = {"params": dict(model.named_parameters()),
-                "batch_stats": dict(model.named_buffers())}
+                "batch_stats": persistent_buffers(model)}
     ckpt = Checkpointer(directory, read_only=True)
     try:
         restored = ckpt.restore_params_only(template)

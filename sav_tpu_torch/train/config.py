@@ -18,7 +18,9 @@ from sav_tpu_torch.utils.device import COMPUTE_DTYPES
 
 # Fields the port does not carry yet, and the ROADMAP item each waits on.
 _NOT_CARRIED = {
-    "attention_tune_cache": "queue A2 (the port's dispatch rule has no tune cache)",
+    # sav_tpu's tune cache holds TPU measurements; the port's crossovers
+    # are to be measured on the card.
+    "attention_tune_cache": "queue B follow-up 4 (auto's crossovers, measured on the card)",
     "quant": "queue A8 (int8)",
     # A CUDA graph lives in its process: there is nothing to write to disk.
     "compilation_cache_dir": "queue A10 (infra; a captured CUDA graph cannot be cached on disk)",
@@ -85,7 +87,9 @@ class TrainConfig:
     fused_optimizer: Optional[bool] = None
     label_smoothing: float = 0.1
     ema_decay: Optional[float] = None
-    aux_loss_weight: float = 0.01  # ViT sows no auxiliary loss
+    # Times the sum of the sown losses (the MoE blocks' balance and router
+    # z-losses) added to the cross entropy; 0 for a model that sows none.
+    aux_loss_weight: float = 0.01
     grad_accum_steps: int = 1
     seed: int = 42
 

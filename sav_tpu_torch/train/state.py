@@ -11,6 +11,14 @@ from torch import nn
 from sav_tpu_torch.train.optimizer import OptState, copy_checked
 
 
+def persistent_buffers(model: nn.Module) -> dict:
+    """``model``'s buffers by name that its ``state_dict`` holds: the
+    BatchNorm running statistics, not the fixed position tables, which are
+    made at construction and never change."""
+    kept = set(model.state_dict(keep_vars=True))
+    return {name: buf for name, buf in model.named_buffers() if name in kept}
+
+
 # Generators a checkpoint may lack: added after checkpoints were first
 # written (device_preprocess's mixes).
 OPTIONAL_GENERATORS = ("mix",)
@@ -19,8 +27,8 @@ OPTIONAL_GENERATORS = ("mix",)
 @dataclasses.dataclass
 class TrainState:
     """Step count, the model (whose parameters are the state's parameters),
-    the optimizer state, ``batch_stats``: the model's buffers by name, the
-    BatchNorm running statistics (empty for ViT and CaiT), and
+    the optimizer state, ``batch_stats``: the model's persistent buffers by
+    name, the BatchNorm running statistics (empty for ViT and CaiT), and
     ``generators``: the trainer's generators by stream name
     (``stochastic_depth``, ``dropout``, ``mix``), whose states resume the
     masks and the mixes' draws.

@@ -23,7 +23,10 @@ The step is ``sav_tpu``'s ``_train_step_impl``: with ``device_preprocess``
 the uint8 batch is mixed (the augment string's MixUp/CutMix) and
 normalised on the device first; then one-hot f32 labels (mixed by
 ``mix_labels``/``ratio`` when the batch has them), label smoothing, f32
-cross entropy, backward, the masked AdamW of
+cross entropy plus ``aux_loss_weight`` times the losses the forward sowed
+(the MoE blocks' balance and router z-losses,
+:func:`~sav_tpu_torch.models.layers.sow_losses`; logged as ``aux_loss``),
+backward, the masked AdamW of
 :mod:`sav_tpu_torch.train.optimizer`; with ``grad_accum_steps > 1`` the
 batch is split into micro-batches whose f32 gradients are averaged before
 one update (BatchNorm statistics thread through them in order).
@@ -75,6 +78,7 @@ from sav_tpu_torch.models.layers import (
     set_dropout_generator,
     set_recompute_generators,
     set_stochastic_depth_generator,
+    sow_losses,
 )
 from sav_tpu_torch.models.surgery import adapt_pos_embeds
 from sav_tpu_torch.ops.preprocess import apply_mixes, normalize_images
@@ -87,7 +91,7 @@ from sav_tpu_torch.train.optimizer import (
     warmup_cosine_schedule,
     weight_decay_mask,
 )
-from sav_tpu_torch.train.state import TrainState
+from sav_tpu_torch.train.state import TrainState, persistent_buffers
 from sav_tpu_torch.utils.device import COMPUTE_DTYPES, require_device
 from sav_tpu_torch.utils.graphs import held_stream
 from sav_tpu_torch.utils.metrics import cross_entropy, topk_correct
@@ -226,7 +230,7 @@ class Trainer:
         self._seed_generators()
         params = list(self.model.parameters())
         return TrainState(step=0, model=self.model, opt_state=self.tx.init(params),
-                          batch_stats=dict(self.model.named_buffers()),
+                          batch_stats=persistent_buffers(self.model),
                           generators=dict(self.generators))
 
     def restore_or_init(self) -> TrainState:
@@ -375,23 +379,30 @@ class Trainer:
         b = images.shape[0]
         if b % accum:
             raise ValueError(f"batch size {b} not divisible by grad_accum_steps {accum}")
-        aux_loss = torch.zeros((), device=self.device)  # ViT sows no auxiliary loss
-        grads, loss, logits = None, None, []
+        grads, loss, aux_loss, logits = None, None, None, []
         for micro_images, micro_probs in zip(images.split(b // accum),
                                              label_probs.split(b // accum)):
-            micro_logits = model(micro_images)
+            with sow_losses(model) as sown:
+                micro_logits = model(micro_images)
+            # The sown losses at their relative scales, summed in f32 (0 for
+            # a model that sows none); aux_loss_weight turns them into loss
+            # units, as sav_tpu's loss_fn does.
+            micro_aux = (torch.stack([x.float() for x in sown]).sum() if sown
+                         else torch.zeros((), device=self.device))
             micro_loss = (cross_entropy(micro_logits, micro_probs)
-                          + self.config.aux_loss_weight * aux_loss)
+                          + self.config.aux_loss_weight * micro_aux)
             micro_grads = torch.autograd.grad(micro_loss, params)
             if grads is None:
-                grads, loss = list(micro_grads), micro_loss.detach()
+                grads, loss, aux_loss = list(micro_grads), micro_loss.detach(), micro_aux.detach()
             else:
                 torch._foreach_add_(grads, micro_grads)
                 loss = loss + micro_loss.detach()
+                aux_loss = aux_loss + micro_aux.detach()
             logits.append(micro_logits.detach())
         if accum > 1:
             torch._foreach_div_(grads, accum)
             loss = loss / accum
+            aux_loss = aux_loss / accum
         with torch.no_grad():
             grad_norm = global_norm(grads)  # before the clip, as sav_tpu logs it
             learning_rate = self.schedule(state.opt_state.count)  # the update's, as sav_tpu's

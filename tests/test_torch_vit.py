@@ -28,10 +28,10 @@ TOL = 1e-4
 SMALL = dict(embed_dim=64, num_layers=2, num_heads=2, patch_shape=(8, 8))
 
 
-def small_flax_params(num_classes=10, image_size=32, seed=0):
+def small_flax_params(num_classes=10, image_size=32, seed=0, **options):
     """sav_tpu's init of the small ViT as numpy, with a random head (a fresh
     head is zero, which would make logit comparisons vacuous)."""
-    model = jax_create_model("vit_ti_patch16", num_classes=num_classes, **SMALL)
+    model = jax_create_model("vit_ti_patch16", num_classes=num_classes, **SMALL, **options)
     variables = model.init(
         {"params": jax.random.PRNGKey(seed)},
         jnp.zeros((1, image_size, image_size, 3)), is_training=False,
@@ -135,9 +135,11 @@ def test_deit_s_state_dict_matches_flax_tree_at_full_width():
 
 
 def test_params_from_flax_refuses_unknown_keys():
+    # An MoE block's router and expert weights convert; a leaf no rule
+    # names does not.
     params = small_flax_params()
-    params["Encoder_0"]["block_0"]["MoEFFBlock_0"] = {"router": np.zeros((64, 8), np.float32)}
-    with pytest.raises(KeyError, match="MoEFFBlock_0"):
+    params["Encoder_0"]["block_0"]["MoEFFBlock_0"] = {"gate": np.zeros((64, 8), np.float32)}
+    with pytest.raises(KeyError, match="MoEFFBlock_0/gate"):
         params_from_flax({"params": params})
 
 
@@ -181,15 +183,28 @@ def test_layernorm_eps_is_flax_default():
 
 
 def test_registry_names_and_unported_entries():
+    """Every sav_tpu name is in the registry and builds, the rotary and MoE
+    ViTs (once refused, naming A2 and A7.7) with sav_tpu's options; an
+    unknown name raises."""
+    from sav_tpu.models.registry import _REGISTRY as JAX_REGISTRY
+
+    from sav_tpu_torch.models.layers import MoEFFBlock
+
     assert "deit_s_patch16" in model_names()
     assert "tnt_s_patch16" in model_names() and "tnt_b_patch16" in model_names()
     assert {f"mixer_{s}_patch{p}" for s in "sbl" for p in (32, 16)} <= set(model_names())
-    assert "vit_s_patch16_rope" not in model_names()
-    for name, item in (("vit_s_patch16_rope", "A2"), ("vit_moe_s_patch16_e8", "A7.7")):
-        with pytest.raises(NotImplementedError, match=item):
-            create_model(name)
+    assert set(JAX_REGISTRY) == set(model_names())
+    rope = create_model("vit_s_patch16_rope", **SMALL, image_size=32)
+    assert rope.encoder.pos_embed is None and rope.encoder.blocks[0].attn.rotary is not None
+    moe = create_model("vit_moe_s_patch16_e8", **SMALL, image_size=32)
+    assert isinstance(moe.encoder.blocks[1].ff, MoEFFBlock) and moe.encoder.blocks[1].ff.top_k == 2
     with pytest.raises(ValueError, match="unknown model"):
         create_model("vit_xxl")
+
+
+# The ROADMAP item each option waited on. The position modes (A2) and the
+# MoE (A7.7) are carried now, as dropout is: they build and match sav_tpu.
+CARRIED_ITEMS = (None, "A2", "A7.7")
 
 
 @pytest.mark.parametrize(
@@ -204,25 +219,30 @@ def test_registry_names_and_unported_entries():
 )
 def test_unported_vit_options_raise(option, item):
     """Each option the port does not carry raises, naming its ROADMAP item.
-    ``dropout_rate`` is carried: the ViT builds, its eval forward is
-    sav_tpu's eval forward, and in training it drops (flax's nn.Dropout
-    after the position embedding, in each FF block and on each attention
-    output)."""
-    if item is not None:
+    The carried ones build: the ViT's eval forward is sav_tpu's eval
+    forward on the same flax tree (8 experts routed in block 1; the
+    sinusoidal table in place of the learned one), and with
+    ``dropout_rate`` it drops in training (flax's nn.Dropout after the
+    position embedding, in each FF block and on each attention output)."""
+    if item not in CARRIED_ITEMS:
         with pytest.raises(NotImplementedError, match=item):
             ViT(10, 64, 1, 2, (8, 8), image_size=32, **option)
         return
     from sav_tpu_torch.models.layers import set_dropout_generator
 
-    params = small_flax_params()
+    dropout = "dropout_rate" in option
+    params = small_flax_params() if dropout else small_flax_params(**option)
     x = np.random.default_rng(3).standard_normal((3, 32, 32, 3)).astype(np.float32)
     jax_model = jax_create_model("vit_ti_patch16", num_classes=10, dtype=jnp.float32,
                                  backend="fused", **SMALL, **option)
     ref = np.asarray(jax_model.apply({"params": params}, x, is_training=False))
     model = small_port_model(params, backend="fused", **option)
-    assert set_dropout_generator(model, torch.Generator().manual_seed(0)) == 1 + 4 * 2
     with torch.no_grad():
         np.testing.assert_allclose(model(torch.from_numpy(x)).numpy(), ref, atol=TOL, rtol=TOL)
+    if not dropout:
+        return
+    assert set_dropout_generator(model, torch.Generator().manual_seed(0)) == 1 + 4 * 2
+    with torch.no_grad():
         dropped = model.train()(torch.from_numpy(x)).numpy()
     assert np.isfinite(dropped).all() and np.abs(dropped - ref).max() > 1e-3
 
