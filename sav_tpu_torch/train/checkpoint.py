@@ -12,8 +12,10 @@ Each step is a directory ``<directory>/<step>`` holding four files:
 
 The files hold only tensors, ints, strings and dicts, so
 ``torch.load(weights_only=True)`` reads them. A step is written under a
-temporary name and committed by ``os.replace``, so a crash leaves a missing
-step, never a torn one; :meth:`Checkpointer.restore_latest` falls back to
+temporary name (``.<step>.tmp-<hex>``) and committed by ``os.replace``, so
+a crash leaves a missing step, never a torn one; a process killed during a
+write leaves its temporary directory, which the next writable
+:class:`Checkpointer` of the directory removes. :meth:`Checkpointer.restore_latest` falls back to
 older steps when the newest fails to load all the same (a disk can still
 lose data).
 
@@ -29,6 +31,7 @@ import concurrent.futures
 import json
 import logging
 import os
+import re
 import shutil
 import time
 import uuid
@@ -40,32 +43,53 @@ PARAMS_FILE = "params.pt"
 OPT_STATE_FILE = "opt_state.pt"
 GENERATORS_FILE = "generators.pt"
 CONFIG_FILE = "config.json"
+# A step's temporary directory, until os.replace commits it (_write).
+_TORN = re.compile(r"\.\d+\.tmp-[0-9a-f]+")
 
 
-def _snapshot(tree: Any) -> Any:
+def host_snapshot(tree: Any, out: Any = None, *, wait: bool = True) -> Any:
     """``tree`` (nested dicts of tensors and scalars) with every tensor
     copied to the host: a copy even where it already lies there. A device
     tensor goes to pinned memory without a wait each; one wait for the
-    stream ends the snapshot."""
+    stream ends the snapshot. With ``wait=False`` the copies are left in
+    flight on the current stream, ordered before any later work there: the
+    caller waits for that stream (an event recorded on it) before reading
+    them. ``out``, a snapshot of a tree of the same form made here before,
+    takes the copies into its tensors where shape and dtype match, rather
+    than into new ones."""
     copies = []
 
-    def copy(node):
+    def copy(node, into):
         if isinstance(node, dict):
-            return {key: copy(value) for key, value in node.items()}
+            return {key: copy(value, into.get(key) if isinstance(into, dict) else None)
+                    for key, value in node.items()}
         if not torch.is_tensor(node):
             return node
         node = node.detach()
+        reuse = (torch.is_tensor(into) and into.shape == node.shape
+                 and into.dtype == node.dtype)
         if node.device.type != "cuda":
-            return node.to("cpu", copy=True)
-        host = torch.empty(node.shape, dtype=node.dtype, pin_memory=True)
+            return into.copy_(node) if reuse else node.to("cpu", copy=True)
+        host = into if reuse else torch.empty(node.shape, dtype=node.dtype, pin_memory=True)
         host.copy_(node, non_blocking=True)
         copies.append(node.device)
         return host
 
-    out = copy(tree)
-    for device in set(copies):
-        torch.cuda.current_stream(device).synchronize()
-    return out
+    snapshot = copy(tree, out)
+    if wait:
+        for device in set(copies):
+            torch.cuda.current_stream(device).synchronize()
+    return snapshot
+
+
+def host_buffers(tree: Any) -> Any:
+    """Empty host tensors in ``tree``'s form, pinned where a tensor lies on
+    the card: the ``out`` of later :func:`host_snapshot` calls."""
+    if isinstance(tree, dict):
+        return {key: host_buffers(value) for key, value in tree.items()}
+    if not torch.is_tensor(tree):
+        return tree
+    return torch.empty(tree.shape, dtype=tree.dtype, pin_memory=tree.device.type == "cuda")
 
 
 def _load(path: str) -> dict:
@@ -91,6 +115,7 @@ class Checkpointer:
             self._writer = None
         else:
             os.makedirs(self._dir, exist_ok=True)
+            self._remove_torn()
             self._writer = concurrent.futures.ThreadPoolExecutor(
                 max_workers=1, thread_name_prefix="checkpoint-writer"
             )
@@ -104,6 +129,17 @@ class Checkpointer:
     @property
     def directory(self) -> str:
         return self._dir
+
+    def _remove_torn(self) -> None:
+        """Remove the temporary directories of writes that never committed
+        (a process killed during a save leaves one; its ``except`` never
+        ran). One writer owns a directory, and a new one has no write in
+        flight yet, so every such directory is torn."""
+        for name in os.listdir(self._dir):
+            if _TORN.fullmatch(name) and os.path.isdir(os.path.join(self._dir, name)):
+                logging.warning("removing %s, the torn write of a save that never committed",
+                                os.path.join(self._dir, name))
+                shutil.rmtree(os.path.join(self._dir, name), ignore_errors=True)
 
     def _step_dir(self, step: int) -> str:
         return os.path.join(self._dir, str(int(step)))
@@ -119,7 +155,7 @@ class Checkpointer:
             raise RuntimeError(f"checkpoint directory {self._dir!r} was opened read-only")
         self._collect([f for f in self._pending if f.done()])
         t0 = time.perf_counter()
-        snap = _snapshot(state.state_dict())
+        snap = host_snapshot(state.state_dict())
         files = {
             PARAMS_FILE: {"step": snap["step"], "params": snap["params"],
                           "batch_stats": snap["batch_stats"]},

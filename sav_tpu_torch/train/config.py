@@ -33,11 +33,8 @@ _NOT_CARRIED = {
         name: "queue A10 (observability)"
         for name in (
             "profile_dir", "profile_start_step", "profile_num_steps",
-            "debug_nans", "log_dir", "diagnostics", "trace_spans",
-            "watchdog_secs", "watchdog_soft_secs", "fleet", "autoprof",
-            "autoprof_steps", "autoprof_max", "peak_flops", "record",
-            "record_depth", "record_batches", "record_snapshot_every",
-            "spike_sigma", "memdump", "sanitize",
+            "diagnostics", "autoprof", "autoprof_steps", "autoprof_max",
+            "peak_flops", "memdump", "sanitize",
         )
     },
 }

@@ -47,11 +47,14 @@ of the trainer's own) overlaps step N.
 Metrics stay on the device as 0-d tensors; :meth:`Trainer.fit` brings a log
 window's metrics to the host in one copy, and saves checkpoints
 (:mod:`sav_tpu_torch.train.checkpoint`) and evaluates at the cadences the
-config sets. Without a card the trainer refuses to run unless the caller
+config sets, with the run telemetry of :mod:`sav_tpu_torch.obs` (goodput
+ledger, spans, heartbeats, flight recorder, hang watchdog; one
+:class:`~sav_tpu_torch.train.telemetry.RunTelemetry` per :meth:`Trainer.fit`); :mod:`sav_tpu_torch.train.supervisor` restarts a run
+that dies. Without a card the trainer refuses to run unless the caller
 passes ``device="cpu"``.
 
-Not ported yet (ROADMAP queue A4/A9/A10): the supervisor, meshes and the
-telemetry.
+Not ported yet (ROADMAP queues A9 and A10): meshes, the profiler windows
+and the diagnostics.
 """
 
 from __future__ import annotations
@@ -61,6 +64,7 @@ import hashlib
 import json
 import logging
 import os
+import sys
 import time
 import weakref
 from typing import Callable, Iterator, Optional
@@ -81,6 +85,7 @@ from sav_tpu_torch.models.layers import (
     sow_losses,
 )
 from sav_tpu_torch.models.surgery import adapt_pos_embeds
+from sav_tpu_torch.ops import launch_counts
 from sav_tpu_torch.ops.preprocess import apply_mixes, normalize_images
 from sav_tpu_torch.train.checkpoint import Checkpointer
 from sav_tpu_torch.train.config import TrainConfig
@@ -92,6 +97,8 @@ from sav_tpu_torch.train.optimizer import (
     weight_decay_mask,
 )
 from sav_tpu_torch.train.state import TrainState, persistent_buffers
+from sav_tpu_torch.train.telemetry import RunTelemetry
+from sav_tpu_torch.utils.debug import assert_all_finite
 from sav_tpu_torch.utils.device import COMPUTE_DTYPES, require_device
 from sav_tpu_torch.utils.graphs import held_stream
 from sav_tpu_torch.utils.metrics import cross_entropy, topk_correct
@@ -738,6 +745,7 @@ class Trainer:
         eval_iter_fn: Optional[Callable[[], Iterator[dict]]] = None,
         state: Optional[TrainState] = None,
         log_fn: Optional[Callable[[dict], None]] = None,
+        manifest=None,
     ):
         """Train from ``state`` (default :meth:`restore_or_init`) up to step
         ``num_steps`` in all (default ``config.total_steps``): the loop runs
@@ -764,7 +772,23 @@ class Trainer:
         ``epoch % eval_every_epochs == 0``, :meth:`evaluate` runs on a fresh
         ``eval_iter_fn()``; its record, with ``step``, joins the history and
         goes to ``log_fn``. The last step is saved when it was not, and the
-        writes are waited for. Returns ``(state, history)``."""
+        writes are waited for. Returns ``(state, history)``.
+
+        Run telemetry (``sav_tpu``'s): one
+        :class:`~sav_tpu_torch.train.telemetry.RunTelemetry` into the sink
+        ``config.log_dir or config.checkpoint_dir``, nothing without one (a
+        goodput ledger always, ``self.last_goodput``; spans, heartbeats,
+        the flight recorder and the hang watchdog as the config asks). With
+        ``debug_nans`` every step's metrics are checked on the host (one
+        small copy a step), so a nonfinite step raises
+        ``FloatingPointError`` before any later save. At a log boundary, in
+        order: the ledger's window, the recorder, the manifest's progress,
+        the heartbeat, the save. ``manifest`` (a
+        :class:`~sav_tpu_torch.obs.manifest.RunManifest`) gets the
+        ``backend`` and ``kernels`` notes, the incidents and the ledger's
+        metrics; the watchdog finalizes it as ``hang``. None of it adds a
+        device sync beyond the log boundary's copy and ``debug_nans``'
+        copy."""
         cfg = self.config
         num_steps = cfg.total_steps if num_steps is None else num_steps
         state = self.restore_or_init() if state is None else state
@@ -775,16 +799,22 @@ class Trainer:
         timed = 0  # steps since t_last
         last_saved = None
         spe = max(cfg.steps_per_epoch, 1)
-        feeder = (DeviceFeeder(train_iter, self.shard_batch, depth=cfg.feed_depth,
-                               name="train-feeder") if cfg.async_feed else None)
+        telemetry = RunTelemetry(self, start_step, manifest)
+        tracer, ledger = telemetry.tracer, telemetry.ledger
+        feeder = (DeviceFeeder(train_iter, telemetry.place(self.shard_batch),
+                               depth=cfg.feed_depth, name="train-feeder")
+                  if cfg.async_feed else None)
 
-        def close_window(last: bool) -> float:
+        def close_window(step: int, last: bool) -> dict:
             nonlocal window, t_last, timed
-            records = _to_host(window)
+            t_sync = time.perf_counter()
+            with tracer.span("log_sync", step=step):
+                records = _to_host(window)  # waits for the window's steps
             now = time.perf_counter()
+            telemetry.window_synced(step, now - t_sync)
             step_s = (now - t_last) / max(timed, 1)
             for offset, record in enumerate(records):
-                record["step"] = state.step - len(records) + offset + 1
+                record["step"] = step - len(records) + offset + 1
             records[-1]["step_s"] = step_s
             records[-1]["images_per_sec"] = cfg.global_batch_size / step_s
             if last and feeder is not None:
@@ -793,21 +823,48 @@ class Trainer:
             if log_fn is not None:
                 log_fn(records[-1])
             window, t_last, timed = [], now, 0
-            return now
+            return records[-1]
+
+        def save(step: int) -> None:
+            nonlocal last_saved, t_last_ckpt
+            with tracer.span("checkpoint", step=step), ledger.measure("checkpoint"):
+                self._save_with_stamp(step, state)
+            last_saved, t_last_ckpt = step, time.perf_counter()
 
         try:
             for step in range(start_step, num_steps):
-                try:
-                    placed = (next(feeder) if feeder is not None
-                              else self.shard_batch(next(train_iter)))
-                except StopIteration:
-                    break
-                state, metrics = self.train_step_placed(state, placed)
+                if feeder is not None:
+                    with tracer.span("batch_wait", step=step + 1), ledger.measure("input_wait"):
+                        try:
+                            placed = next(feeder)
+                        except StopIteration:
+                            break
+                else:
+                    with tracer.span("batch_fetch", step=step + 1), ledger.measure("input_wait"):
+                        try:
+                            batch = next(train_iter)
+                        except StopIteration:
+                            break
+                    telemetry.observe(batch)
+                    with tracer.span("shard_batch", step=step + 1), ledger.measure("h2d"):
+                        placed = self.shard_batch(batch)
+                    del batch
+                telemetry.before_step(step, state)
+                t_step = time.perf_counter()
+                with tracer.span("step_dispatch", step=step + 1):
+                    state, metrics = self.train_step_placed(state, placed)
                 del placed
+                telemetry.after_step(step, time.perf_counter() - t_step)
+                if cfg.debug_nans:
+                    # Before the log boundary, so a nonfinite state is
+                    # never saved.
+                    assert_all_finite(metrics, f"metrics at step {step + 1}")
                 window.append(metrics)
                 timed += 1
                 if (step + 1) % cfg.log_every_steps == 0 or step + 1 == num_steps:
-                    now = close_window(last=step + 1 == num_steps)
+                    record = close_window(step + 1, last=step + 1 == num_steps)
+                    now = time.perf_counter()
+                    telemetry.log_boundary(step + 1, record)
                     if self.checkpointer is not None and state.step != last_saved:
                         since = state.step - (start_step if last_saved is None else last_saved)
                         due = (cfg.checkpoint_every_steps
@@ -816,38 +873,57 @@ class Trainer:
                             and now - t_last_ckpt >= cfg.checkpoint_every_secs
                         )
                         if due:
-                            self._save_with_stamp(state.step, state)
-                            last_saved, t_last_ckpt = state.step, time.perf_counter()
+                            save(state.step)
                 if (step + 1) % spe == 0:
                     epoch = (step + 1) // spe
                     if eval_iter_fn is not None and epoch % cfg.eval_every_epochs == 0:
-                        record = self.evaluate(state, eval_iter_fn())
+                        with tracer.span("eval", epoch=epoch), ledger.measure("eval"):
+                            record = self.evaluate(state, eval_iter_fn())
                         record["step"] = step + 1
                         history.append(record)
                         if log_fn is not None:
                             log_fn(record)
                     if (self.checkpointer is not None and epoch % cfg.checkpoint_every_epochs == 0
                             and state.step != last_saved):
-                        self._save_with_stamp(state.step, state)
-                        last_saved, t_last_ckpt = state.step, time.perf_counter()
+                        save(state.step)
                     t_last, timed = time.perf_counter(), 0
+                telemetry.beat(step)
             if window:  # the feed ended before num_steps
-                close_window(last=True)
+                close_window(state.step, last=True)
+            telemetry.stop_watchdog()
+            if self.checkpointer is not None:
+                if state.step != last_saved and state.step > start_step:
+                    save(state.step)
+                with ledger.measure("checkpoint"):
+                    self.checkpointer.wait()
         finally:
+            telemetry.close(sys.exc_info()[1], feeder)
+            self.last_goodput = telemetry.goodput
             if feeder is not None:
-                self.last_feeder_stats = feeder.stats()
-                feeder.close()
+                self.last_feeder_stats = telemetry.feeder_stats
         if feeder is not None:
             # The feed ended on a log boundary: its stats join the last
             # train record.
             trained = [r for r in history if "loss" in r]
             if trained and "feeder_batches" not in trained[-1]:
                 trained[-1].update({f"feeder_{k}": v for k, v in self.last_feeder_stats.items()})
-        if self.checkpointer is not None:
-            if state.step != last_saved and state.step > start_step:
-                self._save_with_stamp(state.step, state)
-            self.checkpointer.wait()
         return state, history
+
+    def _kernel_note(self) -> dict:
+        """The manifest's ``kernels`` note: the card, the attention kernels'
+        launch counters in this process (on the card the two warm-ups and
+        the capture of each step signature), and the captured step's
+        launches, by variant, and replays (``fit`` adds the first step's
+        end, ``first_step_unix``)."""
+        note = {"device": (torch.cuda.get_device_name(self.device)
+                           if self.device.type == "cuda" else "cpu"),
+                "launches": launch_counts()}
+        graphs = self.train_graphs
+        summary = graphs.summary() if graphs is not None else None
+        if summary is not None:
+            note.update({k: summary[k] for k in ("captured_launches", "captured_variants",
+                                                  "replays", "capture_s")})
+        return note
 
 
 def _to_host(window: list) -> list:

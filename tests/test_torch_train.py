@@ -236,6 +236,13 @@ def test_train_config_mirrors_sav_tpu_and_refuses_what_it_does_not_carry():
     for field, value in (("grad_accum_steps", 2), ("checkpoint_dir", "ckpt"),
                          ("eval_every_epochs", 1), ("checkpoint_every_steps", 10)):
         assert getattr(TrainConfig(**{field: value}), field) == value
+    # Carried since the run telemetry and the supervisor were ported.
+    for field, value in (("log_dir", "logs"), ("watchdog_secs", 30.0), ("record", True),
+                         ("debug_nans", True), ("trace_spans", True), ("fleet", False),
+                         ("watchdog_soft_secs", 10.0), ("record_depth", 8),
+                         ("record_batches", 2), ("record_snapshot_every", 2),
+                         ("spike_sigma", 0.0)):
+        assert getattr(TrainConfig(**{field: value}), field) == value
     with pytest.raises(ValueError, match="grad_accum_steps must be >= 1"):
         TrainConfig(grad_accum_steps=0)
 
