@@ -7,7 +7,8 @@ Run from the root of the repository on a machine with one NVIDIA Hopper GPU:
 
 ``python3 chip_smoke.py --remat-trade`` runs only the device, build and
 remat-trade phases, on ViT-B/16@384's seed-0 weights, and prints the
-trade's peak memories as one JSON line.
+trade's peak memories as one JSON line; ``--supervised-chain`` and
+``--fed-train`` run one phase each (13 and 14 below).
 
 Phases, each of which exits non-zero on failure:
 
@@ -170,7 +171,8 @@ Phases, each of which exits non-zero on failure:
    attention, so every counter and every capture must read 0), and trained
    as in 6 from get_preset("tnt_s_imagenet") at 1024 in 4 micro-batches (4
    x (24 #1, 24 #2) launches per captured step) and from
-   get_preset("mixer_b_imagenet") at 4096 in 16 (none). Mixer has no
+   get_preset("mixer_b_imagenet") at 4096 in 16 (none) at 6 of its 12
+   blocks (MIXER_TRAIN_LAYERS: for the run's time). Mixer has no
    attention path to hold the kernels against, so its first train step is
    held against the same step in f32 from the same weights, and its served
    logits against the same weights served in f32.
@@ -201,6 +203,29 @@ Phases, each of which exits non-zero on failure:
    the step it was read at) × captured; then a child with no card visible
    exits 3. ``python3 chip_smoke.py
    --supervised-chain`` runs only the fused kernels' build and this phase.
+14. training from data on disk (after the train bench in 7): seeded
+   ImageNet-like JPEGs (300-500 px a side) written as TFRecord shards,
+   2,560 for training and 512 for evaluation; DeiT-S (bf16, 256, full
+   depth) trained 12 steps by ``python -m sav_tpu_torch.train --data-dir``
+   with the default augmentation on the host (decode, Inception crop, flip,
+   bicubic resize, RandAugment on worker processes; CutMix/MixUp,
+   normalize and the bf16 cast in the native loader): every logged loss
+   finite, its kernels note one captured step of 12 #1 + 12 #2 on the
+   tensor cores and 12 replays; ``--eval-only`` on its checkpoint counts
+   the 512 images through one captured eval step; a copy of its checkpoint
+   directory without the save of step 12 resumed from step 8, whose first
+   batch's hash must be the one the uninterrupted stream trains at step 9;
+   then the train bench's ``--feed savrec`` (a 2,048-image 224² SavRecord
+   file) and ``--feed pipeline``, each with and without
+   ``--device-preprocess``, 2 windows of 20 steps after a warm-up that
+   drains the batches in flight, each line with the sustained rate (every
+   window's images over their time), the feed's own rate and the device's
+   idle share. The native loader must build and load; the JPEG
+   decoder is named. ``python3 chip_smoke.py --fed-train`` runs only the
+   fused kernels' build and this phase. Every train cell of 6 and 8-12
+   prints its MFU: the family's analytic step FLOPs
+   (``sav_tpu_torch/obs/costs.py``) over the captured fit's step time over
+   the card's table peak.
 
 Before each agreement check the head is drawn at std 0.02, every
 LayerScale scale at 0.05-0.15 (CaiT's init of 1e-5 would hide a wrong trunk),
@@ -219,6 +244,7 @@ import dataclasses
 import gc
 import json
 import os
+import shutil
 import statistics
 import subprocess
 import sys
@@ -314,6 +340,10 @@ TNT_B_TRAIN_SHAPE = (256 * 196, 16, 16, 4, 10)
 MIXER_MODEL = "mixer_b_patch16"
 MIXER_PRESET = "mixer_b_imagenet"
 MIXER_ACCUM = 16
+# The train cell of Mixer-B/16 runs 6 of its 12 blocks (full width, its
+# preset's batch; it serves at full depth): at 12 it took ~76 s of the run,
+# and phase_fed_train needs the time.
+MIXER_TRAIN_LAYERS = 6
 # DeiT-S's trunk with RoPE, and with 8 routed experts in every other block:
 # #1/#2 at DeiT-S's shape (12 a forward, 12 a backward); trained at 256.
 ROPE_MODEL = "vit_s_patch16_rope"
@@ -1477,7 +1507,8 @@ def _kernel_ms(fn, fragments, iters=30, warmup=5) -> dict:
     ``fragments``, over ``iters`` runs of ``fn`` under torch.profiler, each
     run after the L2 flush of :func:`_median_ms`: the time each kernel takes
     within ``fn``'s own sequence (a later kernel finds what the earlier
-    ones left in L2)."""
+    ones left in L2). A session that lost events (the profiler has dropped
+    a session's first few) is profiled again, up to 3 sessions in all."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -1485,21 +1516,24 @@ def _kernel_ms(fn, fragments, iters=30, warmup=5) -> dict:
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            flush.zero_()
-            fn()
-        torch.cuda.synchronize()
-    times = {f: [] for f in fragments}
-    for event in prof.events():
-        if event.device_type == DeviceType.CUDA:
-            for f in fragments:
-                if f in event.name:
-                    times[f].append(event.time_range.elapsed_us() / 1e3)
-    if any(len(t) != iters for t in times.values()):
-        raise RuntimeError(f"the profiler did not record {iters} launches of each of "
-                           f"{fragments}: {json.dumps({f: len(t) for f, t in times.items()})}")
-    return {f: statistics.median(t) for f, t in times.items()}
+    counts = []
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                flush.zero_()
+                fn()
+            torch.cuda.synchronize()
+        times = {f: [] for f in fragments}
+        for event in prof.events():
+            if event.device_type == DeviceType.CUDA:
+                for f in fragments:
+                    if f in event.name:
+                        times[f].append(event.time_range.elapsed_us() / 1e3)
+        if all(len(t) == iters for t in times.values()):
+            return {f: statistics.median(t) for f, t in times.items()}
+        counts.append({f: len(t) for f, t in times.items()})
+    raise RuntimeError(f"the profiler did not record {iters} launches of each of {fragments} "
+                       f"in 3 sessions: {json.dumps(counts)}")
 
 
 def time_th_bwd(shape) -> dict:
@@ -2885,6 +2919,16 @@ def phase_train(device="cuda", model_name="deit_s_patch16", batch_size=TRAIN_BAT
         if worst[0] > BATCH_STATS_REL_TOL:
             raise AssertionError("train step 1 running statistics disagree with the dense path")
     cap, eag = runs["captured"], runs["eager"]
+    # The family's analytic step FLOPs over the captured fit's steady step
+    # and the card's table peak.
+    from sav_tpu_torch.obs.costs import resolve_peak_flops, train_step_cost
+
+    cost = train_step_cost(trainer.model, batch_size=batch_size, image_size=image_size)
+    peak, peak_source = resolve_peak_flops(device=device)
+    mfu = cost.flops / (cap["step_ms"] / 1e3) / peak if peak else None
+    if mfu is None or not 0 < mfu < 1 or not peak_source.startswith("device-table"):
+        raise AssertionError(f"{what}: MFU {mfu} ({cost.flops} FLOP a step, peak {peak} from "
+                             f"{peak_source})")
     log(
         f"train {model_name} bf16 batch {batch_size} ({grad_accum} x {batch_size // grad_accum}): "
         f"{steps} steps via fit(), losses "
@@ -2896,9 +2940,12 @@ def phase_train(device="cuda", model_name="deit_s_patch16", batch_size=TRAIN_BAT
         f"{cap['images_per_sec']:.1f} images/s, eager {eag['step_ms']:.2f} ms/step, "
         f"{eag['images_per_sec']:.1f} images/s; first window captured "
         f"{cap['first_window_ms']:.2f}, eager {eag['first_window_ms']:.2f} ms/step; peak memory "
-        f"captured {cap['peak_gb']:.2f} GiB, eager {eag['peak_gb']:.2f} GiB"
+        f"captured {cap['peak_gb']:.2f} GiB, eager {eag['peak_gb']:.2f} GiB; mfu {mfu:.4f} "
+        f"({cost.flops / 1e12:.4f} TFLOP a step, {cost.source}, peak {peak_source})"
     )
     return {
+        "mfu": mfu,
+        "step_flops": cost.flops,
         "launches": launches,
         "variants": variants,
         "first_loss": first["loss"],
@@ -3484,6 +3531,318 @@ def phase_train_bench() -> dict:
     return out
 
 
+# Training from data on disk (phase_fed_train): DeiT-S at 256, bf16, from
+# seeded JPEG TFRecord shards through ``python -m sav_tpu_torch.train
+# --data-dir`` (the default augmentation, cutmix_mixup_randaugment_405, on
+# the host), 12 steps, log and save every 4; the resumed run starts from
+# the save of step 8; the eval runs over the 512 validation images. The
+# shards: FED_TRAIN_IMAGES in 4 shards and FED_EVAL_IMAGES in 2, each image
+# 300-500 px a side, quality 90, labels 0..999 from the seed (a custom
+# dataset: --num-train-images, so no VALID carve-out, no label shift).
+FED_TRAIN_IMAGES, FED_EVAL_IMAGES = 2560, 512
+FED_TRAIN_SHARDS, FED_EVAL_SHARDS = 4, 2
+FED_STEPS, FED_EVERY, FED_RESUME_FROM = 12, 4, 8
+FED_SEED = 0
+FED_TIMEOUT_S = 300
+# The train bench's fed feeds, four runs: 2 windows of 20 steps a run, far
+# longer than the batches in flight that the bench's warm-up drains (up to
+# 6); the feed's own rate over 20 batches.
+FED_BENCH_STEPS, FED_BENCH_REPS = 20, 2
+
+
+def _fed_image(seed: int, index: int) -> np.ndarray:
+    """An ImageNet-like uint8 image of 300-500 px a side, a pure function of
+    (seed, index): blocks of colour under smooth shading and noise, so that
+    it compresses like a photograph rather than like noise."""
+    rng = np.random.default_rng([seed, index])
+    h, w = (int(v) for v in rng.integers(300, 501, 2))
+    block = int(rng.integers(8, 48))
+    base = rng.integers(0, 256, (h // block + 1, w // block + 1, 3), dtype=np.int16)
+    image = np.repeat(np.repeat(base, block, 0), block, 1)[:h, :w]
+    shade = np.linspace(-30, 30, w).astype(np.int16)[None, :, None]
+    noise = np.tile(rng.integers(-8, 9, (37, 41, 3), dtype=np.int16),
+                    (h // 37 + 1, w // 41 + 1, 1))[:h, :w]
+    return np.clip(image + shade + noise, 0, 255).astype(np.uint8)
+
+
+def _fed_jpegs(first: int, count: int) -> list:
+    """The JPEG bytes (quality 90) of ``_fed_image``s ``first`` ..."""
+    from sav_tpu_torch.data.pipeline import encode_jpeg
+
+    return [encode_jpeg(_fed_image(FED_SEED, i), quality=90) for i in range(first, first + count)]
+
+
+def _write_fed_data(directory: str) -> dict:
+    """The train-0000i-of-00004 and validation-0000i-of-00002 shards (the
+    images made and encoded on 8 threads: numpy and PIL's encoder release
+    the GIL); labels from the seed. Returns their sizes and the time."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from sav_tpu_torch.data.tfrecord import write_tfrecord_examples
+
+    t0 = time.perf_counter()
+    total = FED_TRAIN_IMAGES + FED_EVAL_IMAGES
+    with ThreadPoolExecutor(8) as pool:
+        jpegs = [j for chunk in pool.map(_fed_jpegs, range(0, total, 32),
+                                          [min(32, total - lo) for lo in range(0, total, 32)])
+                 for j in chunk]
+    labels = np.random.default_rng([FED_SEED, 1]).integers(0, 1000, total)
+    size = 0
+    for prefix, first, images, shards in (("train", 0, FED_TRAIN_IMAGES, FED_TRAIN_SHARDS),
+                                          ("validation", FED_TRAIN_IMAGES, FED_EVAL_IMAGES,
+                                           FED_EVAL_SHARDS)):
+        per = images // shards
+        for i in range(shards):
+            path = os.path.join(directory, f"{prefix}-{i:05d}-of-{shards:05d}")
+            lo = first + i * per
+            write_tfrecord_examples(path, jpegs[lo: lo + per], labels[lo: lo + per])
+            size += os.path.getsize(path)
+    return {"shards": FED_TRAIN_SHARDS + FED_EVAL_SHARDS, "bytes": size,
+            "s": time.perf_counter() - t0}
+
+
+def _fed_argv(data_dir: str, ckpt: str, *extra: str) -> list:
+    return [sys.executable, "-m", "sav_tpu_torch.train", "--data-dir", data_dir,
+            "-m", "deit_s_patch16", "--num-classes", "1000", "--image-size", "224",
+            "--batch-size", str(TRAIN_BATCH), "--dtype", "bfloat16", "--seed", str(FED_SEED),
+            "--num-train-images", str(FED_TRAIN_IMAGES),
+            "--num-eval-images", str(FED_EVAL_IMAGES), "--steps", str(FED_STEPS),
+            "--log-every-steps", str(FED_EVERY), "--checkpoint-every-steps", str(FED_EVERY),
+            "-c", ckpt, *extra]
+
+
+def _fed_child(argv: list, log_path: str) -> tuple:
+    """Start one CLI child, its output into ``log_path``: ``(process, file,
+    start time)``."""
+    out = open(log_path, "w")
+    return subprocess.Popen(argv, cwd=ROOT, stdout=out, stderr=subprocess.STDOUT), out, \
+        time.perf_counter()
+
+
+def _fed_wait(child: tuple, log_path: str, what: str) -> tuple:
+    """Wait for a child of :func:`_fed_child`; ``(its last JSON line, wall
+    s)``; a non-zero exit or a time-out fails the phase."""
+    proc, out, t0 = child
+    try:
+        rc = proc.wait(timeout=FED_TIMEOUT_S)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.wait()
+        rc = None
+    finally:
+        out.close()
+    wall = time.perf_counter() - t0
+    lines = [ln for ln in open(log_path, errors="replace") if ln.startswith("{")]
+    if rc != 0 or not lines:
+        raise AssertionError(f"{what}: exit {rc} after {wall:.1f} s:\n{_tail(log_path)}")
+    return json.loads(lines[-1]), wall
+
+
+def _fed_manifest(ckpt: str) -> dict:
+    with open(os.path.join(ckpt, "manifest.json")) as f:
+        return json.load(f)
+
+
+def _fed_kernels(note: dict, per_step: dict, replays: int, device_name: str, what: str) -> dict:
+    """A child's kernels note: one captured step (or eval batch) of
+    ``per_step``, all on the tensor cores, 3 × that on the counters (two
+    warm-ups and the capture), ``replays`` replays. Returns the launches
+    the replays ran and their variants."""
+    captured = {**dict.fromkeys(COUNTERS, 0), **note.get("captured_launches", {})}
+    by_variant = {k: nonzero for k, tally in note.get("captured_variants", {}).items()
+                  if (nonzero := {v: n for v, n in tally.items() if n})}
+    tensor_core = {k: {"tensor_core": n} for k, n in per_step.items() if n}
+    if (note.get("device", device_name) != device_name or captured != per_step
+            or by_variant != tensor_core or note.get("launches") != _times(per_step, 3)
+            or note.get("replays") != replays):
+        raise AssertionError(f"{what}: kernels note {json.dumps(note)}; expected "
+                             f"{json.dumps(per_step)} captured, all tensor-core, 3 x that on the "
+                             f"counters, {replays} replays")
+    return {"launches": _times(per_step, replays),
+            "variants": {k: ({"tensor_core": n * replays} if n else {})
+                         for k, n in per_step.items()}}
+
+
+# The hash of the batch an uninterrupted run trains at a step: the CLI's
+# stream from step 0 (its layout: HWCN, late bf16, the host mixes), batch
+# by batch, in a process of its own (the pipeline's worker processes start
+# from the parent's main module, and this one is light).
+_HASH_SCRIPT = """
+import json, sys
+from sav_tpu_torch.data.pipeline import Split, resumable_train_iterator
+from sav_tpu_torch.obs.recorder import batch_fingerprint
+data_dir, step, batch, images, seed = sys.argv[1], *map(int, sys.argv[2:])
+stream = resumable_train_iterator(
+    Split.TRAIN, start_step=0, seed=seed, data_dir=data_dir, batch_dims=[batch],
+    image_size=224, augment_name="cutmix_mixup_randaugment_405", transpose=True,
+    bfloat16=True, split_examples=images)
+for _ in range(step - 1):
+    next(stream)
+print(json.dumps({"hash": batch_fingerprint(next(stream))["hash"]}))
+stream.close()
+"""
+
+
+def _hash_argv(data_dir: str, step: int) -> list:
+    return [sys.executable, "-c", _HASH_SCRIPT, data_dir, str(step), str(TRAIN_BATCH),
+            str(FED_TRAIN_IMAGES), str(FED_SEED)]
+
+
+def _fed_bench(work_dir: str, per_step: dict, smi: str) -> dict:
+    """The train bench's ``--feed savrec`` and ``--feed pipeline``, each with
+    and without ``--device-preprocess``: outcome ok, the native loader, an
+    MFU, one captured step of DeiT-S's launches, the warm-up (2, the
+    feeder's 2 + 1 in flight and the pipeline's 3) + steps × reps + the
+    device timing's replays, the feed's own rate and the device's idle
+    share on this card."""
+    from sav_tpu_torch.train import bench
+
+    out = {}
+    for feed in ("savrec", "pipeline"):
+        for wire, extra in (("bf16", []), ("uint8", ["--device-preprocess"])):
+            name = f"{feed} {wire}"
+            reset_launches()
+            line = bench.main(TRAIN_BENCH_ARGS + extra + [
+                "--feed", feed, "--work-dir", work_dir, "--steps", str(FED_BENCH_STEPS),
+                "--reps", str(FED_BENCH_REPS)])
+            captured = {**dict.fromkeys(COUNTERS, 0), **line["captured_launches"]}
+            replays = line["replays"]
+            launches = {**dict.fromkeys(COUNTERS, 0), **line["replayed_launches"]}
+            if (line["outcome"] != "ok" or not line["mfu"] or line["platform"] != "cuda"
+                    or line["feed"] != feed or line["native_loader"] is not True
+                    or line["host_feed_img_per_sec"] is None
+                    or line["device_idle_share"] is None or captured != per_step
+                    or launch_counts() != _times(per_step, 3)
+                    or line["warmup_steps"] != 2 + 3 + (3 if feed == "pipeline" else 0)
+                    or replays != line["warmup_steps"] + FED_BENCH_STEPS * FED_BENCH_REPS
+                    + line["device_timing_replays"]
+                    or line["device_timing_replays"] != 11
+                    or launches != _times(captured, replays)):
+                raise AssertionError(f"fed train bench ({name}): {json.dumps(line)}; counters "
+                                     f"{json.dumps(launch_counts())}")
+            variants = {k: {v: line["replayed_variants"].get(k, {}).get(v, 0) for v in by}
+                        for k, by in variant_counts().items()}
+            out[name] = {"line": line, "launches": launches,
+                         "variants": _on_tensor_cores(variants, launches,
+                                                      f"fed train bench ({name})")}
+            log(f"train bench deit_s_patch16 256, --feed {feed} ({wire}) on {smi}: " + json.dumps(
+                {k: line[k] for k in ("value", "median_img_per_sec", "step_ms",
+                                      "host_feed_img_per_sec", "device_step_ms",
+                                      "device_idle_share", "mfu", "transfer_bytes_per_batch",
+                                      "warmup_steps", "window_step_ms")}
+                | ({"decoder": line["decoder"]} if "decoder" in line else {})))
+            _free_device_memory()
+    return out
+
+
+def phase_fed_train(directory: str, smi: str) -> dict:
+    """DeiT-S (bf16, 256, 12 layers, width 384, 224²) trained and evaluated
+    from JPEG TFRecord shards on disk by the train CLI, as a user runs it:
+
+    - writes the shards from FED_SEED (``_write_fed_data``);
+    - ``--data-dir`` for FED_STEPS steps with the default augmentation: every
+      logged loss finite, the child's kernels note one captured step of 12
+      #1 + 12 #2 on the tensor cores and FED_STEPS replays (#1/#2 launches
+      12 × replays);
+    - at once: ``--eval-only`` on its checkpoint (eval counts the 512
+      validation images, through one captured eval step of 12 #1, 2
+      replays); a copy of the checkpoint directory without its saves past
+      FED_RESUME_FROM, resumed (4 replays); and a process that makes the
+      uninterrupted stream's batch of step FED_RESUME_FROM + 1 and hashes
+      it: the resumed run's ``resume.next_batch_hash`` must be that hash;
+    - the train bench's fed feeds (``_fed_bench``);
+    - the native loader built and loaded, the JPEG decoder named.
+
+    Returns the launches and variants of each run, the children's walls and
+    the bench lines."""
+    from sav_tpu_torch import create_model
+    from sav_tpu_torch.data.native_loader import native_available
+    from sav_tpu_torch.data.pipeline import decoder_name
+
+    if not native_available():
+        raise AssertionError("the native loader did not build or load on this machine")
+    decoder = decoder_name()
+    _free_device_memory()
+    device_name = torch.cuda.get_device_name(0)
+    per_step = attention_launches(create_model("deit_s_patch16"), train=True, family="fused")
+    per_batch = attention_launches(create_model("deit_s_patch16"), train=False, family="fused")
+    data_dir = os.path.join(directory, "data")
+    os.makedirs(data_dir)
+    written = _write_fed_data(data_dir)
+    log(f"fed train data: {written['shards']} JPEG TFRecord shards, {written['bytes']} bytes, "
+        f"{FED_TRAIN_IMAGES} + {FED_EVAL_IMAGES} images in {written['s']:.1f} s; decoder "
+        f"{decoder}; native loader built")
+
+    ckpt = os.path.join(directory, "run")
+    log_path = os.path.join(directory, "train.log")
+    final, train_s = _fed_wait(_fed_child(_fed_argv(data_dir, ckpt), log_path), log_path,
+                               "fed train")
+    manifest = _fed_manifest(ckpt)
+    with open(os.path.join(ckpt, "metrics.jsonl")) as f:
+        records = [json.loads(line) for line in f if line.strip()]
+    losses = [r["loss"] for r in records if "loss" in r]
+    if (final.get("step") != FED_STEPS or manifest.get("outcome") != "ok"
+            or len(losses) != FED_STEPS // FED_EVERY or not np.isfinite(losses).all()):
+        raise AssertionError(f"fed train: final {json.dumps(final)}, outcome "
+                             f"{manifest.get('outcome')}, logged losses {losses}")
+    train = _fed_kernels(manifest["notes"].get("kernels") or {}, per_step, FED_STEPS,
+                         device_name, "fed train")
+    first_hash = manifest["notes"]["resume"]["next_batch_hash"]
+
+    # The resumed run's directory: the run's, less its saves past the resume.
+    resume_dir = os.path.join(directory, "resumed")
+    shutil.copytree(ckpt, resume_dir)
+    for step in os.listdir(resume_dir):
+        if step.isdigit() and int(step) > FED_RESUME_FROM:
+            shutil.rmtree(os.path.join(resume_dir, step))
+    # Three processes at once (two on the card): the eval, the resumed run
+    # and the uninterrupted stream's hash.
+    logs = {k: os.path.join(directory, f"{k}.log") for k in ("eval", "resumed", "hash")}
+    children = {"eval": _fed_child(_fed_argv(data_dir, ckpt, "--eval-only"), logs["eval"]),
+                "resumed": _fed_child(_fed_argv(data_dir, resume_dir), logs["resumed"]),
+                "hash": _fed_child(_hash_argv(data_dir, FED_RESUME_FROM + 1), logs["hash"])}
+    try:
+        done = {k: _fed_wait(child, logs[k], f"fed {k}") for k, child in children.items()}
+    finally:
+        for proc, out, _ in children.values():  # a failure leaves no child running
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+            out.close()
+    (metrics, eval_s), (resumed_final, resume_s) = done["eval"], done["resumed"]
+    want_hash, hash_s = done["hash"][0]["hash"], done["hash"][1]
+    eval_note = _fed_manifest(ckpt)["notes"].get("kernels") or {}
+    if metrics.get("eval_count") != FED_EVAL_IMAGES or metrics.get("step") != FED_STEPS:
+        raise AssertionError(f"fed eval-only: {json.dumps(metrics)}")
+    evaluation = _fed_kernels(eval_note, per_batch, -(-FED_EVAL_IMAGES // TRAIN_BATCH),
+                              device_name, "fed eval-only")
+    resumed_manifest = _fed_manifest(resume_dir)
+    note = resumed_manifest["notes"]["resume"]
+    if (note["from_step"] != FED_RESUME_FROM or note["next_batch_hash"] != want_hash
+            or resumed_final.get("step") != FED_STEPS
+            or not np.isfinite(resumed_final.get("loss", np.nan))):
+        raise AssertionError(f"fed resumed: note {json.dumps(note)}, want hash {want_hash}, "
+                             f"final {json.dumps(resumed_final)}")
+    resumed = _fed_kernels(resumed_manifest["notes"].get("kernels") or {}, per_step,
+                           FED_STEPS - FED_RESUME_FROM, device_name, "fed resumed")
+    log(f"fed train deit_s_patch16 bf16 256 from {FED_TRAIN_IMAGES} JPEGs on {smi}: "
+        f"{FED_STEPS} steps, logged losses {[round(x, 4) for x in losses]}, last window "
+        f"{final['step_s'] * 1e3:.1f} ms/step, {final['images_per_sec']:.1f} images/s, feeder "
+        f"wait {final.get('feeder_wait_s')} s over {final.get('feeder_batches')} batches; "
+        f"child {train_s:.1f} s; #1/#2 replays x captured "
+        f"{json.dumps(_nonzero(train['launches']))}; eval-only "
+        f"{json.dumps({k: metrics[k] for k in ('eval_count', 'eval_loss', 'eval_top_1_acc')})} "
+        f"({eval_s:.1f} s, {json.dumps(_nonzero(evaluation['launches']))}); step "
+        f"{FED_RESUME_FROM + 1}'s batch {want_hash} (uninterrupted stream, {hash_s:.1f} s), the "
+        f"resumed run's first {note['next_batch_hash']} ({resume_s:.1f} s); the first batch "
+        f"{first_hash}")
+    benches = _fed_bench(directory, per_step, smi)
+    return {"train": train, "eval": evaluation, "resumed": resumed, "bench": benches,
+            "decoder": decoder, "walls": {"data": written["s"], "train": train_s,
+                                          "eval": eval_s, "hash": hash_s, "resumed": resume_s},
+            "step_ms": final["step_s"] * 1e3, "images_per_sec": final["images_per_sec"]}
+
+
 # Kernel-name fragments → the group a device kernel is counted under.
 KERNEL_GROUPS = (
     ("flash backward dq (flash_attention_bwd.cu)", ("flash_attention_bwd_dq_kernel",
@@ -3989,6 +4348,9 @@ def main() -> None:
     del deit_source
     train_bench = phase_train_bench()
     mark("DeiT-S and CaiT-XXS training, the run path and the train bench")
+    with tempfile.TemporaryDirectory() as fed_dir:
+        fed = phase_fed_train(fed_dir, smi)
+    mark("training from data on disk (phase_fed_train)")
     with tempfile.TemporaryDirectory() as runs:
         chain = phase_supervised_chain(runs)
     mark("the supervised chain")
@@ -4027,6 +4389,8 @@ def main() -> None:
         train[key] = phase_train(model_name=model_name, family=family,
                                  batch_size=preset.global_batch_size, grad_accum=accum,
                                  config=preset,
+                                 overrides={"num_layers": MIXER_TRAIN_LAYERS}
+                                 if key == "mixer" else None,
                                  reference="f32" if key == "mixer" else "dense")
         mark(f"{model_name} training")
     mark("BoTNet-T3, CvT-13, CeiT-S, TNT-S and Mixer-B/16 training")
@@ -4060,6 +4424,11 @@ def main() -> None:
             "serve_moe": serve["moe"][kind], "train_moe": train["moe"]["launches"][kind],
             "serve_bench_moe": benches["moe"][kind],
             "train_supervised_chain_deit": chain[kind],
+            "train_fed_deit": fed["train"]["launches"][kind],
+            "eval_fed_deit": fed["eval"]["launches"][kind],
+            "train_fed_resumed_deit": fed["resumed"]["launches"][kind],
+            **{f"train_bench_{name.replace(' ', '_')}_deit": run["launches"][kind]
+               for name, run in fed["bench"].items()},
         }
 
     def total(kind):
@@ -4068,7 +4437,8 @@ def main() -> None:
     def by_variant(kind):
         out = {}
         for run in (*serve.values(), *benches.values(), *train.values(), resume, evaluation,
-                    dropout, serve_ckpt, devpre, *train_bench.values(), chain):
+                    dropout, serve_ckpt, devpre, *train_bench.values(), chain, fed["train"],
+                    fed["eval"], fed["resumed"], *fed["bench"].values()):
             for variant, n in run["variants"][kind].items():
                 out[variant] = out.get(variant, 0) + n
         return out
@@ -4301,6 +4671,7 @@ def main() -> None:
              for name, r in train.items()}
     for name, r in train.items():
         steps[name]["capture_s"] = round(r["capture_s"], 3)
+        steps[name]["mfu"] = round(r["mfu"], 4)
         if r["routing"] is not None:
             steps[name]["routing_vs_dense"] = r["routing"]
             steps[name]["first_aux_loss"] = r["first_aux_loss"]
@@ -4318,6 +4689,14 @@ def main() -> None:
                       for name in serve}))
     log(f"moe routing on the card: {json.dumps(moe_routing)}")
     log(f"supervised chain summary ({smi}): {json.dumps(chain['summary'])}")
+    log(f"fed train summary ({smi}; decoder {fed['decoder']}): " + json.dumps({
+        "fit_step_ms": round(fed["step_ms"], 3),
+        "fit_images_per_sec": round(fed["images_per_sec"], 1),
+        "walls_s": {k: round(v, 1) for k, v in fed["walls"].items()},
+        "bench": {name: {k: r["line"][k] for k in ("value", "host_feed_img_per_sec",
+                                                   "device_step_ms", "device_idle_share",
+                                                   "mfu")}
+                  for name, r in fed["bench"].items()}}))
     log("checkpoint and eval summary: " + json.dumps({
         "resume": {k: resume[k] for k in ("save_hold_ms", "warm_save_hold_ms", "write_ms",
                                           "warm_write_ms", "bytes", "restore_ms",
@@ -4350,6 +4729,18 @@ def main_supervised_chain() -> None:
     log(f"supervised chain summary ({smi}): {json.dumps(chain['summary'])}")
 
 
+def main_fed_train() -> None:
+    """``--fed-train``: the build of the fused kernels and phase_fed_train
+    alone."""
+    from sav_tpu_torch.ops import _build
+
+    smi = phase_device()
+    _build.build_all(["fused_attention", "fused_attention_bwd"])
+    with tempfile.TemporaryDirectory() as fed_dir:
+        fed = phase_fed_train(fed_dir, smi)
+    log(f"fed train walls ({smi}): {json.dumps({k: round(v, 1) for k, v in fed['walls'].items()})}")
+
+
 def main_remat_trade() -> None:
     """``--remat-trade``: the remat trade alone, on seed-0 weights."""
     from sav_tpu_torch import create_model
@@ -4366,8 +4757,10 @@ if __name__ == "__main__":
         main_remat_trade()
     elif sys.argv[1:] == ["--supervised-chain"]:
         main_supervised_chain()
+    elif sys.argv[1:] == ["--fed-train"]:
+        main_fed_train()
     elif sys.argv[1:]:
         raise SystemExit(f"chip_smoke: unknown arguments {sys.argv[1:]}; it takes none, "
-                         "--remat-trade or --supervised-chain")
+                         "--remat-trade, --supervised-chain or --fed-train")
     else:
         main()

@@ -1,1 +1,3 @@
-"""Data constants of the PyTorch port."""
+"""The port's data path: the constants, the augment DSL, the device feeder,
+synthetic batches, and the host input path (TFRecord and SavRecord sources,
+the pipeline's preprocessing and augmentation, the native loader)."""

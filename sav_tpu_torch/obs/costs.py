@@ -1,16 +1,36 @@
 """Per-step compute cost model and the peak it is measured against (the
 port's own copy of what ``sav_tpu/obs/costs.py`` gives ``bench.py``).
 
-:func:`analytic_train_step_cost` walks a parameter tree: matmul kernels
-cost ``2 * tokens * prod(shape)`` forward FLOPs, each attention core adds
-its parameter-free QKᵀ and AV products (``4 * B * L² * H * Dh``), and a
-train step is 3× its forward (the backward does about twice the forward's
-matmul work); norms, biases and softmax are left out, a few percent on ViT
-shapes. The tree is the flax tree ``sav_tpu`` walks, with its names, so the
-two models give the same FLOPs: the port's parameters reach it through
-:func:`~sav_tpu_torch.interop.flax_from_params` (:func:`model_params_tree`).
+Two counts, each of a forward's matmul and convolution FLOPs; a train step
+is 3× its forward (the backward does about twice the forward's matmul
+work); norms, biases, softmax and pooling are left out, a few percent.
+
+- ViT, CaiT and BoTNet: :func:`analytic_train_step_cost` walks a parameter
+  tree as ``sav_tpu`` does: matmul kernels cost ``2 * tokens *
+  prod(shape)``, each attention core adds its parameter-free QKᵀ and AV
+  products (``4 * B * L² * H * Dh``), all at one trunk length. The tree is
+  the flax tree ``sav_tpu`` walks, with its names, so the two give the same
+  FLOPs: the port's parameters reach it through
+  :func:`~sav_tpu_torch.interop.flax_from_params` (:func:`model_params_tree`).
+  A ViT with routed experts departs from ``sav_tpu`` in its MoE blocks
+  alone: each expert's matrices are charged for its ``capacity`` slots of
+  each batch row (``E · C`` slots a row), not for every token, and the
+  router for every token.
+- CvT, CeiT, TNT and MLP-Mixer, whose modules run at different token
+  counts, have a count of their own (:data:`FAMILY_COUNTS`), which walks
+  the port's modules in forward order with each one's own token count:
+  a dense layer ``2 · tokens · in · out``; an attention block its Q
+  projection over the queries, K and V over the keys, the output over the
+  queries and its core ``4 · B · H · q_len · kv_len · Dh`` (CvT's
+  conv-projected K/V, CeiT's class attention); a convolution ``2 · out
+  pixels · k² · C_in / groups · C_out`` (CvT's and CeiT's stems and
+  embeddings, their depthwise convs, TNT's pixel embedding); TNT's inner
+  blocks over 16 tokens × ``B · P`` slices; Mixer's token-mixing MLP
+  across the channels, contracting over the tokens.
+
 There is no XLA cost analysis on this side; the analytic total is the
-number.
+number. ``tests/test_torch_costs.py`` holds each family's forward count
+against ``torch.utils.flop_counter.FlopCounterMode`` over the dense path.
 
 :func:`resolve_peak_flops` gives the peak MFU divides by: an explicit
 override, the card's row in
@@ -52,21 +72,6 @@ _QKV_KERNEL_MARKERS = ("to_qkv", "to_q", "query")
 
 # interop's family names, by the port's model class.
 _FAMILIES = ("ViT", "CaiT", "BoTNet", "TNT", "CeiT", "CvT", "MLPMixer")
-# Families whose step the analytic cost would count wrong (ROADMAP queue
-# A10), each with why:
-_NO_ANALYTIC_COST = {
-    # It takes one trunk length from the patch embedding; CeiT's conv stem
-    # and CvT's three stages of other lengths do not fit it.
-    "CeiT": "its conv stem's token count is not the patch embedding's",
-    "CvT": "its three stages run at lengths other than the patch embedding's",
-    # infer_num_tokens takes the first pos_embed table in sorted key order,
-    # inner_pos_embed (L = 16): the whole trunk would count at 16 tokens.
-    "TNT": "sav_tpu's count takes the inner position table's 16 tokens as the trunk's length",
-    # The token-mixing kernel (196, hidden) runs across the 768 channels,
-    # not over 196 tokens: the count would be 3.9x low at Mixer-B/16.
-    "MLPMixer": "sav_tpu's count runs the token-mixing kernels over the tokens, not across "
-                "the channels",
-}
 
 
 def resolve_peak_flops(override: Optional[float] = None,
@@ -172,12 +177,42 @@ def _component_of(joined: str, group: str, shape: tuple) -> str:
     return COMP_OTHER
 
 
+def _step_cost(by_comp: dict, by_group: dict, param_bytes: float, *, batch_size: int,
+               image_size: int, num_tokens: int, n_devices: int, training: bool) -> StepCost:
+    """A :class:`StepCost` from a forward's FLOPs by component and group."""
+    mult = TRAIN_STEP_MULTIPLIER if training else 1.0
+    forward = sum(by_comp.values())
+    total = forward * mult
+    n = max(int(n_devices), 1)
+    b = float(batch_size)
+    attribution = {k: (v / forward if forward else 0.0) for k, v in sorted(by_comp.items())}
+    groups = {k: (v / forward if forward else 0.0) for k, v in sorted(by_group.items())}
+    batch_bytes = b * image_size * image_size * 3 * 4 / n
+    return StepCost(
+        flops=total / n,
+        bytes_accessed=3.0 * param_bytes + batch_bytes,
+        source="analytic",
+        attribution=attribution,
+        groups=groups,
+        num_tokens=num_tokens,
+        per_device_batch=b / n,
+    )
+
+
+def _is_moe(joined: str) -> bool:
+    return "moeffblock" in joined
+
+
 def analytic_train_step_cost(params: Any, *, batch_size: int, image_size: int,
-                             n_devices: int = 1, training: bool = True) -> StepCost:
+                             n_devices: int = 1, training: bool = True,
+                             moe_slots: Optional[int] = None) -> StepCost:
     """Analytic FLOPs and a bytes floor of one train step over ``params``
     (a flax-named tree, :func:`model_params_tree`) at global
     ``batch_size``, divided over ``n_devices``: ``sav_tpu``'s
-    ``analytic_train_step_cost``."""
+    ``analytic_train_step_cost``, but where ``moe_slots`` (each expert's
+    capacity per batch row) is given, an MoE block's expert matrices are
+    charged for ``batch_size · moe_slots`` rows each and its biases not at
+    all."""
     leaves = _leaves(params)
     num_tokens = infer_num_tokens(params, image_size)
     b = float(batch_size)
@@ -194,6 +229,10 @@ def analytic_train_step_cost(params: Any, *, batch_size: int, image_size: int,
             # A matmul kernel (leading-dim-1 tables are added, not
             # contracted); the head sees one pooled token per image.
             tokens = b if comp == COMP_HEAD else b * num_tokens
+            if moe_slots is not None and _is_moe(joined) and "experts_" in joined:
+                # Each expert runs its capacity's slots of every batch row;
+                # the expert biases are added, not contracted.
+                tokens = 0.0 if "experts_b" in joined else b * moe_slots
             flops = 2.0 * tokens * size
             by_comp[comp] = by_comp.get(comp, 0.0) + flops
             by_group[group] = by_group.get(group, 0.0) + flops
@@ -207,57 +246,190 @@ def analytic_train_step_cost(params: Any, *, batch_size: int, image_size: int,
                 qkav = 4.0 * b * float(num_tokens) ** 2 * hd
                 by_comp[COMP_ATTN_QKAV] = by_comp.get(COMP_ATTN_QKAV, 0.0) + qkav
                 by_group[group] = by_group.get(group, 0.0) + qkav
-    mult = TRAIN_STEP_MULTIPLIER if training else 1.0
-    total = sum(by_comp.values()) * mult
-    n = max(int(n_devices), 1)
-    forward = total / mult
-    attribution = {k: (v / forward if total else 0.0) for k, v in sorted(by_comp.items())}
-    groups = {k: (v / forward if total else 0.0) for k, v in sorted(by_group.items())}
-    batch_bytes = b * image_size * image_size * 3 * 4 / n
-    return StepCost(
-        flops=total / n,
-        bytes_accessed=3.0 * param_bytes + batch_bytes,
-        source="analytic",
-        attribution=attribution,
-        groups=groups,
-        num_tokens=num_tokens,
-        per_device_batch=b / n,
-    )
+    return _step_cost(by_comp, by_group, param_bytes, batch_size=batch_size,
+                      image_size=image_size, num_tokens=num_tokens, n_devices=n_devices,
+                      training=training)
 
 
-# A ViT with routed experts: sav_tpu's count charges every expert matrix for
-# every token (2·tokens·E·D·H), where each expert runs only its capacity's
-# slots: at E = 8, k = 2 and 62 slots over 197 tokens, ~3.2x the routed work.
-_MOE_REFUSAL = ("its MoE blocks would be charged every expert for every token, not the "
-                "routed slots")
+# ------------------------------------------------- the per-family counts
 
 
-def analytic_cost_refusal(model: torch.nn.Module) -> Optional[str]:
-    """Why :func:`train_step_cost` refuses ``model`` (CeiT, CvT, TNT,
-    MLP-Mixer, and a ViT with ``moe_num_experts``: it would count their
-    step wrong), naming ROADMAP A10; None where it counts it."""
-    family = type(model).__name__
-    if family == "ViT" and getattr(model, "moe_num_experts", None):
-        reason = _MOE_REFUSAL
-    elif family in _NO_ANALYTIC_COST:
-        reason = _NO_ANALYTIC_COST[family]
-    else:
+class _Tally:
+    """A forward's FLOPs by component and by top-level module."""
+
+    def __init__(self):
+        self.by_comp: dict = {}
+        self.by_group: dict = {}
+
+    def add(self, group: str, comp: str, flops: float) -> None:
+        self.by_comp[comp] = self.by_comp.get(comp, 0.0) + float(flops)
+        self.by_group[group] = self.by_group.get(group, 0.0) + float(flops)
+
+    def dense(self, group: str, comp: str, layer: torch.nn.Linear, tokens: float) -> None:
+        self.add(group, comp, 2.0 * tokens * layer.in_features * layer.out_features)
+
+    def ff(self, group: str, block, tokens: float) -> None:
+        """An FFBlock (fc1, fc2) over ``tokens`` rows."""
+        self.dense(group, COMP_FFN, block.fc1, tokens)
+        self.dense(group, COMP_FFN, block.fc2, tokens)
+
+    def conv(self, group: str, comp: str, conv: torch.nn.Conv2d, images: float,
+             out_hw: tuple) -> None:
+        kh, kw = conv.kernel_size
+        self.add(group, comp, 2.0 * images * out_hw[0] * out_hw[1] * kh * kw
+                 * conv.in_channels / conv.groups * conv.out_channels)
+
+    def depthwise(self, group: str, comp: str, dw, images: float, out_hw: tuple) -> None:
+        channels, _, kh, kw = dw.weight.shape
+        self.add(group, comp, 2.0 * images * out_hw[0] * out_hw[1] * kh * kw * channels)
+
+    def core(self, group: str, b: float, heads: int, head_ch: int, q_len: float,
+             kv_len: float, talking_heads: bool) -> None:
+        """QKᵀ and AV, and the talking heads' two [H, H] mixes of the logits."""
+        self.add(group, COMP_ATTN_QKAV, 4.0 * b * heads * q_len * kv_len * head_ch)
+        if talking_heads:
+            self.add(group, COMP_ATTN_QKAV, 2 * 2.0 * b * q_len * kv_len * heads * heads)
+
+    def attention(self, group: str, attn, b: float, q_len: float, kv_len: float) -> None:
+        """An AttentionBlock: Q over the queries, K and V over the keys, the
+        output merge over the queries, and the core."""
+        h, d = attn.num_heads, attn.head_ch
+        d_in = (attn.to_qkv if attn.fused_qkv else attn.to_q).shape[0]
+        d_out = attn.to_out.shape[-1]
+        self.add(group, COMP_ATTN_PROJ, 2.0 * b * (q_len + 2 * kv_len) * d_in * h * d
+                 + 2.0 * b * q_len * h * d * d_out)
+        self.core(group, b, h, d, q_len, kv_len, attn.talking_heads)
+
+
+def _ceil_div(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def _count_cvt(model, b: float, image_size: int, tally: _Tally) -> int:
+    h = w = image_size
+    tokens = 0
+    for s, stage in enumerate(model.stages):
+        group = f"stages_{s}"
+        conv = stage.embed.proj
+        h, w = _ceil_div(h, conv.stride[0]), _ceil_div(w, conv.stride[1])
+        tally.conv(group, COMP_PATCH_EMBED, conv, b, (h, w))
+        cls = 1 if stage.insert_cls else 0
+        tokens = h * w + cls
+        for block in stage.blocks:
+            attn = block.attn
+            heads, head_ch = attn.num_heads, attn.head_ch
+            lengths = []
+            for proj in (attn.to_q, attn.to_k, attn.to_v):
+                out_hw = (_ceil_div(h, proj.depthwise.stride), _ceil_div(w, proj.depthwise.stride))
+                tally.depthwise(group, COMP_ATTN_PROJ, proj.depthwise, b, out_hw)
+                n = out_hw[0] * out_hw[1] + cls
+                tally.add(group, COMP_ATTN_PROJ, 2.0 * b * n * proj.pointwise.shape[0]
+                          * heads * head_ch)
+                lengths.append(n)
+            tally.core(group, b, heads, head_ch, lengths[0], lengths[1], attn.talking_heads)
+            tally.add(group, COMP_ATTN_PROJ, 2.0 * b * lengths[0] * heads * head_ch
+                      * attn.to_out.shape[-1])
+            tally.ff(group, block.ff, b * tokens)
+    tally.dense("head", COMP_HEAD, model.head, b)
+    return tokens
+
+
+def _count_ceit(model, b: float, image_size: int, tally: _Tally) -> int:
+    stem = model.stem
+    side = _ceil_div(image_size, stem.stem_conv.stride[0])
+    tally.conv("stem", COMP_PATCH_EMBED, stem.stem_conv, b, (side, side))
+    side = _ceil_div(side, 2)  # the 3×3/2 max pool
+    ph, pw = stem.patch_embed.patch_shape
+    grid = (side // ph, side // pw)
+    tally.conv("stem", COMP_PATCH_EMBED, stem.patch_embed.proj, b, grid)
+    patches = grid[0] * grid[1]
+    tokens = 1 + patches
+    for i, block in enumerate(model.blocks):
+        group = f"blocks_{i}"
+        tally.attention(group, block.attn, b, tokens, tokens)
+        leff = block.leff
+        tally.dense(group, COMP_FFN, leff.expand, b * patches)
+        tally.depthwise(group, COMP_FFN, leff.dwconv, b, grid)
+        tally.dense(group, COMP_FFN, leff.project, b * patches)
+    # The class attention: the last CLS token over every block's.
+    tally.attention("lca", model.lca, b, 1, len(model.blocks))
+    tally.dense("head", COMP_HEAD, model.head, b)
+    return tokens
+
+
+def _count_tnt(model, b: float, image_size: int, tally: _Tally) -> int:
+    ph, pw = model.patch_embed.patch_shape
+    patches = (image_size // ph) * (image_size // pw)
+    conv = model.pixel_embed.proj
+    inner_hw = (_ceil_div(ph, conv.stride[0]), _ceil_div(pw, conv.stride[1]))
+    inner = inner_hw[0] * inner_hw[1]
+    slices = b * patches  # the pixel stream folds the patches into the batch
+    tally.conv("pixel_embed", COMP_PATCH_EMBED, conv, slices, inner_hw)
+    tally.conv("patch_embed", COMP_PATCH_EMBED, model.patch_embed.proj, b, (image_size // ph,
+                                                                           image_size // pw))
+    tokens = 1 + patches
+    for i, block in enumerate(model.blocks):
+        group = f"blocks_{i}"
+        tally.attention(group, block.inner_attn, slices, inner, inner)
+        tally.ff(group, block.inner_ff, slices * inner)
+        tally.dense(group, COMP_OTHER, block.inner2outer.proj, slices)
+        tally.attention(group, block.outer_attn, b, tokens, tokens)
+        tally.ff(group, block.outer_ff, b * tokens)
+    tally.dense("head", COMP_HEAD, model.head, b)
+    return tokens
+
+
+def _count_mixer(model, b: float, image_size: int, tally: _Tally) -> int:
+    ph, pw = model.patch_embed.patch_shape
+    grid = (image_size // ph, image_size // pw)
+    tally.conv("patch_embed", COMP_PATCH_EMBED, model.patch_embed.proj, b, grid)
+    tokens = grid[0] * grid[1]
+    for i, block in enumerate(model.blocks):
+        group = f"blocks_{i}"
+        # Token mixing: one row per (image, channel), contracting the tokens.
+        tally.ff(group, block.token_mixing, b * block.channel_mixing.fc1.in_features)
+        tally.ff(group, block.channel_mixing, b * tokens)
+    tally.dense("head", COMP_HEAD, model.head, b)
+    return tokens
+
+
+# The families that run modules at different token counts, each with its
+# count: ``count(model, batch, image_size, tally) -> trunk tokens``.
+FAMILY_COUNTS = {"CvT": _count_cvt, "CeiT": _count_ceit, "TNT": _count_tnt,
+                 "MLPMixer": _count_mixer}
+
+
+def _moe_slots(model: torch.nn.Module, num_tokens: int) -> Optional[int]:
+    """Each expert's capacity per batch row of ``model``'s MoE blocks (None
+    without any)."""
+    from sav_tpu_torch.models.layers.moe import MoEFFBlock
+
+    blocks = [m for m in model.modules() if isinstance(m, MoEFFBlock)]
+    if not blocks:
         return None
-    return f"no analytic step cost for {family} yet: {reason} (ROADMAP queue A10)"
-
-
-def has_analytic_cost(model: torch.nn.Module) -> bool:
-    """True where :func:`train_step_cost` counts ``model``'s step."""
-    return analytic_cost_refusal(model) is None
+    slots = {block.capacity(num_tokens) for block in blocks}
+    if len(slots) != 1:
+        raise ValueError(f"MoE blocks of different capacities {sorted(slots)}")
+    return slots.pop()
 
 
 def train_step_cost(model: torch.nn.Module, *, batch_size: int, image_size: int,
                     n_devices: int = 1, training: bool = True) -> StepCost:
-    """:func:`analytic_train_step_cost` of a port model's parameters; raises
-    ``NotImplementedError`` with :func:`analytic_cost_refusal`'s reason
-    where :func:`has_analytic_cost` is False."""
-    if not has_analytic_cost(model):
-        raise NotImplementedError(analytic_cost_refusal(model))
-    return analytic_train_step_cost(model_params_tree(model), batch_size=batch_size,
-                                    image_size=image_size, n_devices=n_devices,
-                                    training=training)
+    """The analytic cost of one train step of a port model (any registry
+    family): its family's own count (:data:`FAMILY_COUNTS`), else
+    :func:`analytic_train_step_cost` of its parameter tree, with the MoE
+    blocks' routed slots."""
+    family = type(model).__name__
+    count = FAMILY_COUNTS.get(family)
+    if count is None:
+        params = model_params_tree(model)
+        num_tokens = infer_num_tokens(params, image_size)
+        return analytic_train_step_cost(params, batch_size=batch_size, image_size=image_size,
+                                        n_devices=n_devices, training=training,
+                                        moe_slots=_moe_slots(model, num_tokens))
+    tally = _Tally()
+    num_tokens = count(model, float(batch_size), image_size, tally)
+    param_bytes = float(sum(p.numel() * p.element_size() for p in model.parameters()))
+    return _step_cost(tally.by_comp, tally.by_group, param_bytes, batch_size=batch_size,
+                      image_size=image_size, num_tokens=num_tokens, n_devices=n_devices,
+                      training=training)

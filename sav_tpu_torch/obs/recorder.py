@@ -91,9 +91,22 @@ def batch_fingerprint(batch: dict) -> dict:
         dtypes[key] = dtype
         h.update(key.encode())
         h.update(f"{shape}{dtype}".encode())
-        data = getattr(leaf, "tobytes", None)
-        h.update(data() if data is not None else repr(leaf).encode())
+        h.update(_leaf_bytes(leaf))
     return {"hash": h.hexdigest(), "shapes": shapes, "dtypes": dtypes}
+
+
+def _leaf_bytes(leaf) -> bytes:
+    """The raw bytes of a batch leaf: a numpy array's, a torch tensor's (the
+    input pipeline's bf16 images: their bits), else its repr."""
+    data = getattr(leaf, "tobytes", None)
+    if data is not None:
+        return data()
+    if type(leaf).__module__.startswith("torch"):
+        import torch
+
+        flat = leaf.detach().cpu().contiguous().reshape(-1)
+        return flat.view(torch.uint8).numpy().tobytes()
+    return repr(leaf).encode()
 
 
 # How the trainer's generators derive from the seed (Trainer._seed_generators);
@@ -511,12 +524,18 @@ class FlightRecorder:
                 continue
             arrays = {}
             for key in sorted(entry.batch):
-                leaf = np.asarray(entry.batch[key])
-                if leaf.dtype.kind not in "biufc?":
-                    # ml_dtypes (bfloat16, float8) round-trip as raw bytes;
-                    # the ring entry's dtypes map restores the view
-                    # (np.savez cannot serialize them natively).
-                    leaf = leaf.view(np.uint8).reshape(leaf.shape + (-1,))
+                leaf = entry.batch[key]
+                if type(leaf).__module__.startswith("torch"):
+                    # A host torch tensor (the input pipeline's bf16 images)
+                    # round-trips as raw bytes; the ring entry's dtypes map
+                    # restores it (np.savez cannot serialize bfloat16).
+                    shape = tuple(leaf.shape)
+                    leaf = np.frombuffer(_leaf_bytes(leaf), np.uint8).reshape(shape + (-1,))
+                else:
+                    leaf = np.asarray(leaf)
+                    if leaf.dtype.kind not in "biufc?":
+                        # Other non-native dtypes round-trip the same way.
+                        leaf = leaf.view(np.uint8).reshape(leaf.shape + (-1,))
                 arrays[key] = leaf
             np.savez(
                 os.path.join(bundle, f"batch_{entry.step:08d}.npz"), **arrays
@@ -557,19 +576,22 @@ class FlightRecorder:
 
 
 def load_bundle_batch(bundle: str, step: int, dtypes: dict) -> dict:
-    """Load one recorded batch, restoring non-native dtypes (bfloat16 &
-    friends were stored as raw uint8 bytes) via the ring's dtype map
-    (which needs ``ml_dtypes`` for those dtypes)."""
-    try:
-        import ml_dtypes  # noqa: F401  (registers bfloat16 et al. with numpy)
-    except ImportError:
-        pass
-
+    """Load one recorded batch, restoring the leaves stored as raw bytes by
+    the ring's dtype map: a bfloat16 leaf (``"torch.bfloat16"``, or
+    ``"bfloat16"`` in a bundle ``sav_tpu`` wrote) as a ``torch.bfloat16``
+    tensor over the same bits."""
     out = {}
     with np.load(os.path.join(bundle, f"batch_{step:08d}.npz")) as data:
         for key in data.files:
             arr = data[key]
-            want = np.dtype(dtypes.get(key, arr.dtype))
+            name = str(dtypes.get(key, arr.dtype))
+            if name in ("bfloat16", "torch.bfloat16"):
+                import torch
+
+                bits = np.ascontiguousarray(arr).view(np.uint16)
+                out[key] = torch.from_numpy(bits.reshape(bits.shape[:-1])).view(torch.bfloat16)
+                continue
+            want = np.dtype(name)
             if arr.dtype != want:
                 arr = arr.reshape(arr.shape[:-1] + (-1,)).view(want)
                 arr = arr.reshape(arr.shape[:-1])

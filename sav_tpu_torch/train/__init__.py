@@ -51,19 +51,30 @@ _FLAG_TO_FIELD = {
     "watchdog_soft_secs": "watchdog_soft_secs", "fleet": "fleet", "debug_nans": "debug_nans",
     "record": "record", "record_depth": "record_depth", "record_batches": "record_batches",
     "record_snapshot_every": "record_snapshot_every", "spike_sigma": "spike_sigma",
+    "augmentation": "augment", "num_train_images": "num_train_images",
 }
+
+
+def _crop_area(text: str) -> float:
+    value = float(text)
+    if not 0.0 < value <= 1.0:
+        raise argparse.ArgumentTypeError(f"{value} is not in (0, 1]")
+    return value
 
 
 def _parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         prog="python -m sav_tpu_torch.train",
-        description="Train a sav_tpu_torch model on synthetic or fake data "
-        "(the flags of train.py that the port carries). Flags given override "
+        description="Train a sav_tpu_torch model from TFRecord shards, synthetic or fake "
+        "data (the flags of train.py that the port carries). Flags given override "
         "the preset; the others keep its values (or TrainConfig's defaults). "
         "Exit codes: 0 done, 1 failed, 2 usage error, 3 the card unreachable "
         "at the start, 4 hung (watchdog).",
     )
     data = p.add_mutually_exclusive_group(required=True)
+    data.add_argument("--data-dir",
+                      help="TFRecord root: train-* and validation-* shards of tf.train.Example "
+                      "images (image/encoded, image/class/label).")
     data.add_argument("--fake-data", action="store_true", help="Zero batches, no real data.")
     data.add_argument(
         "--synth-data", action="store_true",
@@ -84,6 +95,20 @@ def _parser() -> argparse.ArgumentParser:
     p.add_argument("--log-every-steps", type=int)
     p.add_argument("--seed", type=int)
     p.add_argument("--grad-accum", type=int, help="Micro-batches per optimizer update.")
+    p.add_argument("-a", "--augmentation",
+                   help="Augment-string DSL (default cutmix_mixup_randaugment_405).")
+    p.add_argument("--num-train-images", type=int,
+                   help="Train-split size for a non-ImageNet TFRecord dataset (turns off the "
+                   "10k VALID carve-out and the 1-indexed label shift).")
+    p.add_argument("--num-eval-images", type=int,
+                   help="Eval-split size for a non-ImageNet TFRecord dataset.")
+    p.add_argument("--crop-min-area", type=_crop_area, default=0.08,
+                   help="Lower bound of the Inception crop's area range, in (0, 1].")
+    p.add_argument("--train-flip", action=argparse.BooleanOptionalAction, default=True,
+                   help="Random horizontal flip in train preprocessing.")
+    p.add_argument("--eval-only", action="store_true",
+                   help="Restore from -c (or --init-from) and run one evaluation pass; no "
+                   "training.")
     p.add_argument("--ema-decay", type=float,
                    help="Parameter EMA decay (e.g. 0.9999); eval then runs on the averaged weights.")
     p.add_argument("-c", "--checkpoint-dir",
@@ -243,6 +268,13 @@ def _run(parser: argparse.ArgumentParser, args, manifest) -> dict:
         skip = parse_skip_steps(args.skip_steps)
     except ValueError as e:
         parser.error(str(e))
+    if args.synth_data and args.eval_only:
+        parser.error("--eval-only has no synthetic eval split; use --fake-data or a real "
+                     "--data-dir")
+    if (args.num_train_images is None) != (args.num_eval_images is None):
+        # Both flip the TFRecord reader into custom-dataset mode (0-indexed
+        # labels, no VALID carve-out); mixing modes would corrupt eval labels.
+        parser.error("--num-train-images and --num-eval-images must be passed together")
     probe = None
     if args.device != "cpu":
         from sav_tpu_torch.utils.backend_probe import require_backend_or_exit, start_probe
@@ -290,7 +322,21 @@ def _run(parser: argparse.ArgumentParser, args, manifest) -> dict:
     # skips not reached yet armed.
     start_pos = resume_schedule_position(start_step, skip)
     skip = {p for p in skip if p > start_pos}
-    if args.synth_data:
+    eval_iter_fn = None if args.synth_data else _eval_iter_fn(args, config)
+    if args.eval_only:
+        return _eval_only(parser, args, trainer, state, eval_iter_fn, manifest)
+    if args.data_dir is not None:
+        from sav_tpu_torch.data.pipeline import Split, resumable_train_iterator
+
+        batches = resumable_train_iterator(
+            Split.TRAIN, start_step=start_pos, seed=config.seed, data_dir=args.data_dir,
+            batch_dims=[config.global_batch_size], image_size=config.image_size,
+            augment_name=config.augment, transpose=config.transpose_images,
+            bfloat16=config.compute_dtype == "bfloat16",
+            device_preprocess=config.device_preprocess, split_examples=args.num_train_images,
+            crop_area_range=(args.crop_min_area, 1.0), random_flip=args.train_flip,
+        )
+    elif args.synth_data:
         batches = synth_resumable_iterator(
             seed=config.seed, start_step=start_pos, batch_size=config.global_batch_size,
             image_size=config.image_size, num_classes=config.num_classes,
@@ -344,6 +390,7 @@ def _run(parser: argparse.ArgumentParser, args, manifest) -> dict:
 
     try:
         state, history = trainer.fit(resume_probe(batches), num_steps=args.steps, state=state,
+                                     eval_iter_fn=eval_iter_fn if args.data_dir else None,
                                      log_fn=log_fn, manifest=manifest)
     finally:
         if writer is not None:
@@ -354,5 +401,51 @@ def _run(parser: argparse.ArgumentParser, args, manifest) -> dict:
     train_records = [r for r in history if "loss" in r]
     if train_records:
         final.update(train_records[-1])
+    eval_records = [r for r in history if "eval_count" in r]
+    if eval_records:
+        final.update(eval_records[-1])
+    print(json.dumps(final), flush=True)
+    return final
+
+
+def _eval_iter_fn(args, config):
+    """A fresh pass over the eval split (``Split.TEST``) per call: the
+    TFRecord pipeline under ``--data-dir``, zero batches under
+    ``--fake-data``."""
+    from sav_tpu_torch.data.pipeline import Split, load
+
+    def eval_iter():
+        return load(Split.TEST, data_dir=args.data_dir, is_training=False,
+                    batch_dims=[config.global_batch_size], image_size=config.image_size,
+                    transpose=config.transpose_images,
+                    bfloat16=config.compute_dtype == "bfloat16",
+                    device_preprocess=config.device_preprocess, fake_data=args.fake_data,
+                    split_examples=args.num_eval_images)
+
+    return eval_iter
+
+
+def _eval_only(parser, args, trainer, state, eval_iter_fn, manifest) -> dict:
+    """``--eval-only``: one evaluation pass of the restored state, printed
+    as one JSON line with its step."""
+    import itertools
+
+    from sav_tpu_torch.ops import launch_counts
+
+    if state.step == 0 and not args.init_from:
+        # Fresh weights would give plausible-looking chance-level metrics.
+        parser.error("--eval-only found no checkpoint to evaluate: -c holds none and "
+                     "--init-from was not given")
+    eval_iter = eval_iter_fn()
+    if args.fake_data:
+        eval_iter = itertools.islice(eval_iter, 4)  # the fake stream never ends
+    metrics = trainer.evaluate(state, eval_iter)
+    final = {"step": state.step, **metrics, "device": str(trainer.device)}
+    if manifest is not None:
+        note = {"launches": launch_counts()}
+        if trainer.eval_graphs is not None:
+            note.update(trainer.eval_graphs.summary())
+        manifest.note("kernels", note)
+        manifest.finalize("ok", exit_code=0, metrics={k: float(v) for k, v in metrics.items()})
     print(json.dumps(final), flush=True)
     return final

@@ -94,3 +94,95 @@ def test_peak_lookup_reads_the_card_name(monkeypatch):
     assert costs.resolve_peak_flops(device="cuda", dtype="float32")[0] == 67e12
     monkeypatch.setattr(torch.cuda, "get_device_name", lambda device=None: "Some Other GPU")
     assert costs.resolve_peak_flops(device="cuda") == (None, "unknown")
+
+
+# ------------------------------------------------------ the per-family counts
+
+SMALL_FAMILIES = [
+    ("ceit_s", dict(embed_dim=32, num_layers=2, num_heads=2), 32),
+    ("cvt-13", dict(embed_dims=(16, 32, 64), num_layers=(1, 2, 2), num_heads=(1, 2, 4)), 64),
+    ("tnt_s_patch16", dict(embed_dim=32, inner_ch=12, num_layers=2, num_heads=2,
+                           inner_num_heads=2), 32),
+    ("mixer_s_patch16", dict(embed_dim=32, num_layers=2, tokens_hidden_ch=8,
+                             channels_hidden_ch=64), 32),
+    ("vit_moe_s_patch16_e8", dict(embed_dim=64, num_layers=2, num_heads=4, patch_shape=(8, 8),
+                                  moe_num_experts=4, moe_every=2), 32),
+]
+FULL_WIDTH = ["ceit_s", "cvt-13", "tnt_s_patch16", "mixer_b_patch16"]
+
+
+def _forward(model, *, batch_size: int, image_size: int) -> float:
+    """The analytic count of one forward."""
+    return costs.train_step_cost(model, batch_size=batch_size, image_size=image_size,
+                                 training=False).flops
+
+
+def _counted_forward(model, batch: int, size: int) -> float:
+    """FlopCounterMode's FLOPs of one dense-path forward."""
+    from torch.utils.flop_counter import FlopCounterMode
+
+    x = torch.from_numpy(np.random.default_rng(0).standard_normal(
+        (batch, size, size, 3)).astype(np.float32))
+    with FlopCounterMode(display=False) as counter, torch.no_grad():
+        model.eval()(x)
+    return counter.get_total_flops()
+
+
+@pytest.mark.parametrize("name,overrides,size", SMALL_FAMILIES,
+                         ids=[case[0] for case in SMALL_FAMILIES])
+def test_family_count_matches_the_flop_counter_small(name, overrides, size):
+    model = create_model(name, num_classes=10, image_size=size, backend="xla", **overrides)
+    want = _counted_forward(model, 2, size)
+    got = _forward(model, batch_size=2, image_size=size)
+    assert got == pytest.approx(want, rel=0.01)
+    cost = costs.train_step_cost(model, batch_size=2, image_size=size)
+    assert cost.source == "analytic" and cost.flops == pytest.approx(3 * got, rel=1e-12)
+    assert sum(cost.attribution.values()) == pytest.approx(1.0)
+
+
+@pytest.mark.parametrize("name", FULL_WIDTH)
+def test_family_count_matches_the_flop_counter_full_width(name):
+    """Batch 1 of CeiT-S, CvT-13, TNT-S and Mixer-B/16 at 224²."""
+    model = create_model(name, num_classes=1000, image_size=224, backend="xla")
+    assert _forward(model, batch_size=1, image_size=224) == pytest.approx(
+        _counted_forward(model, 1, 224), rel=0.01)
+
+
+def test_cvt_stage_hand_count():
+    """A CvT whose stages hold 1, 2 and 1 blocks, counted by hand for the
+    two-block stage: grid 8 × 8 after its 3×3/2 embedding of 16 × 16 × 16,
+    width 32, 2 heads of 16, K/V strided to 4 × 4, FF 4×, batch 3."""
+    model = create_model("cvt-13", num_classes=10, image_size=64, backend="xla",
+                         embed_dims=(16, 32, 64), num_layers=(1, 2, 1), num_heads=(1, 2, 4))
+    b, side, c, d = 3, 8, 16, 32
+    q, kv = side * side, 4 * 4
+    block = (
+        2 * b * q * 9 * d + 2 * (2 * b * kv * 9 * d)  # depthwise 3×3: q at stride 1, k/v at 2
+        + 2 * b * q * d * d + 2 * (2 * b * kv * d * d)  # pointwise projections
+        + 4 * b * 2 * q * kv * 16  # QKᵀ and AV, 2 heads of 16
+        + 2 * b * q * d * d  # output merge
+        + 2 * (2 * b * q * d * 4 * d)  # FF
+    )
+    stage = 2 * b * q * 9 * c * d + 2 * block  # the 3×3/2 conv embedding, then two blocks
+    tally = costs._Tally()
+    costs._count_cvt(model, b, 64, tally)
+    assert tally.by_group["stages_1"] == stage
+
+
+def test_moe_count_is_the_routed_slots_and_the_router():
+    model = create_model("vit_moe_s_patch16_e8", num_classes=10, image_size=32,
+                         **SMALL_FAMILIES[-1][1])
+    dense = create_model("vit_ti_patch16", num_classes=10, image_size=32, embed_dim=64,
+                         num_layers=2, num_heads=4, patch_shape=(8, 8))
+    b, tokens, d = 5, 17, 64
+    moe = model.encoder.blocks[1].ff
+    e, _, hidden = moe.experts_w1.shape
+    slots = moe.capacity(tokens)
+    assert slots == max(2, -(-int(1.25 * 2 * tokens) // e))
+    # The MoE block in place of the second block's FF: the router over every
+    # token, each expert's two matmuls over its slots of every row.
+    routed = 2 * b * tokens * d * e + e * 2 * b * slots * 2 * d * hidden
+    ff = 2 * b * tokens * 2 * d * hidden
+    got = _forward(model, batch_size=b, image_size=32)
+    assert got == pytest.approx(_forward(dense, batch_size=b, image_size=32)
+                                - ff + routed, rel=1e-12)

@@ -342,10 +342,16 @@ def test_weight_decay_mask_on_the_cvt_tree_matches_sav_tpu(variables):
                                                  ("ceit_s", dict(embed_dim=32, num_layers=2,
                                                                  num_heads=2), 32)])
 def test_step_cost_refuses_the_conv_families(name, overrides, size):
-    """The analytic cost reads one trunk length off a patch embedding; it
-    would count CvT's three stages and CeiT's stem wrong, so it refuses
-    them (the flax tree itself converts)."""
-    model = create_model(name, num_classes=10, image_size=size, **overrides)
+    """CvT's three stages and CeiT's stem run at token counts of their own,
+    which sav_tpu's one-trunk-length count would miss; the port counts them
+    with its own per-family count (no longer refused), equal to the dense
+    forward's matmul and conv FLOPs (the flax tree itself converts too)."""
+    from torch.utils.flop_counter import FlopCounterMode
+
+    model = create_model(name, num_classes=10, image_size=size, backend="xla", **overrides)
     assert "head" in costs.model_params_tree(model)
-    with pytest.raises(NotImplementedError, match="A10"):
-        costs.train_step_cost(model, batch_size=2, image_size=size)
+    cost = costs.train_step_cost(model, batch_size=2, image_size=size)
+    with FlopCounterMode(display=False) as counter:
+        model.eval()(torch.zeros(2, size, size, 3))
+    assert cost.source == "analytic"
+    assert cost.flops == pytest.approx(3 * counter.get_total_flops(), rel=1e-6)

@@ -1,9 +1,11 @@
-"""The port imports nothing of JAX or of sav_tpu.
+"""The port imports nothing of JAX, of sav_tpu, of TensorFlow or of
+ml_dtypes.
 
 Two checks: importing every module of ``sav_tpu_torch`` in a fresh
 interpreter (this test process already has jax, via conftest) leaves jax,
-flax and sav_tpu out of ``sys.modules``; and no source file of the port, nor
-``chip_smoke.py``, has an import statement naming them.
+flax, sav_tpu, tensorflow and ml_dtypes out of ``sys.modules``; and no
+source file of the port, nor ``chip_smoke.py``, has an import statement
+naming them.
 """
 
 import ast
@@ -16,7 +18,7 @@ from pathlib import Path
 import pytest
 
 ROOT = Path(__file__).resolve().parent.parent
-FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "orbax", "sav_tpu"}
+FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "orbax", "sav_tpu", "tensorflow", "ml_dtypes"}
 
 _PROBE = """
 import importlib, json, pkgutil, sys
@@ -48,7 +50,9 @@ def test_importing_the_port_loads_no_jax():
     for name in ("sav_tpu_torch.train.graphs", "sav_tpu_torch.train.bench",
                  "sav_tpu_torch.obs.costs", "sav_tpu_torch.utils.flops",
                  "sav_tpu_torch.utils.graphs", "sav_tpu_torch.data.augment_spec",
-                 "sav_tpu_torch.ops.preprocess"):
+                 "sav_tpu_torch.ops.preprocess", "sav_tpu_torch.data.pipeline",
+                 "sav_tpu_torch.data.records", "sav_tpu_torch.data.tfrecord",
+                 "sav_tpu_torch.data.native_loader"):
         assert name in report["modules"]
     leaked = {m for m in report["loaded"] if m.split(".")[0] in FORBIDDEN}
     assert not leaked, f"the port pulled in {sorted(leaked)}"

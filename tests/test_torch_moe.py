@@ -335,24 +335,36 @@ def test_registry_moe_entry_matches_sav_tpu_tree_at_full_size():
 
 
 def test_moe_vit_has_no_analytic_cost():
-    """sav_tpu's count charges every expert for every token; the port
-    refuses it, naming the reason and A10."""
+    """sav_tpu's count charges every expert for every token; the port's
+    charges each expert for its capacity's slots of every batch row (E · C
+    slots a row) and the router for every token, the rest as sav_tpu's
+    ViT count (no longer refused)."""
     model = create_model("vit_moe_s_patch16_e8", num_classes=10, image_size=32, **SMALL)
-    assert not costs.has_analytic_cost(model)
-    reason = costs.analytic_cost_refusal(model)
-    assert "every expert for every token" in reason and "A10" in reason
-    with pytest.raises(NotImplementedError, match="A10"):
-        costs.train_step_cost(model, batch_size=4, image_size=32)
-
-
+    block = model.encoder.blocks[1].ff
+    tokens, b, d = 1 + (32 // 8) ** 2, 4, SMALL["embed_dim"]
+    slots = block.capacity(tokens)
+    dense = costs.analytic_train_step_cost(costs.model_params_tree(model), batch_size=b,
+                                           image_size=32, training=False)
+    cost = costs.train_step_cost(model, batch_size=b, image_size=32, training=False)
+    routed = [m for m in model.modules() if isinstance(m, MoEFFBlock)]
+    e, _, hidden = block.experts_w1.shape
+    # Per MoE block: every token's expert matmuls and bias rows out, the
+    # capacity's slots' matmuls in.
+    per_block = (2.0 * b * tokens * e * (2 * d * hidden + hidden + d)
+                 - 2.0 * b * slots * e * 2 * d * hidden)
+    assert cost.source == "analytic"
+    assert cost.flops == pytest.approx(dense.flops - len(routed) * per_block, rel=1e-12)
 def test_train_bench_prints_no_mfu_for_the_moe_vit(capsys):
     import json
 
     from sav_tpu_torch.train import bench
 
+    overrides = {"num_layers": 2, "embed_dim": 64, "num_heads": 4, "patch_shape": [8, 8]}
     bench.main(["--device", "cpu", "--model", "vit_moe_s_patch16_e8", "--image-size", "32",
                 "--num-classes", "10", "--batch-size", "4", "--steps", "1", "--reps", "1",
-                "--model-overrides", json.dumps({"num_layers": 2, "embed_dim": 64,
-                                                 "num_heads": 4, "patch_shape": [8, 8]})])
+                "--model-overrides", json.dumps(overrides)])
     line = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
-    assert line["mfu"] is None and "every expert for every token" in line["cost_source"]
+    assert line["cost_source"] == "analytic" and isinstance(line["mfu"], float)
+    model = create_model("vit_moe_s_patch16_e8", num_classes=10, image_size=32, **overrides)
+    assert line["step_flops"] == pytest.approx(
+        costs.train_step_cost(model, batch_size=4, image_size=32).flops, rel=1e-12)

@@ -493,3 +493,93 @@ def test_fit_runs_to_num_steps_in_all_and_stops_where_the_feed_ends():
     state, history = trainer.fit(iter(batches[4:]), num_steps=9, state=state)
     assert state.step == 5 and [r["step"] for r in history] == [5]
     assert history[-1]["images_per_sec"] > 0
+
+
+# ------------------------------------------------------------ data on disk
+
+
+def _write_shards(directory, seed=0):
+    """Two train shards of 8 and one validation shard of 6 JPEG Examples
+    (0-indexed labels, a custom dataset)."""
+    from sav_tpu_torch.data.pipeline import encode_jpeg
+    from sav_tpu_torch.data.tfrecord import write_tfrecord_examples
+
+    rng = np.random.default_rng(seed)
+
+    def images(n):
+        return [encode_jpeg(rng.integers(0, 256, (int(rng.integers(40, 56)),
+                                                  int(rng.integers(40, 56)), 3), dtype=np.uint8),
+                            quality=90) for _ in range(n)]
+
+    for shard in range(2):
+        write_tfrecord_examples(str(directory / f"train-{shard:05d}-of-00002"), images(8),
+                                rng.integers(0, 10, 8))
+    write_tfrecord_examples(str(directory / "validation-00000-of-00001"), images(6),
+                            rng.integers(0, 10, 6))
+
+
+def test_fit_from_a_tfrecord_data_dir(tmp_path):
+    """4 f32 steps of the small ViT through fit, fed from TFRecord shards
+    (augmentation none), with an eval pass at the epoch's end whose batches
+    match sav_tpu's eval pipeline within the decode tolerance
+    (tests/test_torch_pipeline.py: DECODE_TOL levels of 255 away from the
+    crop's edge columns, MEAN_TOL on average); and the CLI refuses
+    --data-dir beside --synth-data, as train.py does."""
+    from sav_tpu.data import pipeline as jax_pipeline
+    from sav_tpu_torch.data import pipeline
+    from test_torch_pipeline import DECODE_TOL, EDGE, MEAN_TOL
+
+    _write_shards(tmp_path)
+    trainer = Trainer(TrainConfig(
+        model_name="vit_ti_patch16", num_classes=10, image_size=32, compute_dtype="float32",
+        global_batch_size=4, transpose_images=False, model_overrides=dict(SMALL),
+        num_train_images=16, augment="none", log_every_steps=2, eval_every_epochs=1,
+    ), device="cpu")
+    feed = pipeline.resumable_train_iterator(
+        pipeline.Split.TRAIN, data_dir=str(tmp_path), batch_dims=[4], image_size=32,
+        augment_name="none", split_examples=16, seed=0, num_workers=0)
+
+    def eval_iter(**kwargs):
+        return pipeline.load(pipeline.Split.TEST, data_dir=str(tmp_path), is_training=False,
+                             batch_dims=[4], image_size=32, split_examples=6, **kwargs)
+
+    state, history = trainer.fit(feed, num_steps=4,
+                                 eval_iter_fn=lambda: eval_iter(num_workers=0))
+    losses = [r["loss"] for r in history if "loss" in r]
+    assert len(losses) == 4 and np.isfinite(losses).all() and state.step == 4
+    (record,) = [r for r in history if "eval_count" in r]
+    assert record["eval_count"] == 6 and record["step"] == 4
+    want = list(jax_pipeline.load(jax_pipeline.Split.TEST, data_dir=str(tmp_path),
+                                  is_training=False, batch_dims=[4], image_size=32,
+                                  split_examples=6))
+    got = list(eval_iter(num_workers=0))
+    assert [len(b["labels"]) for b in got] == [len(b["labels"]) for b in want] == [4, 2]
+    std = np.float32(pipeline.STDDEV_RGB).min()
+    for a, b in zip(got, want):
+        np.testing.assert_array_equal(a["labels"], b["labels"])
+        diff = np.abs(a["images"] - b["images"])
+        assert diff[:, :, EDGE:-EDGE].max() <= DECODE_TOL / std + 1e-4
+        assert diff.mean() <= MEAN_TOL / std
+    with pytest.raises(SystemExit) as refused:
+        main(["--data-dir", str(tmp_path), "--synth-data", "--device", "cpu"])
+    assert refused.value.code == 2
+
+
+def test_cli_trains_and_evaluates_from_a_data_dir(tmp_path, capsys):
+    """``--data-dir`` through the CLI on the CPU: 2 steps into -c, then
+    ``--eval-only`` on that checkpoint counts the 6 validation images;
+    ``--eval-only`` without a checkpoint is a usage error."""
+    _write_shards(tmp_path)
+    common = ["--data-dir", str(tmp_path), "-m", "vit_ti_patch16", "--image-size", "32",
+              "--num-classes", "10", "--batch-size", "4", "--dtype", "float32",
+              "--num-train-images", "16", "--num-eval-images", "6", "--device", "cpu",
+              "-a", "none"]
+    ckpt = str(tmp_path / "ckpt")
+    final = main(common + ["--steps", "2", "-c", ckpt])
+    assert final["step"] == 2 and np.isfinite(final["loss"])
+    evaluated = main(common + ["-c", ckpt, "--eval-only"])
+    assert evaluated["step"] == 2 and evaluated["eval_count"] == 6
+    assert '"eval_count": 6.0' in capsys.readouterr().out.strip().splitlines()[-1]
+    with pytest.raises(SystemExit) as refused:
+        main(common + ["-c", str(tmp_path / "empty"), "--eval-only"])
+    assert refused.value.code == 2
