@@ -7,8 +7,8 @@ Run from the root of the repository on a machine with one NVIDIA Hopper GPU:
 
 ``python3 chip_smoke.py --remat-trade`` runs only the device, build and
 remat-trade phases, on ViT-B/16@384's seed-0 weights, and prints the
-trade's peak memories as one JSON line; ``--supervised-chain`` and
-``--fed-train`` run one phase each (13 and 14 below).
+trade's peak memories as one JSON line; ``--supervised-chain``,
+``--fed-train`` and ``--int8`` run one phase each (13, 14 and 15 below).
 
 Phases, each of which exits non-zero on failure:
 
@@ -227,6 +227,29 @@ Phases, each of which exits non-zero on failure:
    (``sav_tpu_torch/obs/costs.py``) over the captured fit's step time over
    the card's table peak.
 
+15. the int8 arm (after the rotary and MoE ViTs): Q1 (int8_quant.cu) and
+   Q2 (int8_gemm.cu), built with the rest in 2 (Q2's SASS must hold IMMA
+   instructions), are held bit-equal to their plain versions in 3 at every
+   DeiT-S shape of the serve forward, the QAT forward and its backward (the
+   codes and scales, rounding to nearest and with the draws passed in; the
+   int32 accumulator and the dequantized f32/bf16 output) and at ragged
+   shapes (K = 196, K = 24, M = 1), and timed in 4 beside their bounds,
+   their plain versions, ``torch._int_mm`` + dequantize and bf16
+   ``torch.matmul``. Then DeiT-S (full width and depth) trains with QAT at
+   256 as in 6 (``quant="int8"``: per step 12 #1, 12 #2, 294 Q1 and 171
+   Q2), two replays from one start give the same bits and a replay after
+   the "quant" generator moved on other moments; its state is saved and
+   served through ``ServeEngine(quant_weights=True)`` at buckets 1…32 (12
+   #1, 49 Q1, 49 Q2 a batch; ``startup_report["quant"]``'s
+   ``param_bytes_ratio`` <= 0.6; replayed equal to eager logits; a profiled
+   replay of bucket 32 and the timed steps) and, from the same checkpoint,
+   through the bf16 engine, which launches no Q1 or Q2: on 256 seeded
+   images top-1 agrees on >= 99 % and every logit within 0.1 x the logits'
+   scale. Then the serve bench's ``--quant-weights`` flood of 1,024 and the
+   train bench's ``--quant int8`` line (2 windows of 10 steps, MFU against
+   the int8 peak). ``python3 chip_smoke.py --int8`` runs only the fused and
+   int8 kernels' build, the int8 checks and timing and this phase.
+
 Before each agreement check the head is drawn at std 0.02, every
 LayerScale scale at 0.05-0.15 (CaiT's init of 1e-5 would hide a wrong trunk),
 and for BoTNet every bn3 scale at 0.05-0.15 (its init of 0 would hide the
@@ -265,9 +288,9 @@ os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
 from sav_tpu_torch.ops import launch_counts, reset_launches, variant_counts  # noqa: E402
 
 # H100 SXM peaks (NVIDIA data sheet, dense): HBM bytes/s, and FLOP/s by the
-# inputs' type (bf16 on the tensor cores, f32 outside them).
+# inputs' type (bf16 and int8 on the tensor cores, f32 outside them).
 HBM_BYTES_PER_S = 3.35e12
-PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
+PEAK_FLOPS = {torch.bfloat16: 989e12, torch.int8: 1979e12, torch.float32: 67e12}
 
 # The DeiT-S/16 serve shape at the top bucket: B=32, L=197, H=6, D=64; and
 # its train shape at global batch 256.
@@ -683,7 +706,8 @@ MMA_KERNELS = {"fused_attention": ("fused_attention_fwd_mma_kernel",),
                                      "rel_attention_bwd_dkv_mma_kernel"),
                "talking_heads": ("talking_heads_fwd_mma_kernel",),
                "talking_heads_bwd": ("talking_heads_bwd_dq_mma_kernel",
-                                     "talking_heads_bwd_dkv_mma_kernel")}
+                                     "talking_heads_bwd_dkv_mma_kernel"),
+               "int8_gemm": ("int8_gemm_kernel",)}
 
 
 def _ptxas_resources(text: str) -> dict:
@@ -707,8 +731,9 @@ def _ptxas_resources(text: str) -> dict:
 
 
 def _sass_mma_counts(library: str) -> dict:
-    """Tensor-core instructions (HMMA: mma.sync; HGMMA: wgmma) per function
-    in the SASS of a built library, by mangled name."""
+    """Tensor-core instructions (HMMA: mma.sync on bf16; IMMA: on int8;
+    HGMMA: wgmma) per function in the SASS of a built library, by mangled
+    name."""
     from sav_tpu_torch.ops import _build
 
     cuobjdump = os.path.join(os.path.dirname(_build.find_nvcc()), "cuobjdump")
@@ -718,9 +743,9 @@ def _sass_mma_counts(library: str) -> dict:
     for line in sass.splitlines():
         if "Function :" in line:
             name = line.split("Function :")[1].strip()
-            counts[name] = {"HMMA": 0, "HGMMA": 0}
+            counts[name] = {"HMMA": 0, "IMMA": 0, "HGMMA": 0}
         elif name is not None:
-            for op in ("HGMMA", "HMMA"):
+            for op in ("HGMMA", "HMMA", "IMMA"):
                 if f" {op}." in line:
                     counts[name][op] += 1
                     break
@@ -744,9 +769,10 @@ def log_mma_builds() -> None:
             names += found
         for name in names:
             ops = sass[name]
-            log(f"  sass {source}: {name}: {ops['HMMA']} HMMA, {ops['HGMMA']} HGMMA; ptxas "
+            log(f"  sass {source}: {name}: {ops['HMMA']} HMMA, {ops['IMMA']} IMMA, "
+                f"{ops['HGMMA']} HGMMA; ptxas "
                 + json.dumps(resources.get(name, "not in this process's build log")))
-            if ops["HMMA"] + ops["HGMMA"] == 0:
+            if ops["HMMA"] + ops["IMMA"] + ops["HGMMA"] == 0:
                 raise AssertionError(f"{name} in {source} has no tensor-core instruction")
 
 
@@ -1884,7 +1910,11 @@ def _serve(engine, images, clients) -> list:
 # Launch counters, as launch_counts() names them.
 COUNTERS = ("fused", "fused_bwd", "talking_heads", "talking_heads_bwd",
             "talking_heads_bwd_dkv", "flash", "flash_dq", "flash_dkv", "rel", "rel_dq",
-            "rel_dkv")
+            "rel_dkv", "int8_quant", "int8_gemm")
+# The int8 arm's kernels: Q1 (int8_quant.cu, on the CUDA cores by design) and
+# Q2 (int8_gemm.cu, on the tensor cores).
+INT8_COUNTERS = ("int8_quant", "int8_gemm")
+CUDA_CORE_COUNTERS = ("int8_quant",)
 
 
 # The counters a plain (not talking-heads) attention core adds to in the
@@ -1909,6 +1939,7 @@ def attention_launches(model, *, train: bool, family) -> dict:
     from sav_tpu_torch.models.layers import AttentionBlock, BoTMHSA, CvTAttentionBlock
 
     counts = dict.fromkeys(COUNTERS, 0)
+    counts.update(int8_launches(model, train=train))
     encoder = getattr(model, "encoder", None)
     forwards = 2 if train and encoder is not None and encoder.remat else 1
     for name, m in model.named_modules():
@@ -1928,6 +1959,54 @@ def attention_launches(model, *, train: bool, family) -> dict:
     return counts
 
 
+def int8_launches(model, *, train: bool) -> dict:
+    """Q1 and Q2 launches that one forward (``train=False``) or one train
+    step of ``model`` makes, counted from its layers on the int8 arm: a
+    serving dot quantizes its input (one Q1) and multiplies (one Q2); a
+    QAT dot quantizes its input and weight and multiplies in the forward,
+    and in the backward quantizes the cotangent by rows and by columns, the
+    weight per in-channel and the input by columns (four Q1) for dx and dw
+    (two Q2; the stacked QKV's dx is one Q2 per slice, so four). With remat
+    each encoder block's forward runs again in the backward pass. A float
+    model gives zeros."""
+    from sav_tpu_torch.models.layers import (
+        AttentionBlock,
+        BoTMHSA,
+        ConvProjectionBlock,
+        CvTAttentionBlock,
+    )
+    from sav_tpu_torch.ops.quant import QuantDense, QuantDenseServe
+
+    counts = dict.fromkeys(INT8_COUNTERS, 0)
+    encoder = getattr(model, "encoder", None)
+    remat = train and encoder is not None and encoder.remat
+    for name, m in model.named_modules():
+        quant = getattr(m, "quant", None)
+        if isinstance(m, QuantDense):
+            quant, dots = "int8", ["dense"]
+        elif isinstance(m, QuantDenseServe):
+            quant, dots = "int8_serve", ["dense"]
+        elif not quant:
+            continue
+        elif isinstance(m, AttentionBlock):
+            dots = ["qkv", "dense"] if m.fused_qkv else ["dense"] * 4
+        elif isinstance(m, BoTMHSA):
+            dots = ["dense"] * 3
+        elif isinstance(m, (ConvProjectionBlock, CvTAttentionBlock)):
+            dots = ["dense"]
+        else:
+            continue
+        forwards = 2 if remat and name.startswith("encoder.blocks.") else 1
+        for dot in dots:
+            if quant == "int8_serve":
+                counts["int8_quant"] += 1
+                counts["int8_gemm"] += 1
+                continue
+            counts["int8_quant"] += 2 * forwards + (4 if train else 0)
+            counts["int8_gemm"] += forwards + ((4 if dot == "qkv" else 2) if train else 0)
+    return counts
+
+
 def _variant_launches(launches: dict) -> dict:
     """The launches of #1 (fused forward), #2 (fused backward), #3 (flash
     forward), #4 (flash dq), #5 (flash dk/dv), #6 (relative-position
@@ -1940,13 +2019,15 @@ def _variant_launches(launches: dict) -> dict:
 
 def _on_tensor_cores(variants: dict, launches: dict, what: str) -> dict:
     """``variants`` (launches by counter and variant), after checking that
-    each counter's launches, ``launches``, all ran on the tensor cores."""
-    from sav_tpu_torch.ops.flash_attention import TENSOR_CORE
+    each counter's launches, ``launches``, all ran on the tensor cores (Q1,
+    the int8 quantize, on the CUDA cores, the one variant it has)."""
+    from sav_tpu_torch.ops.flash_attention import CUDA_CORE, TENSOR_CORE
 
     for kind, by_variant in variants.items():
-        if by_variant[TENSOR_CORE] != launches[kind] or sum(by_variant.values()) != launches[kind]:
+        variant = CUDA_CORE if kind in CUDA_CORE_COUNTERS else TENSOR_CORE
+        if by_variant[variant] != launches[kind] or sum(by_variant.values()) != launches[kind]:
             raise AssertionError(f"{what} {kind} launches {launches[kind]} did not all run on "
-                                 f"the tensor cores: {json.dumps(by_variant)}")
+                                 f"the {variant.replace('_', ' ')}s: {json.dumps(by_variant)}")
     return variants
 
 
@@ -2019,7 +2100,9 @@ def _draw_for_agreement(model) -> None:
 FORWARD_GROUPS = {"fused": "attention forward (fused_attention.cu)",
                   "talking_heads": "talking-heads forward (talking_heads.cu)",
                   "flash": "flash forward (flash_attention.cu)",
-                  "rel": "rel forward (rel_attention.cu)"}
+                  "rel": "rel forward (rel_attention.cu)",
+                  "int8_quant": "int8 quantize (int8_quant.cu)",
+                  "int8_gemm": "int8 GEMM (int8_gemm.cu)"}
 # The KERNEL_GROUPS group each counter's kernels are named under.
 COUNTER_GROUPS = {**FORWARD_GROUPS,
                   "fused_bwd": "attention backward (fused_attention_bwd.cu)",
@@ -2654,7 +2737,7 @@ def _train_common(model_name, batch_size, steps, image_size, num_classes, overri
         compute_dtype="bfloat16", global_batch_size=batch_size,
         num_train_images=batch_size * steps, num_epochs=300, warmup_epochs=0,
         base_lr=2e-3, transpose_images=False, log_every_steps=steps // 2, seed=0,
-        model_overrides=overrides or None,
+        model_overrides={k: v for k, v in (overrides or {}).items() if k != "quant"} or None,
     )
 
 
@@ -2771,7 +2854,7 @@ def _captured_equals_eager(trainer, state, start: dict, batches: list, what: str
 def phase_train(device="cuda", model_name="deit_s_patch16", batch_size=TRAIN_BATCH,
                 steps=TRAIN_STEPS, image_size=224, num_classes=1000, overrides=None,
                 state_dict=None, family="fused", grad_accum=1, config=None,
-                warm_start=None, reference="dense") -> dict:
+                warm_start=None, reference="dense", quant=None, save_to=None) -> dict:
     """Train ``steps`` steps through Trainer.fit from seed-0 weights (or from
     ``state_dict``, or through ``Trainer.warm_start_from`` a directory,
     ``warm_start = (directory, expected state dict)``: every tensor must come
@@ -2785,11 +2868,15 @@ def phase_train(device="cuda", model_name="deit_s_patch16", batch_size=TRAIN_BAT
     replaces the smoke run's recipe (a preset's TrainConfig). The first step
     is held against the same step on the dense attention paths
     (``reference="dense"``) or, for a model without attention, in f32
-    (``"f32"``)."""
+    (``"f32"``). ``quant="int8"`` trains with QAT on the int8 arm (its dots
+    on Q1/Q2 on both sides of the first-step agreement, the stochastic
+    rounding from the trainer's "quant" generator, the MFU against the int8
+    peak); ``save_to`` keeps the captured fit's final state there as a
+    checkpoint."""
     from sav_tpu_torch import TrainConfig, Trainer, create_model
 
     _free_device_memory()
-    overrides = overrides or {}
+    overrides = dict(overrides or {}, **({"quant": quant} if quant else {}))
     model = create_model(model_name, num_classes=num_classes, image_size=image_size,
                          seed=0, **overrides)
     if state_dict is not None:
@@ -2800,7 +2887,7 @@ def phase_train(device="cuda", model_name="deit_s_patch16", batch_size=TRAIN_BAT
     if config is None:
         config = TrainConfig(**_train_common(model_name, batch_size, steps, image_size,
                                              num_classes, overrides))
-    config = dataclasses.replace(config, grad_accum_steps=grad_accum)
+    config = dataclasses.replace(config, grad_accum_steps=grad_accum, quant=quant)
     trainer = Trainer(config, model=model, device=device)
     if warm_start is not None:
         directory, expected = warm_start
@@ -2821,7 +2908,7 @@ def phase_train(device="cuda", model_name="deit_s_patch16", batch_size=TRAIN_BAT
     dense.load_state_dict(model.state_dict())
     per_step = _times(attention_launches(model, train=True, family=family), grad_accum)
     batches = _train_batches(batch_size, image_size, num_classes, device, TRAIN_DISTINCT_BATCHES)
-    what = f"train {model_name}"
+    what = f"train {model_name}" + (f" {quant} QAT" if quant else "")
 
     # The same first step on the dense attention paths with f32 softmax (or,
     # without attention, in f32), eagerly; the stochastic-depth masks come
@@ -2844,8 +2931,8 @@ def phase_train(device="cuda", model_name="deit_s_patch16", batch_size=TRAIN_BAT
     ref_state, ref_metrics = ref_trainer._train_step_impl(ref_trainer.init_state(), batches[0])
     ref = {k: float(v) for k, v in ref_metrics.items()}
     ref_stats = {k: v.clone() for k, v in ref_state.batch_stats.items()}
-    if any(launch_counts().values()):
-        raise AssertionError("the dense reference trainer launched a kernel")
+    if any(n for k, n in launch_counts().items() if k not in INT8_COUNTERS):
+        raise AssertionError("the dense reference trainer launched an attention kernel")
     del ref_trainer, ref_state, dense, ref_metrics
     torch.cuda.empty_cache()
 
@@ -2887,6 +2974,13 @@ def phase_train(device="cuda", model_name="deit_s_patch16", batch_size=TRAIN_BAT
                 log(f"{what} step {record['step']}: " + json.dumps(
                     {k: round(v, 6) for k, v in record.items() if k != "step"}))
             first = history[0]
+            if save_to is not None:
+                from sav_tpu_torch.train import Checkpointer
+
+                checkpointer = Checkpointer(save_to)
+                checkpointer.save(state.step, state)
+                checkpointer.close()
+                log(f"{what}: the captured fit's state saved at step {state.step} in {save_to}")
         else:
             del trainer.train_step_placed
             if counters != _times(per_step, steps):
@@ -2908,6 +3002,8 @@ def phase_train(device="cuda", model_name="deit_s_patch16", batch_size=TRAIN_BAT
         if rel > tol:
             raise AssertionError(f"train step 1 {key} disagrees with the {reference} step")
     equal = _captured_equals_eager(trainer, start_state, start, batches, what)
+    if quant:
+        _replays_round_anew(trainer, start_state, start, batches[0], what)
     if ref_stats:
         # Each running statistic after step 1, relative to its largest entry.
         first_stats = equal["first_stats"]
@@ -2924,13 +3020,13 @@ def phase_train(device="cuda", model_name="deit_s_patch16", batch_size=TRAIN_BAT
     from sav_tpu_torch.obs.costs import resolve_peak_flops, train_step_cost
 
     cost = train_step_cost(trainer.model, batch_size=batch_size, image_size=image_size)
-    peak, peak_source = resolve_peak_flops(device=device)
+    peak, peak_source = resolve_peak_flops(device=device, dtype="int8" if quant else "bfloat16")
     mfu = cost.flops / (cap["step_ms"] / 1e3) / peak if peak else None
     if mfu is None or not 0 < mfu < 1 or not peak_source.startswith("device-table"):
         raise AssertionError(f"{what}: MFU {mfu} ({cost.flops} FLOP a step, peak {peak} from "
                              f"{peak_source})")
     log(
-        f"train {model_name} bf16 batch {batch_size} ({grad_accum} x {batch_size // grad_accum}): "
+        f"{what} bf16 batch {batch_size} ({grad_accum} x {batch_size // grad_accum}): "
         f"{steps} steps via fit(), losses "
         f"{[round(r['loss'], 4) for r in cap['history']]}; capture {capture['capture_s']:.2f} s "
         f"(warm-ups included) of {json.dumps(_nonzero(per_step))} per step, replays x captured "
@@ -2958,6 +3054,430 @@ def phase_train(device="cuda", model_name="deit_s_patch16", batch_size=TRAIN_BAT
         "routing": routing,
         "first_aux_loss": first["aux_loss"],
     }
+
+
+# ------------------------------------------------------------- the int8 arm
+
+# The int8 arm (phase_int8_kernels, phase_int8) on DeiT-S/16 at full width
+# and depth: activation rows at the top serve bucket (32 x 197) and at the
+# train batch (256 x 197).
+INT8_MODEL = "deit_s_patch16"
+INT8_SERVE_ROWS = 32 * 197
+INT8_TRAIN_ROWS = 256 * 197
+BF16, F32 = torch.bfloat16, torch.float32
+# Q1's cases: (name, layout, shape, dtype, stochastic). "rows": [R, C], one
+# scale a row; "cols": [T, R, C], one scale a column, the codes transposed.
+# The DeiT-S operands of the serve forward, the QAT forward (x and the
+# bf16-cast weights) and its backward (the cotangent by rows, per QKV slice,
+# and by columns, the weight per in-channel, x by columns), then ragged ones.
+INT8_QUANT_CASES = (
+    ("serve x", "rows", (INT8_SERVE_ROWS, 384), BF16, False),
+    ("train x", "rows", (INT8_TRAIN_ROWS, 384), BF16, False),
+    ("train fc2 x", "rows", (INT8_TRAIN_ROWS, 1536), BF16, False),
+    ("train fc1 w", "rows", (1536, 384), BF16, False),
+    ("train qkv w", "cols", (1, 384, 1152), BF16, False),
+    ("train g qkv slices", "rows", (3 * INT8_TRAIN_ROWS, 384), BF16, True),
+    ("train g fc1", "rows", (INT8_TRAIN_ROWS, 1536), BF16, True),
+    ("train x cols", "cols", (1, INT8_TRAIN_ROWS, 384), BF16, False),
+    ("train g qkv cols", "cols", (3, INT8_TRAIN_ROWS, 384), BF16, True),
+    ("train g fc1 cols", "cols", (1, INT8_TRAIN_ROWS, 1536), BF16, True),
+    ("train fc2 w in-channel", "cols", (1, 384, 1536), BF16, False),
+    ("ragged M=1 K=24", "rows", (1, 24), F32, False),
+    ("ragged K=196", "rows", (197, 196), BF16, False),
+    ("ragged K=24 stochastic", "rows", (5, 24), F32, True),
+    ("ragged cols R=197 C=24", "cols", (1, 197, 24), F32, False),
+    ("ragged cols R=1 C=196", "cols", (1, 1, 196), BF16, False),
+    ("ragged cols T=2 stochastic", "cols", (2, 130, 24), F32, True),
+)
+# The case whose timing is Q1's record in the kernels line.
+INT8_QUANT_MAIN = "train x"
+# Q2's cases: (name, (M, K, N), out dtype, split, scale_b_first). DeiT-S's
+# serve forward (bucket 32; fc1/fc2/head in f32 before the f32 bias), the
+# QAT forward (bf16) and backward: dx = g · W (the QKV per slice, K = H·D),
+# dw = xᵀ · g over the 50,432 rows (the Dense layers' [out, in] with the
+# scales in sav_tpu's order), then ragged shapes (Mixer's token MLP K =
+# 196, TNT's inner FF K = 24, M = 1).
+INT8_GEMM_CASES = (
+    ("serve qkv", (INT8_SERVE_ROWS, 384, 1152), BF16, 384, False),
+    ("serve to_out", (INT8_SERVE_ROWS, 384, 384), BF16, 0, False),
+    ("serve fc1", (INT8_SERVE_ROWS, 384, 1536), F32, 0, False),
+    ("serve fc2", (INT8_SERVE_ROWS, 1536, 384), F32, 0, False),
+    ("serve head", (32, 384, 1000), F32, 0, False),
+    ("train qkv", (INT8_TRAIN_ROWS, 384, 1152), BF16, 384, False),
+    ("train to_out, dx qkv slice", (INT8_TRAIN_ROWS, 384, 384), BF16, 0, False),
+    ("train fc1, dx fc2", (INT8_TRAIN_ROWS, 384, 1536), BF16, 0, False),
+    ("train fc2, dx fc1", (INT8_TRAIN_ROWS, 1536, 384), BF16, 0, False),
+    ("train head", (256, 384, 1000), BF16, 0, False),
+    ("dx head", (256, 1000, 384), BF16, 0, False),
+    ("dw qkv", (384, INT8_TRAIN_ROWS, 1152), BF16, 0, False),
+    ("dw to_out", (384, INT8_TRAIN_ROWS, 384), BF16, 0, False),
+    ("dw fc1", (1536, INT8_TRAIN_ROWS, 384), BF16, 0, True),
+    ("dw fc2", (384, INT8_TRAIN_ROWS, 1536), BF16, 0, True),
+    ("dw head", (1000, 256, 384), BF16, 0, True),
+    ("ragged M=1 K=24", (1, 24, 8), F32, 0, False),
+    ("ragged Mixer token K=196", (197, 196, 384), BF16, 0, False),
+    ("ragged TNT inner K=24", (37, 24, 100), F32, 0, True),
+    ("ragged 130x100x77", (130, 100, 77), BF16, 0, False),
+)
+INT8_GEMM_MAIN = "train fc1, dx fc2"
+
+
+def _int8_quant_inputs(case, seed: int):
+    _, layout, shape, dtype, stochastic = case
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    a = torch.randn(shape, generator=gen, device="cuda").to(dtype)
+    # A channel of zeros, whose scale must be 1.0: the first row, or the
+    # first column of each matrix.
+    if layout == "rows":
+        a[0] = 0
+    else:
+        a[..., 0] = 0
+    u = torch.rand(shape, generator=gen, device="cuda") if stochastic else None
+    return a, u
+
+
+def _int8_quantize(case, a, u, reference: bool):
+    from sav_tpu_torch.ops import quant as q
+
+    if case[1] == "rows":
+        return (q.quantize_rows_reference if reference else q.quantize_rows)(a, u)
+    return (q.quantize_cols_t_reference if reference else q.quantize_cols_t)(a, u)
+
+
+def _int8_gemm_inputs(shape, seed: int):
+    m, k, n = shape
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    qa = torch.randint(-127, 128, (m, k), generator=gen, device="cuda", dtype=torch.int8)
+    qb = torch.randint(-127, 128, (n, k), generator=gen, device="cuda", dtype=torch.int8)
+    # Full-scale rows somewhere: sums past 2^24, where the f32 conversion rounds.
+    qa[0] = 127
+    qb[0] = 127
+    sa = torch.rand(m, generator=gen, device="cuda") * 1e-2 + 1e-4
+    sb = torch.rand(n, generator=gen, device="cuda") * 1e-2 + 1e-4
+    return qa, qb, sa, sb
+
+
+def phase_int8_kernels() -> dict:
+    """Q1 (int8_quant.cu) and Q2 (int8_gemm.cu) against their plain versions
+    on the card: every case of INT8_QUANT_CASES (codes and scales bit-equal,
+    rounding to nearest and with the draws passed in) and INT8_GEMM_CASES
+    (the int32 accumulator, read through unit scales, and the dequantized
+    output, f32 or bf16, bit-equal; the QKV layout split in three), each
+    run twice with the same bits. Returns the largest differences."""
+    from sav_tpu_torch.ops import quant as q
+
+    errs = {"quant": 0.0, "gemm": 0.0, "gemm_acc": 0.0}
+    for i, case in enumerate(INT8_QUANT_CASES):
+        a, u = _int8_quant_inputs(case, seed=100 + i)
+        codes, scales = _int8_quantize(case, a, u, reference=False)
+        again, _ = _int8_quantize(case, a, u, reference=False)
+        ref_codes, ref_scales = _int8_quantize(case, a, u, reference=True)
+        torch.cuda.synchronize()
+        code_diff = (codes.int() - ref_codes.int()).abs().max().item()
+        scale_diff = (scales - ref_scales).abs().max().item()
+        if (code_diff or scale_diff or not torch.equal(codes, again)
+                or codes.shape != ref_codes.shape):
+            raise AssertionError(f"Q1 {case[0]} {case[2]}: codes differ by {code_diff}, scales "
+                                 f"by {scale_diff:.3e} from the plain version")
+        zero_scales = scales[:1] if case[1] == "rows" else scales[..., 0]
+        if not torch.all(zero_scales == 1.0):
+            raise AssertionError(f"Q1 {case[0]}: an all-zero channel got scale "
+                                 f"{zero_scales.tolist()}")
+        errs["quant"] = max(errs["quant"], code_diff, scale_diff)
+    log(f"Q1 int8_quant.cu: {len(INT8_QUANT_CASES)} cases (rows and transposed columns, "
+        "round to nearest and stochastic, DeiT-S's serve, QAT forward and backward operands, "
+        "ragged) bit-equal to the plain version, twice the same bits; all-zero rows scale 1")
+    for i, (name, shape, out_dtype, split, b_first) in enumerate(INT8_GEMM_CASES):
+        qa, qb, sa, sb = _int8_gemm_inputs(shape, seed=200 + i)
+        ones_a, ones_b = torch.ones_like(sa), torch.ones_like(sb)
+        acc = q.int8_gemm(qa, qb, ones_a, ones_b)
+        ref_acc = q.int8_gemm_reference(qa, qb, ones_a, ones_b)
+        out = q.int8_gemm(qa, qb, sa, sb, out_dtype, split=split, scale_b_first=b_first)
+        again = q.int8_gemm(qa, qb, sa, sb, out_dtype, split=split, scale_b_first=b_first)
+        ref = q.int8_gemm_reference(qa, qb, sa, sb, out_dtype, split=split,
+                                    scale_b_first=b_first)
+        torch.cuda.synchronize()
+        acc_diff = (acc - ref_acc).abs().max().item()
+        diff = (out.float() - ref.float()).abs().max().item()
+        if acc_diff or diff or not torch.equal(out, again) or out.shape != ref.shape:
+            raise AssertionError(f"Q2 {name} {shape}: accumulator differs by {acc_diff}, "
+                                 f"output by {diff:.3e} from the plain version")
+        errs["gemm"] = max(errs["gemm"], diff)
+        errs["gemm_acc"] = max(errs["gemm_acc"], acc_diff)
+    # The ragged K through Q1's padded codes too: the quantize's layout
+    # straight into the GEMM.
+    x = torch.randn(197, 196, device="cuda", dtype=BF16)
+    w = torch.randn(384, 196, device="cuda", dtype=BF16)
+    (qx, sx), (qw, sw) = q.quantize_rows(x), q.quantize_rows(w)
+    (rx, _), (rw, _) = q.quantize_rows_reference(x), q.quantize_rows_reference(w)
+    if not torch.equal(q.int8_gemm(qx, qw, sx, sw), q.int8_gemm_reference(rx, rw, sx, sw)):
+        raise AssertionError("Q2 on Q1's padded K=196 codes differs from the plain version")
+    log(f"Q2 int8_gemm.cu: {len(INT8_GEMM_CASES)} cases (DeiT-S's serve, QAT forward, dx and "
+        "dw shapes; split QKV; the scales in both orders; ragged M, N, K) bit-equal to the "
+        "plain version in the int32 accumulator and the dequantized f32/bf16 output, twice "
+        "the same bits; K=196 on Q1's padded codes too")
+    return errs
+
+
+def _int8_quant_times(case) -> dict:
+    """Q1 at ``case``: the kernel, its plain version, the bound (bytes: the
+    input and the draws read once, the codes and scales written once); no
+    single PyTorch call computes it."""
+    from sav_tpu_torch.ops import quant as q
+
+    a, u = _int8_quant_inputs(case, seed=7)
+    _, layout, shape, dtype, stochastic = case
+    times = {"ms": _median_ms(lambda: _int8_quantize(case, a, u, reference=False)),
+             "plain_ms": _median_ms(lambda: _int8_quantize(case, a, u, reference=True)),
+             "library_ms": None}
+    n = a.numel()
+    channels = (shape[0] if layout == "rows" else shape[0] * shape[2])
+    nbytes = n * a.element_size() + (4 * n if stochastic else 0) + n + 4 * channels
+    times.update(_bound(nbytes, {torch.int8: 0}))
+    return times
+
+
+def _int8_gemm_times(case) -> dict:
+    """Q2 at ``case``: the kernel, its plain version, the yardstick
+    ``torch._int_mm`` plus the dequantize (two PyTorch calls, cuBLAS; never
+    on the path), bf16 ``torch.matmul`` at the same shape, and the bound
+    (int8 operations at 1,979 TOPS, or the operands, scales and output
+    once at 3.35 TB/s)."""
+    from sav_tpu_torch.ops import quant as q
+
+    name, (m, k, n), out_dtype, split, b_first = case
+    qa, qb, sa, sb = _int8_gemm_inputs((m, k, n), seed=9)
+    qbt = qb.t()
+
+    def int_mm():
+        acc = torch._int_mm(qa, qbt)
+        return ((acc.float() * sa[:, None]) * sb[None, :]).to(out_dtype)
+
+    try:
+        int_mm()
+        library_ms = _median_ms(int_mm)
+    except RuntimeError as err:  # _int_mm's own shape rules
+        log(f"Q2 {name}: torch._int_mm refused {(m, k, n)}: {str(err).splitlines()[0]}")
+        library_ms = None
+    fa, fb = qa.to(BF16), qb.to(BF16)
+    times = {
+        "ms": _median_ms(lambda: q.int8_gemm(qa, qb, sa, sb, out_dtype, split=split,
+                                             scale_b_first=b_first)),
+        "plain_ms": _median_ms(lambda: q.int8_gemm_reference(qa, qb, sa, sb, out_dtype,
+                                                             split=split, scale_b_first=b_first)),
+        "library_ms": library_ms,
+        "bf16_matmul_ms": _median_ms(lambda: torch.matmul(fa, fb.t())),
+    }
+    nbytes = m * k + n * k + 4 * (m + n) + m * n * (2 if out_dtype == BF16 else 4)
+    times.update(_bound(nbytes, {torch.int8: 2 * m * n * k}))
+    return times
+
+
+def phase_int8_timing() -> dict:
+    """Q1 at every DeiT-S case and Q2 at every DeiT-S shape (not the ragged
+    ones): median of 30, cold L2, beside the bound and the yardsticks."""
+    out = {"quant": {}, "gemm": {}}
+    for case in INT8_QUANT_CASES:
+        if not case[0].startswith("ragged"):
+            out["quant"][case[0]] = t = _int8_quant_times(case)
+            log(f"timing Q1 {case[0]} {case[1]} {case[2]} {str(case[3])[6:]}"
+                f"{' stochastic' if case[4] else ''}: kernel {t['ms']:.4f} ms, plain "
+                f"{t['plain_ms']:.4f} ms; bound {t['bound_ms']:.4f} ms by {t['bound_by']}")
+    for case in INT8_GEMM_CASES:
+        if not case[0].startswith("ragged"):
+            out["gemm"][case[0]] = t = _int8_gemm_times(case)
+            lib = "n/a" if t["library_ms"] is None else f"{t['library_ms']:.4f}"
+            log(f"timing Q2 {case[0]} (M, K, N) {case[1]} -> {str(case[2])[6:]}: kernel "
+                f"{t['ms']:.4f} ms, plain {t['plain_ms']:.4f} ms, _int_mm + dequantize {lib} "
+                f"ms, bf16 matmul {t['bf16_matmul_ms']:.4f} ms; bound {t['bound_ms']:.4f} ms by "
+                f"{t['bound_by']}")
+    return out
+
+
+# The served DeiT-S of phase_int8: three batches of the top bucket, the
+# agreement batch against the bf16 engine, the flood of the serve bench.
+INT8_SERVE_REQUESTS = 96
+INT8_AGREE_IMAGES = 256
+INT8_FLOOD_REQUESTS = 1024
+# tests/test_quant.py's gates: the int8 serving tree at most 0.6 of the
+# bf16 bytes at full depth; top-1 agreeing with the float arm (here on at
+# least 99 % of the batch) and every logit within 0.1 x the logits' scale.
+INT8_RATIO_GATE = 0.6
+INT8_TOP1_GATE = 0.99
+INT8_LOGIT_SHARE = 0.1
+INT8_BENCH_STEPS, INT8_BENCH_REPS = 10, 2
+
+
+def phase_int8(directory: str, device="cuda") -> dict:
+    """DeiT-S/16 on the int8 arm at full width and depth: QAT through
+    ``Trainer.fit`` at 256 (phase_train with ``quant="int8"``: 6 captured
+    steps, the same fit eager, 3 captured steps equal to 3 eager ones bit
+    for bit, the "quant" generator's state included, one step of each
+    profiled), its state saved to ``directory``; that checkpoint served
+    through ``ServeEngine(quant_weights=True)`` at buckets 1…32 (the
+    startup's captures, ``startup_report["quant"]`` with the 0.6 gate, three
+    batches, replayed equal to eager logits at every bucket, a profiled
+    replay of bucket 32, the timed steps) and, on the same checkpoint, the
+    bf16 engine, which launches no Q1 or Q2: the top-1 of INT8_AGREE_IMAGES
+    seeded images agrees on at least 99 % and every logit within 0.1 x the
+    logits' scale; the serve bench's ``--quant-weights`` flood and the train
+    bench's ``--quant int8`` line. The launch counters show Q1, Q2 and #1
+    on the path."""
+    from sav_tpu_torch import ServeConfig, ServeEngine
+
+    train = phase_train(model_name=INT8_MODEL, quant="int8", save_to=directory)
+    what = f"serve {INT8_MODEL} int8 weights"
+
+    def config(**kw):
+        return ServeConfig(model_name=INT8_MODEL, compute_dtype="bfloat16", deadline_ms=5000.0,
+                           max_batch=32, checkpoint_dir=directory, device=device, **kw)
+
+    images = np.random.default_rng(20).integers(0, 256, (INT8_AGREE_IMAGES, 224, 224, 3),
+                                                dtype=np.uint8)
+    reset_launches()
+    engine = ServeEngine(config(quant_weights=True))
+    report = engine.startup_report
+    per_batch = attention_launches(engine.model, train=False, family="fused")
+    if not (per_batch["int8_quant"] and per_batch["int8_gemm"] and per_batch["fused"]):
+        raise AssertionError(f"{what}: a forward of the int8 model launches "
+                             f"{json.dumps(per_batch)}")
+    startup_variants = _check_capture(report, per_batch, what)
+    quant = report["quant"]
+    log(f"{what} startup: {json.dumps(report)}")
+    if report["dtype"] != "int8" or quant["param_bytes_ratio"] > INT8_RATIO_GATE:
+        raise AssertionError(f"{what}: startup_report quant {json.dumps(quant)} (gate "
+                             f"{INT8_RATIO_GATE})")
+    reset_launches()
+    with engine:
+        three = np.stack(_serve(engine, images[:INT8_SERVE_REQUESTS], CLIENTS))
+        served = np.stack(_serve(engine, images, CLIENTS))
+    _check_served_eagerly_nowhere(what)
+    stats = engine.stats()
+    ledger = stats["ledger"]
+    if stats["errors"] or stats.get("quant") != "int8" or not np.isfinite(served).all():
+        raise AssertionError(f"{what}: {json.dumps(stats)}")
+    launches, variants = _replayed(stats, report, per_batch, what)
+    log(f"{what}: {INT8_SERVE_REQUESTS} + {INT8_AGREE_IMAGES} requests in "
+        f"{ledger['batches']} batches {json.dumps(ledger['bucket_occupancy'])}; the first three "
+        f"batches' logits: finite, shape {list(three.shape)}, max |x| "
+        f"{np.abs(three).max():.3f}; replays x captured {json.dumps(_nonzero(launches))} = "
+        f"{json.dumps(_nonzero(per_batch))} x {ledger['batches']}; startup by variant "
+        f"{json.dumps(_nonzero(startup_variants))}")
+    _check_replay_equals_eager(engine, what)
+    profile = _profile_replay(engine, max(report["buckets"]), per_batch, what)
+    steps = _serve_steps(engine, SERVE_TIMED_BUCKETS)
+    log(f"{what} steps by bucket (ms): {json.dumps(steps)}")
+    del engine
+    _release_engines()
+
+    ref_what = f"serve {INT8_MODEL} bf16 (the same checkpoint)"
+    reset_launches()
+    ref_engine = ServeEngine(config())
+    ref_per_batch = attention_launches(ref_engine.model, train=False, family="fused")
+    if any(ref_per_batch[k] for k in INT8_COUNTERS):
+        raise AssertionError(f"{ref_what}: {json.dumps(ref_per_batch)}")
+    _check_capture(ref_engine.startup_report, ref_per_batch, ref_what)
+    with ref_engine:
+        ref = np.stack(_serve(ref_engine, images, CLIENTS))
+    ref_launches, _ = _replayed(ref_engine.stats(), ref_engine.startup_report, ref_per_batch,
+                                ref_what)
+    if any(ref_launches[k] for k in INT8_COUNTERS) or any(launch_counts()[k]
+                                                          for k in INT8_COUNTERS):
+        raise AssertionError(f"{ref_what}: launched Q1 or Q2: {json.dumps(ref_launches)}")
+    ref_steps = _serve_steps(ref_engine, SERVE_TIMED_BUCKETS)
+    del ref_engine
+    _release_engines()
+    top1 = float((served.argmax(-1) == ref.argmax(-1)).mean())
+    scale = float(np.abs(ref).max())
+    dlogit = float(np.abs(served - ref).max())
+    agreement = {"images": INT8_AGREE_IMAGES, "top1_agree": top1, "max_abs_dlogit": dlogit,
+                 "logit_scale": scale, "dlogit_share": dlogit / scale,
+                 "logit_std": float(ref.std())}
+    log(f"{what} against the bf16 engine on the same checkpoint: {json.dumps(agreement)} "
+        f"(gates: top-1 >= {INT8_TOP1_GATE}, |dlogit| <= {INT8_LOGIT_SHARE} x scale); bf16 steps "
+        f"by bucket (ms) {json.dumps(ref_steps)}")
+    if top1 < INT8_TOP1_GATE or dlogit > INT8_LOGIT_SHARE * scale:
+        raise AssertionError(f"{what}: disagrees with the bf16 engine: {json.dumps(agreement)}")
+
+    common = ["--model", INT8_MODEL, "--max-batch", "32", "--max-queue", "4096",
+              "--checkpoint", directory, "--quant-weights"]
+    flood = _bench(common + ["--requests", str(INT8_FLOOD_REQUESTS), "--deadline-ms",
+                             str(FLOOD_DEADLINE_MS)], per_batch, f"bench {INT8_MODEL} int8 flood")
+    if flood["result"]["quant"] != "int8" or flood["result"]["startup"]["quant"] != quant:
+        raise AssertionError(f"the int8 flood's line: {json.dumps(flood['result'])}")
+
+    from sav_tpu_torch import create_model
+    from sav_tpu_torch.train import bench
+
+    per_step = attention_launches(create_model(INT8_MODEL, quant="int8"), train=True,
+                                  family="fused")
+    reset_launches()
+    line = bench.main(["--model", INT8_MODEL, "--batch-size", str(TRAIN_BATCH), "--quant", "int8",
+                       "--steps", str(INT8_BENCH_STEPS), "--reps", str(INT8_BENCH_REPS)])
+    captured = {**dict.fromkeys(COUNTERS, 0), **line["captured_launches"]}
+    replayed = {**dict.fromkeys(COUNTERS, 0), **line["replayed_launches"]}
+    if (line["outcome"] != "ok" or line["quant"] != "int8" or captured != per_step
+            or "int8" not in line["peak_source"] or not 0 < line["mfu"] < 1
+            or replayed != _times(per_step, line["replays"])):
+        raise AssertionError(f"train bench --quant int8: {json.dumps(line)}")
+    tb_variants = _on_tensor_cores(
+        {k: {v: line["replayed_variants"].get(k, {}).get(v, 0) for v in by_variant}
+         for k, by_variant in variant_counts().items()}, replayed, "train bench --quant int8")
+    _free_device_memory()
+    log(f"train bench {INT8_MODEL} {TRAIN_BATCH} --quant int8: " + json.dumps(
+        {k: line[k] for k in ("value", "step_ms", "mfu", "peak_flops", "peak_source",
+                              "int8_flops_share", "capture_s", "device_step_ms")}))
+    return {"train": train, "serve": {**launches, "variants": variants},
+            "bench": {**flood["launches"], "variants": flood["variants"]},
+            "train_bench": {**replayed, "line": line, "variants": tb_variants},
+            "quant": quant, "agreement": agreement, "steps": steps, "bf16_steps": ref_steps,
+            "profile": profile, "flood": {k: flood["result"][k] for k in (
+                "serve_throughput", "p50_latency_ms", "p99_latency_ms")}}
+
+
+def main_int8() -> None:
+    """``--int8``: the build of the fused and int8 kernels, phase_int8_kernels,
+    their timing and phase_int8 alone."""
+    from sav_tpu_torch.ops import _build
+
+    phase_device()
+    built = _build.build_all(["fused_attention", "fused_attention_bwd", "int8_quant",
+                              "int8_gemm"])
+    log(f"built {json.dumps({k: round(v, 1) for k, v in built.items()})}")
+    for name in ("int8_quant", "int8_gemm"):
+        log(f"nvcc {name}: " + json.dumps(_ptxas_resources(_build.BUILD_LOGS.get(name, ""))))
+    log(f"sass int8_gemm: {json.dumps(_sass_mma_counts(str(_build.library_path('int8_gemm'))))}")
+    errs = phase_int8_kernels()
+    times = phase_int8_timing()
+    with tempfile.TemporaryDirectory() as directory:
+        int8 = phase_int8(directory)
+    log(json.dumps({"int8_kernel_errors": errs, "quant": int8["quant"],
+                    "agreement": int8["agreement"]}))
+    del times
+
+
+def _replays_round_anew(trainer, state, start: dict, batch, what: str) -> None:
+    """The QAT step's stochastic rounding comes from the trainer's "quant"
+    generator, which the captured step registers: from the same start, two
+    replays give the same bits, and a replay after the generator moved on
+    (as one replay moves it) gives other gradients, so other Adam moments."""
+    runs, moved = [], None
+    for rewind in (True, True, False):
+        _restore(trainer, state, start)
+        if not rewind:
+            trainer.generators["quant"].set_state(moved)
+        trainer.train_step(state, batch)
+        torch.cuda.synchronize()
+        if moved is None:
+            moved = trainer.generators["quant"].get_state()
+        runs.append([t.detach().clone() for t in state.opt_state.mu])
+    same = all(torch.equal(a, b) for a, b in zip(runs[0], runs[1]))
+    differ = sum(not torch.equal(a, b) for a, b in zip(runs[0], runs[2]))
+    log(f"{what}: two replays from one start give the same moments: {same}; a replay with the "
+        f"\"quant\" generator one step on changes {differ} of {len(runs[0])} first moments")
+    if not same or differ == 0:
+        raise AssertionError(f"{what}: the replays' stochastic rounding is not the registered "
+                             f"generator's (same start equal: {same}, moved differ: {differ})")
 
 
 def phase_surgery(directory, device="cuda") -> dict:
@@ -3845,6 +4365,12 @@ def phase_fed_train(directory: str, smi: str) -> dict:
 
 # Kernel-name fragments → the group a device kernel is counted under.
 KERNEL_GROUPS = (
+    # First: "gemm" below would take Q2. A column quantize (one Q1 launch)
+    # is two kernels: its amax pass is timed in a group of its own, which
+    # the name checks do not count.
+    ("int8 quantize (int8_quant.cu)", ("quantize_rows_kernel", "cols_quant_kernel")),
+    ("int8 column amax pass, int8_quant.cu", ("cols_amax_kernel",)),
+    ("int8 GEMM (int8_gemm.cu)", ("int8_gemm_kernel",)),
     ("flash backward dq (flash_attention_bwd.cu)", ("flash_attention_bwd_dq_kernel",
                                                     "flash_attention_bwd_dq_mma_kernel")),
     ("flash backward dk/dv (flash_attention_bwd.cu)", ("flash_attention_bwd_dkv_kernel",
@@ -4313,9 +4839,11 @@ def main() -> None:
     th_err = phase_th_kernels()
     flash_err = phase_flash_kernels()
     rel_err = phase_rel_kernels()
+    int8_err = phase_int8_kernels()
     moe_routing = phase_moe_routing()
     mark("kernel checks")
     times = phase_timing()
+    int8_times = phase_int8_timing()
     mark("timing")
     serve = {"deit": phase_serve(), "cait": phase_serve(model_name="cait_xxs_24"),
              "botnet": phase_serve(model_name=BOTNET_MODEL, family="rel"),
@@ -4399,6 +4927,10 @@ def main() -> None:
     train["rope"] = phase_train(model_name=ROPE_MODEL)
     train["moe"] = phase_train(model_name=MOE_MODEL)
     mark("rotary and MoE ViT training")
+    with tempfile.TemporaryDirectory() as qat_dir:
+        int8 = phase_int8(qat_dir)
+    train["deit_int8"] = int8["train"]
+    mark("the int8 arm (DeiT-S QAT, int8 serving, the benches)")
 
     def by_path(kind):
         return {
@@ -4427,6 +4959,10 @@ def main() -> None:
             "train_fed_deit": fed["train"]["launches"][kind],
             "eval_fed_deit": fed["eval"]["launches"][kind],
             "train_fed_resumed_deit": fed["resumed"]["launches"][kind],
+            "train_int8_deit": train["deit_int8"]["launches"][kind],
+            "serve_int8_deit": int8["serve"][kind],
+            "serve_bench_int8_deit": int8["bench"][kind],
+            "train_bench_int8_deit": int8["train_bench"][kind],
             **{f"train_bench_{name.replace(' ', '_')}_deit": run["launches"][kind]
                for name, run in fed["bench"].items()},
         }
@@ -4438,7 +4974,8 @@ def main() -> None:
         out = {}
         for run in (*serve.values(), *benches.values(), *train.values(), resume, evaluation,
                     dropout, serve_ckpt, devpre, *train_bench.values(), chain, fed["train"],
-                    fed["eval"], fed["resumed"], *fed["bench"].values()):
+                    fed["eval"], fed["resumed"], *fed["bench"].values(), int8["serve"],
+                    int8["bench"], int8["train_bench"]):
             for variant, n in run["variants"][kind].items():
                 out[variant] = out.get(variant, 0) + n
         return out
@@ -4704,9 +5241,55 @@ def main() -> None:
         "eval_images_per_sec": round(evaluation["images_per_sec"], 1),
         "eval_dense_images_per_sec": round(evaluation["dense_images_per_sec"], 1),
         "dropout_kept_share": dropout["kept_share"]}))
+    int8_common = {"route": "cuda", "checked": True,
+                   "variant": "one: Q1 on the CUDA cores, Q2 on the tensor cores "
+                              "(mma.sync.m16n8k32, s8 operands, s32 accumulators)"}
+    quant_main = next(c for c in INT8_QUANT_CASES if c[0] == INT8_QUANT_MAIN)
+    gemm_main = next(c for c in INT8_GEMM_CASES if c[0] == INT8_GEMM_MAIN)
+    q1 = {
+        "name": "int8_quantize", **int8_common,
+        "source": "sav_tpu_torch/csrc/int8_quant.cu",
+        "replaces": "sav_tpu/ops/quant.py:64",
+        "tpu_kernel": "none: XLA's fusion of quantize_channelwise/quantize_stochastic",
+        "launches": total("int8_quant"),
+        "launches_by_variant": by_variant("int8_quant"),
+        "launches_by_path": by_path("int8_quant"),
+        "max_abs_err": int8_err["quant"],
+        "shape": list(quant_main[2]),
+        **_timed(int8_times["quant"][INT8_QUANT_MAIN]),
+        "at_shapes": {name: {"shape": list(next(c[2] for c in INT8_QUANT_CASES if c[0] == name)),
+                             **_timed(t)}
+                      for name, t in int8_times["quant"].items()},
+    }
+    q2 = {
+        "name": "int8_gemm", **int8_common,
+        "source": "sav_tpu_torch/csrc/int8_gemm.cu",
+        "replaces": "sav_tpu/ops/quant.py:104",
+        "tpu_kernel": "none: XLA's dot_general(int8, int8 -> int32) and dequantize",
+        "library": "torch._int_mm + dequantize (two calls, cuBLAS; yardstick only)",
+        "launches": total("int8_gemm"),
+        "launches_by_variant": by_variant("int8_gemm"),
+        "launches_by_path": by_path("int8_gemm"),
+        "max_abs_err": int8_err["gemm"],
+        "max_abs_err_accumulator": int8_err["gemm_acc"],
+        "shape": list(gemm_main[1]),
+        **_timed(int8_times["gemm"][INT8_GEMM_MAIN]),
+        "bf16_matmul_ms": int8_times["gemm"][INT8_GEMM_MAIN]["bf16_matmul_ms"],
+        "at_shapes": {name: {"shape_mkn": list(next(c[1] for c in INT8_GEMM_CASES
+                                                    if c[0] == name)),
+                             **_timed(t), "bf16_matmul_ms": t["bf16_matmul_ms"]}
+                      for name, t in int8_times["gemm"].items()},
+    }
+    log("int8 summary (DeiT-S QAT at 256 and int8 serving at buckets 1-32): " + json.dumps({
+        "quant": int8["quant"], "agreement": int8["agreement"],
+        "serve_steps_int8": int8["steps"], "serve_steps_bf16": int8["bf16_steps"],
+        "replay_busy_ms_at_32": round(int8["profile"]["busy_ms"], 4),
+        "flood": int8["flood"],
+        "train_bench": {k: int8["train_bench"]["line"][k] for k in (
+            "value", "step_ms", "mfu", "peak_source", "int8_flops_share")}}))
     log(f"card: {smi}")
     log(json.dumps({"kernels": [fwd, bwd, th_fwd, *th_bwd, flash_fwd, flash_dq, flash_dkv,
-                                *rel_records]}))
+                                *rel_records, q1, q2]}))
     log(json.dumps({
         "ok": True,
         "device": {
@@ -4759,8 +5342,10 @@ if __name__ == "__main__":
         main_supervised_chain()
     elif sys.argv[1:] == ["--fed-train"]:
         main_fed_train()
+    elif sys.argv[1:] == ["--int8"]:
+        main_int8()
     elif sys.argv[1:]:
         raise SystemExit(f"chip_smoke: unknown arguments {sys.argv[1:]}; it takes none, "
-                         "--remat-trade, --supervised-chain or --fed-train")
+                         "--remat-trade, --supervised-chain, --fed-train or --int8")
     else:
         main()

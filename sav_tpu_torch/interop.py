@@ -135,6 +135,13 @@ flax key                                                port key                
 ``to_out`` is a ``DenseGeneral`` that contracts two axes, ``(-2, -1)``;
 its kernel keeps flax's ``[H, D, out]`` and the port contracts it as one
 ``[H·D, out]`` matrix, so it converts by copying.
+The int8 serving tree (``quant="int8_serve"`` on both sides) converts by
+the same rules: an int8 ``kernel`` stays int8 (a ``Dense``'s transposed to
+``[out, in]``, a raw projection's as is), and its ``scale`` goes to the
+port's ``<layer>.scale`` for a ``Dense`` (``head/scale`` → ``head.scale``)
+and to ``<name>_scale`` beside a raw projection (``…/to_qkv/scale`` →
+``….attn.to_qkv_scale``). Every other leaf converts in f32. A QAT tree
+(``quant="int8"``) is the float tree.
 """
 
 from __future__ import annotations
@@ -155,6 +162,21 @@ def _dense(a):
 
 def _conv(a):
     return a.transpose(3, 2, 0, 1)
+
+
+def _with_scales(rules: list) -> list:
+    """``rules`` and, for each Dense or raw projection kernel among them,
+    the rule of its int8 serving ``scale``."""
+    scales = []
+    for pattern, target, convert in rules:
+        if not pattern.endswith("/kernel") or convert not in (_dense, _as_is):
+            continue
+        if convert is _dense:
+            scale_target = target[:-len("weight")] + "scale"
+        else:
+            scale_target = target + "_scale"
+        scales.append((pattern[:-len("kernel")] + "scale", scale_target, _as_is))
+    return rules + scales
 
 
 def _norm_rule(flax_prefix: str, port_prefix: str) -> list:
@@ -335,19 +357,23 @@ _MIXER_RULES = [
 def _family_rules(tree) -> tuple:
     """``(family, params rules, batch_stats rules)`` of a params tree."""
     if "Encoder_0" in tree:
-        return "ViT", _VIT_RULES, []
-    if "stem_conv" in tree:
-        return "BoTNet", _BOTNET_RULES, _BOTNET_STATS_RULES
-    if "Image2TokenBlock_0" in tree:
-        return "CeiT", _CEIT_RULES, _CEIT_STATS_RULES
-    if "stage_0" in tree:
-        return "CvT", _CVT_RULES, _CVT_STATS_RULES
-    if "PixelEmbedBlock_0" in tree:
-        return "TNT", _TNT_RULES, []
-    if any(isinstance(block, dict) and "token_mixing" in block for block in tree.values()):
-        return "MLPMixer", _MIXER_RULES, []
-    if any(re.fullmatch(r"(ca_)?block_\d+", str(name)) for name in tree):
-        return "CaiT", _CAIT_RULES, []
+        family = "ViT"
+    elif "stem_conv" in tree:
+        family = "BoTNet"
+    elif "Image2TokenBlock_0" in tree:
+        family = "CeiT"
+    elif "stage_0" in tree:
+        family = "CvT"
+    elif "PixelEmbedBlock_0" in tree:
+        family = "TNT"
+    elif any(isinstance(block, dict) and "token_mixing" in block for block in tree.values()):
+        family = "MLPMixer"
+    elif any(re.fullmatch(r"(ca_)?block_\d+", str(name)) for name in tree):
+        family = "CaiT"
+    else:
+        family = None
+    if family is not None:
+        return (family, *_FAMILY_RULES[family])
     raise KeyError(
         f"not a ViT or CaiT parameter tree, nor a BoTNet, TNT, CeiT, CvT or MLP-Mixer one "
         f"(top-level keys {sorted(map(str, tree))}); the port converts those seven families"
@@ -368,7 +394,8 @@ def _convert(tree, rules, state, unknown, prefix="") -> None:
         for pattern, target, convert in rules:
             match = re.fullmatch(pattern, path)
             if match:
-                array = convert(np.asarray(leaf, dtype=np.float32))
+                array = np.asarray(leaf)
+                array = convert(array if array.dtype == np.int8 else array.astype(np.float32))
                 name = match.expand(target).replace("/", ".")
                 state[name] = torch.from_numpy(np.array(array, order="C"))
                 break
@@ -398,13 +425,13 @@ def params_from_flax(tree) -> dict:
 # ------------------------------------------------------------------ reverse
 
 _FAMILY_RULES = {
-    "ViT": (_VIT_RULES, []),
-    "CaiT": (_CAIT_RULES, []),
-    "BoTNet": (_BOTNET_RULES, _BOTNET_STATS_RULES),
-    "CeiT": (_CEIT_RULES, _CEIT_STATS_RULES),
-    "CvT": (_CVT_RULES, _CVT_STATS_RULES),
-    "TNT": (_TNT_RULES, []),
-    "MLPMixer": (_MIXER_RULES, []),
+    "ViT": (_with_scales(_VIT_RULES), []),
+    "CaiT": (_with_scales(_CAIT_RULES), []),
+    "BoTNet": (_with_scales(_BOTNET_RULES), _BOTNET_STATS_RULES),
+    "CeiT": (_with_scales(_CEIT_RULES), _CEIT_STATS_RULES),
+    "CvT": (_with_scales(_CVT_RULES), _CVT_STATS_RULES),
+    "TNT": (_with_scales(_TNT_RULES), []),
+    "MLPMixer": (_with_scales(_MIXER_RULES), []),
 }
 
 
@@ -498,8 +525,12 @@ def flax_from_params(state_dict: dict, family: str) -> dict:
     out = {"params": {}, "batch_stats": {}}
     unknown = []
     for name, value in state_dict.items():
-        array = value.detach().cpu().float().numpy() if torch.is_tensor(value) else np.asarray(
-            value, np.float32)
+        if torch.is_tensor(value):
+            value = value.detach().cpu()
+            array = (value if value.dtype == torch.int8 else value.float()).numpy()
+        else:
+            array = np.asarray(value)
+            array = array if array.dtype == np.int8 else array.astype(np.float32)
         for regex, flax_path, pattern, target, convert, collection in reverse:
             match = regex.fullmatch(name)
             if match is None:

@@ -34,17 +34,17 @@ from torch import nn
 from sav_tpu_torch.models.layers import (
     BatchNorm,
     BoTMHSA,
-    Dense,
     SameConv2d,
     SqueezeExciteBlock,
+    dense,
     max_pool_same,
 )
 from sav_tpu_torch.models.layers.initializers import lecun_normal_
 from sav_tpu_torch.models.vit import refuse_unported
 
-# sav_tpu BoTNet options this port does not carry yet, and the ROADMAP item
-# each waits on. Setting one raises NotImplementedError.
-_NOT_PORTED = {"quant": "queue A8 (int8)"}
+# sav_tpu BoTNet options this port does not carry yet (none); any other name
+# raises TypeError.
+_NOT_PORTED: dict = {}
 
 FILTERS = (64, 128, 256, 512)
 
@@ -105,13 +105,14 @@ class BoTBlock(nn.Module):
     stride is a 2×2 average pool after the attention."""
 
     def __init__(self, in_ch: int, filters: int, grid, *, num_heads: int = 4,
-                 strides: int = 1, backend: Optional[str] = None, logits_dtype=None):
+                 strides: int = 1, backend: Optional[str] = None, logits_dtype=None,
+                 quant: Optional[str] = None):
         super().__init__()
         self.strides = strides
         self.conv1 = SameConv2d(in_ch, filters, 1)
         self.bn1 = BatchNorm(filters)
         self.mhsa = BoTMHSA(filters, num_heads, *grid, head_ch=filters // num_heads,
-                            backend=backend, logits_dtype=logits_dtype)
+                            backend=backend, logits_dtype=logits_dtype, quant=quant)
         self.bn2 = BatchNorm(filters)
         self.conv3 = SameConv2d(filters, 4 * filters, 1)
         self.bn3 = BatchNorm(4 * filters, zero_scale=True)
@@ -148,10 +149,12 @@ class BoTNet(nn.Module):
         image_size: int = 224,
         backend: Optional[str] = None,
         logits_dtype=None,
+        quant: Optional[str] = None,
         **unported,
     ):
         super().__init__()
         refuse_unported("BoTNet", unported, _NOT_PORTED)
+        self.quant = quant
         stage_sizes = tuple(stage_sizes)
         if len(stage_sizes) != 4:
             raise ValueError(f"stage_sizes must have 4 entries, got {stage_sizes}")
@@ -172,10 +175,10 @@ class BoTNet(nn.Module):
             name = f"stage4_block{block}"
             self.add_module(name, BoTBlock(
                 in_ch, FILTERS[3], grid, num_heads=num_heads, strides=2 if block == 0 else 1,
-                backend=backend, logits_dtype=logits_dtype))
+                backend=backend, logits_dtype=logits_dtype, quant=quant))
             self.block_names.append(name)
             in_ch = 4 * FILTERS[3]
-        self.head = Dense(in_ch, num_classes)
+        self.head = dense(in_ch, num_classes, quant=quant)
 
     def reset_parameters(self, generator: torch.Generator) -> None:
         """flax's initialisers from an explicit generator: lecun-normal

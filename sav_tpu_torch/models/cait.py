@@ -30,13 +30,13 @@ from sav_tpu_torch.models.layers import (
     AddAbsPosEmbed,
     AttentionBlock,
     ClassSelfAttentionBlock,
-    Dense,
     Dropout,
     FFBlock,
     LayerScaleBlock,
     PatchEmbedBlock,
     SelfAttentionBlock,
     StochasticDepthBlock,
+    dense,
 )
 from sav_tpu_torch.models.layers.initializers import lecun_normal_
 from sav_tpu_torch.models.vit import LayerNorm, refuse_unported
@@ -46,7 +46,6 @@ from sav_tpu_torch.models.vit import LayerNorm, refuse_unported
 _NOT_PORTED = {
     "seq_parallel": "queue A9 (parallelism)",
     "seq_mesh": "queue A9 (parallelism)",
-    "quant": "queue A8 (int8)",
 }
 
 
@@ -57,17 +56,18 @@ class EncoderBlock(nn.Module):
     def __init__(self, dim: int, num_heads: int, *, expand_ratio: float = 4.0,
                  layerscale_eps: float = 1e-5, stoch_depth_rate: float = 0.0,
                  backend: Optional[str] = None, logits_dtype=None,
-                 attn_dropout_rate: float = 0.0, dropout_rate: float = 0.0):
+                 attn_dropout_rate: float = 0.0, dropout_rate: float = 0.0,
+                 quant: Optional[str] = None):
         super().__init__()
         self.norm1 = LayerNorm(dim)
         self.attn = SelfAttentionBlock(
             dim, num_heads, talking_heads=True, backend=backend, logits_dtype=logits_dtype,
-            attn_dropout_rate=attn_dropout_rate, out_dropout_rate=dropout_rate,
+            attn_dropout_rate=attn_dropout_rate, out_dropout_rate=dropout_rate, quant=quant,
         )
         self.ls1 = LayerScaleBlock(dim, layerscale_eps)
         self.sd1 = StochasticDepthBlock(stoch_depth_rate)
         self.norm2 = LayerNorm(dim)
-        self.ff = FFBlock(dim, expand_ratio=expand_ratio, dropout_rate=dropout_rate)
+        self.ff = FFBlock(dim, expand_ratio=expand_ratio, dropout_rate=dropout_rate, quant=quant)
         self.ls2 = LayerScaleBlock(dim, layerscale_eps)
         self.sd2 = StochasticDepthBlock(stoch_depth_rate)
 
@@ -84,16 +84,16 @@ class CAEncoderBlock(nn.Module):
     def __init__(self, dim: int, num_heads: int, *, expand_ratio: float = 4.0,
                  layerscale_eps: float = 1e-5, backend: Optional[str] = None,
                  logits_dtype=None, attn_dropout_rate: float = 0.0,
-                 dropout_rate: float = 0.0):
+                 dropout_rate: float = 0.0, quant: Optional[str] = None):
         super().__init__()
         self.norm1 = LayerNorm(dim)
         self.attn = ClassSelfAttentionBlock(
             dim, num_heads, backend=backend, logits_dtype=logits_dtype,
-            attn_dropout_rate=attn_dropout_rate, out_dropout_rate=dropout_rate,
+            attn_dropout_rate=attn_dropout_rate, out_dropout_rate=dropout_rate, quant=quant,
         )
         self.ls1 = LayerScaleBlock(dim, layerscale_eps)
         self.norm2 = LayerNorm(dim)
-        self.ff = FFBlock(dim, expand_ratio=expand_ratio, dropout_rate=dropout_rate)
+        self.ff = FFBlock(dim, expand_ratio=expand_ratio, dropout_rate=dropout_rate, quant=quant)
         self.ls2 = LayerScaleBlock(dim, layerscale_eps)
 
     def forward(self, cls_tok: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
@@ -126,16 +126,19 @@ class CaiT(nn.Module):
         logits_dtype=None,
         attn_dropout_rate: float = 0.0,
         dropout_rate: float = 0.0,
+        quant: Optional[str] = None,
         **unported,
     ):
         super().__init__()
         refuse_unported("CaiT", unported, _NOT_PORTED)
+        self.quant = quant
         ph, pw = patch_shape
         if image_size % ph or image_size % pw:
             raise ValueError(f"image {image_size} not divisible by patch {patch_shape}")
         common = dict(expand_ratio=expand_ratio, layerscale_eps=layerscale_eps,
                       backend=backend, logits_dtype=logits_dtype,
-                      attn_dropout_rate=attn_dropout_rate, dropout_rate=dropout_rate)
+                      attn_dropout_rate=attn_dropout_rate, dropout_rate=dropout_rate,
+                      quant=quant)
         self.patch_embed = PatchEmbedBlock(patch_shape, embed_dim)
         self.pos_embed = AddAbsPosEmbed((image_size // ph) * (image_size // pw), embed_dim)
         self.pos_drop = Dropout(dropout_rate)
@@ -151,7 +154,7 @@ class CaiT(nn.Module):
             for _ in range(num_layers_token_only)
         )
         self.norm = LayerNorm(embed_dim)
-        self.head = Dense(embed_dim, num_classes)
+        self.head = dense(embed_dim, num_classes, quant=quant)
 
     def reset_parameters(self, generator: torch.Generator) -> None:
         """flax's initialisers from an explicit generator: lecun-normal

@@ -28,13 +28,13 @@ from sav_tpu_torch.models.layers import (
     BatchNorm,
     ConvProjectionBlock,
     CvTAttentionBlock,
-    Dense,
     DepthwiseConv2D,
     Dropout,
     Image2TokenBlock,
     LCSelfAttentionBlock,
     LeFFBlock,
     SelfAttentionBlock,
+    dense,
 )
 from sav_tpu_torch.models.layers.initializers import lecun_normal_
 from sav_tpu_torch.models.vit import LayerNorm, refuse_unported
@@ -44,7 +44,6 @@ from sav_tpu_torch.models.vit import LayerNorm, refuse_unported
 _NOT_PORTED = {
     "seq_parallel": "queue A9 (parallelism)",
     "seq_mesh": "queue A9 (parallelism)",
-    "quant": "queue A8 (int8)",
 }
 
 
@@ -88,14 +87,15 @@ class EncoderBlock(nn.Module):
 
     def __init__(self, dim: int, num_heads: int, *, expand_ratio: float = 4.0,
                  backend: Optional[str] = None, logits_dtype=None,
-                 attn_dropout_rate: float = 0.0, dropout_rate: float = 0.0):
+                 attn_dropout_rate: float = 0.0, dropout_rate: float = 0.0,
+                 quant: Optional[str] = None):
         super().__init__()
         self.attn = SelfAttentionBlock(
             dim, num_heads, backend=backend, logits_dtype=logits_dtype,
-            attn_dropout_rate=attn_dropout_rate, out_dropout_rate=dropout_rate,
+            attn_dropout_rate=attn_dropout_rate, out_dropout_rate=dropout_rate, quant=quant,
         )
         self.norm1 = LayerNorm(dim)
-        self.leff = LeFFBlock(dim, expand_ratio=expand_ratio)
+        self.leff = LeFFBlock(dim, expand_ratio=expand_ratio, quant=quant)
         self.norm2 = LayerNorm(dim)
 
     def forward(self, inputs: torch.Tensor) -> torch.Tensor:
@@ -124,10 +124,12 @@ class CeiT(nn.Module):
         logits_dtype=None,
         attn_dropout_rate: float = 0.0,
         dropout_rate: float = 0.0,
+        quant: Optional[str] = None,
         **unported,
     ):
         super().__init__()
         refuse_unported("CeiT", unported, _NOT_PORTED)
+        self.quant = quant
         self.image_size = image_size
         side = token_grid(image_size, patch_shape)
         self.stem = Image2TokenBlock(patch_shape, embed_dim, stem_ch)
@@ -137,14 +139,14 @@ class CeiT(nn.Module):
         self.blocks = nn.ModuleList(
             EncoderBlock(embed_dim, num_heads, expand_ratio=expand_ratio, backend=backend,
                          logits_dtype=logits_dtype, attn_dropout_rate=attn_dropout_rate,
-                         dropout_rate=dropout_rate)
+                         dropout_rate=dropout_rate, quant=quant)
             for _ in range(num_layers)
         )
         self.lca = LCSelfAttentionBlock(embed_dim, num_heads, backend=backend,
                                         logits_dtype=logits_dtype,
-                                        attn_dropout_rate=attn_dropout_rate)
+                                        attn_dropout_rate=attn_dropout_rate, quant=quant)
         self.norm = LayerNorm(embed_dim)
-        self.head = Dense(embed_dim, num_classes)
+        self.head = dense(embed_dim, num_classes, quant=quant)
 
     def reset_parameters(self, generator: torch.Generator) -> None:
         """:func:`reset_conv_model`, and a zero CLS token."""

@@ -24,12 +24,12 @@ import torch
 from torch import nn
 
 from sav_tpu_torch.models.ceit import reset_conv_model
-from sav_tpu_torch.models.layers import CvTSelfAttentionBlock, Dense, FFBlock, SameConv2d
+from sav_tpu_torch.models.layers import CvTSelfAttentionBlock, FFBlock, SameConv2d, dense
 from sav_tpu_torch.models.vit import LayerNorm, refuse_unported
 
-# sav_tpu CvT options this port does not carry yet, and the ROADMAP item
-# each waits on. Setting one raises NotImplementedError.
-_NOT_PORTED = {"quant": "queue A8 (int8)"}
+# sav_tpu CvT options this port does not carry yet (none); any other name
+# raises TypeError.
+_NOT_PORTED: dict = {}
 
 
 class ConvTokenEmbedBlock(nn.Module):
@@ -56,15 +56,16 @@ class StageBlock(nn.Module):
 
     def __init__(self, dim: int, num_heads: int, *, expand_ratio: float = 4.0,
                  with_cls: bool = False, backend: Optional[str] = None, logits_dtype=None,
-                 attn_dropout_rate: float = 0.0, dropout_rate: float = 0.0):
+                 attn_dropout_rate: float = 0.0, dropout_rate: float = 0.0,
+                 quant: Optional[str] = None):
         super().__init__()
         self.norm1 = LayerNorm(dim)
         self.attn = CvTSelfAttentionBlock(
             dim, num_heads, with_cls=with_cls, backend=backend, logits_dtype=logits_dtype,
-            attn_dropout_rate=attn_dropout_rate, out_dropout_rate=dropout_rate,
+            attn_dropout_rate=attn_dropout_rate, out_dropout_rate=dropout_rate, quant=quant,
         )
         self.norm2 = LayerNorm(dim)
-        self.ff = FFBlock(dim, expand_ratio=expand_ratio, dropout_rate=dropout_rate)
+        self.ff = FFBlock(dim, expand_ratio=expand_ratio, dropout_rate=dropout_rate, quant=quant)
 
     def forward(self, tokens: torch.Tensor, grid_shape) -> torch.Tensor:
         tokens = tokens + self.attn(self.norm1(tokens), grid_shape)
@@ -117,21 +118,23 @@ class CvT(nn.Module):
         logits_dtype=None,
         attn_dropout_rate: float = 0.0,
         dropout_rate: float = 0.0,
+        quant: Optional[str] = None,
         **unported,
     ):
         super().__init__()
         refuse_unported("CvT", unported, _NOT_PORTED)
+        self.quant = quant
         self.image_size = image_size
         in_chs = (3, *embed_dims[:2])
         self.stages = nn.ModuleList(
             Stage(in_chs[s], embed_dims[s], num_layers[s], num_heads[s], kernel_sizes[s],
                   strides[s], insert_cls=s == 2, expand_ratio=expand_ratio, backend=backend,
                   logits_dtype=logits_dtype, attn_dropout_rate=attn_dropout_rate,
-                  dropout_rate=dropout_rate)
+                  dropout_rate=dropout_rate, quant=quant)
             for s in range(3)
         )
         self.norm = LayerNorm(embed_dims[2])
-        self.head = Dense(embed_dims[2], num_classes)
+        self.head = dense(embed_dims[2], num_classes, quant=quant)
 
     def reset_parameters(self, generator: torch.Generator) -> None:
         """CeiT's :func:`~sav_tpu_torch.models.ceit.reset_conv_model`, and a

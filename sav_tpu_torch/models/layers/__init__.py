@@ -17,7 +17,7 @@ from sav_tpu_torch.models.layers.cvt_attention import (
     CvTSelfAttentionBlock,
 )
 from sav_tpu_torch.models.layers.depthwise import DepthwiseConv2D
-from sav_tpu_torch.models.layers.feedforward import Dense, FFBlock, LeFFBlock
+from sav_tpu_torch.models.layers.feedforward import Dense, FFBlock, LeFFBlock, dense
 from sav_tpu_torch.models.layers.normalization import (
     BatchNorm,
     LayerScaleBlock,
@@ -68,6 +68,7 @@ __all__ = [
     "StochasticDepthBlock",
     "TalkingHeadsBlock",
     "cast_for_compute",
+    "dense",
     "max_pool_same",
     "same_pads",
     "set_dropout_generator",

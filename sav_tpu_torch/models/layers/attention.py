@@ -15,6 +15,13 @@ probabilities across heads through two ``[H, H]`` kernels
 talking-heads kernels, or the dense path for ``backend='xla'``. Otherwise
 the core is the seam of :mod:`sav_tpu_torch.ops.attention`.
 
+With ``quant`` (``"int8"``, QAT, or ``"int8_serve"``) the projections run
+on the int8 arm of :mod:`sav_tpu_torch.ops.quant` (the attention core stays
+in the compute dtype): the stacked QKV as one product whose output is the
+three contiguous ``[M, H·D]`` slices, the others one product each. Serving,
+each projection is int8 codes of the parameter's shape with an f32
+``<name>_scale`` beside it.
+
 ``attn_dropout_rate`` drops attention probabilities in training, on the
 dense path only (``auto`` takes it; a kernel backend raises), and
 ``out_dropout_rate`` the merged output, as ``sav_tpu``'s blocks do.
@@ -35,6 +42,7 @@ from torch import nn
 from sav_tpu_torch.models.layers.initializers import lecun_normal_
 from sav_tpu_torch.models.layers.position_embed import RotaryPositionalEmbedding
 from sav_tpu_torch.models.layers.regularization import Dropout
+from sav_tpu_torch.ops import quant as _quant
 from sav_tpu_torch.ops import talking_heads as _th
 from sav_tpu_torch.ops.attention import dot_product_attention
 
@@ -71,34 +79,45 @@ class AttentionBlock(nn.Module):
         logits_dtype=None,
         attn_dropout_rate: float = 0.0,
         out_dropout_rate: float = 0.0,
+        quant: Optional[str] = None,
     ):
         super().__init__()
         self.num_heads = num_heads
         self.head_ch = head_ch or in_ch // num_heads
         self.talking_heads = talking_heads
         self.fused_qkv = fused_qkv
+        self.quant = _quant.check_mode(quant)
+        if quant == "int8":
+            self.quant_generator = None
         self.backend = backend
         # None = the block's compute dtype, resolved per call (sav_tpu's
         # rule); the talking-heads core always mixes in f32.
         self.logits_dtype = logits_dtype
         h, d = num_heads, self.head_ch
         if fused_qkv:
-            self.to_qkv = nn.Parameter(torch.empty(in_ch, 3, h, d))
+            _quant.declare_kernel(self, "to_qkv", (in_ch, 3, h, d), 1, quant)
         else:
-            self.to_q = nn.Parameter(torch.empty(in_ch, h, d))
-            self.to_k = nn.Parameter(torch.empty(in_ch, h, d))
-            self.to_v = nn.Parameter(torch.empty(in_ch, h, d))
+            for name in ("to_q", "to_k", "to_v"):
+                _quant.declare_kernel(self, name, (in_ch, h, d), 1, quant)
         if talking_heads:
             self.pre_softmax = TalkingHeadsBlock(h)
             self.post_softmax = TalkingHeadsBlock(h)
-        self.to_out = nn.Parameter(torch.empty(h, d, out_ch or in_ch))
+        _quant.declare_kernel(self, "to_out", (h, d, out_ch or in_ch), 2, quant)
         self.rotary = RotaryPositionalEmbedding(rotary_length, d) if use_rotary else None
         self.attn_drop = Dropout(attn_dropout_rate)
         self.out_drop = Dropout(out_dropout_rate)
 
     def reset_parameters(self, generator: torch.Generator) -> None:
         """flax's initialisers: lecun-normal projections (fan-in ``in_ch``,
-        and ``H·D`` for the merge) and orthogonal mixing kernels."""
+        and ``H·D`` for the merge) and orthogonal mixing kernels. Serving,
+        the int8 codes are left to
+        :func:`~sav_tpu_torch.ops.quant.init_serving` and
+        :func:`~sav_tpu_torch.ops.quant.quantize_params`."""
+        if self.quant == "int8_serve":
+            if self.talking_heads:
+                self.pre_softmax.reset_parameters(generator)
+                self.post_softmax.reset_parameters(generator)
+            return
         if self.fused_qkv:
             lecun_normal_(self.to_qkv, self.to_qkv.shape[0], generator)
         else:
@@ -142,13 +161,20 @@ class AttentionBlock(nn.Module):
         def proj(inputs, w, length):
             return torch.matmul(inputs, w.reshape(in_ch, h * d)).view(b, length, h, d)
 
-        if self.fused_qkv:
-            if inputs_q is not inputs_kv:
-                raise ValueError(
-                    "fused_qkv=True projects Q, K and V from one input and is "
-                    "only valid for self-attention; pass fused_qkv=False for "
-                    "cross-attention"
-                )
+        if self.fused_qkv and inputs_q is not inputs_kv:
+            raise ValueError(
+                "fused_qkv=True projects Q, K and V from one input and is "
+                "only valid for self-attention; pass fused_qkv=False for "
+                "cross-attention"
+            )
+        if self.quant and self.fused_qkv:
+            qkv = _quant.project_qkv(self, inputs_q.reshape(b * q_len, in_ch))
+            query, key, value = (t.view(b, q_len, h, d) for t in qkv.unbind(0))
+        elif self.quant:
+            query = _quant.project(self, "to_q", inputs_q)
+            key = _quant.project(self, "to_k", inputs_kv)
+            value = _quant.project(self, "to_v", inputs_kv)
+        elif self.fused_qkv:
             w = self.to_qkv.to(dtype)
             query, key, value = (proj(inputs_q, w[:, t], q_len) for t in range(3))
         else:
@@ -158,6 +184,8 @@ class AttentionBlock(nn.Module):
         if self.rotary is not None:
             query, key = self.rotary(query), self.rotary(key)
         out = self._core(query, key, value)
+        if self.quant:
+            return self.out_drop(_quant.project(self, "to_out", out, 2))
         w_out = self.to_out.to(out.dtype).reshape(h * d, -1)
         return self.out_drop(torch.matmul(out.reshape(b, q_len, h * d), w_out))
 

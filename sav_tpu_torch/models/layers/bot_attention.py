@@ -14,6 +14,10 @@ or ``auto`` run :func:`~sav_tpu_torch.ops.flash_attention.flash_botnet_attention
 (kernels #6–#8 on CUDA, their plain versions on CPU) at every length;
 ``'xla'`` is the dense path, :func:`~sav_tpu_torch.ops.relative.relative_logits_2d`
 plus :func:`~sav_tpu_torch.ops.attention.dense_attention` with that bias.
+
+With ``quant`` the three projections run on the int8 arm of
+:mod:`sav_tpu_torch.ops.quant`; the tables and the core stay in the compute
+dtype.
 """
 
 from __future__ import annotations
@@ -24,6 +28,7 @@ import torch
 from torch import nn
 
 from sav_tpu_torch.models.layers.initializers import lecun_normal_
+from sav_tpu_torch.ops import quant as _quant
 from sav_tpu_torch.ops.attention import dense_attention, resolve_relative_backend
 from sav_tpu_torch.ops.flash_attention import flash_botnet_attention
 from sav_tpu_torch.ops.relative import relative_logits_2d
@@ -42,8 +47,11 @@ class BoTMHSA(nn.Module):
 
     def __init__(self, in_ch: int, num_heads: int, height: int, width: int, *,
                  head_ch: Optional[int] = None, backend: Optional[str] = None,
-                 logits_dtype=None):
+                 logits_dtype=None, quant: Optional[str] = None):
         super().__init__()
+        self.quant = _quant.check_mode(quant)
+        if quant == "int8":
+            self.quant_generator = None
         self.num_heads = num_heads
         self.head_ch = head_ch or in_ch // num_heads
         self.height, self.width = height, width
@@ -51,9 +59,8 @@ class BoTMHSA(nn.Module):
         # None = the block's compute dtype (the dense path's softmax dtype).
         self.logits_dtype = logits_dtype
         h, d = num_heads, self.head_ch
-        self.to_q = nn.Parameter(torch.empty(in_ch, h, d))
-        self.to_k = nn.Parameter(torch.empty(in_ch, h, d))
-        self.to_v = nn.Parameter(torch.empty(in_ch, h, d))
+        for name in ("to_q", "to_k", "to_v"):
+            _quant.declare_kernel(self, name, (in_ch, h, d), 1, quant)
         self.rel_emb_h = nn.Parameter(torch.empty(2 * height - 1, d))
         self.rel_emb_w = nn.Parameter(torch.empty(2 * width - 1, d))
 
@@ -61,7 +68,8 @@ class BoTMHSA(nn.Module):
         """flax's initialisers: lecun-normal projections (fan-in ``C``) and
         normal tables of std ``head_ch ** -0.5``."""
         for param in (self.to_q, self.to_k, self.to_v):
-            lecun_normal_(param, param.shape[0], generator)
+            if param.is_floating_point():  # serving codes stay 0 until quantize_params
+                lecun_normal_(param, param.shape[0], generator)
         for table in (self.rel_emb_h, self.rel_emb_w):
             nn.init.normal_(table, std=self.head_ch ** -0.5, generator=generator)
 
@@ -78,10 +86,13 @@ class BoTMHSA(nn.Module):
         # the token view is a free reshape.
         tokens = inputs.permute(0, 2, 3, 1).reshape(b, length, ch)
 
-        def proj(w):
+        def proj(name):
+            if self.quant:
+                return _quant.project(self, name, tokens)
+            w = getattr(self, name)
             return torch.matmul(tokens, w.to(dtype).reshape(ch, h * d)).view(b, length, h, d)
 
-        query, key, value = proj(self.to_q), proj(self.to_k), proj(self.to_v)
+        query, key, value = proj("to_q"), proj("to_k"), proj("to_v")
         scale = d ** -0.5
         backend = resolve_relative_backend(height, width, d, requested=self.backend)
         if backend == "pallas":

@@ -30,6 +30,7 @@ from sav_tpu_torch.models.layers.depthwise import DepthwiseConv2D
 from sav_tpu_torch.models.layers.initializers import lecun_normal_
 from sav_tpu_torch.models.layers.normalization import BatchNorm
 from sav_tpu_torch.models.layers.regularization import Dropout
+from sav_tpu_torch.ops import quant as _quant
 from sav_tpu_torch.ops import talking_heads as _th
 from sav_tpu_torch.ops.attention import dot_product_attention
 
@@ -41,17 +42,21 @@ class ConvProjectionBlock(nn.Module):
     projection, without bias."""
 
     def __init__(self, in_ch: int, num_heads: int, head_ch: int, *, kernel_size=(3, 3),
-                 stride: int = 1, with_cls: bool = False):
+                 stride: int = 1, with_cls: bool = False, quant: Optional[str] = None):
         super().__init__()
         self.with_cls = with_cls
+        self.quant = _quant.check_mode(quant)
+        if quant == "int8":
+            self.quant_generator = None
         self.depthwise = DepthwiseConv2D(in_ch, kernel_size, stride)
         self.bn = BatchNorm(in_ch)
-        self.pointwise = nn.Parameter(torch.empty(in_ch, num_heads, head_ch))
+        _quant.declare_kernel(self, "pointwise", (in_ch, num_heads, head_ch), 1, quant)
 
     def reset_parameters(self, generator: torch.Generator) -> None:
         """The pointwise projection, lecun-normal over the fan-in ``C`` (the
-        conv and the BatchNorm reset themselves)."""
-        lecun_normal_(self.pointwise, self.pointwise.shape[0], generator)
+        conv and the BatchNorm reset themselves); serving codes stay 0."""
+        if self.pointwise.is_floating_point():
+            lecun_normal_(self.pointwise, self.pointwise.shape[0], generator)
 
     def forward(self, tokens: torch.Tensor, grid_shape) -> torch.Tensor:
         b, _, ch = tokens.shape
@@ -62,6 +67,8 @@ class ConvProjectionBlock(nn.Module):
         if cls_tok is not None:
             x = torch.cat([cls_tok, x], dim=1)
         _, heads, head_ch = self.pointwise.shape
+        if self.quant:
+            return _quant.project(self, "pointwise", x)
         out = torch.matmul(x, self.pointwise.to(x.dtype).reshape(ch, heads * head_ch))
         return out.view(b, -1, heads, head_ch)
 
@@ -85,8 +92,12 @@ class CvTAttentionBlock(nn.Module):
         logits_dtype=None,
         attn_dropout_rate: float = 0.0,
         out_dropout_rate: float = 0.0,
+        quant: Optional[str] = None,
     ):
         super().__init__()
+        self.quant = _quant.check_mode(quant)
+        if quant == "int8":
+            self.quant_generator = None
         self.num_heads = num_heads
         self.head_ch = head_ch or in_ch // num_heads
         self.talking_heads = talking_heads
@@ -95,13 +106,13 @@ class CvTAttentionBlock(nn.Module):
         self.logits_dtype = logits_dtype
         h, d = num_heads, self.head_ch
         sq, sk, sv = strides
-        self.to_q = ConvProjectionBlock(in_ch, h, d, stride=sq, with_cls=with_cls)
-        self.to_k = ConvProjectionBlock(in_ch, h, d, stride=sk, with_cls=with_cls)
-        self.to_v = ConvProjectionBlock(in_ch, h, d, stride=sv, with_cls=with_cls)
+        self.to_q = ConvProjectionBlock(in_ch, h, d, stride=sq, with_cls=with_cls, quant=quant)
+        self.to_k = ConvProjectionBlock(in_ch, h, d, stride=sk, with_cls=with_cls, quant=quant)
+        self.to_v = ConvProjectionBlock(in_ch, h, d, stride=sv, with_cls=with_cls, quant=quant)
         if talking_heads:
             self.pre_softmax = TalkingHeadsBlock(h)
             self.post_softmax = TalkingHeadsBlock(h)
-        self.to_out = nn.Parameter(torch.empty(h, d, out_ch or in_ch))
+        _quant.declare_kernel(self, "to_out", (h, d, out_ch or in_ch), 2, quant)
         self.attn_drop = Dropout(attn_dropout_rate)
         self.out_drop = Dropout(out_dropout_rate)
 
@@ -113,7 +124,8 @@ class CvTAttentionBlock(nn.Module):
             self.pre_softmax.reset_parameters(generator)
             self.post_softmax.reset_parameters(generator)
         h, d, _ = self.to_out.shape
-        lecun_normal_(self.to_out, h * d, generator)
+        if self.to_out.is_floating_point():  # serving codes stay 0
+            lecun_normal_(self.to_out, h * d, generator)
 
     def forward(self, inputs: torch.Tensor, grid_shape) -> torch.Tensor:
         query = self.to_q(inputs, grid_shape)
@@ -133,6 +145,8 @@ class CvTAttentionBlock(nn.Module):
                 dropout=dropout,
             )
         b, q_len, h, d = out.shape
+        if self.quant:
+            return self.out_drop(_quant.project(self, "to_out", out, 2))
         w_out = self.to_out.to(out.dtype).reshape(h * d, -1)
         return self.out_drop(torch.matmul(out.reshape(b, q_len, h * d), w_out))
 

@@ -1,5 +1,9 @@
 """Feed-forward blocks: the transformer MLP and CeiT's locally-enhanced FF
-(port of ``sav_tpu/models/layers/feedforward.py``)."""
+(port of ``sav_tpu/models/layers/feedforward.py``).
+
+With ``quant`` (``"int8"`` or ``"int8_serve"``) their dense layers are the
+int8 twins of :class:`Dense` (:func:`dense`); the depthwise conv and the
+BatchNorms of LeFF stay in the compute dtype, as in ``sav_tpu``."""
 
 from __future__ import annotations
 
@@ -12,6 +16,7 @@ from torch import nn
 from sav_tpu_torch.models.layers.depthwise import DepthwiseConv2D
 from sav_tpu_torch.models.layers.normalization import BatchNorm
 from sav_tpu_torch.models.layers.regularization import Dropout
+from sav_tpu_torch.ops.quant import QuantDense, QuantDenseServe, check_mode
 
 
 class Dense(nn.Linear):
@@ -22,6 +27,15 @@ class Dense(nn.Linear):
     def forward(self, inputs: torch.Tensor) -> torch.Tensor:
         bias = None if self.bias is None else self.bias.to(inputs.dtype)
         return F.linear(inputs, self.weight.to(inputs.dtype), bias)
+
+
+def dense(in_features: int, out_features: int, bias: bool = True,
+          quant: Optional[str] = None) -> nn.Module:
+    """A :class:`Dense`, or on the int8 arm its twin: :class:`QuantDense`
+    (``"int8"``, the same parameters) or :class:`QuantDenseServe`
+    (``"int8_serve"``, int8 ``weight`` and f32 ``scale``)."""
+    cls = {None: Dense, "int8": QuantDense, "int8_serve": QuantDenseServe}[check_mode(quant)]
+    return cls(in_features, out_features, bias=bias)
 
 
 class FFBlock(nn.Module):
@@ -35,11 +49,12 @@ class FFBlock(nn.Module):
         hidden_ch: Optional[int] = None,
         use_bias: bool = True,
         dropout_rate: float = 0.0,
+        quant: Optional[str] = None,
     ):
         super().__init__()
         hidden = hidden_ch or int(in_ch * expand_ratio)
-        self.fc1 = Dense(in_ch, hidden, bias=use_bias)
-        self.fc2 = Dense(hidden, in_ch, bias=use_bias)
+        self.fc1 = dense(in_ch, hidden, use_bias, quant)
+        self.fc2 = dense(hidden, in_ch, use_bias, quant)
         self.drop1 = Dropout(dropout_rate)
         self.drop2 = Dropout(dropout_rate)
 
@@ -58,14 +73,15 @@ class LeFFBlock(nn.Module):
     statistics; GELU is the tanh form (flax's ``nn.gelu``)."""
 
     def __init__(self, in_ch: int, expand_ratio: Optional[float] = 4.0,
-                 hidden_ch: Optional[int] = None, kernel_size=(5, 5)):
+                 hidden_ch: Optional[int] = None, kernel_size=(5, 5),
+                 quant: Optional[str] = None):
         super().__init__()
         hidden = hidden_ch or int(in_ch * expand_ratio)
-        self.expand = Dense(in_ch, hidden)
+        self.expand = dense(in_ch, hidden, quant=quant)
         self.bn1 = BatchNorm(hidden)
         self.dwconv = DepthwiseConv2D(hidden, kernel_size)
         self.bn2 = BatchNorm(hidden)
-        self.project = Dense(hidden, in_ch)
+        self.project = dense(hidden, in_ch, quant=quant)
         self.bn3 = BatchNorm(in_ch)
 
     def forward(self, inputs: torch.Tensor) -> torch.Tensor:

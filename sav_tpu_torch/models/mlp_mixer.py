@@ -4,22 +4,26 @@ Patch embedding, then blocks of a token-mixing MLP (an :class:`FFBlock`
 across the token axis: the LayerNorm'd tokens transposed to ``[B, D, L]``)
 and a channel-mixing MLP, each pre-LN with a residual; a final LayerNorm, a
 mean over the tokens and a zero-init head. No attention: the family runs no
-kernel of :mod:`sav_tpu_torch.ops`. Inputs are NHWC, as in ``sav_tpu``;
+attention kernel of :mod:`sav_tpu_torch.ops`; with ``quant`` both MLPs and
+the head run on the int8 arm (:mod:`sav_tpu_torch.ops.quant`, the token
+MLP contracting K = 196 at 224²). Inputs are NHWC, as in ``sav_tpu``;
 parameters stay in their own dtype and every layer computes in its input's.
 """
 
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 from torch import nn
 
 from sav_tpu_torch.models.ceit import reset_conv_model
-from sav_tpu_torch.models.layers import Dense, FFBlock, PatchEmbedBlock
+from sav_tpu_torch.models.layers import FFBlock, PatchEmbedBlock, dense
 from sav_tpu_torch.models.vit import LayerNorm, refuse_unported
 
-# sav_tpu MLP-Mixer options this port does not carry yet, and the ROADMAP
-# item each waits on. Setting one raises NotImplementedError.
-_NOT_PORTED = {"quant": "queue A8 (int8)"}
+# sav_tpu MLP-Mixer options this port does not carry yet (none); any other
+# name raises TypeError.
+_NOT_PORTED: dict = {}
 
 
 def mean_tokens(x: torch.Tensor) -> torch.Tensor:
@@ -35,14 +39,15 @@ class MixerBlock(nn.Module):
     axis, L)."""
 
     def __init__(self, num_tokens: int, dim: int, tokens_hidden_ch: int,
-                 channels_hidden_ch: int, *, dropout_rate: float = 0.0):
+                 channels_hidden_ch: int, *, dropout_rate: float = 0.0,
+                 quant: Optional[str] = None):
         super().__init__()
         self.norm1 = LayerNorm(dim)
         self.token_mixing = FFBlock(num_tokens, hidden_ch=tokens_hidden_ch,
-                                    dropout_rate=dropout_rate)
+                                    dropout_rate=dropout_rate, quant=quant)
         self.norm2 = LayerNorm(dim)
         self.channel_mixing = FFBlock(dim, hidden_ch=channels_hidden_ch,
-                                      dropout_rate=dropout_rate)
+                                      dropout_rate=dropout_rate, quant=quant)
 
     def forward(self, inputs: torch.Tensor) -> torch.Tensor:
         x = self.token_mixing(self.norm1(inputs).transpose(1, 2)).transpose(1, 2) + inputs
@@ -66,10 +71,12 @@ class MLPMixer(nn.Module):
         *,
         image_size: int = 224,
         dropout_rate: float = 0.0,
+        quant: Optional[str] = None,
         **unported,
     ):
         super().__init__()
         refuse_unported("MLPMixer", unported, _NOT_PORTED)
+        self.quant = quant
         ph, pw = patch_shape
         if image_size % ph or image_size % pw:
             raise ValueError(f"image {image_size} not divisible by patch {patch_shape}")
@@ -78,11 +85,11 @@ class MLPMixer(nn.Module):
         self.patch_embed = PatchEmbedBlock(patch_shape, embed_dim)
         self.blocks = nn.ModuleList(
             MixerBlock(num_tokens, embed_dim, tokens_hidden_ch, channels_hidden_ch,
-                       dropout_rate=dropout_rate)
+                       dropout_rate=dropout_rate, quant=quant)
             for _ in range(num_layers)
         )
         self.norm = LayerNorm(embed_dim)
-        self.head = Dense(embed_dim, num_classes)
+        self.head = dense(embed_dim, num_classes, quant=quant)
 
     def reset_parameters(self, generator: torch.Generator) -> None:
         reset_conv_model(self, generator)

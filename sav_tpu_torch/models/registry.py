@@ -19,6 +19,7 @@ from sav_tpu_torch.models.cvt import CvT
 from sav_tpu_torch.models.mlp_mixer import MLPMixer
 from sav_tpu_torch.models.tnt import TNT
 from sav_tpu_torch.models.vit import ViT
+from sav_tpu_torch.ops.quant import check_mode, init_serving
 
 # name -> (embed_dim, num_layers, num_heads, patch)
 _VIT = {
@@ -109,6 +110,7 @@ def create_model(
     backend: Optional[str] = None,
     logits_dtype=None,
     seed: int = 0,
+    quant: Optional[str] = None,
     **overrides,
 ) -> nn.Module:
     """Instantiate a named config with weights drawn from ``seed``.
@@ -124,8 +126,15 @@ def create_model(
     CeiT ``stem_ch``; for CvT ``embed_dims``, ``num_layers`` and
     ``num_heads`` of the three stages; for TNT ``inner_ch`` and
     ``inner_num_heads``; for MLP-Mixer ``tokens_hidden_ch`` and
-    ``channels_hidden_ch``).
+    ``channels_hidden_ch``). ``quant`` puts every family's projection, FF
+    and head dots on the int8 arm (:mod:`sav_tpu_torch.ops.quant`):
+    ``"int8"`` (QAT: the float parameters, the int8 dot) or
+    ``"int8_serve"`` (int8 codes and f32 scales, filled by
+    :func:`~sav_tpu_torch.ops.quant.quantize_params`); None = the float
+    path. The attention core stays in the compute dtype.
     """
+    if quant is not None:
+        overrides["quant"] = check_mode(quant)
     common = dict(image_size=image_size, backend=backend, logits_dtype=logits_dtype)
     if model_name in _BOTNET:
         kwargs = dict(stage_sizes=_BOTNET[model_name], **common)
@@ -176,4 +185,5 @@ def _build(cls, num_classes: int, kwargs: dict, seed: int) -> nn.Module:
         model = cls(num_classes, **kwargs)
     model = model.to_empty(device="cpu")
     model.reset_parameters(torch.Generator().manual_seed(seed))
+    init_serving(model)
     return model

@@ -33,6 +33,7 @@ from sav_tpu_torch.models.layers import (
     PatchEmbedBlock,
     SameConv2d,
     SelfAttentionBlock,
+    dense,
 )
 from sav_tpu_torch.models.layers.depthwise import exact_f32_conv
 from sav_tpu_torch.models.vit import LayerNorm, refuse_unported
@@ -42,7 +43,6 @@ from sav_tpu_torch.models.vit import LayerNorm, refuse_unported
 _NOT_PORTED = {
     "seq_parallel": "queue A9 (parallelism)",
     "seq_mesh": "queue A9 (parallelism)",
-    "quant": "queue A8 (int8)",
 }
 
 
@@ -105,20 +105,23 @@ class EncoderBlock(nn.Module):
     def __init__(self, embed_dim: int, inner_ch: int, inner_tokens: int, num_heads: int,
                  inner_num_heads: int, *, expand_ratio: float = 4.0,
                  inner_expand_ratio: float = 4.0, backend: Optional[str] = None,
-                 logits_dtype=None, attn_dropout_rate: float = 0.0, dropout_rate: float = 0.0):
+                 logits_dtype=None, attn_dropout_rate: float = 0.0, dropout_rate: float = 0.0,
+                 quant: Optional[str] = None):
         super().__init__()
         attn = dict(backend=backend, logits_dtype=logits_dtype,
-                    attn_dropout_rate=attn_dropout_rate, out_dropout_rate=dropout_rate)
+                    attn_dropout_rate=attn_dropout_rate, out_dropout_rate=dropout_rate,
+                    quant=quant)
         self.inner_norm1 = LayerNorm(inner_ch)
         self.inner_attn = SelfAttentionBlock(inner_ch, inner_num_heads, **attn)
         self.inner_norm2 = LayerNorm(inner_ch)
         self.inner_ff = FFBlock(inner_ch, expand_ratio=inner_expand_ratio,
-                                dropout_rate=dropout_rate)
+                                dropout_rate=dropout_rate, quant=quant)
         self.inner2outer = Inner2OuterBlock(inner_tokens * inner_ch, embed_dim)
         self.outer_norm1 = LayerNorm(embed_dim)
         self.outer_attn = SelfAttentionBlock(embed_dim, num_heads, **attn)
         self.outer_norm2 = LayerNorm(embed_dim)
-        self.outer_ff = FFBlock(embed_dim, expand_ratio=expand_ratio, dropout_rate=dropout_rate)
+        self.outer_ff = FFBlock(embed_dim, expand_ratio=expand_ratio, dropout_rate=dropout_rate,
+                                quant=quant)
 
     def forward(self, pixel_tokens: torch.Tensor, patch_tokens: torch.Tensor) -> tuple:
         x = pixel_tokens + self.inner_attn(self.inner_norm1(pixel_tokens))
@@ -154,10 +157,12 @@ class TNT(nn.Module):
         logits_dtype=None,
         attn_dropout_rate: float = 0.0,
         dropout_rate: float = 0.0,
+        quant: Optional[str] = None,
         **unported,
     ):
         super().__init__()
         refuse_unported("TNT", unported, _NOT_PORTED)
+        self.quant = quant
         ph, pw = patch_shape
         if image_size % ph or image_size % pw:
             raise ValueError(f"image {image_size} not divisible by patch {patch_shape}")
@@ -175,11 +180,12 @@ class TNT(nn.Module):
             EncoderBlock(embed_dim, inner_ch, inner_tokens, num_heads, inner_num_heads,
                          expand_ratio=expand_ratio, inner_expand_ratio=inner_expand_ratio,
                          backend=backend, logits_dtype=logits_dtype,
-                         attn_dropout_rate=attn_dropout_rate, dropout_rate=dropout_rate)
+                         attn_dropout_rate=attn_dropout_rate, dropout_rate=dropout_rate,
+                         quant=quant)
             for _ in range(num_layers)
         )
         self.norm = LayerNorm(embed_dim)
-        self.head = Dense(embed_dim, num_classes)
+        self.head = dense(embed_dim, num_classes, quant=quant)
 
     def reset_parameters(self, generator: torch.Generator) -> None:
         """:func:`~sav_tpu_torch.models.ceit.reset_conv_model`, and a zero

@@ -13,6 +13,12 @@ more forward of every block, so each attention core's forward kernel runs
 twice per train step. The recompute draws the dropout masks the forward
 drew (:func:`remat_block`).
 
+``quant`` (``"int8"`` QAT or ``"int8_serve"``) puts the encoder's
+projections and FFs and the head on the int8 arm of
+:mod:`sav_tpu_torch.ops.quant`, as ``sav_tpu`` does: the patch embedding,
+the position tables and the attention core stay in the compute dtype, and
+an MoE block's experts stay float.
+
 ``dropout_rate`` drops after the position embedding, in each FF block and
 on each attention output; ``attn_dropout_rate`` drops attention
 probabilities, on the dense path (see :mod:`sav_tpu_torch.ops.attention`).
@@ -34,7 +40,6 @@ from torch.utils.checkpoint import checkpoint
 
 from sav_tpu_torch.models.layers import (
     AddAbsPosEmbed,
-    Dense,
     Dropout,
     FFBlock,
     FixedPositionalEmbedding,
@@ -42,6 +47,7 @@ from sav_tpu_torch.models.layers import (
     PatchEmbedBlock,
     RotaryPositionalEmbedding,
     SelfAttentionBlock,
+    dense,
 )
 from sav_tpu_torch.models.layers.initializers import lecun_normal_
 from sav_tpu_torch.models.layers.regularization import (
@@ -59,7 +65,6 @@ _NOT_PORTED = {
     "seq_parallel": "queue A9 (parallelism)",
     "seq_mesh": "queue A9 (parallelism)",
     "layout": "queue A9 (parallelism)",
-    "quant": "queue A8 (int8)",
 }
 
 
@@ -138,13 +143,13 @@ class EncoderBlock(nn.Module):
                  attn_dropout_rate: float = 0.0, dropout_rate: float = 0.0,
                  use_rotary: bool = False, length: int = 0,
                  moe_num_experts: Optional[int] = None, moe_top_k: int = 2,
-                 moe_router_z_loss_weight: float = 0.1):
+                 moe_router_z_loss_weight: float = 0.1, quant: Optional[str] = None):
         super().__init__()
         self.norm1 = LayerNorm(dim)
         self.attn = SelfAttentionBlock(
             dim, num_heads, backend=backend, logits_dtype=logits_dtype,
             attn_dropout_rate=attn_dropout_rate, out_dropout_rate=dropout_rate,
-            use_rotary=use_rotary, rotary_length=length,
+            use_rotary=use_rotary, rotary_length=length, quant=quant,
         )
         self.norm2 = LayerNorm(dim)
         if moe_num_experts:
@@ -152,7 +157,8 @@ class EncoderBlock(nn.Module):
                                  expand_ratio=expand_ratio, dropout_rate=dropout_rate,
                                  router_z_loss_weight=moe_router_z_loss_weight)
         else:
-            self.ff = FFBlock(dim, expand_ratio=expand_ratio, dropout_rate=dropout_rate)
+            self.ff = FFBlock(dim, expand_ratio=expand_ratio, dropout_rate=dropout_rate,
+                              quant=quant)
         # Where a recompute of this block under remat finds its twin
         # generators: the trainer's (set_recompute_generators), else one
         # made per call (remat_block).
@@ -176,7 +182,7 @@ class Encoder(nn.Module):
                  attn_dropout_rate: float = 0.0, dropout_rate: float = 0.0,
                  pos_embed: str = "learned", moe_num_experts: Optional[int] = None,
                  moe_top_k: int = 2, moe_router_z_loss_weight: float = 0.1,
-                 moe_every: int = 2):
+                 moe_every: int = 2, quant: Optional[str] = None):
         super().__init__()
         self.remat = remat
         if pos_embed == "learned":
@@ -195,7 +201,8 @@ class Encoder(nn.Module):
                          use_rotary=pos_embed == "rotary", length=length,
                          moe_num_experts=(moe_num_experts
                                           if i % moe_every == moe_every - 1 else None),
-                         moe_top_k=moe_top_k, moe_router_z_loss_weight=moe_router_z_loss_weight)
+                         moe_top_k=moe_top_k, moe_router_z_loss_weight=moe_router_z_loss_weight,
+                         quant=quant)
             for i in range(num_layers)
         )
         self.norm = LayerNorm(dim)
@@ -238,10 +245,12 @@ class ViT(nn.Module):
         moe_top_k: int = 2,
         moe_router_z_loss_weight: float = 0.1,
         moe_every: int = 2,
+        quant: Optional[str] = None,
         **unported,
     ):
         super().__init__()
         refuse_unported("ViT", unported, _NOT_PORTED)
+        self.quant = quant
         self.moe_num_experts = moe_num_experts
         ph, pw = patch_shape
         if image_size % ph or image_size % pw:
@@ -255,8 +264,9 @@ class ViT(nn.Module):
             remat=remat, attn_dropout_rate=attn_dropout_rate, dropout_rate=dropout_rate,
             pos_embed=pos_embed, moe_num_experts=moe_num_experts, moe_top_k=moe_top_k,
             moe_router_z_loss_weight=moe_router_z_loss_weight, moe_every=moe_every,
+            quant=quant,
         )
-        self.head = Dense(embed_dim, num_classes)
+        self.head = dense(embed_dim, num_classes, quant=quant)
 
     def reset_parameters(self, generator: torch.Generator) -> None:
         """flax's initialisers from an explicit generator: lecun-normal

@@ -399,6 +399,18 @@ FAMILY_COUNTS = {"CvT": _count_cvt, "CeiT": _count_ceit, "TNT": _count_tnt,
                  "MLPMixer": _count_mixer}
 
 
+# The components whose dots the int8 arm quantizes (the patch embedding and
+# the attention core stay in the compute dtype).
+INT8_COMPONENTS = (COMP_ATTN_PROJ, COMP_FFN, COMP_HEAD)
+
+
+def int8_flops_share(cost: StepCost) -> float:
+    """The share of a step's FLOPs in the components whose dots the int8
+    arm runs in int8 (projections, FFs, head): an upper bound where a float
+    dense layer counts among them (the MoE experts, TNT's fold)."""
+    return sum(cost.attribution.get(c, 0.0) for c in INT8_COMPONENTS)
+
+
 def _moe_slots(model: torch.nn.Module, num_tokens: int) -> Optional[int]:
     """Each expert's capacity per batch row of ``model``'s MoE blocks (None
     without any)."""

@@ -16,14 +16,20 @@ Arms:
                ``schedule_lag_ms`` says how late the generator ran
   --batch-1    ladder [1], the no-batching baseline
 
-Latency is timed from submit to the future's result. The fleet, chaos,
-int8 and telemetry modes of ``tools/serve_bench.py`` wait for ROADMAP
-queue A5.6-A5.8.
+``--quant-weights`` serves int8 weights (``ServeConfig.quant_weights``): the
+line says ``"quant": "int8"`` (``null`` for the float arm) and carries the
+engine's ``startup_report["quant"]``, so an int8 line is never read as a
+bf16 one.
+
+Latency is timed from submit to the future's result. The fleet, chaos and
+telemetry modes of ``tools/serve_bench.py`` wait for ROADMAP queue
+A5.6-A5.8.
 
 Usage (on the card; ``--device cpu`` runs it on the CPU):
   python -m sav_tpu_torch.serve.bench --model deit_s_patch16 --max-batch 32 \\
       --requests 2048 --max-queue 4096 --deadline-ms 60000
   python -m sav_tpu_torch.serve.bench --checkpoint runs/ckpt --rate 2000
+  python -m sav_tpu_torch.serve.bench --checkpoint runs/ckpt --quant-weights
 """
 
 from __future__ import annotations
@@ -61,6 +67,7 @@ def run(args: argparse.Namespace) -> dict:
         max_queue=args.max_queue,
         deadline_ms=args.deadline_ms,
         checkpoint_dir=args.checkpoint,
+        quant_weights=args.quant_weights,
         seed=args.seed,
         device=args.device,
     )
@@ -93,10 +100,13 @@ def run(args: argparse.Namespace) -> dict:
     latency = summary.get("latency_ms", {})
     ladder = "bs1" if args.batch_1 else (args.buckets or f"pow2<={args.max_batch}")
     load = f"{args.rate} req/s" if args.rate > 0 else "flood"
+    arm = " int8 weights," if args.quant_weights else ""
     return {
-        "metric": (f"{args.model} serve p99 ms (buckets {ladder}, {load}, deadline "
-                   f"{args.deadline_ms} ms, {args.requests} reqs)"),
+        "metric": (f"{args.model} serve p99 ms ({arm.strip(' ,') + ', ' if arm else ''}"
+                   f"buckets {ladder}, {load}, deadline {args.deadline_ms} ms, "
+                   f"{args.requests} reqs)"),
         "unit": "ms",
+        "quant": "int8" if args.quant_weights else None,
         "outcome": "ok" if not stats["errors"] else "error",
         "platform": "gpu" if engine.device.type == "cuda" else "cpu",
         "device": torch.cuda.get_device_name(0) if engine.device.type == "cuda" else "cpu",
@@ -141,6 +151,8 @@ def parser() -> argparse.ArgumentParser:
     p.add_argument("--deadline-ms", type=float, default=100.0)
     p.add_argument("--checkpoint", default=None,
                    help="training checkpoint directory to serve (params-only restore)")
+    p.add_argument("--quant-weights", action="store_true",
+                   help="serve int8 weights (the float parameters quantized per channel)")
     p.add_argument("--requests", type=int, default=512, help="requests to offer")
     p.add_argument("--rate", type=float, default=0.0,
                    help="open-loop offered load in req/s (0 = flood everything at once)")

@@ -31,8 +31,16 @@ Port of the serving core of ``sav_tpu/serve/engine.py``. One engine owns:
   batch before it resolves the futures. Padded rows come out exactly 0
   (the validity mask).
 
+With ``ServeConfig.quant_weights`` the engine serves int8 weights: it loads
+the float parameters (any source above) into the float model, quantizes
+them per channel (:func:`~sav_tpu_torch.ops.quant.quantize_params`) into
+the same model built with ``quant="int8_serve"``, and serves that; every
+projection, FF and head dot runs on the int8 kernels, the attention core
+in the compute dtype. ``startup_report["quant"]`` carries ``sav_tpu``'s
+HBM-density proof (:func:`~sav_tpu_torch.ops.quant.quant_report`).
+
 Not ported yet (ROADMAP queue A5.6-A5.8, A10): the run manifest, request
-telemetry, quality probes, int8 weights and sharding layouts.
+telemetry, quality probes and sharding layouts.
 """
 
 from __future__ import annotations
@@ -52,6 +60,7 @@ from sav_tpu_torch.models import create_model
 from sav_tpu_torch.models.layers import cast_for_compute
 from sav_tpu_torch.ops import _build
 from sav_tpu_torch.ops.preprocess import normalize_images
+from sav_tpu_torch.ops.quant import is_quantized_template, quant_report, quantize_params
 from sav_tpu_torch.serve.batcher import (
     DynamicBatcher,
     FormedBatch,
@@ -92,6 +101,9 @@ class ServeConfig:
     # A training checkpoint to serve (params-only restore; the optimizer
     # state is never read). None = params, model or a fresh init.
     checkpoint_dir: Optional[str] = None
+    # Serve int8 weights: the float parameters quantized per channel into
+    # the int8_serve model (sav_tpu's ServeConfig.quant_weights).
+    quant_weights: bool = False
     seed: int = 0
     device: str = "cuda"
 
@@ -202,6 +214,12 @@ class ServeEngine:
         self.execute_hook = execute_hook
         t0 = time.perf_counter()
         source = "passed"
+        if config.quant_weights and model is not None:
+            raise ValueError(
+                "quant_weights=True builds its own float/int8_serve model pair from the "
+                "registry; pass model=None (an int8_serve model built elsewhere already "
+                "holds quantized weights, so quant_weights would add nothing)"
+            )
         if model is None:
             model = create_model(
                 config.model_name,
@@ -216,8 +234,17 @@ class ServeEngine:
             restore_params(model, config.checkpoint_dir)
             source = f"checkpoint:{config.checkpoint_dir}"
         elif params is not None:
-            model.load_state_dict(params_from_flax(params), strict=True)
+            state = params_from_flax(params)
+            if config.quant_weights and is_quantized_template(state):
+                raise ValueError(
+                    "quant_weights=True quantizes float parameters; these are already an "
+                    "int8 serving tree"
+                )
+            model.load_state_dict(state, strict=True)
             source = "flax"
+        self.quant_report: Optional[dict] = None
+        if config.quant_weights:
+            model, self.quant_report = self._quantized(model)
         self.model = cast_for_compute(model.to(self.device), self.compute_dtype).eval()
         self.infer_fn = build_infer_fn(self.model, self.compute_dtype)
         param_bytes = sum(t.numel() * t.element_size() for t in self.model.state_dict().values())
@@ -252,7 +279,8 @@ class ServeEngine:
             "device": str(self.device),
             "buckets": list(self.ladder.buckets),
             "params_source": source,
-            "dtype": config.compute_dtype,
+            # What the weights are served in: int8 under quant_weights.
+            "dtype": "int8" if config.quant_weights else config.compute_dtype,
             "param_bytes": param_bytes,
             "startup_s": round(time.perf_counter() - t0, 3),
             # The capture of every bucket (None: the CPU runs eagerly).
@@ -277,6 +305,8 @@ class ServeEngine:
             "warmup_s": round(time.perf_counter() - warmup_t0, 3),
             "warmup_step_s": {str(b): round(s, 5) for b, s in self._step_est.items()},
         }
+        if self.quant_report is not None:
+            self.startup_report["quant"] = self.quant_report
         self.ledger = LatencyLedger()
         self._replays = dict.fromkeys(self.ladder.buckets, 0)
         self._batcher: Optional[DynamicBatcher] = None
@@ -285,6 +315,24 @@ class ServeEngine:
         self._started = False
         self._stopped = False
         self._errors = 0
+
+    def _quantized(self, float_model: nn.Module) -> tuple:
+        """The int8_serve twin of ``float_model`` (the registry's, with the
+        config's options) holding its parameters quantized per channel, and
+        the HBM-density report of ``sav_tpu``'s engine."""
+        config = self.config
+        serve_model = create_model(
+            config.model_name,
+            num_classes=config.num_classes,
+            image_size=config.image_size,
+            backend=config.attention_backend,
+            seed=config.seed,
+            quant="int8_serve",
+            **(config.model_overrides or {}),
+        )
+        state = quantize_params(float_model.state_dict(), serve_model.state_dict())
+        serve_model.load_state_dict(state, strict=True)
+        return serve_model, quant_report(dict(float_model.named_parameters()), state)
 
     # ------------------------------------------------------------ batches
 
@@ -490,6 +538,8 @@ class ServeEngine:
     def stats(self) -> dict:
         out = {"ledger": self.ledger.summary(), "errors": self._errors,
                "replays": {str(b): n for b, n in self._replays.items()}}
+        if self.config.quant_weights:
+            out["quant"] = "int8"
         if self._batcher is not None:
             out["batcher"] = self._batcher.stats()
         if self._feeder is not None:

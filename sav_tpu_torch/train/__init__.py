@@ -51,7 +51,7 @@ _FLAG_TO_FIELD = {
     "watchdog_soft_secs": "watchdog_soft_secs", "fleet": "fleet", "debug_nans": "debug_nans",
     "record": "record", "record_depth": "record_depth", "record_batches": "record_batches",
     "record_snapshot_every": "record_snapshot_every", "spike_sigma": "spike_sigma",
-    "augmentation": "augment", "num_train_images": "num_train_images",
+    "augmentation": "augment", "num_train_images": "num_train_images", "quant": "quant",
 }
 
 
@@ -95,6 +95,12 @@ def _parser() -> argparse.ArgumentParser:
     p.add_argument("--log-every-steps", type=int)
     p.add_argument("--seed", type=int)
     p.add_argument("--grad-accum", type=int, help="Micro-batches per optimizer update.")
+    p.add_argument("--quant", choices=["int8"], default=None,
+                   help="QAT on the int8 arm: every projection, FF and head dot int8 x int8 "
+                   "-> int32 with per-channel scales, the gradient dots int8 with the "
+                   "cotangent rounded stochastically; the attention core stays in the "
+                   "compute dtype. The checkpoint is the float tree (serve it with "
+                   "--quant-weights).")
     p.add_argument("-a", "--augmentation",
                    help="Augment-string DSL (default cutmix_mixup_randaugment_405).")
     p.add_argument("--num-train-images", type=int,

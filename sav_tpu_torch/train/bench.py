@@ -14,7 +14,11 @@ CUDA graph per step. It prints exactly one JSON line:
   stands for);
 - ``mfu``: the analytic step FLOPs (:mod:`sav_tpu_torch.obs.costs`, each
   family's own count) over ``step_ms`` over the card's peak, with
-  ``peak_flops`` and ``peak_source``;
+  ``peak_flops`` and ``peak_source``; with ``--quant int8`` (QAT on the
+  int8 arm) the peak is the card's int8 one (1,979 TOPS on an H100, named
+  in ``peak_source``) and the line says ``"quant": "int8"`` (``null`` for
+  the float arm): the card has no mixed peak, and the int8 dots carry
+  ``int8_flops_share`` of the step's FLOPs;
 - ``transfer_bytes_per_batch``: the bytes a batch moves to the card:
   uint8 with ``--device-preprocess`` (the step mixes and normalises on the
   card), bf16 without, so the first is half the second;
@@ -60,6 +64,7 @@ for tests at a toy size.
 Usage (on the card):
   python -m sav_tpu_torch.train.bench --model deit_s_patch16 --batch-size 256
   python -m sav_tpu_torch.train.bench --device-preprocess
+  python -m sav_tpu_torch.train.bench --quant int8
 """
 
 from __future__ import annotations
@@ -170,7 +175,7 @@ def _device_step_ms(step, state, placed) -> float:
 
 
 def run(args: argparse.Namespace) -> dict:
-    from sav_tpu_torch.obs.costs import resolve_peak_flops, train_step_cost
+    from sav_tpu_torch.obs.costs import int8_flops_share, resolve_peak_flops, train_step_cost
     from sav_tpu_torch.train import TrainConfig, Trainer
     from sav_tpu_torch.utils.device import card
 
@@ -186,7 +191,7 @@ def run(args: argparse.Namespace) -> dict:
         # The savrec feed never mixes on the host, so its device_preprocess
         # step must not mix either (bench.py's pairing).
         augment="none" if args.feed == "savrec" else AUGMENT, seed=0,
-        model_overrides=args.model_overrides,
+        model_overrides=args.model_overrides, quant=args.quant,
     )
     trainer = Trainer(config, device=str(device))
     cost = train_step_cost(trainer.model, batch_size=args.batch_size,
@@ -229,17 +234,20 @@ def run(args: argparse.Namespace) -> dict:
     # the CPU, where every step runs eagerly).
     graphs = trainer.train_graphs
     replays = graphs.summary()["replays"] if graphs is not None else 0
-    peak, peak_source = resolve_peak_flops(args.peak_flops, device)
+    peak, peak_source = resolve_peak_flops(args.peak_flops, device,
+                                           dtype="int8" if args.quant else "bfloat16")
     smi = card() if device.type == "cuda" else None
     feed = args.feed + (" uint8+device-preprocess" if args.device_preprocess else " bf16")
     feed += "" if config.async_feed else " serial"
     over = "all" if sustained else "best"
+    arm = "bf16 with int8 QAT dots" if args.quant else "bf16"
     line = {
-        "metric": f"{args.model} train img/s (bs={args.batch_size}, bf16, {args.backend} "
+        "metric": f"{args.model} train img/s (bs={args.batch_size}, {arm}, {args.backend} "
                   f"attention, {feed} feed, 1 card, {over} of {args.reps}x{args.steps}-step "
                   "windows)",
         "value": round(args.batch_size / step_s, 1),
         "unit": "img/s",
+        "quant": args.quant,
         "feed": args.feed,
         "median_img_per_sec": round(args.batch_size / statistics.median(windows), 1),
         "step_ms": round(step_s * 1e3, 3),
@@ -253,6 +261,7 @@ def run(args: argparse.Namespace) -> dict:
         "step_flops": cost.flops,
         "cost_source": cost.source,
         "flops_attribution": {k: round(v, 4) for k, v in cost.attribution.items()},
+        "int8_flops_share": (round(int8_flops_share(cost), 4) if args.quant else None),
         "peak_flops": peak,
         "peak_source": peak_source,
         "transfer_bytes_per_batch": transfer_bytes,
@@ -354,6 +363,8 @@ def _parser() -> argparse.ArgumentParser:
                    f"mixes ({AUGMENT}) and normalises on the card.")
     p.add_argument("--no-async-feed", action="store_true",
                    help="Place each batch on the training thread instead of the feeder's.")
+    p.add_argument("--quant", choices=["int8"], default=None,
+                   help="QAT on the int8 arm (TrainConfig.quant); MFU against the int8 peak")
     p.add_argument("--peak-flops", type=float, default=None,
                    help="Peak FLOP/s override for the MFU (default: the card's table row).")
     p.add_argument("--model-overrides", type=json.loads, default=None,

@@ -21,7 +21,6 @@ _NOT_CARRIED = {
     # sav_tpu's tune cache holds TPU measurements; the port's crossovers
     # are to be measured on the card.
     "attention_tune_cache": "queue B follow-up 4 (auto's crossovers, measured on the card)",
-    "quant": "queue A8 (int8)",
     # A CUDA graph lives in its process: there is nothing to write to disk.
     "compilation_cache_dir": "queue A10 (infra; a captured CUDA graph cannot be cached on disk)",
     "mesh_axes": "queue A9 (parallelism)",
@@ -54,6 +53,11 @@ class TrainConfig:
     attention_tune_cache: Optional[str] = None
     # Softmax dtype of the 'xla' attention path; None = the compute dtype.
     attention_logits_dtype: Optional[str] = None
+    # "int8": QAT, every projection, FF and head dot on the int8 arm
+    # (sav_tpu_torch.ops.quant), its backward rounding the gradient with
+    # the trainer's "quant" generator; None = the float path. The parameters
+    # are the float arm's, so a QAT checkpoint serves through
+    # ServeConfig.quant_weights.
     quant: Optional[str] = None
     # Extra create_model arguments (e.g. {'num_layers': 2}).
     model_overrides: Optional[dict] = None
@@ -138,6 +142,8 @@ class TrainConfig:
                     f"TrainConfig.{name}={value!r} is not ported yet (only its "
                     f"default {defaults[name]!r} is): ROADMAP {item}"
                 )
+        if self.quant not in (None, "int8"):
+            raise ValueError(f"quant must be None or 'int8', got {self.quant!r}")
         if self.grad_accum_steps < 1:
             raise ValueError(f"grad_accum_steps must be >= 1, got {self.grad_accum_steps}")
         if self.feed_depth < 1:

@@ -20,8 +20,9 @@ def persistent_buffers(model: nn.Module) -> dict:
 
 
 # Generators a checkpoint may lack: added after checkpoints were first
-# written (device_preprocess's mixes).
-OPTIONAL_GENERATORS = ("mix",)
+# written (device_preprocess's mixes), or a float run's checkpoint restored
+# into a QAT trainer (the int8 arm's stochastic rounding).
+OPTIONAL_GENERATORS = ("mix", "quant")
 
 
 @dataclasses.dataclass

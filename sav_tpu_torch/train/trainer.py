@@ -14,8 +14,13 @@ step (train mode) and uses them in an eval step (eval mode); the state's
 backward pass. Stochastic depth, dropout and the device mixes draw from
 three generators on the device, used by nothing else (``sav_tpu``'s
 ``'stochastic_depth'`` and ``'dropout'`` streams and its dedicated mix
-fold): the first seeded from ``config.seed``, the others from seeds derived
-from it (:func:`stream_seed`). Their states are part of the train state and
+fold), and with ``config.quant == "int8"`` (QAT on the int8 arm of
+:mod:`sav_tpu_torch.ops.quant`) the stochastic rounding of the gradient
+dots from a fourth, ``"quant"`` (``sav_tpu``'s ``'quant'`` stream): the
+first seeded from ``config.seed``, the others from seeds derived from it
+(:func:`stream_seed`). Each micro-batch's backward draws anew, and the
+captured step registers every generator, so each replay rounds with new
+draws. Their states are part of the train state and
 of every checkpoint, so a restored run draws what the uninterrupted run
 would have drawn.
 
@@ -86,6 +91,7 @@ from sav_tpu_torch.models.layers import (
 )
 from sav_tpu_torch.models.surgery import adapt_pos_embeds
 from sav_tpu_torch.ops import launch_counts
+from sav_tpu_torch.ops.quant import set_quant_generator
 from sav_tpu_torch.ops.preprocess import apply_mixes, normalize_images
 from sav_tpu_torch.train.checkpoint import Checkpointer
 from sav_tpu_torch.train.config import TrainConfig
@@ -163,7 +169,14 @@ class Trainer:
                 backend=config.attention_backend,
                 logits_dtype=config.attention_logits_dtype,
                 seed=config.seed,
+                quant=config.quant,
                 **(config.model_overrides or {}),
+            )
+        elif getattr(model, "quant", None) != config.quant:
+            raise ValueError(
+                f"config.quant={config.quant!r} but the passed model was built with "
+                f"quant={getattr(model, 'quant', None)!r}; build it with "
+                "create_model(..., quant=config.quant)"
             )
         self.model = model.to(device=self.device, dtype=torch.float32)
         self.generators = {
@@ -171,12 +184,16 @@ class Trainer:
             "dropout": torch.Generator(device=self.device),
             "mix": torch.Generator(device=self.device),
         }
+        if config.quant:
+            self.generators["quant"] = torch.Generator(device=self.device)
         self._seed_generators()
         # device_preprocess: the host ships post-augment uint8 and the step
         # applies the augment string's mixes, then normalises.
         self._mix_spec = parse_augment_spec(config.augment) if config.device_preprocess else None
         set_stochastic_depth_generator(self.model, self.generators["stochastic_depth"])
         set_dropout_generator(self.model, self.generators["dropout"])
+        if config.quant:
+            set_quant_generator(self.model, self.generators["quant"])
         # The twins that blocks recomputed under remat draw from again.
         self.recompute_generators = RecomputeGenerators()
         set_recompute_generators(self.model, self.recompute_generators)
@@ -217,6 +234,8 @@ class Trainer:
         self.generators["stochastic_depth"].manual_seed(seed)
         self.generators["dropout"].manual_seed(stream_seed(seed, "dropout"))
         self.generators["mix"].manual_seed(stream_seed(seed, "mix"))
+        if "quant" in self.generators:
+            self.generators["quant"].manual_seed(stream_seed(seed, "quant"))
 
     # ------------------------------------------------------------------ init
 
@@ -721,7 +740,9 @@ class Trainer:
                     "torch.Generator(device).manual_seed(seed) for 'stochastic_depth', "
                     "manual_seed(stream_seed(seed, 'dropout')) for 'dropout', "
                     "manual_seed(stream_seed(seed, 'mix')) for 'mix' (device_preprocess's "
-                    "mixes); each resumes from its state saved in generators.pt",
+                    "mixes), manual_seed(stream_seed(seed, 'quant')) for 'quant' (the int8 "
+                    "arm's stochastic rounding, QAT runs only); each resumes from its "
+                    "state saved in generators.pt",
                 "generators": sorted(state.generators),
             },
             "saved_unix": round(time.time(), 3),

@@ -364,8 +364,17 @@ def test_registry_names():
     assert [t3.get_submodule(f"stage4_block{i}").mhsa.height for i in range(6)] == [14] + [7] * 5
     assert attention_grids(224, (3, 4, 6, 6)) == [(14, 14)] + [(7, 7)] * 5
     assert attention_grids(64, (1, 1, 1, 1)) == [(4, 4)]
-    with pytest.raises(NotImplementedError, match="A8"):
-        create_model("botnet_t3", quant="int8")
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("quant", ["int8", "int8_serve"])
+def test_small_botnet_int8_arms_match_sav_tpu(quant, dtype, monkeypatch, variables):
+    """The small BoTNet on the int8 arm against sav_tpu's, QAT and serving,
+    f32 and bf16 (test_torch_quant.quant_family_parity): top-1 equal,
+    logits within 0.1 x their scale, the activation codes as sav_tpu's."""
+    from test_torch_quant import family_case, quant_family_parity
+
+    quant_family_parity(family_case("botnet_t3", SMALL, variables, IMAGE, images=2), quant, dtype, monkeypatch)
 
 
 def test_weight_decay_mask_on_the_botnet_tree_matches_sav_tpu(variables):

@@ -208,15 +208,24 @@ def test_registry_names():
     [({"dropout_rate": 0.1}, None), ({"attn_dropout_rate": 0.1}, None),  # carried
      ({"seq_parallel": "ring"}, "A9"), ({"quant": "int8"}, "A8")],
 )
-def test_unported_cait_options_raise(option, item):
+def test_unported_cait_options_raise(option, item, monkeypatch):
     """Each option the port does not carry raises, naming its ROADMAP item.
     The dropout rates are carried: the CaiT builds, its eval forward is
     sav_tpu's, and a train forward at the default backend agrees with the
     dense paths' under the same masks; under attention dropout it is the
     dense paths' (the same bits as ``backend='xla'``), the path sav_tpu
-    takes."""
+    takes. ``quant`` (A8) is carried: the small CaiT on the int8 arm, QAT
+    and serving in f32, against sav_tpu's (test_torch_quant's check; bf16
+    and the other families in their own files)."""
     with pytest.raises(TypeError, match="unexpected option"):
         CaiT(10, 32, 1, 1, 2, (8, 8), image_size=32, moe_num_experts=2)
+    if item == "A8":
+        from test_torch_quant import family_case, quant_family_parity
+
+        case = family_case("cait_xxs_24", SMALL, {"params": small_flax_params()}, 32)
+        for quant in ("int8", "int8_serve"):
+            quant_family_parity(case, quant, "float32", monkeypatch)
+        return
     if item is not None:
         with pytest.raises(NotImplementedError, match=item):
             CaiT(10, 32, 1, 1, 2, (8, 8), image_size=32, **option)

@@ -419,10 +419,19 @@ def test_registry_entry_matches_sav_tpu_tree_at_full_size(name):
 
 
 def test_registry_refuses_unported_options():
-    with pytest.raises(NotImplementedError, match="A8"):
-        create_model("ceit_s", quant="int8")
     with pytest.raises(NotImplementedError, match="A9"):
         create_model("ceit_s", seq_parallel="ring")
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("quant", ["int8", "int8_serve"])
+def test_small_ceit_int8_arms_match_sav_tpu(quant, dtype, monkeypatch):
+    """The small CeiT on the int8 arm against sav_tpu's, QAT and serving,
+    f32 and bf16 (test_torch_quant.quant_family_parity): top-1 equal,
+    logits within 0.1 x their scale, the activation codes as sav_tpu's."""
+    from test_torch_quant import family_case, quant_family_parity
+
+    quant_family_parity(family_case("ceit_s", SMALL, small_flax_variables(), IMAGE, images=2), quant, dtype, monkeypatch)
 
 
 def test_weight_decay_mask_on_the_ceit_tree_matches_sav_tpu(variables):

@@ -319,10 +319,19 @@ def test_registry_entry_matches_sav_tpu_tree_at_full_size(name):
 
 
 def test_registry_refuses_unported_options():
-    with pytest.raises(NotImplementedError, match="A8"):
-        create_model("cvt-13", quant="int8")
     with pytest.raises(TypeError, match="unexpected option"):
         create_model("cvt-13", seq_parallel="ring")
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("quant", ["int8", "int8_serve"])
+def test_small_cvt_int8_arms_match_sav_tpu(quant, dtype, monkeypatch, variables):
+    """The small CvT on the int8 arm against sav_tpu's, QAT and serving,
+    f32 and bf16 (test_torch_quant.quant_family_parity): top-1 equal,
+    logits within 0.1 x their scale, the activation codes as sav_tpu's."""
+    from test_torch_quant import family_case, quant_family_parity
+
+    quant_family_parity(family_case("cvt-13", SMALL, variables, IMAGE, images=2), quant, dtype, monkeypatch)
 
 
 def test_weight_decay_mask_on_the_cvt_tree_matches_sav_tpu(variables):

@@ -7,8 +7,14 @@ The bf16 cast is compared bit for bit (sav_tpu returns ml_dtypes arrays,
 the port torch.bfloat16 tensors over the same uint16 bits). The port's
 normalize multiplies by the reciprocal natively, as sav_tpu's library
 does, and divides in numpy, as sav_tpu's fallback does: each pair is held
-against its own counterpart.
+against its own counterpart. sav_tpu's library is compiled for the module
+(:func:`sav_tpu_native_library`), also used by ``test_torch_records.py``.
 """
+
+import os
+import re
+import subprocess
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -19,6 +25,28 @@ from sav_tpu_torch.data import _native_build, mix
 from sav_tpu_torch.data import native_loader as nl
 from sav_tpu_torch.data.augment_spec import parse_augment_spec
 from sav_tpu_torch.data.constants import MEAN_RGB, STDDEV_RGB
+
+
+NATIVE = Path(__file__).resolve().parent.parent / "native"
+
+
+@pytest.fixture(scope="module", autouse=True)
+def sav_tpu_native_library(tmp_path_factory):
+    """sav_tpu's own native library, compiled for this module from
+    ``native/loader.cc`` and ``records.cc`` with ``native/Makefile``'s
+    flags into a directory of the test's own, and ``sav_tpu``'s loader
+    pointed at it: the library ``make -C native`` leaves in ``native/``
+    (which only sav_tpu's own test builds) is not waited for, so the
+    outcome does not hang on which module a test worker reaches first."""
+    flags = re.search(r"^CXXFLAGS \?= (.*)$", (NATIVE / "Makefile").read_text(), re.M)
+    library = tmp_path_factory.mktemp("sav_tpu_native") / "libsavtpu_loader.so"
+    subprocess.run([os.environ.get("CXX", "g++"), *flags.group(1).split(), "-o", str(library),
+                    str(NATIVE / "loader.cc"), str(NATIVE / "records.cc")],
+                   check=True, capture_output=True, timeout=300)
+    with pytest.MonkeyPatch.context() as patch:
+        patch.setattr(jax_nl, "_LIB_PATH", str(library))
+        patch.setattr(jax_nl, "_lib", None)
+        yield library
 
 
 @pytest.fixture

@@ -9,6 +9,8 @@ import torch
 
 from sav_tpu.data import records as jax_records
 from sav_tpu_torch.data import records
+# sav_tpu's native library, compiled for this module (its reader reaches it).
+from test_torch_native_loader import sav_tpu_native_library  # noqa: F401
 
 N, SHAPE = 23, (6, 5, 3)
 

@@ -226,11 +226,15 @@ def test_train_config_mirrors_sav_tpu_and_refuses_what_it_does_not_carry():
         ref.steps_per_epoch, ref.total_steps, ref.learning_rate)
     assert TrainConfig.from_json(cfg.to_json()) == cfg
     for field, value, item in (
-        ("quant", "int8", "A8"), ("profile_dir", "prof", "A10"),
+        ("profile_dir", "prof", "A10"),
         ("mesh_axes", {"data": 8}, "A9"), ("diagnostics", True, "A10"),
     ):
         with pytest.raises(NotImplementedError, match=item):
             TrainConfig(**{field: value})
+    # Carried since the int8 arm was ported (A8).
+    assert TrainConfig(quant="int8").quant == "int8"
+    with pytest.raises(ValueError, match="quant"):
+        TrainConfig(quant="int4")
     TrainConfig(fused_optimizer=False, ema_decay=0.99, augment="none")  # carried
     # Carried since gradient accumulation and checkpointing were ported.
     for field, value in (("grad_accum_steps", 2), ("checkpoint_dir", "ckpt"),

@@ -300,9 +300,9 @@ def test_every_sav_tpu_preset_exists_with_its_fields(name):
 def test_presets_refuse_what_trainconfig_refuses():
     assert preset_names() == jax_preset_names()
     with pytest.raises(NotImplementedError) as from_preset:
-        get_preset("deit_s_imagenet", quant="int8")
+        get_preset("deit_s_imagenet", profile_dir="prof")
     with pytest.raises(NotImplementedError) as from_config:
-        TrainConfig(quant="int8")
+        TrainConfig(profile_dir="prof")
     assert str(from_preset.value) == str(from_config.value)
     with pytest.raises(ValueError, match="unknown preset"):
         get_preset("nope")

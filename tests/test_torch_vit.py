@@ -202,9 +202,10 @@ def test_registry_names_and_unported_entries():
         create_model("vit_xxl")
 
 
-# The ROADMAP item each option waited on. The position modes (A2) and the
-# MoE (A7.7) are carried now, as dropout is: they build and match sav_tpu.
-CARRIED_ITEMS = (None, "A2", "A7.7")
+# The ROADMAP item each option waited on. The position modes (A2), the MoE
+# (A7.7) and the int8 arm (A8) are carried now, as dropout is: they build
+# and match sav_tpu.
+CARRIED_ITEMS = (None, "A2", "A7.7", "A8")
 
 
 @pytest.mark.parametrize(
@@ -217,16 +218,22 @@ CARRIED_ITEMS = (None, "A2", "A7.7")
         ({"pos_embed": "sincos"}, "A2"),
     ],
 )
-def test_unported_vit_options_raise(option, item):
+def test_unported_vit_options_raise(option, item, monkeypatch):
     """Each option the port does not carry raises, naming its ROADMAP item.
     The carried ones build: the ViT's eval forward is sav_tpu's eval
     forward on the same flax tree (8 experts routed in block 1; the
-    sinusoidal table in place of the learned one), and with
+    sinusoidal table in place of the learned one; ``quant``: the QAT arm,
+    test_torch_quant's check in f32), and with
     ``dropout_rate`` it drops in training (flax's nn.Dropout after the
     position embedding, in each FF block and on each attention output)."""
     if item not in CARRIED_ITEMS:
         with pytest.raises(NotImplementedError, match=item):
             ViT(10, 64, 1, 2, (8, 8), image_size=32, **option)
+        return
+    if "quant" in option:
+        from test_torch_quant import _vit_case, quant_family_parity
+
+        quant_family_parity(_vit_case(), option["quant"], "float32", monkeypatch)
         return
     from sav_tpu_torch.models.layers import set_dropout_generator
 
@@ -245,6 +252,21 @@ def test_unported_vit_options_raise(option, item):
     with torch.no_grad():
         dropped = model.train()(torch.from_numpy(x)).numpy()
     assert np.isfinite(dropped).all() and np.abs(dropped - ref).max() > 1e-3
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("quant", ["int8", "int8_serve"])
+def test_small_deit_int8_arms_match_sav_tpu(quant, dtype, monkeypatch):
+    """The small DeiT on the int8 arm against sav_tpu's, QAT and serving,
+    f32 and bf16 (test_torch_quant.quant_family_parity); in f32 every code
+    and logit is sav_tpu's, bit for bit (the dense f32 paths agree to the
+    bit at this size)."""
+    from test_torch_quant import _vit_case, quant_family_parity
+
+    figures = quant_family_parity(_vit_case(), quant, dtype, monkeypatch)
+    if dtype == "float32":
+        assert figures["codes_differ"] == 0 and figures["max_abs_dlogit"] == 0.0
+        assert figures["top1_rows_held"] == figures["rows"]
 
 
 def test_create_model_is_deterministic_in_seed():
