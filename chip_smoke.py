@@ -8,7 +8,10 @@ Run from the root of the repository on a machine with one NVIDIA Hopper GPU:
 ``python3 chip_smoke.py --remat-trade`` runs only the device, build and
 remat-trade phases, on ViT-B/16@384's seed-0 weights, and prints the
 trade's peak memories as one JSON line; ``--supervised-chain``,
-``--fed-train`` and ``--int8`` run one phase each (13, 14 and 15 below).
+``--fed-train`` and ``--int8`` run one phase each (13, 14 and 15 below);
+``--serve-telemetry`` runs the fused kernels' build and DeiT-S's serve
+phase with its telemetry checks, the telemetry's cost and its serve bench
+(5 below).
 
 Phases, each of which exits non-zero on failure:
 
@@ -91,11 +94,26 @@ Phases, each of which exits non-zero on failure:
    equal the engine's eager infer function on the same batch, bit for
    bit; 8 rows must agree with the same weights served (also captured) on
    the dense attention paths; and at buckets 1, 8 and 32 the eager step,
-   the replayed step and a replay's device time are timed. Then the serve
+   the replayed step and a replay's device time are timed. Every engine
+   serves with its telemetry on (the default). DeiT-S's serves into a log
+   directory with a heartbeat every 0.25 s: each of the 96 requests must
+   carry its eight stamps in order with no negative interval, the median
+   ``device`` interval at each bucket must not be below that bucket's
+   replay device time (``executed`` is stamped after the sync), the
+   heartbeats read back (``read_serve_beats``, ``aggregate_serve``) as one
+   replica with p99, queue depth, occupancy and capacity, and the serve
+   manifest must hold its three notes and ``slo_hit_frac`` 1.0 with no
+   alert fired. Then the telemetry's cost: two DeiT-S engines at buckets
+   1…32, one with telemetry and a log directory and one without, serve 3
+   interleaved pairs of floods of 1,024 seeded requests with the garbage
+   collector paused; the layer's own accounting must stay within 100 µs
+   a request, and each pair's throughput ratio is printed. Then the serve
    bench (``python -m sav_tpu_torch.serve.bench``, through its ``run``) for
-   each model: a flood of 2,048 requests, an open loop at half the flood's
-   throughput, and for DeiT-S a batch-1 arm of 512 that the batched flood
-   must beat in images/s; each run checked as above.
+   each model: a flood of 2,048 requests (for DeiT-S with ``--log-dir``,
+   whose line must carry a ``telemetry`` block and ``slo_hit_frac``), an
+   open loop at half the flood's throughput, and for DeiT-S a batch-1 arm
+   of 512 that the batched flood must beat in images/s; each run checked
+   as above.
 6. train: Trainer trains deit_s_patch16, then cait_xxs_24 (bf16 over f32
    parameters, global batch 256, CaiT at its recipe's stochastic depth 0.05)
    for 6 steps on synthetic learnable batches through fit(), which on the
@@ -171,7 +189,7 @@ Phases, each of which exits non-zero on failure:
    attention, so every counter and every capture must read 0), and trained
    as in 6 from get_preset("tnt_s_imagenet") at 1024 in 4 micro-batches (4
    x (24 #1, 24 #2) launches per captured step) and from
-   get_preset("mixer_b_imagenet") at 4096 in 16 (none) at 6 of its 12
+   get_preset("mixer_b_imagenet") at 4096 in 16 (none) at 4 of its 12
    blocks (MIXER_TRAIN_LAYERS: for the run's time). Mixer has no
    attention path to hold the kernels against, so its first train step is
    held against the same step in f32 from the same weights, and its served
@@ -217,7 +235,7 @@ Phases, each of which exits non-zero on failure:
    batch's hash must be the one the uninterrupted stream trains at step 9;
    then the train bench's ``--feed savrec`` (a 2,048-image 224² SavRecord
    file) and ``--feed pipeline``, each with and without
-   ``--device-preprocess``, 2 windows of 20 steps after a warm-up that
+   ``--device-preprocess``, 2 windows of 10 steps after a warm-up that
    drains the batches in flight, each line with the sustained rate (every
    window's images over their time), the feed's own rate and the device's
    idle share. The native loader must build and load; the JPEG
@@ -363,10 +381,10 @@ TNT_B_TRAIN_SHAPE = (256 * 196, 16, 16, 4, 10)
 MIXER_MODEL = "mixer_b_patch16"
 MIXER_PRESET = "mixer_b_imagenet"
 MIXER_ACCUM = 16
-# The train cell of Mixer-B/16 runs 6 of its 12 blocks (full width, its
+# The train cell of Mixer-B/16 runs 4 of its 12 blocks (full width, its
 # preset's batch; it serves at full depth): at 12 it took ~76 s of the run,
-# and phase_fed_train needs the time.
-MIXER_TRAIN_LAYERS = 6
+# at 6 ~43 s; phase_fed_train and the serve telemetry's checks need the time.
+MIXER_TRAIN_LAYERS = 4
 # DeiT-S's trunk with RoPE, and with 8 routed experts in every other block:
 # #1/#2 at DeiT-S's shape (12 a forward, 12 a backward); trained at 256.
 ROPE_MODEL = "vit_s_patch16_rope"
@@ -2470,16 +2488,98 @@ def _serve_routing(model, dense, requests, image_size, what):
     return routing
 
 
+# The DeiT-S serve run's heartbeat cadence: short enough that a beat lands
+# while the 96 requests are served, beside the final one.
+TELEMETRY_BEAT_S = 0.25
+
+
+def _check_serve_telemetry(engine, log_dir: str, steps: dict, requests: int, what: str) -> dict:
+    """The telemetry of a stopped engine that served ``requests`` into
+    ``log_dir``: every request's eight stamps in STAGES order with no
+    negative interval; at each bucket, the median ``device`` interval
+    (dispatched to executed) not below the bucket's replay device time in
+    ``steps``, so ``executed`` is stamped after the sync, not after the
+    launch; the beats read back as one replica with p99, queue depth,
+    occupancy, capacity and the allocator's memory watermark; the serve
+    manifest's three notes, ``slo_hit_frac`` 1.0 and no alert."""
+    from sav_tpu_torch.obs import alerts
+    from sav_tpu_torch.serve.telemetry import INTERVALS, STAGES, aggregate_serve, read_serve_beats
+
+    records = engine._telemetry.ring.records()
+    if len(records) != requests:
+        raise AssertionError(f"{what}: {len(records)} traced requests of {requests}")
+    device_ms = {}
+    for rec in records:
+        if [stage for stage, _ in rec["stamps"]] != list(STAGES):
+            raise AssertionError(f"{what}: request {rec['rid']} stamps {rec['stamps']}")
+        if set(rec["stages_ms"]) != {name for name, _, _ in INTERVALS} or min(
+                rec["stages_ms"].values()) < 0.0:
+            raise AssertionError(f"{what}: request {rec['rid']} intervals {rec['stages_ms']}")
+        device_ms.setdefault(rec["bucket"], []).append(rec["stages_ms"]["device"])
+    device = {}
+    for bucket, values in sorted(device_ms.items()):
+        median = statistics.median(values)
+        replay = steps[str(bucket)]["replay_device_ms"]
+        device[str(bucket)] = {"requests": len(values), "median_device_ms": round(median, 4),
+                               "replay_device_ms": round(replay, 4)}
+        if median < replay:
+            raise AssertionError(f"{what}: median device interval {median:.4f} ms at bucket "
+                                 f"{bucket} is below the replay's {replay:.4f} ms: executed "
+                                 "was stamped before the device finished")
+    beats = read_serve_beats(log_dir)
+    if list(beats) != [0] or len(beats[0]) < 2:
+        raise AssertionError(f"{what}: serve beats {json.dumps({k: len(v) for k, v in beats.items()})}"
+                             ": want one replica with a cadence beat and the final one")
+    replica = aggregate_serve(log_dir)["replicas"]["0"]
+    for key in ("p99_ms", "queue_depth", "occupancy", "capacity_rps", "hbm_peak_bytes"):
+        if not isinstance(replica.get(key), (int, float)):
+            raise AssertionError(f"{what}: aggregate_serve's replica lacks {key}: "
+                                 f"{json.dumps(replica)}")
+    if not replica["final"] or replica["requests"] != requests:
+        raise AssertionError(f"{what}: aggregate_serve's replica {json.dumps(replica)}")
+    with open(engine.manifest.path) as f:
+        manifest = json.load(f)
+    notes, metrics = manifest["notes"], manifest["metrics"]
+    missing = {"serve_startup", "serve_summary", "serve_telemetry"} - set(notes)
+    if manifest["outcome"] != "ok" or missing or metrics.get("serve/slo_hit_frac") != 1.0:
+        raise AssertionError(f"{what}: manifest outcome {manifest['outcome']}, notes missing "
+                             f"{sorted(missing)}, slo_hit_frac {metrics.get('serve/slo_hit_frac')}")
+    fired = alerts.read_alerts(log_dir)
+    if fired or notes.get("alerts", {}).get("episodes"):
+        raise AssertionError(f"{what}: alerts fired: {json.dumps(fired)}")
+    telemetry = engine.stats()["telemetry"]
+    out = {"device_interval": device, "beats": len(beats[0]),
+           "heartbeats": int(telemetry["heartbeats"]),
+           "overhead_us_per_request": round(1e6 * telemetry["overhead_s"]
+                                            / max(telemetry["requests"], 1.0), 3),
+           "p99_ms": replica["p99_ms"], "queue_depth": replica["queue_depth"],
+           "occupancy": replica["occupancy"], "capacity_rps": replica["capacity_rps"],
+           "hbm_peak_bytes": replica["hbm_peak_bytes"],
+           "slo_hit_frac": metrics["serve/slo_hit_frac"], "alerts": 0}
+    log(f"{what} telemetry: {requests} requests, each with the {len(STAGES)} stamps in order, "
+        f"no negative interval; median device interval vs replay device time by bucket (ms) "
+        f"{json.dumps(device)}; {len(beats[0])} kind=serve beats (the cadence's and the final "
+        f"one) read back as one replica: p99 {replica['p99_ms']} ms, queue depth "
+        f"{replica['queue_depth']}, occupancy {replica['occupancy']}, capacity "
+        f"{replica['capacity_rps']} rows/s, hbm peak {replica['hbm_peak_bytes']:.0f} B; "
+        f"manifest notes {sorted(notes)}, slo_hit_frac {metrics['serve/slo_hit_frac']}; alerts "
+        f"fired: none; the layer's own cost {out['overhead_us_per_request']} us a request")
+    return out
+
+
 def phase_serve(device="cuda", model_name="deit_s_patch16", requests=SERVE_REQUESTS,
                 max_batch=32, overrides=None, image_size=224, family="fused",
-                reference="dense") -> dict:
+                reference="dense", telemetry_checks=False) -> dict:
     """Serve ``requests`` seeded images through captured programs; returns
     the kernels' launches (replays × captured). ``family``: the kernels this
     path's plain attention cores take (at 224² DeiT's and CaiT's class
     attention the fused ones, BoTNet the relative-position ones).
     ``reference``: what the served logits are held against, the same
     weights served on the dense attention paths (``"dense"``), or, for a
-    model without attention, served in f32 (``"f32"``)."""
+    model without attention, served in f32 (``"f32"``). Every engine serves
+    with its telemetry on; with ``telemetry_checks`` the engine serves into
+    a log directory with a short heartbeat and its telemetry is checked
+    (:func:`_check_serve_telemetry`)."""
     from sav_tpu_torch import ServeConfig, ServeEngine, create_model
 
     overrides = overrides or {}
@@ -2502,14 +2602,21 @@ def phase_serve(device="cuda", model_name="deit_s_patch16", requests=SERVE_REQUE
     images = np.random.default_rng(0).integers(
         0, 256, (requests, image_size, image_size, 3), dtype=np.uint8
     )
+    log_dir = tempfile.mkdtemp(prefix="serve-telemetry-") if telemetry_checks else None
     reset_launches()
-    engine = ServeEngine(config(max_batch=max_batch), model=model)
+    engine = ServeEngine(config(max_batch=max_batch, log_dir=log_dir,
+                                heartbeat_secs=TELEMETRY_BEAT_S), model=model)
     startup_variants = _check_capture(engine.startup_report, per_batch, what)
     report = engine.startup_report
     log(f"{what} startup: {json.dumps(report)}")
     reset_launches()
     with engine:
         logits = np.stack(_serve(engine, images, CLIENTS))
+        if log_dir:
+            # A beat of the thread's own cadence, beside the final one.
+            deadline = time.monotonic() + 10 * TELEMETRY_BEAT_S
+            while engine.stats()["telemetry"]["heartbeats"] < 1 and time.monotonic() < deadline:
+                time.sleep(0.01)
     _check_served_eagerly_nowhere(what)
     stats = engine.stats()
     ledger = stats["ledger"]
@@ -2529,8 +2636,15 @@ def phase_serve(device="cuda", model_name="deit_s_patch16", requests=SERVE_REQUE
     )
     _check_replay_equals_eager(engine, what)
     profile = _profile_replay(engine, max(report["buckets"]), per_batch, what)
-    steps = _serve_steps(engine, SERVE_TIMED_BUCKETS)
+    served = {rec["bucket"] for rec in engine._telemetry.ring.records()} if log_dir else set()
+    steps = _serve_steps(engine, sorted(set(SERVE_TIMED_BUCKETS) | served))
     log(f"{what} steps by bucket (ms): {json.dumps(steps)}")
+    telemetry = None
+    if log_dir:
+        log(f"{what}: kernel launches with telemetry on (replays x captured) "
+            f"{json.dumps(launches)} = {json.dumps(per_batch)} x {batches} batches")
+        telemetry = _check_serve_telemetry(engine, log_dir, steps, requests, what)
+        shutil.rmtree(log_dir)
     del engine
     _release_engines()
 
@@ -2556,7 +2670,83 @@ def phase_serve(device="cuda", model_name="deit_s_patch16", requests=SERVE_REQUE
     _release_engines()
     return {**launches, "variants": variants, "per_batch": per_batch, "routing": routing,
             "steps": steps, "profile": profile, "compile_s": report["compile_s"],
-            "bucket_hbm_bytes": report["bucket_hbm_bytes"]}
+            "bucket_hbm_bytes": report["bucket_hbm_bytes"], "telemetry": telemetry}
+
+
+# The telemetry's cost: floods of TELEMETRY_FLOOD seeded requests, in
+# TELEMETRY_PAIRS interleaved (on, off) pairs, and the layer's own accounting
+# per request (sav_tpu's gate, tests/test_serve_telemetry.py).
+TELEMETRY_FLOOD = 1024
+TELEMETRY_PAIRS = 3
+TELEMETRY_OVERHEAD_LIMIT_S = 100e-6
+
+
+def phase_serve_telemetry_cost(per_batch: dict, device="cuda") -> dict:
+    """Two live DeiT-S engines at buckets 1…32, one with telemetry and a log
+    directory, one without, each flooded TELEMETRY_PAIRS times in turn with
+    the same TELEMETRY_FLOOD seeded requests, the garbage collector paused.
+    Gates the telemetry's own accounting (``overhead_s`` over requests) at
+    TELEMETRY_OVERHEAD_LIMIT_S; prints each pair's throughput ratio (on /
+    off) and the best, ungated: the serving loop is host-bound on the card,
+    so the ratio is a measurement here, not a check. Returns the kernels'
+    launches (replays × captured) and the figures."""
+    from sav_tpu_torch import ServeConfig, ServeEngine
+
+    what = "serve deit_s_patch16 telemetry cost"
+    log_dir = tempfile.mkdtemp(prefix="serve-telemetry-cost-")
+    engines, reports = {}, {}
+    for label, kw in (("on", dict(log_dir=log_dir, heartbeat_secs=0.5)),
+                      ("off", dict(telemetry=False))):
+        reset_launches()
+        engine = ServeEngine(ServeConfig(model_name="deit_s_patch16", compute_dtype="bfloat16",
+                                         max_batch=32, max_queue=2 * TELEMETRY_FLOOD,
+                                         deadline_ms=FLOOD_DEADLINE_MS, device=device, **kw))
+        _check_capture(engine.startup_report, per_batch, f"{what} ({label})")
+        engines[label], reports[label] = engine, engine.startup_report
+    images = np.random.default_rng(0).integers(0, 256, (TELEMETRY_FLOOD, 224, 224, 3),
+                                               dtype=np.uint8)
+    rates = {label: [] for label in engines}
+    for engine in engines.values():
+        engine.start()
+    reset_launches()
+    gc.collect()
+    gc.disable()
+    try:
+        for _ in range(TELEMETRY_PAIRS):
+            for label, engine in engines.items():
+                t0 = time.monotonic()
+                futures = [engine.submit(image) for image in images]
+                for future in futures:
+                    future.result(timeout=300)
+                rates[label].append(TELEMETRY_FLOOD / (time.monotonic() - t0))
+    finally:
+        gc.enable()
+        stats = {label: engine.stop() for label, engine in engines.items()}
+    _check_served_eagerly_nowhere(what)
+    runs = [_replayed(stats[label], reports[label], per_batch, f"{what} ({label})")
+            for label in engines]
+    telemetry = stats["on"]["telemetry"]
+    per_request = telemetry["overhead_s"] / max(telemetry["requests"], 1.0)
+    ratios = [on / off for on, off in zip(rates["on"], rates["off"])]
+    out = {"overhead_us_per_request": round(per_request * 1e6, 3),
+           "heartbeats": int(telemetry["heartbeats"]),
+           "rates_on": [round(r, 1) for r in rates["on"]],
+           "rates_off": [round(r, 1) for r in rates["off"]],
+           "ratios": [round(r, 4) for r in ratios], "best_ratio": round(max(ratios), 4)}
+    log(f"{what}: {TELEMETRY_PAIRS} interleaved pairs of {TELEMETRY_FLOOD}-request floods, GC "
+        f"paused: images/s with telemetry {out['rates_on']}, without {out['rates_off']}; "
+        f"on/off ratio per pair {out['ratios']}, best {out['best_ratio']} (not gated); the "
+        f"layer's own cost {out['overhead_us_per_request']} us a request over "
+        f"{int(telemetry['requests'])} requests (limit {TELEMETRY_OVERHEAD_LIMIT_S * 1e6:.0f} us), "
+        f"{out['heartbeats']} heartbeats")
+    if per_request > TELEMETRY_OVERHEAD_LIMIT_S:
+        raise AssertionError(f"{what}: {per_request * 1e6:.1f} us of telemetry a request, over "
+                             f"{TELEMETRY_OVERHEAD_LIMIT_S * 1e6:.0f} us")
+    del engines, engine
+    _release_engines()
+    shutil.rmtree(log_dir)
+    return {**_add(launches for launches, _ in runs),
+            "variants": _add(variants for _, variants in runs), **out}
 
 
 # The serve bench's runs: a flood, an open-loop arm at half the flood's
@@ -2631,8 +2821,24 @@ def phase_serve_bench(model_name: str, per_batch: dict, *, batch_1=False) -> dic
     ``batch_1``, also the ladder [1] arm of BENCH_BATCH1_REQUESTS, which the
     batched flood must beat in images/s."""
     common = ["--model", model_name, "--max-batch", "32", "--max-queue", "4096"]
-    runs = {"flood": _bench(common + ["--requests", str(BENCH_REQUESTS), "--deadline-ms",
-                                      str(FLOOD_DEADLINE_MS)], per_batch, f"bench {model_name} flood")}
+    # DeiT-S's flood writes its telemetry (--log-dir): its line must carry
+    # the telemetry block and slo_hit_frac.
+    log_dir = tempfile.mkdtemp(prefix="serve-bench-") if batch_1 else None
+    flood = common + ["--requests", str(BENCH_REQUESTS), "--deadline-ms", str(FLOOD_DEADLINE_MS)]
+    if log_dir:
+        flood += ["--log-dir", log_dir, "--heartbeat-secs", "0.5"]
+    runs = {"flood": _bench(flood, per_batch, f"bench {model_name} flood")}
+    if log_dir:
+        line = runs["flood"]["result"]
+        block = line.get("telemetry") or {}
+        if (block.get("log_dir") != log_dir or block.get("heartbeats", 0) < 1
+                or line.get("slo_hit_frac") != 1.0 or not os.path.exists(line.get("manifest", ""))):
+            raise AssertionError(f"bench {model_name} flood with --log-dir: telemetry "
+                                 f"{json.dumps(block)}, slo_hit_frac {line.get('slo_hit_frac')}, "
+                                 f"manifest {line.get('manifest')}")
+        log(f"bench {model_name} flood with --log-dir: telemetry {json.dumps(block)}, "
+            f"slo_hit_frac {line['slo_hit_frac']}, burn_rate {line['burn_rate']}")
+        shutil.rmtree(log_dir)
     rate = round(runs["flood"]["result"]["serve_throughput"] / 2, 1)
     runs["open_loop"] = _bench(common + ["--requests", str(BENCH_REQUESTS), "--rate", str(rate),
                                          "--deadline-ms", str(BENCH_DEADLINE_MS)],
@@ -2648,9 +2854,10 @@ def phase_serve_bench(model_name: str, per_batch: dict, *, batch_1=False) -> dic
                                  f"did not beat the batch-1 arm ({single} images/s)")
     launches = _add(r["launches"] for r in runs.values())
     keys = ("serve_throughput", "p50_latency_ms", "p95_latency_ms", "p99_latency_ms",
-            "padding_waste_frac", "bucket_occupancy", "rejected_at_submit", "schedule_lag_ms")
+            "padding_waste_frac", "bucket_occupancy", "rejected_at_submit", "schedule_lag_ms",
+            "slo_hit_frac", "telemetry")
     return {**launches, "variants": _add(r["variants"] for r in runs.values()), "rate": rate,
-            "runs": {name: {k: r["result"][k] for k in keys} for name, r in runs.items()}}
+            "runs": {name: {k: r["result"].get(k) for k in keys} for name, r in runs.items()}}
 
 
 # Raw decoded images of mixed sizes for submit_raw (height, width).
@@ -3456,6 +3663,24 @@ def main_int8() -> None:
     del times
 
 
+def main_serve_telemetry() -> None:
+    """``--serve-telemetry``: the fused kernels' build, then DeiT-S served
+    with its telemetry checked, the telemetry's cost and the serve bench,
+    as in the full run."""
+    from sav_tpu_torch.ops import _build
+
+    phase_device()
+    built = _build.build_all(["fused_attention", "fused_attention_bwd"])
+    log(f"built {json.dumps({k: round(v, 1) for k, v in built.items()})}")
+    serve = phase_serve(telemetry_checks=True)
+    cost = phase_serve_telemetry_cost(serve["per_batch"])
+    bench = phase_serve_bench("deit_s_patch16", serve["per_batch"], batch_1=True)
+    log(json.dumps({"telemetry": serve["telemetry"],
+                    "cost": {k: cost[k] for k in ("overhead_us_per_request", "ratios",
+                                                  "best_ratio", "rates_on", "rates_off")},
+                    "bench": bench["runs"]}))
+
+
 def _replays_round_anew(trainer, state, start: dict, batch, what: str) -> None:
     """The QAT step's stochastic rounding comes from the trainer's "quant"
     generator, which the captured step registers: from the same start, two
@@ -4064,10 +4289,11 @@ FED_TRAIN_SHARDS, FED_EVAL_SHARDS = 4, 2
 FED_STEPS, FED_EVERY, FED_RESUME_FROM = 12, 4, 8
 FED_SEED = 0
 FED_TIMEOUT_S = 300
-# The train bench's fed feeds, four runs: 2 windows of 20 steps a run, far
-# longer than the batches in flight that the bench's warm-up drains (up to
-# 6); the feed's own rate over 20 batches.
-FED_BENCH_STEPS, FED_BENCH_REPS = 20, 2
+# The train bench's fed feeds, four runs: 2 windows of 10 steps a run, longer
+# than the batches in flight that the bench's warm-up drains (up to 8); the
+# feed's own rate over 10 batches. (20 steps until the serve telemetry's
+# checks needed the run's time: each pipeline step is ~0.46 s of host work.)
+FED_BENCH_STEPS, FED_BENCH_REPS = 10, 2
 
 
 def _fed_image(seed: int, index: int) -> np.ndarray:
@@ -4845,7 +5071,8 @@ def main() -> None:
     times = phase_timing()
     int8_times = phase_int8_timing()
     mark("timing")
-    serve = {"deit": phase_serve(), "cait": phase_serve(model_name="cait_xxs_24"),
+    serve = {"deit": phase_serve(telemetry_checks=True),
+             "cait": phase_serve(model_name="cait_xxs_24"),
              "botnet": phase_serve(model_name=BOTNET_MODEL, family="rel"),
              "cvt": phase_serve(model_name=CVT_MODEL, family=CVT_FAMILY),
              "ceit": phase_serve(model_name=CEIT_MODEL),
@@ -4853,6 +5080,7 @@ def main() -> None:
              "mixer": phase_serve(model_name=MIXER_MODEL, reference="f32"),
              "rope": phase_serve(model_name=ROPE_MODEL),
              "moe": phase_serve(model_name=MOE_MODEL)}
+    telemetry_cost = phase_serve_telemetry_cost(serve["deit"]["per_batch"])
     benches = {"deit": phase_serve_bench("deit_s_patch16", serve["deit"]["per_batch"],
                                          batch_1=True),
                "cait": phase_serve_bench("cait_xxs_24", serve["cait"]["per_batch"]),
@@ -4935,6 +5163,7 @@ def main() -> None:
     def by_path(kind):
         return {
             "serve": serve["deit"][kind], "train": train["deit"]["launches"][kind],
+            "serve_telemetry_cost_deit": telemetry_cost[kind],
             "serve_cait": serve["cait"][kind], "train_cait": train["cait"]["launches"][kind],
             "train_vit384": train["vit384"]["launches"][kind],
             "serve_botnet": serve["botnet"][kind], "train_botnet": train["botnet"]["launches"][kind],
@@ -4972,7 +5201,8 @@ def main() -> None:
 
     def by_variant(kind):
         out = {}
-        for run in (*serve.values(), *benches.values(), *train.values(), resume, evaluation,
+        for run in (*serve.values(), telemetry_cost, *benches.values(), *train.values(), resume,
+                    evaluation,
                     dropout, serve_ckpt, devpre, *train_bench.values(), chain, fed["train"],
                     fed["eval"], fed["resumed"], *fed["bench"].values(), int8["serve"],
                     int8["bench"], int8["train_bench"]):
@@ -5344,8 +5574,11 @@ if __name__ == "__main__":
         main_fed_train()
     elif sys.argv[1:] == ["--int8"]:
         main_int8()
+    elif sys.argv[1:] == ["--serve-telemetry"]:
+        main_serve_telemetry()
     elif sys.argv[1:]:
         raise SystemExit(f"chip_smoke: unknown arguments {sys.argv[1:]}; it takes none, "
-                         "--remat-trade, --supervised-chain, --fed-train or --int8")
+                         "--remat-trade, --supervised-chain, --fed-train, --int8 or "
+                         "--serve-telemetry")
     else:
         main()

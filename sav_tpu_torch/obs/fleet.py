@@ -23,9 +23,13 @@ stall) / Δwall) first and the per-step wall second, each against a
 leave-one-out median + MAD baseline, so one bad process cannot poison its
 own baseline.
 
-Not ported (ROADMAP queue A10, and A5.8 for the router): the router's and
-the serving engine's beats, the backend probe's timeline and the autoprof
-capture readers.
+The serving engine beats on the same substrate (:meth:`HeartbeatWriter.serve_beat`,
+``kind=serve`` lines carrying a windowed snapshot instead of a step), read
+back by :mod:`sav_tpu_torch.serve.telemetry`.
+
+Not ported (ROADMAP queue A10, and A5.8 for the router): the router's
+stream reader, the backend probe's timeline and the autoprof capture
+readers.
 """
 
 from __future__ import annotations
@@ -230,6 +234,42 @@ class HeartbeatWriter:
         finally:
             self._lock.release()
 
+    def serve_beat(self, payload: dict, *, kind: str = "serve") -> bool:
+        """Append one ``kind=serve`` heartbeat line (the serving engine's
+        time-cadenced stream, :mod:`sav_tpu_torch.serve.telemetry` —
+        serving has no step boundary, so these carry a windowed metrics
+        snapshot instead of a step number). Host-only like ``beat()``;
+        same bounded-lock discipline — a wedged writer drops the beat,
+        never blocks serving. Returns True iff the line was appended, so
+        callers' beat counters match the lines actually on disk (a
+        dropped or post-close beat must not inflate them). ``kind``
+        widens the stream vocabulary (a fleet router beats with
+        ``kind="router"`` through this same body)."""
+        t0 = self._perf()
+        record: dict = {
+            "schema": FLEET_SCHEMA,
+            "schema_version": FLEET_SCHEMA_VERSION,
+            "kind": kind,
+            "proc": self.process_index,
+            "procs": self.process_count,
+            "t": round(float(self._clock()), 3),
+            "host": self._host,
+            "pid": self._pid,
+        }
+        record.update(payload)
+        if not self._lock.acquire(timeout=self.LOCK_TIMEOUT_S):
+            self._dropped += 1
+            return False
+        try:
+            if self._closed:
+                return False
+            self._append(record)
+            self._beats += 1
+            self._write_s += self._perf() - t0
+            return True
+        finally:
+            self._lock.release()
+
     def fleet_event(self, event: str, **fields) -> None:
         """Append an out-of-band event line (watchdog soft stage, probe
         outcomes). Callable from any thread; host-only like beat()."""
@@ -297,9 +337,18 @@ class HeartbeatWriter:
         }
 
 
-def read_heartbeats(log_dir: str) -> dict[int, list[dict]]:
+def read_heartbeats(
+    log_dir: str, *, tail_bytes: Optional[int] = None
+) -> dict[int, list[dict]]:
     """Every ``fleet/proc_*.jsonl`` stream, by process index; torn tail
-    lines (a killed writer's) are skipped."""
+    lines (a killed writer's) are skipped.
+
+    ``tail_bytes`` bounds the read to each file's trailing bytes — the
+    live readers' mode (a router refreshing its view every half second
+    must not re-parse a long run's whole history each time). The partial
+    first line of a mid-file seek is dropped like a torn line. ``None``
+    (the offline default) reads everything.
+    """
     root = fleet_dir(log_dir)
     out: dict[int, list[dict]] = {}
     if not os.path.isdir(root):
@@ -314,6 +363,13 @@ def read_heartbeats(log_dir: str) -> dict[int, list[dict]]:
         records = []
         try:
             with open(os.path.join(root, name), "rb") as f:
+                if tail_bytes is not None:
+                    f.seek(0, os.SEEK_END)
+                    size = f.tell()
+                    start = max(size - int(tail_bytes), 0)
+                    f.seek(start)
+                    if start > 0:
+                        f.readline()  # drop the partial first line
                 for raw in f:
                     line = raw.decode("utf-8", "replace").strip()
                     if not line:
@@ -326,6 +382,23 @@ def read_heartbeats(log_dir: str) -> dict[int, list[dict]]:
             continue
         out[proc] = records
     return out
+
+
+def iter_manifests(log_dir: str):
+    """Yield ``(path, doc)`` for every parseable ``manifest*.json``
+    directly under ``log_dir`` (sorted by name; torn, unreadable and
+    non-dict files skipped) — the one manifest-discovery loop behind the
+    offline readers (serve telemetry's ``find_serve_manifests``)."""
+    import glob as _glob
+
+    for path in sorted(_glob.glob(os.path.join(log_dir, "manifest*.json"))):
+        try:
+            with open(path) as f:
+                doc = json.load(f)
+        except (OSError, json.JSONDecodeError):
+            continue
+        if isinstance(doc, dict):
+            yield path, doc
 
 
 def _median(values: list) -> Optional[float]:

@@ -1,7 +1,6 @@
 """Deadline-aware dynamic batcher: bounded queue -> bucketed batches.
 
-The port's own copy of ``sav_tpu/serve/batcher.py`` (stdlib only), without
-the request-span telemetry. Requests enter a bounded FIFO: a full queue
+The port's own copy of ``sav_tpu/serve/batcher.py`` (stdlib only). Requests enter a bounded FIFO: a full queue
 rejects (:class:`QueueFullError`), and a request whose projected queue wait
 already exceeds its deadline is shed at submit
 (:class:`DeadlineInfeasibleError`). The drain groups requests into the
@@ -9,6 +8,11 @@ largest ladder bucket that fills before the earliest admitted deadline's
 slack expires: a batch is dispatched no later than
 ``earliest_deadline - est_step(bucket)``, so an admitted request overruns by
 at most one bucket's actual step time.
+
+Each request may carry its span record
+(:class:`~sav_tpu_torch.serve.telemetry.RequestTrace`): admission stamps
+``admit`` and the drain stamps ``batch_formed``, host-clock appends only,
+so neither path can wait on the device.
 """
 
 from __future__ import annotations
@@ -20,6 +24,7 @@ import time
 from typing import Any, Callable, Optional
 
 from sav_tpu_torch.serve.bucketing import BucketLadder
+from sav_tpu_torch.serve.telemetry import stamp
 
 
 class QueueFullError(RuntimeError):
@@ -68,6 +73,9 @@ class ServeRequest:
     deadline_s: float  # latency budget from submit time
     enqueue_t: float
     future: ServeFuture
+    # The request's span record (telemetry's RequestTrace), None when
+    # telemetry is off.
+    trace: Any = None
 
     @property
     def deadline_t(self) -> float:
@@ -126,8 +134,11 @@ class DynamicBatcher:
         # Batches drained but not yet completed: wait ahead of new arrivals.
         self._inflight = 0
 
-    def submit(self, payload: Any, *, deadline_s: Optional[float] = None) -> ServeFuture:
-        """Admit one request; returns the future its result arrives on."""
+    def submit(
+        self, payload: Any, *, deadline_s: Optional[float] = None, trace: Any = None
+    ) -> ServeFuture:
+        """Admit one request; returns the future its result arrives on.
+        Admission stamps ``admit`` on ``trace`` (its span record, if any)."""
         if self._closed.is_set():
             raise ServeClosedError("batcher is closed")
         future = ServeFuture()
@@ -138,6 +149,7 @@ class DynamicBatcher:
             ),
             enqueue_t=self._clock(),
             future=future,
+            trace=trace,
         )
         if request.deadline_s <= 0:
             raise ValueError(f"deadline_s must be > 0, got {request.deadline_s}")
@@ -159,6 +171,11 @@ class DynamicBatcher:
                     f"exceeds the {request.deadline_s:.3f}s deadline; "
                     "shedding instead of serving a guaranteed miss"
                 )
+        # Stamp admit BEFORE the put: once queued, the drain thread may pop
+        # the request and stamp batch_formed at once, and an admit stamped
+        # after the put could postdate it (a negative "queue" interval). A
+        # stamp on a request the put then rejects dies with its trace.
+        stamp(trace, "admit", self._clock())
         try:
             self._queue.put_nowait(request)
         except queue.Full:
@@ -217,11 +234,14 @@ class DynamicBatcher:
                 earliest_deadline = min(earliest_deadline, request.deadline_t)
         with self._lock:
             self._inflight += 1
+        formed_t = self._clock()
+        for request in batch:
+            stamp(request.trace, "batch_formed", formed_t)
         return FormedBatch(
             requests=batch,
             bucket=self.ladder.bucket_for(len(batch)),
             queue_depth=self._queue.qsize(),
-            formed_t=self._clock(),
+            formed_t=formed_t,
         )
 
     def mark_completed(self) -> None:

@@ -21,15 +21,24 @@ line says ``"quant": "int8"`` (``null`` for the float arm) and carries the
 engine's ``startup_report["quant"]``, so an int8 line is never read as a
 bf16 one.
 
-Latency is timed from submit to the future's result. The fleet, chaos and
-telemetry modes of ``tools/serve_bench.py`` wait for ROADMAP queue
-A5.6-A5.8.
+Telemetry is on by default, as in the engine: the line carries
+``slo_hit_frac`` and ``burn_rate`` (absent when nothing was served) and a
+``telemetry`` block (heartbeats, exemplars, the layer's own ``overhead_s``,
+``log_dir``). ``--log-dir DIR`` writes the serve run manifest, the
+``kind=serve`` heartbeats (``fleet/proc_<i>.jsonl``, every
+``--heartbeat-secs``) and the span ring there; ``--no-telemetry`` serves
+without it (the overhead A/B arm), and its line has no ``telemetry``
+block.
+
+Latency is timed from submit to the future's result. The fleet and chaos
+modes of ``tools/serve_bench.py`` wait for ROADMAP queue A5.8.
 
 Usage (on the card; ``--device cpu`` runs it on the CPU):
   python -m sav_tpu_torch.serve.bench --model deit_s_patch16 --max-batch 32 \\
       --requests 2048 --max-queue 4096 --deadline-ms 60000
   python -m sav_tpu_torch.serve.bench --checkpoint runs/ckpt --rate 2000
   python -m sav_tpu_torch.serve.bench --checkpoint runs/ckpt --quant-weights
+  python -m sav_tpu_torch.serve.bench --log-dir runs/serve --heartbeat-secs 1
 """
 
 from __future__ import annotations
@@ -68,6 +77,9 @@ def run(args: argparse.Namespace) -> dict:
         deadline_ms=args.deadline_ms,
         checkpoint_dir=args.checkpoint,
         quant_weights=args.quant_weights,
+        log_dir=args.log_dir,
+        telemetry=not args.no_telemetry,
+        heartbeat_secs=args.heartbeat_secs,
         seed=args.seed,
         device=args.device,
     )
@@ -101,7 +113,7 @@ def run(args: argparse.Namespace) -> dict:
     ladder = "bs1" if args.batch_1 else (args.buckets or f"pow2<={args.max_batch}")
     load = f"{args.rate} req/s" if args.rate > 0 else "flood"
     arm = " int8 weights," if args.quant_weights else ""
-    return {
+    out = {
         "metric": (f"{args.model} serve p99 ms ({arm.strip(' ,') + ', ' if arm else ''}"
                    f"buckets {ladder}, {load}, deadline {args.deadline_ms} ms, "
                    f"{args.requests} reqs)"),
@@ -131,6 +143,23 @@ def run(args: argparse.Namespace) -> dict:
         "replays": stats["replays"],
         "feeder": stats["feeder"],
     }
+    slo = stats.get("slo") or {}
+    if isinstance(slo.get("hit_frac"), (int, float)):
+        out["slo_hit_frac"] = slo["hit_frac"]
+        out["burn_rate"] = slo.get("burn_rate")
+    telemetry = stats.get("telemetry")
+    if telemetry is not None:
+        out["telemetry"] = {
+            "heartbeats": int(telemetry.get("heartbeats", 0)),
+            "exemplars": int(telemetry.get("exemplars", 0)),
+            "overhead_s": telemetry.get("overhead_s"),
+            "log_dir": args.log_dir,
+        }
+    if engine.manifest is not None:
+        engine.manifest.note("metric", out["metric"])
+        engine.manifest.note("platform", out["platform"])
+        out["manifest"] = engine.manifest.path
+    return out
 
 
 def parser() -> argparse.ArgumentParser:
@@ -158,6 +187,15 @@ def parser() -> argparse.ArgumentParser:
                    help="open-loop offered load in req/s (0 = flood everything at once)")
     p.add_argument("--drain-timeout", type=float, default=120.0,
                    help="seconds to wait for the last future")
+    p.add_argument("--log-dir", default=None,
+                   help="serve run manifest and telemetry sink (heartbeats, slow-request "
+                        "exemplars, the span ring); default: no files")
+    p.add_argument("--no-telemetry", action="store_true",
+                   help="serve without telemetry (spans, windows, heartbeats, SLO): the "
+                        "overhead A/B arm")
+    p.add_argument("--heartbeat-secs", type=float, default=5.0,
+                   help="serve heartbeat cadence (kind=serve lines in fleet/proc_<i>.jsonl; "
+                        "0 disables)")
     p.add_argument("--seed", type=int, default=0, help="weights (fresh init) and request pool")
     p.add_argument("--device", default="cuda", help="'cuda' (default) or 'cpu'")
     return p

@@ -39,13 +39,29 @@ projection, FF and head dot runs on the int8 kernels, the attention core
 in the compute dtype. ``startup_report["quant"]`` carries ``sav_tpu``'s
 HBM-density proof (:func:`~sav_tpu_torch.ops.quant.quant_report`).
 
-Not ported yet (ROADMAP queue A5.6-A5.8, A10): the run manifest, request
-telemetry, quality probes and sharding layouts.
+**Telemetry** (``ServeConfig.telemetry``, on by default, as in ``sav_tpu``):
+every request carries a span record stamped at each stage of its life
+(:mod:`sav_tpu_torch.serve.telemetry`; host clock reads only, ``executed``
+after the device loop's one sync per batch), the ledger feeds a live
+window, an SLO tracker scores every request and shed, and with a
+``log_dir`` a heartbeat thread appends ``kind=serve`` beats to
+``fleet/proc_<i>.jsonl`` (windowed p99, queue depth, occupancy, SLO burn,
+measured capacity, the caching allocator's memory watermark, firing
+alerts), slow requests are dumped as exemplars under ``serve_traces/``, and
+the serve run manifest (``manifest-serve-<time>-<pid>.json``) is finalized
+at :meth:`ServeEngine.stop` with the ledger's metrics and ``slo_hit_frac``.
+A telemetry that fails to start raises; it is never switched off quietly.
+
+Not ported yet: the anomaly profiler (``ServeConfig.autoprof*``, ROADMAP
+queue A10), the prediction-quality digests and the golden probe
+(``probe_every_s``, A5.6 (c)), sharding layouts (A9) and the fleet router
+(A5.8).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import os
 import threading
 import time
 from typing import Callable, NamedTuple, Optional
@@ -58,6 +74,9 @@ from sav_tpu_torch.data.feeder import DeviceFeeder
 from sav_tpu_torch.interop import params_from_flax
 from sav_tpu_torch.models import create_model
 from sav_tpu_torch.models.layers import cast_for_compute
+from sav_tpu_torch.obs.fleet import HeartbeatWriter, resolve_identity
+from sav_tpu_torch.obs.manifest import RunManifest, classify_exception
+from sav_tpu_torch.obs.memory import HbmWatermark
 from sav_tpu_torch.ops import _build
 from sav_tpu_torch.ops.preprocess import normalize_images
 from sav_tpu_torch.ops.quant import is_quantized_template, quant_report, quantize_params
@@ -71,6 +90,7 @@ from sav_tpu_torch.serve.bucketing import BucketLadder, default_ladder
 from sav_tpu_torch.serve.graphs import BucketGraphs
 from sav_tpu_torch.serve.latency import LatencyLedger
 from sav_tpu_torch.serve.preprocess import preprocess_request
+from sav_tpu_torch.serve.telemetry import ServeTelemetry, stamp
 from sav_tpu_torch.train.checkpoint import Checkpointer
 from sav_tpu_torch.train.state import persistent_buffers
 from sav_tpu_torch.utils.device import COMPUTE_DTYPES, require_device
@@ -104,8 +124,30 @@ class ServeConfig:
     # Serve int8 weights: the float parameters quantized per channel into
     # the int8_serve model (sav_tpu's ServeConfig.quant_weights).
     quant_weights: bool = False
+    # Sink for the serve run manifest and the telemetry files (None: no
+    # files; spans, windows and SLO still run in memory).
+    log_dir: Optional[str] = None
     seed: int = 0
     device: str = "cuda"
+    # ---- serve telemetry (sav_tpu_torch/serve/telemetry.py), sav_tpu's
+    # defaults. Heartbeats and slow-request exemplars need a log_dir.
+    telemetry: bool = True
+    # Trailing window of the live p50/p99/throughput/queue view.
+    telemetry_window_s: float = 30.0
+    # Serve heartbeat cadence (kind=serve lines; 0 disables the thread).
+    heartbeat_secs: float = 5.0
+    # Completed request traces kept in the span ring.
+    trace_ring: int = 256
+    # Slow-request exemplar bundles dumped per run (serve_traces/).
+    slow_exemplars: int = 8
+    # Slow gate: latency beyond median + slow_sigma scaled MADs of the
+    # live window.
+    slow_sigma: float = 4.0
+    # SLO: deadline-hit-rate objective and the two burn windows.
+    slo_target: float = 0.99
+    slo_fast_window_s: float = 60.0
+    slo_slow_window_s: float = 600.0
+    slo_burn_threshold: float = 2.0
 
     def __post_init__(self):
         require_device(self.device)
@@ -191,8 +233,12 @@ class ServeEngine:
     of its own (:func:`~sav_tpu_torch.utils.graphs.held_stream`), so their
     graphs never share a cuBLAS workspace.
 
+    With ``config.log_dir`` the engine writes the serve run manifest and,
+    with telemetry on, the heartbeat stream and the exemplars beside it.
+
     Test seams: ``place_hook`` fires on the feeder thread after a batch is
-    placed, ``execute_hook`` on the device loop before it runs one; the
+    placed, ``execute_hook`` on the device loop before it runs one (after
+    the ``dispatched`` stamp, so a held batch books as device time); the
     overlap test holds a batch in ``execute_hook`` and waits for the next
     one's ``place_hook``.
     """
@@ -307,14 +353,69 @@ class ServeEngine:
         }
         if self.quant_report is not None:
             self.startup_report["quant"] = self.quant_report
-        self.ledger = LatencyLedger()
-        self._replays = dict.fromkeys(self.ladder.buckets, 0)
+        self.manifest: Optional[RunManifest] = None
+        if config.log_dir:
+            self.manifest = RunManifest(
+                os.path.join(config.log_dir, f"manifest-serve-{time.strftime('%Y%m%d-%H%M%S')}"
+                                             f"-{os.getpid()}.json"),
+                kind="serve",
+                config=dataclasses.asdict(config),
+            )
+            self.manifest.begin()
+            self.manifest.note("serve_startup", self.startup_report)
+            if self.quant_report is not None:
+                self.manifest.note("quant", dict(self.quant_report, weights="int8"))
         self._batcher: Optional[DynamicBatcher] = None
+        self._telemetry: Optional[ServeTelemetry] = None
+        self._watermark: Optional[HbmWatermark] = None
+        if config.telemetry:
+            self._telemetry = self._build_telemetry()
+        self.ledger = LatencyLedger(
+            window=self._telemetry.window if self._telemetry is not None else None
+        )
+        self._replays = dict.fromkeys(self.ladder.buckets, 0)
         self._feeder: Optional[DeviceFeeder] = None
         self._device_thread: Optional[threading.Thread] = None
         self._started = False
         self._stopped = False
         self._errors = 0
+
+    def _build_telemetry(self) -> ServeTelemetry:
+        """Spans, live window, SLO tracker and, with a log_dir, the
+        heartbeat writer and its thread (started by :meth:`start`). A
+        failure here raises: telemetry is never switched off quietly."""
+        config = self.config
+        writer = None
+        if config.log_dir and config.heartbeat_secs > 0:
+            proc, procs = resolve_identity()
+            writer = HeartbeatWriter(config.log_dir, process_index=proc, process_count=procs)
+        self._watermark = HbmWatermark(self.device)
+
+        def hbm() -> Optional[dict]:
+            self._watermark.observe()
+            if not self._watermark.samples:
+                return None
+            return {"hbm_bytes_in_use": self._watermark.in_use_bytes,
+                    "hbm_peak_bytes": self._watermark.peak_bytes}
+
+        return ServeTelemetry(
+            config.log_dir,
+            dtype=self.startup_report["dtype"],
+            trace_ring=config.trace_ring,
+            exemplar_max=config.slow_exemplars,
+            exemplar_sigma=config.slow_sigma,
+            window_s=config.telemetry_window_s,
+            heartbeat_secs=config.heartbeat_secs,
+            slo_target=config.slo_target,
+            slo_fast_window_s=config.slo_fast_window_s,
+            slo_slow_window_s=config.slo_slow_window_s,
+            slo_burn_threshold=config.slo_burn_threshold,
+            writer=writer,
+            queue_stats_fn=lambda: self._batcher.stats() if self._batcher else {},
+            hbm_fn=hbm,
+            # Measured capacity: the ladder's top rung over the windowed step.
+            max_batch=self.ladder.max_batch,
+        )
 
     def _quantized(self, float_model: nn.Module) -> tuple:
         """The int8_serve twin of ``float_model`` (the registry's, with the
@@ -405,6 +506,8 @@ class ServeEngine:
         )
         self._started = True
         self.ledger.start()
+        if self._telemetry is not None:
+            self._telemetry.start()
         self._device_thread.start()
         return self
 
@@ -422,6 +525,12 @@ class ServeEngine:
         """Pad and copy one formed batch (the feeder's worker thread)."""
         try:
             placed = self._place(formed.bucket, [r.payload for r in formed.requests])
+            if self._telemetry is not None:
+                # The copy to the card is issued (on the card it runs on
+                # the feed stream; nothing here waits for it).
+                t_placed = self._telemetry.clock()
+                for request in formed.requests:
+                    stamp(request.trace, "placed", t_placed)
             if self.place_hook is not None:
                 self.place_hook(formed)
             return formed, placed
@@ -439,9 +548,20 @@ class ServeEngine:
             for formed, placed in self._feeder:
                 t0 = time.perf_counter()
                 try:
+                    telemetry = self._telemetry
+                    if telemetry is not None:
+                        t_dispatch = telemetry.clock()
+                        for request in formed.requests:
+                            stamp(request.trace, "dispatched", t_dispatch)
                     if self.execute_hook is not None:
                         self.execute_hook(formed)
                     host = self._execute(formed.bucket, placed)
+                    if telemetry is not None:
+                        # After _execute's synchronize returned: the device
+                        # has finished the batch, not just been handed it.
+                        t_exec = telemetry.clock()
+                        for request in formed.requests:
+                            stamp(request.trace, "executed", t_exec)
                     if self.graphs is not None:
                         self._replays[formed.bucket] += 1
                     self._complete(formed, host, t0)
@@ -464,9 +584,14 @@ class ServeEngine:
         prev = self._step_est.get(formed.bucket, step_s)
         self._step_est[formed.bucket] = 0.8 * prev + 0.2 * step_s
         now = time.monotonic()
+        telemetry = self._telemetry
         latencies, overruns = [], []
         for i, request in enumerate(formed.requests):
+            if telemetry is not None:
+                stamp(request.trace, "depadded", telemetry.clock())
             request.future.set_result(host[i])
+            if telemetry is not None:
+                stamp(request.trace, "completed", telemetry.clock())
             latencies.append(now - request.enqueue_t)
             overruns.append(now - request.deadline_t)
         self.ledger.observe_batch(
@@ -476,11 +601,20 @@ class ServeEngine:
             queue_depth=formed.queue_depth,
             step_s=step_s,
         )
+        if telemetry is not None:
+            # Ring, SLO and the slow-exemplar gate, on the window the
+            # ledger just fed: host bookkeeping only.
+            telemetry.observe_completed(
+                formed, latencies_s=latencies, overruns_s=overruns, step_s=step_s
+            )
 
-    def submit(self, image: np.ndarray, *, deadline_ms: Optional[float] = None):
+    def submit(self, image: np.ndarray, *, deadline_ms: Optional[float] = None, trace_id=None):
         """Admit one ``[image_size, image_size, 3]`` uint8 request; returns
-        its future. Raises :class:`QueueFullError` on an admission reject.
-        Raw decoded images go through :meth:`submit_raw`."""
+        its future. Raises :class:`QueueFullError` on an admission reject
+        (counted on the ledger and, as an SLO miss, by the telemetry).
+        ``trace_id``: an id propagated by a fleet router, adopted as the
+        request's span id instead of a replica-local one. Raw decoded
+        images go through :meth:`submit_raw`."""
         if not self._started or self._stopped:
             raise ServeClosedError("engine is not serving (start() first)")
         image = np.asarray(image)
@@ -491,10 +625,14 @@ class ServeEngine:
                 "run preprocess_request() (or submit_raw) first"
             )
         deadline_s = (deadline_ms if deadline_ms is not None else self.config.deadline_ms) / 1e3
+        trace = (self._telemetry.begin_trace(deadline_s, rid=trace_id)
+                 if self._telemetry is not None else None)
         try:
-            return self._batcher.submit(image, deadline_s=deadline_s)
+            return self._batcher.submit(image, deadline_s=deadline_s, trace=trace)
         except QueueFullError:
             self.ledger.observe_rejected()
+            if self._telemetry is not None:
+                self._telemetry.observe_shed()
             raise
 
     def submit_raw(self, image: np.ndarray, *, deadline_ms: Optional[float] = None):
@@ -521,10 +659,13 @@ class ServeEngine:
             time.sleep(poll_s)
         return True
 
-    def stop(self, timeout_s: float = 30.0) -> dict:
+    def stop(self, timeout_s: float = 30.0, *, error: Optional[BaseException] = None) -> dict:
         """Fail queued requests, let the batches already drained finish,
-        join the device thread, close the feeder. Returns the serving
-        summary. Idempotent."""
+        join the device thread, close the feeder, close the telemetry (its
+        final beat) and finalize the manifest. Returns :meth:`stats`.
+        Idempotent. ``error``: the exception the caller is unwinding on
+        (the context manager passes it), so the manifest's outcome is that
+        exception's, not ``ok``."""
         if not self._stopped:
             self._stopped = True
             if self._batcher is not None:
@@ -533,7 +674,53 @@ class ServeEngine:
                 self._device_thread.join(timeout=timeout_s)
             if self._feeder is not None:
                 self._feeder.close()
+            self._finish(error)
         return self.stats()
+
+    def _finish(self, error: Optional[BaseException]) -> None:
+        """Close the telemetry and finalize the manifest (``sav_tpu``'s
+        notes and metrics)."""
+        if error is not None:
+            outcome, detail = classify_exception(error), repr(error)
+        elif self._errors:
+            outcome, detail = "error", f"{self._errors} batch(es) failed"
+        else:
+            outcome, detail = "ok", None
+        tele_summary = None
+        if self._telemetry is not None:
+            self._watermark.finalize()
+            tele_summary = self._telemetry.close(outcome)
+        if self.manifest is None:
+            return
+        summary = self.ledger.summary()
+        metrics = self.ledger.flat_metrics()
+        if self.config.quant_weights:
+            metrics["serve/quant_weights"] = 1.0
+        metrics["serve/compiled_from_scratch"] = float(
+            self.startup_report["compiled_from_scratch"])
+        self.manifest.note("serve_summary", summary)
+        if tele_summary is not None:
+            slo = tele_summary.get("slo") or {}
+            # Absent on a run that served nothing: skipped, never 0.
+            if isinstance(slo.get("hit_frac"), (int, float)):
+                metrics["serve/slo_hit_frac"] = float(slo["hit_frac"])
+            if isinstance(slo.get("burn_rate"), (int, float)):
+                metrics["serve/burn_rate"] = float(slo["burn_rate"])
+            metrics["serve/shed"] = float(tele_summary.get("shed", 0))
+            self.manifest.note("serve_telemetry", {
+                "slo": slo,
+                "window": tele_summary.get("window"),
+                "exemplars": tele_summary.get("exemplars"),
+                "heartbeats": tele_summary.get("heartbeats"),
+                "traced": tele_summary.get("traced"),
+                "overhead_s": tele_summary.get("overhead_s"),
+                "autoprof": tele_summary.get("autoprof"),
+            })
+            if tele_summary.get("alerts"):
+                self.manifest.note("alerts", tele_summary["alerts"])
+        if self._watermark is not None and self._watermark.source is not None:
+            metrics["serve/hbm_peak_bytes"] = float(self._watermark.peak_bytes)
+        self.manifest.finalize(outcome, error=detail, metrics=metrics)
 
     def stats(self) -> dict:
         out = {"ledger": self.ledger.summary(), "errors": self._errors,
@@ -544,11 +731,17 @@ class ServeEngine:
             out["batcher"] = self._batcher.stats()
         if self._feeder is not None:
             out["feeder"] = self._feeder.stats()
+        if self._telemetry is not None:
+            # The live view: windowed percentiles (None before the first
+            # completed batch, never an exception) and the SLO burn.
+            out["live"] = self.ledger.live()
+            out["slo"] = self._telemetry.slo.state()
+            out["telemetry"] = self._telemetry.stats()
         return out
 
     def __enter__(self) -> "ServeEngine":
         return self.start() if not self._started else self
 
     def __exit__(self, exc_type, exc, tb):
-        self.stop()
+        self.stop(error=exc)
         return False

@@ -1,8 +1,11 @@
 """Serving latency ledger: p50/p95/p99, throughput, queue, padding waste.
 
-The port's own copy of ``sav_tpu/serve/latency.py`` (stdlib only), without
-the live telemetry window. One observation per finished batch, from host
-clocks the engine already holds.
+The port's own copy of ``sav_tpu/serve/latency.py`` (stdlib only). One
+observation per finished batch, from host clocks the engine already holds.
+An optional live window (:class:`~sav_tpu_torch.serve.telemetry.LiveWindow`)
+is fed from the same observation path, so the final summary is
+bit-identical with the window on or off, while :meth:`LatencyLedger.live`
+shows the trailing window mid-run.
 """
 
 from __future__ import annotations
@@ -32,7 +35,7 @@ def percentile(sorted_values: list, q: float) -> float:
 class LatencyLedger:
     """Per-request latency and per-batch serving accounting."""
 
-    def __init__(self, clock: Callable[[], float] = time.perf_counter):
+    def __init__(self, clock: Callable[[], float] = time.perf_counter, *, window=None):
         self._clock = clock
         self._lock = threading.Lock()
         self._t0: Optional[float] = None
@@ -44,6 +47,9 @@ class LatencyLedger:
         self._queue_max = 0
         self._step_s = 0.0
         self._rejected = 0
+        # The live window (telemetry's LiveWindow, or None): fed after the
+        # cumulative accumulators, from the same arguments.
+        self._window = window
 
     def start(self) -> None:
         """Start of the serving window (the throughput denominator)."""
@@ -71,11 +77,29 @@ class LatencyLedger:
             self._queue_sum += int(queue_depth)
             self._queue_max = max(self._queue_max, int(queue_depth))
             self._step_s += float(step_s)
+        if self._window is not None:
+            self._window.observe_window(
+                latencies_s=latencies_s,
+                overruns_s=overruns_s,
+                bucket=bucket,
+                queue_depth=queue_depth,
+                step_s=step_s,
+            )
 
     def observe_rejected(self, n: int = 1) -> None:
         """Requests refused at admission."""
         with self._lock:
             self._rejected += int(n)
+        if self._window is not None:
+            self._window.observe_shed(n)
+
+    def live(self) -> Optional[dict]:
+        """The windowed mid-run view (None with no window attached). Safe
+        at any point: before the first completed batch the percentiles are
+        None, never an exception."""
+        if self._window is None:
+            return None
+        return self._window.snapshot()
 
     def summary(self) -> dict:
         with self._lock:
@@ -119,3 +143,23 @@ class LatencyLedger:
                     "max": round(lat[-1] * 1e3, 3),
                 }
             return out
+
+    def flat_metrics(self, prefix: str = "serve/") -> dict:
+        """Flat scalar view for the run manifest (``sav_tpu``'s keys, so
+        its readers take the port's serve manifests)."""
+        s = self.summary()
+        out = {
+            prefix + "requests": float(s["requests"]),
+            prefix + "batches": float(s["batches"]),
+            prefix + "rejected": float(s["rejected"]),
+            prefix + "wall_s": s["wall_s"],
+            prefix + "throughput_rps": s["throughput_rps"],
+            prefix + "padding_waste_frac": s["padding_waste_frac"],
+            prefix + "queue_depth_avg": s["queue_depth_avg"],
+            prefix + "queue_depth_max": float(s["queue_depth_max"]),
+            prefix + "deadline_overruns": float(s["deadline_overruns"]),
+        }
+        if "latency_ms" in s:
+            for k, v in s["latency_ms"].items():
+                out[prefix + k + "_latency_ms"] = v
+        return out

@@ -366,17 +366,6 @@ def test_registry_names():
     assert attention_grids(64, (1, 1, 1, 1)) == [(4, 4)]
 
 
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("quant", ["int8", "int8_serve"])
-def test_small_botnet_int8_arms_match_sav_tpu(quant, dtype, monkeypatch, variables):
-    """The small BoTNet on the int8 arm against sav_tpu's, QAT and serving,
-    f32 and bf16 (test_torch_quant.quant_family_parity): top-1 equal,
-    logits within 0.1 x their scale, the activation codes as sav_tpu's."""
-    from test_torch_quant import family_case, quant_family_parity
-
-    quant_family_parity(family_case("botnet_t3", SMALL, variables, IMAGE, images=2), quant, dtype, monkeypatch)
-
-
 def test_weight_decay_mask_on_the_botnet_tree_matches_sav_tpu(variables):
     """By flax path and by port name the same leaves decay: conv kernels
     (rank 4), SE and head kernels and the q/k/v projections do; the

@@ -78,27 +78,6 @@ def test_small_cait_logits_match_sav_tpu(backend):
     np.testing.assert_allclose(out, ref, **TOL)
 
 
-@pytest.mark.parametrize("backend", ["fused", "xla"])
-def test_small_cait_gradients_match_sav_tpu(backend):
-    """Every parameter's gradient of Σ logits², the trunk's talking-heads
-    kernels and the class attention's fused kernel in both directions."""
-    params = small_flax_params(seed=1)
-    x = np.random.default_rng(4).standard_normal((2, 32, 32, 3)).astype(np.float32)
-    jax_model = _jax_model(backend)
-
-    def loss(p):
-        return jnp.sum(jax_model.apply({"params": p}, x, is_training=False) ** 2)
-
-    want = params_from_flax(jax.tree.map(np.asarray, jax.grad(loss)(params)))
-    model = small_port_model(params, backend=backend).eval()
-    (model(torch.from_numpy(x)) ** 2).sum().backward()
-    grads = {name: p.grad for name, p in model.named_parameters()}
-    assert set(grads) == set(want)
-    assert float(grads["blocks.0.attn.pre_softmax.kernel"].abs().max()) > 1e-3
-    for name, grad in grads.items():
-        np.testing.assert_allclose(grad.numpy(), want[name].numpy(), **TOL, err_msg=name)
-
-
 def test_cait_xxs_24_state_dict_matches_flax_tree_at_full_width():
     jax_model = jax_create_model("cait_xxs_24", num_classes=1000)
     shapes = jax.eval_shape(
@@ -201,50 +180,3 @@ def test_registry_names():
     torch.testing.assert_close(w @ w.T, torch.eye(4), atol=1e-5, rtol=0)  # orthogonal
     m48 = create_model("cait_m_48", num_layers=1)
     assert m48.blocks[0].attn.num_heads == 16 and m48.blocks[0].sd1.drop_rate == 0.4
-
-
-@pytest.mark.parametrize(
-    "option,item",
-    [({"dropout_rate": 0.1}, None), ({"attn_dropout_rate": 0.1}, None),  # carried
-     ({"seq_parallel": "ring"}, "A9"), ({"quant": "int8"}, "A8")],
-)
-def test_unported_cait_options_raise(option, item, monkeypatch):
-    """Each option the port does not carry raises, naming its ROADMAP item.
-    The dropout rates are carried: the CaiT builds, its eval forward is
-    sav_tpu's, and a train forward at the default backend agrees with the
-    dense paths' under the same masks; under attention dropout it is the
-    dense paths' (the same bits as ``backend='xla'``), the path sav_tpu
-    takes. ``quant`` (A8) is carried: the small CaiT on the int8 arm, QAT
-    and serving in f32, against sav_tpu's (test_torch_quant's check; bf16
-    and the other families in their own files)."""
-    with pytest.raises(TypeError, match="unexpected option"):
-        CaiT(10, 32, 1, 1, 2, (8, 8), image_size=32, moe_num_experts=2)
-    if item == "A8":
-        from test_torch_quant import family_case, quant_family_parity
-
-        case = family_case("cait_xxs_24", SMALL, {"params": small_flax_params()}, 32)
-        for quant in ("int8", "int8_serve"):
-            quant_family_parity(case, quant, "float32", monkeypatch)
-        return
-    if item is not None:
-        with pytest.raises(NotImplementedError, match=item):
-            CaiT(10, 32, 1, 1, 2, (8, 8), image_size=32, **option)
-        return
-    from sav_tpu_torch.models.layers import set_dropout_generator
-
-    params = small_flax_params()
-    x = np.random.default_rng(3).standard_normal((3, 32, 32, 3)).astype(np.float32)
-    jax_model = jax_create_model("cait_xxs_24", num_classes=10, dtype=jnp.float32,
-                                 backend="fused", **SMALL, **option)
-    ref = np.asarray(jax_model.apply({"params": params}, x, is_training=False))
-    out = {}
-    for backend in (None, "xla"):
-        model = small_port_model(params, backend=backend, **option)
-        set_dropout_generator(model, torch.Generator().manual_seed(0))
-        with torch.no_grad():
-            np.testing.assert_allclose(model.eval()(torch.from_numpy(x)).numpy(), ref, **TOL)
-            out[backend] = model.train()(torch.from_numpy(x)).numpy()
-    if "attn_dropout_rate" in option:
-        np.testing.assert_array_equal(out[None], out["xla"])
-    np.testing.assert_allclose(out[None], out["xla"], **TOL)
-    assert np.isfinite(out[None]).all() and np.abs(out[None] - ref).max() > 1e-3

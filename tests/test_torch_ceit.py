@@ -289,83 +289,6 @@ def test_lc_attention_matches_sav_tpu(backend):
 # ------------------------------------------------------------------ model
 
 
-@pytest.mark.parametrize("backend", ["xla", "fused", "pallas"])
-def test_small_ceit_eval_logits_match_sav_tpu(variables, backend):
-    x = np.random.default_rng(8).standard_normal((3, IMAGE, IMAGE, 3)).astype(np.float32)
-    jax_model = jax_small_ceit(backend)
-    ref = np.asarray(jax.jit(lambda v, x: jax_model.apply(v, x, is_training=False))(variables, x))
-    model = small_port_model(variables, backend=backend).eval()
-    with torch.inference_mode():
-        out = model(torch.from_numpy(x)).numpy()
-    assert np.abs(ref).max() > 0.1  # the drawn head makes the check non-vacuous
-    np.testing.assert_allclose(out, ref, **TOL)
-
-
-def test_small_ceit_train_mode_grads_and_batch_stats_match_sav_tpu(variables):
-    """Train mode at the fused backend (its plain versions here, the Pallas
-    kernels in interpret mode there): logits from batch statistics, every
-    parameter's gradient of Σ logits², and the updated running statistics."""
-    backend = "fused"
-    x = np.random.default_rng(9).standard_normal((4, IMAGE, IMAGE, 3)).astype(np.float32)
-    jax_model = jax_small_ceit(backend)
-
-    def loss(params):
-        logits, new = jax_model.apply({"params": params, "batch_stats": variables["batch_stats"]},
-                                      x, is_training=True, mutable=["batch_stats"])
-        return jnp.sum(logits ** 2), (logits, new["batch_stats"])
-
-    (_, (ref, new_stats)), grads = jax.jit(jax.value_and_grad(loss, has_aux=True))(
-        variables["params"])
-    model = small_port_model(variables, backend=backend).train()
-    logits = model(torch.from_numpy(x))
-    (logits ** 2).sum().backward()
-    np.testing.assert_allclose(logits.detach().numpy(), np.asarray(ref), **TOL)
-    want = params_from_flax(jax.tree.map(np.asarray, grads))
-    got = {name: p.grad for name, p in model.named_parameters()}
-    assert set(got) == set(want)
-    assert float(got["blocks.0.leff.dwconv.weight"].abs().max()) > 1e-4
-    assert float(got["blocks.0.attn.to_qkv"].abs().max()) > 1e-4
-    for name, grad in got.items():
-        assert_grad_close(grad.numpy(), want[name].numpy(), name)
-    want_stats = params_from_flax({"params": variables["params"],
-                                   "batch_stats": jax.tree.map(np.asarray, new_stats)})
-    for name, buf in model.named_buffers():
-        np.testing.assert_allclose(buf.numpy(), want_stats[name].numpy(), atol=1e-5, rtol=1e-5,
-                                   err_msg=name)
-
-
-def test_four_ceit_train_steps_match_sav_tpu():
-    """The CeiT slice as a whole: 4 f32 steps of the small CeiT at the fused
-    backend through sav_tpu's Trainer and the port's, from the drawn head
-    and running statistics (see tests/test_torch_train.py). LeFF's expand
-    and project biases each feed a train-mode BatchNorm, which subtracts
-    them again with the batch mean: their gradients are 0 in exact
-    arithmetic and f32 noise on both sides (shown here on a train-mode
-    backward), so their values after Adam are noise and are held near 0
-    instead. The last block's LeFF reaches no logit (only the CLS tokens
-    are read after it, and LeFF passes CLS through), so its gradients are
-    exactly 0 on both sides and its parameters are compared as the rest."""
-    from test_torch_train import _four_steps_against_sav_tpu
-
-    variables = small_flax_variables(seed=3)
-    last = SMALL["num_layers"] - 1
-    zero_grad = tuple(f"blocks.{i}.leff.{n}.bias" for i in range(last)
-                      for n in ("expand", "project"))
-    model = small_port_model(variables).train()
-    x = np.random.default_rng(12).standard_normal((4, IMAGE, IMAGE, 3)).astype(np.float32)
-    (model(torch.from_numpy(x)) ** 2).sum().backward()
-    largest = max(float(p.grad.abs().max()) for p in model.parameters())
-    for name, p in model.named_parameters():
-        grad = float(p.grad.abs().max())
-        if name.startswith(f"blocks.{last}.leff."):
-            assert grad == 0.0, name
-        else:
-            assert (grad < 1e-6 * largest) == (name in zero_grad), (name, grad)
-    _four_steps_against_sav_tpu("ceit_s", SMALL, variables["params"], image_size=IMAGE,
-                                batch_stats=variables["batch_stats"], base_lr=0.02,
-                                zero_grad_params=zero_grad)
-
-
 def test_zero_head_hides_the_trunk():
     model = create_model("ceit_s", num_classes=10, image_size=IMAGE, **SMALL)
     assert torch.count_nonzero(model.head.weight) == 0 and torch.count_nonzero(model.cls) == 0
@@ -421,17 +344,6 @@ def test_registry_entry_matches_sav_tpu_tree_at_full_size(name):
 def test_registry_refuses_unported_options():
     with pytest.raises(NotImplementedError, match="A9"):
         create_model("ceit_s", seq_parallel="ring")
-
-
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("quant", ["int8", "int8_serve"])
-def test_small_ceit_int8_arms_match_sav_tpu(quant, dtype, monkeypatch):
-    """The small CeiT on the int8 arm against sav_tpu's, QAT and serving,
-    f32 and bf16 (test_torch_quant.quant_family_parity): top-1 equal,
-    logits within 0.1 x their scale, the activation codes as sav_tpu's."""
-    from test_torch_quant import family_case, quant_family_parity
-
-    quant_family_parity(family_case("ceit_s", SMALL, small_flax_variables(), IMAGE, images=2), quant, dtype, monkeypatch)
 
 
 def test_weight_decay_mask_on_the_ceit_tree_matches_sav_tpu(variables):

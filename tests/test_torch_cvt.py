@@ -191,62 +191,6 @@ def test_cvt_attention_dispatch_at_cvt13_shapes():
 # ------------------------------------------------------------------ model
 
 
-@pytest.mark.parametrize("backend", ["xla", "fused", "pallas"])
-def test_small_cvt_eval_logits_match_sav_tpu(variables, backend):
-    x = np.random.default_rng(6).standard_normal((3, IMAGE, IMAGE, 3)).astype(np.float32)
-    jax_model = jax_small_cvt(backend)
-    ref = np.asarray(jax.jit(lambda v, x: jax_model.apply(v, x, is_training=False))(variables, x))
-    model = small_port_model(variables, backend=backend).eval()
-    with torch.inference_mode():
-        out = model(torch.from_numpy(x)).numpy()
-    assert np.abs(ref).max() > 0.1  # the drawn head makes the check non-vacuous
-    np.testing.assert_allclose(out, ref, **TOL)
-
-
-@pytest.mark.parametrize("backend", ["fused", "pallas"])
-def test_small_cvt_train_mode_grads_and_batch_stats_match_sav_tpu(variables, backend):
-    """Train mode at each kernel backend (their plain versions here, the
-    Pallas kernels in interpret mode there): logits from batch statistics,
-    every parameter's gradient of Σ logits², and the updated running
-    statistics."""
-    x = np.random.default_rng(7).standard_normal((4, IMAGE, IMAGE, 3)).astype(np.float32)
-    jax_model = jax_small_cvt(backend)
-
-    def loss(params):
-        logits, new = jax_model.apply({"params": params, "batch_stats": variables["batch_stats"]},
-                                      x, is_training=True, mutable=["batch_stats"])
-        return jnp.sum(logits ** 2), (logits, new["batch_stats"])
-
-    (_, (ref, new_stats)), grads = jax.jit(jax.value_and_grad(loss, has_aux=True))(
-        variables["params"])
-    model = small_port_model(variables, backend=backend).train()
-    logits = model(torch.from_numpy(x))
-    (logits ** 2).sum().backward()
-    np.testing.assert_allclose(logits.detach().numpy(), np.asarray(ref), **TOL)
-    want = params_from_flax(jax.tree.map(np.asarray, grads))
-    got = {name: p.grad for name, p in model.named_parameters()}
-    assert set(got) == set(want)
-    assert float(got["stages.0.blocks.0.attn.to_k.depthwise.weight"].abs().max()) > 1e-4
-    for name, grad in got.items():
-        assert_grad_close(grad.numpy(), want[name].numpy(), name)
-    want_stats = params_from_flax({"params": variables["params"],
-                                   "batch_stats": jax.tree.map(np.asarray, new_stats)})
-    for name, buf in model.named_buffers():
-        np.testing.assert_allclose(buf.numpy(), want_stats[name].numpy(), atol=1e-5, rtol=1e-5,
-                                   err_msg=name)
-
-
-def test_four_cvt_train_steps_match_sav_tpu():
-    """The CvT slice as a whole: 4 f32 steps of the small CvT at the fused
-    backend through sav_tpu's Trainer and the port's, from the drawn head
-    and running statistics (see tests/test_torch_train.py)."""
-    from test_torch_train import _four_steps_against_sav_tpu
-
-    variables = small_flax_variables(seed=3)
-    _four_steps_against_sav_tpu("cvt-13", SMALL, variables["params"], image_size=IMAGE,
-                                batch_stats=variables["batch_stats"], base_lr=0.02)
-
-
 def test_zero_head_hides_the_trunk():
     model = create_model("cvt-13", num_classes=10, image_size=IMAGE, **SMALL)
     assert torch.count_nonzero(model.head.weight) == 0
@@ -321,17 +265,6 @@ def test_registry_entry_matches_sav_tpu_tree_at_full_size(name):
 def test_registry_refuses_unported_options():
     with pytest.raises(TypeError, match="unexpected option"):
         create_model("cvt-13", seq_parallel="ring")
-
-
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("quant", ["int8", "int8_serve"])
-def test_small_cvt_int8_arms_match_sav_tpu(quant, dtype, monkeypatch, variables):
-    """The small CvT on the int8 arm against sav_tpu's, QAT and serving,
-    f32 and bf16 (test_torch_quant.quant_family_parity): top-1 equal,
-    logits within 0.1 x their scale, the activation codes as sav_tpu's."""
-    from test_torch_quant import family_case, quant_family_parity
-
-    quant_family_parity(family_case("cvt-13", SMALL, variables, IMAGE, images=2), quant, dtype, monkeypatch)
 
 
 def test_weight_decay_mask_on_the_cvt_tree_matches_sav_tpu(variables):

@@ -52,7 +52,9 @@ def test_importing_the_port_loads_no_jax():
                  "sav_tpu_torch.utils.graphs", "sav_tpu_torch.data.augment_spec",
                  "sav_tpu_torch.ops.preprocess", "sav_tpu_torch.data.pipeline",
                  "sav_tpu_torch.data.records", "sav_tpu_torch.data.tfrecord",
-                 "sav_tpu_torch.data.native_loader"):
+                 "sav_tpu_torch.data.native_loader", "sav_tpu_torch.obs.alerts",
+                 "sav_tpu_torch.obs.rollup", "sav_tpu_torch.obs.memory",
+                 "sav_tpu_torch.serve.telemetry"):
         assert name in report["modules"]
     leaked = {m for m in report["loaded"] if m.split(".")[0] in FORBIDDEN}
     assert not leaked, f"the port pulled in {sorted(leaked)}"

@@ -265,17 +265,6 @@ def test_registry_refuses_unported_options():
         create_model("mixer_s_patch16", image_size=40)
 
 
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("quant", ["int8", "int8_serve"])
-def test_small_mixer_int8_arms_match_sav_tpu(quant, dtype, monkeypatch, params):
-    """The small MLP-Mixer on the int8 arm against sav_tpu's, QAT and serving,
-    f32 and bf16 (test_torch_quant.quant_family_parity): top-1 equal,
-    logits within 0.1 x their scale, the activation codes as sav_tpu's."""
-    from test_torch_quant import family_case, quant_family_parity
-
-    quant_family_parity(family_case("mixer_s_patch16", SMALL, {"params": params}, IMAGE), quant, dtype, monkeypatch)
-
-
 def test_weight_decay_mask_on_the_mixer_tree_matches_sav_tpu(params):
     flax_mask = jax_optimizer.weight_decay_mask(params)
     shaped = jax.tree.map(lambda m, p: np.full(p.shape, float(m), np.float32), flax_mask, params)

@@ -191,22 +191,6 @@ def test_rotary_self_attention_rotates_q_and_k_before_the_core():
 # ------------------------------------------------------------------ models
 
 
-@pytest.mark.parametrize("backend", ["fused", "pallas", "xla"])
-@pytest.mark.parametrize("mode", MODES)
-def test_vit_pos_embed_modes_match_sav_tpu(mode, backend):
-    """Each position mode of the small ViT, logits on each backend (the
-    kernels' plain versions here, the Pallas kernels in interpret mode
-    there); the modes give different logits."""
-    x = np.random.default_rng(4).standard_normal((2, 32, 32, 3)).astype(np.float32)
-    jax_model = jax_create_model("vit_ti_patch16", num_classes=10, dtype=jnp.float32,
-                                 backend=backend, pos_embed=mode, **SMALL)
-    want = np.asarray(jax_model.apply({"params": small_flax_params(mode)}, x, is_training=False))
-    with torch.no_grad():
-        got = small_port_model(mode, backend=backend)(torch.from_numpy(x)).numpy()
-    assert np.abs(want).max() > 0.1
-    np.testing.assert_allclose(got, want, atol=TOL, rtol=TOL)
-
-
 def test_rope_vit_gradients_match_sav_tpu():
     """Every gradient of Σ logits² of the small rotary ViT at backend fused
     (the fused kernels' plain backward here, the Pallas backward in

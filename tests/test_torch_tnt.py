@@ -21,7 +21,6 @@ import torch
 
 from sav_tpu.models import create_model as jax_create_model
 from sav_tpu.models.registry import _REGISTRY as JAX_REGISTRY
-from sav_tpu.models.tnt import EncoderBlock as JaxEncoderBlock
 from sav_tpu.models.tnt import Inner2OuterBlock as JaxInner2OuterBlock
 from sav_tpu.models.tnt import PixelEmbedBlock as JaxPixelEmbedBlock
 from sav_tpu.ops.attention import xla_attention
@@ -29,7 +28,7 @@ from sav_tpu.train import optimizer as jax_optimizer
 from sav_tpu_torch.interop import flax_from_params, params_from_flax
 from sav_tpu_torch.models import create_model, model_names, registry
 from sav_tpu_torch.models.layers import same_pads, set_dropout_generator
-from sav_tpu_torch.models.tnt import TNT, EncoderBlock, Inner2OuterBlock, PixelEmbedBlock
+from sav_tpu_torch.models.tnt import TNT, Inner2OuterBlock, PixelEmbedBlock
 from sav_tpu_torch.ops import attention as port_attention
 from sav_tpu_torch.ops import fused_attention as port_fused
 from sav_tpu_torch.train import optimizer as port_optimizer
@@ -154,43 +153,6 @@ def test_inner2outer_matches_sav_tpu_with_gradients():
     assert_grad_close(block.norm.weight.grad.numpy(), g["LayerNorm_0"]["scale"], "norm")
 
 
-@pytest.mark.parametrize("inner_dim", INNER_DIMS)
-def test_encoder_block_matches_sav_tpu_with_gradients(inner_dim):
-    """One block at the fused backend (sav_tpu's Pallas kernels in interpret
-    mode, the port's plain versions on the zero-padded head dim): both
-    streams' outputs and every gradient of Σ pixel² + Σ patch²."""
-    rng = np.random.default_rng(2)
-    inner_ch = 4 * inner_dim
-    pixel = rng.standard_normal((2 * 4, 16, inner_ch)).astype(np.float32)
-    patch = rng.standard_normal((2, 5, 32)).astype(np.float32)
-    jax_block = JaxEncoderBlock(embed_dim=32, num_heads=2, inner_num_heads=4, backend="fused")
-    params = init_flax(jax_block, jnp.asarray(pixel), jnp.asarray(patch),
-                       is_training=False)["params"]
-
-    def jax_loss(p, pixel, patch):
-        a, b = jax_block.apply({"params": p}, pixel, patch, is_training=False)
-        return jnp.sum(a ** 2) + jnp.sum(b ** 2), (a, b)
-
-    (_, want), grads = jax.value_and_grad(jax_loss, argnums=(0, 1, 2), has_aux=True)(
-        params, jnp.asarray(pixel), jnp.asarray(patch))
-    block = EncoderBlock(32, inner_ch, 16, 2, 4, backend="fused")
-    block.load_state_dict(sub_state(params_from_flax({"PixelEmbedBlock_0": {},
-                                                      "block_0": params}), "blocks.0."),
-                          strict=True)
-    inputs = [torch.from_numpy(a).requires_grad_() for a in (pixel, patch)]
-    got = block(*inputs)
-    for g, w in zip(got, want):
-        np.testing.assert_allclose(g.detach().numpy(), np.asarray(w), atol=1e-4, rtol=1e-4)
-    (got[0] ** 2).sum().add((got[1] ** 2).sum()).backward()
-    for t, g, name in zip(inputs, grads[1:], ("pixel", "patch")):
-        assert_grad_close(t.grad.numpy(), np.asarray(g), name)
-    want_grads = sub_state(params_from_flax({"PixelEmbedBlock_0": {},
-                                             "block_0": jax.tree.map(np.asarray, grads[0])}),
-                           "blocks.0.")
-    for name, p in block.named_parameters():
-        assert_grad_close(p.grad.numpy(), want_grads[name].numpy(), name)
-
-
 # ------------------------------------------- attention at head dims 6 and 10
 
 
@@ -270,46 +232,6 @@ def test_fused_backward_wrapper_pads_and_slices():
 # ------------------------------------------------------------------- model
 
 
-@pytest.mark.parametrize("backend", ["fused", "pallas", "xla"])
-def test_small_tnt_logits_and_grads_match_sav_tpu(inner, backend):
-    """Logits and every gradient of Σ logits² at each backend, at inner head
-    dims 6 and 10 (the module fixture): sav_tpu's Pallas kernels in
-    interpret mode or its dense path; the port's plain versions on the
-    padded head dim or its dense path."""
-    inner_dim, params = inner
-    x = np.random.default_rng(8).standard_normal((2, IMAGE, IMAGE, 3)).astype(np.float32)
-    jax_model = jax_small_tnt(inner_dim, backend)
-
-    def loss(p):
-        logits = jax_model.apply({"params": p}, x, is_training=False)
-        return jnp.sum(logits ** 2), logits
-
-    (_, ref), grads = jax.jit(jax.value_and_grad(loss, has_aux=True))(params)
-    model = small_port_model(params, inner_dim, backend=backend)
-    logits = model(torch.from_numpy(x))
-    (logits ** 2).sum().backward()
-    assert np.abs(np.asarray(ref)).max() > 0.1
-    np.testing.assert_allclose(logits.detach().numpy(), np.asarray(ref), **TOL)
-    want = params_from_flax(jax.tree.map(np.asarray, grads))
-    got = {name: p.grad for name, p in model.named_parameters()}
-    assert set(got) == set(want)
-    for name in ("blocks.0.inner_attn.to_qkv", "pixel_embed.proj.weight",
-                 "inner_pos_embed.pos_embed"):
-        assert float(got[name].abs().max()) > 1e-5, name
-    for name, grad in got.items():
-        assert_grad_close(grad.numpy(), want[name].numpy(), name)
-
-
-def test_four_tnt_train_steps_match_sav_tpu():
-    """The TNT slice as a whole: 4 f32 steps of the small TNT-S-like model
-    (inner heads of 6) at the fused backend through sav_tpu's Trainer and
-    the port's (see tests/test_torch_train.py)."""
-    from test_torch_train import _four_steps_against_sav_tpu
-
-    _four_steps_against_sav_tpu("tnt_s_patch16", small(6), small_flax_params(6, seed=3),
-                                image_size=IMAGE)
-
-
 def test_dropout_sites_and_zero_head():
     """flax's nn.Dropout sites: one on the patch stream after its position
     table, and in each block two per attention block (probabilities,
@@ -371,17 +293,6 @@ def test_registry_entry_matches_sav_tpu_tree_at_full_size(name):
 def test_registry_refuses_unported_options():
     with pytest.raises(NotImplementedError, match="A9"):
         create_model("tnt_s_patch16", seq_parallel="ring")
-
-
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("quant", ["int8", "int8_serve"])
-def test_small_tnt_int8_arms_match_sav_tpu(quant, dtype, monkeypatch):
-    """The small TNT (inner head dim 6) on the int8 arm against sav_tpu's, QAT and serving,
-    f32 and bf16 (test_torch_quant.quant_family_parity): top-1 equal,
-    logits within 0.1 x their scale, the activation codes as sav_tpu's."""
-    from test_torch_quant import family_case, quant_family_parity
-
-    quant_family_parity(family_case("tnt_s_patch16", small(6), {"params": small_flax_params(6)}, IMAGE, images=2), quant, dtype, monkeypatch)
 
 
 def test_weight_decay_mask_on_the_tnt_tree_matches_sav_tpu(inner):

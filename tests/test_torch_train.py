@@ -389,60 +389,6 @@ def test_four_train_steps_match_sav_tpu():
     _four_steps_against_sav_tpu("vit_ti_patch16", SMALL, _flax_params())
 
 
-def test_four_remat_flash_train_steps_match_sav_tpu():
-    """The ViT-B/16@384 fine-tune path at small size: the same 2-layer ViT at
-    backend 'pallas' (the flash kernels' plain versions here, the Pallas
-    flash kernels in interpret mode there) with remat on both sides."""
-    _four_steps_against_sav_tpu("vit_ti_patch16", SMALL, _flax_params(), backend="pallas",
-                                model_overrides={"remat": True})
-
-
-def test_four_cait_train_steps_match_sav_tpu():
-    """The CaiT slice as a whole: 4 f32 steps of the small CaiT (2
-    talking-heads layers, 1 class-attention layer) at stochastic depth 0
-    (jax.random draws cannot be matched), LayerScale and head drawn so that
-    the trunk's gradients count."""
-    from test_torch_cait import SMALL as CAIT_SMALL
-    from test_torch_cait import small_flax_params
-
-    _four_steps_against_sav_tpu("cait_xxs_24", CAIT_SMALL, small_flax_params())
-
-
-def test_four_botnet_train_steps_match_sav_tpu():
-    """The BoTNet slice as a whole: 4 f32 steps of the small BoTNet (every
-    stage one block, 64², one BoTBlock over 4×4) at backend 'pallas', from
-    drawn bn3 scales, head and running statistics; the running statistics
-    are updated in each train step and compared after the last. Base lr
-    0.02: BatchNorm at batch 16 with bn3 scales near 1 makes the loss jump
-    at 0.05."""
-    from test_torch_botnet import IMAGE, small_flax_variables
-    from test_torch_botnet import SMALL as BOTNET_SMALL
-
-    variables = small_flax_variables(seed=3)
-    _four_steps_against_sav_tpu("botnet_t3", BOTNET_SMALL, variables["params"], backend="pallas",
-                                image_size=IMAGE, batch_stats=variables["batch_stats"],
-                                base_lr=0.02)
-
-
-def test_weight_decay_mask_on_the_cait_tree_matches_sav_tpu():
-    """By flax path and by port name the same leaves decay: the [H, H]
-    mixing kernels (rank 2) and the class-attention projections do, the
-    LayerScale scales (rank 1) and the CLS token do not."""
-    from test_torch_cait import SMALL as CAIT_SMALL
-    from test_torch_cait import small_flax_params
-
-    params = small_flax_params()
-    flax_mask = jax_optimizer.weight_decay_mask(params)
-    shaped = jax.tree.map(lambda m, p: np.full(p.shape, float(m), np.float32), flax_mask, params)
-    want = {name: bool(arr.reshape(-1)[0]) for name, arr in params_from_flax(shaped).items()}
-    model = create_model("cait_xxs_24", num_classes=10, image_size=32, **CAIT_SMALL)
-    got = port_optimizer.weight_decay_mask(model.named_parameters())
-    assert got == want
-    assert got["blocks.0.attn.pre_softmax.kernel"] and got["blocks.0.attn.post_softmax.kernel"]
-    assert all(got[f"ca_blocks.0.attn.to_{p}"] for p in ("q", "k", "v", "out"))
-    assert not got["blocks.0.ls1.scale"] and not got["ca_blocks.0.ls2.scale"] and not got["cls"]
-
-
 def test_eval_step_runs_on_the_parameter_ema():
     """With ema_decay set, eval uses the averaged weights (sav_tpu's
     ``_eval_step_impl``): the same sums as the model loaded with the EMA."""

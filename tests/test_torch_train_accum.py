@@ -55,21 +55,6 @@ def test_accumulated_vit_steps_match_sav_tpu():
                                 grad_accum_steps=2)
 
 
-def test_accumulated_botnet_steps_thread_the_running_statistics_as_sav_tpu():
-    """The small BoTNet (one block a stage, 64²) at global batch 32 as 2
-    micro-batches of 16 (the plain four-step test's batch): each
-    micro-batch normalises by its own statistics and updates the running
-    ones the next sees (sav_tpu's scan carry); the running statistics
-    after 4 steps agree with sav_tpu's. Base lr 0.005 (×32/512)."""
-    from test_torch_botnet import IMAGE, small_flax_variables
-    from test_torch_botnet import SMALL as BOTNET_SMALL
-
-    variables = small_flax_variables(seed=3)
-    _four_steps_against_sav_tpu("botnet_t3", BOTNET_SMALL, variables["params"], backend="xla",
-                                image_size=IMAGE, batch_stats=variables["batch_stats"],
-                                base_lr=0.005, grad_accum_steps=2, batch_size=32)
-
-
 def test_accumulation_is_the_mean_of_its_micro_batches():
     """One accumulated step's loss and gradients are the micro-batches'
     means: against two plain steps' forward and backward at lr 0 on the
