@@ -246,12 +246,15 @@ Phases, each of which exits non-zero on failure:
    the card's table peak.
 
 15. the int8 arm (after the rotary and MoE ViTs): Q1 (int8_quant.cu) and
-   Q2 (int8_gemm.cu), built with the rest in 2 (Q2's SASS must hold IMMA
-   instructions), are held bit-equal to their plain versions in 3 at every
-   DeiT-S shape of the serve forward, the QAT forward and its backward (the
-   codes and scales, rounding to nearest and with the draws passed in; the
-   int32 accumulator and the dequantized f32/bf16 output) and at ragged
-   shapes (K = 196, K = 24, M = 1), and timed in 4 beside their bounds,
+   Q2 (int8_gemm.cu), built with the rest in 2 (Q2's SASS must hold IGMMA
+   instructions, wgmma on s8; every kernel's ptxas resources are logged),
+   are held bit-equal to their plain versions in 3 at every DeiT-S shape of
+   the serve forward, the QAT forward and its backward (the codes and
+   scales, rounding to nearest and with the draws passed in; the int32
+   accumulator and the dequantized f32/bf16 output; Q1's one-read and
+   two-pass column paths, Q2 with K whole and split as the plans choose)
+   and at ragged shapes (K = 196, K = 24, M = 1, split-K edges, T = 3, C
+   not a multiple of 16, a TNT-sized R), and timed in 4 beside their bounds,
    their plain versions, ``torch._int_mm`` + dequantize and bf16
    ``torch.matmul``. Then DeiT-S (full width and depth) trains with QAT at
    256 as in 6 (``quant="int8"``: per step 12 #1, 12 #2, 294 Q1 and 171
@@ -281,6 +284,7 @@ is ``{"ok": true, "device": {...}}``.
 
 from __future__ import annotations
 
+import concurrent.futures
 import dataclasses
 import gc
 import json
@@ -725,7 +729,13 @@ MMA_KERNELS = {"fused_attention": ("fused_attention_fwd_mma_kernel",),
                "talking_heads": ("talking_heads_fwd_mma_kernel",),
                "talking_heads_bwd": ("talking_heads_bwd_dq_mma_kernel",
                                      "talking_heads_bwd_dkv_mma_kernel"),
-               "int8_gemm": ("int8_gemm_kernel",)}
+               "int8_gemm": ("int8_gemm_wgmma_kernel",)}
+# The CUDA-core kernels whose ptxas resources are logged beside them: Q1's,
+# and Q2's split-K pass.
+CUDA_CORE_KERNELS = {"int8_quant": ("quantize_rows_kernel", "cols_one_read_kernel",
+                                    "cols_amax_kernel", "cols_scale_kernel",
+                                    "cols_quant_kernel"),
+                     "int8_gemm": ("int8_gemm_reduce_kernel",)}
 
 
 def _ptxas_resources(text: str) -> dict:
@@ -748,10 +758,13 @@ def _ptxas_resources(text: str) -> dict:
     return out
 
 
+MMA_OPS = ("HGMMA", "IGMMA", "HMMA", "IMMA")
+
+
 def _sass_mma_counts(library: str) -> dict:
     """Tensor-core instructions (HMMA: mma.sync on bf16; IMMA: on int8;
-    HGMMA: wgmma) per function in the SASS of a built library, by mangled
-    name."""
+    HGMMA: wgmma on bf16; IGMMA: wgmma on int8) per function in the SASS of
+    a built library, by mangled name."""
     from sav_tpu_torch.ops import _build
 
     cuobjdump = os.path.join(os.path.dirname(_build.find_nvcc()), "cuobjdump")
@@ -761,24 +774,32 @@ def _sass_mma_counts(library: str) -> dict:
     for line in sass.splitlines():
         if "Function :" in line:
             name = line.split("Function :")[1].strip()
-            counts[name] = {"HMMA": 0, "IMMA": 0, "HGMMA": 0}
+            counts[name] = dict.fromkeys(MMA_OPS, 0)
         elif name is not None:
-            for op in ("HGMMA", "HMMA", "IMMA"):
+            for op in MMA_OPS:
                 if f" {op}." in line:
                     counts[name][op] += 1
                     break
     return counts
 
 
-def log_mma_builds() -> None:
-    """For each tensor-core instantiation: its registers, spills and shared
-    memory from ptxas, and its tensor-core instruction count from the SASS of
-    the built library; fails where one has no tensor-core instruction."""
+def log_mma_builds(sources=None) -> None:
+    """For each tensor-core instantiation of ``sources`` (default: all): its
+    registers, spills and shared memory from ptxas, and its tensor-core
+    instruction count from the SASS of the built library; fails where one
+    has no tensor-core instruction. Then the ptxas resources of the int8
+    arm's CUDA-core kernels (CUDA_CORE_KERNELS) that this process built."""
     from sav_tpu_torch.ops import _build
 
-    for source, fragments in MMA_KERNELS.items():
+    wanted = [s for s in MMA_KERNELS if sources is None or s in sources]
+    # One cuobjdump a library, all at once (each takes seconds).
+    with concurrent.futures.ThreadPoolExecutor(max_workers=len(wanted)) as pool:
+        dumps = dict(zip(wanted, pool.map(
+            lambda s: _sass_mma_counts(str(_build.library_path(s))), wanted)))
+    for source in wanted:
+        fragments = MMA_KERNELS[source]
         resources = _ptxas_resources(_build.BUILD_LOGS.get(source, ""))
-        sass = _sass_mma_counts(str(_build.library_path(source)))
+        sass = dumps[source]
         names = []
         for fragment in fragments:
             found = sorted(n for n in sass if fragment in n)
@@ -787,11 +808,21 @@ def log_mma_builds() -> None:
             names += found
         for name in names:
             ops = sass[name]
-            log(f"  sass {source}: {name}: {ops['HMMA']} HMMA, {ops['IMMA']} IMMA, "
-                f"{ops['HGMMA']} HGMMA; ptxas "
+            log(f"  sass {source}: {name}: "
+                + ", ".join(f"{ops[op]} {op}" for op in MMA_OPS) + "; ptxas "
                 + json.dumps(resources.get(name, "not in this process's build log")))
-            if ops["HMMA"] + ops["IMMA"] + ops["HGMMA"] == 0:
+            if sum(ops.values()) == 0:
                 raise AssertionError(f"{name} in {source} has no tensor-core instruction")
+    for source, fragments in CUDA_CORE_KERNELS.items():
+        if sources is not None and source not in sources:
+            continue
+        resources = _ptxas_resources(_build.BUILD_LOGS.get(source, ""))
+        for fragment in fragments:
+            found = sorted(n for n in resources if fragment in n)
+            if not found and source in _build.BUILD_LOGS:
+                raise AssertionError(f"no {fragment} in the ptxas log of {source}")
+            for name in found:
+                log(f"  ptxas {source}: {name}: {json.dumps(resources[name])}")
 
 
 def _inputs(shape, dtype, seed, device, *, bias_shape=None, packed=False):
@@ -3295,6 +3326,17 @@ INT8_QUANT_CASES = (
     ("ragged cols R=197 C=24", "cols", (1, 197, 24), F32, False),
     ("ragged cols R=1 C=196", "cols", (1, 1, 196), BF16, False),
     ("ragged cols T=2 stochastic", "cols", (2, 130, 24), F32, True),
+    # Edges of the one-read designs: rows wider than a group's registers
+    # (the tail read twice), the column path's one read at T = 3 and C not a
+    # multiple of 16, its two passes at TNT-S's inner R (256 · 196 · 16
+    # rows) and at T = 3 with C = 40, and unaligned bf16 rows (C = 196) in
+    # each.
+    ("ragged rows C=2100 stochastic", "rows", (300, 2100), BF16, True),
+    ("ragged cols one read T=3 C=40 stochastic", "cols", (3, 5000, 40), F32, True),
+    ("ragged cols one read C=196", "cols", (1, 2000, 196), BF16, False),
+    ("ragged cols two passes TNT-S inner", "cols", (1, 256 * 196 * 16, 24), BF16, False),
+    ("ragged cols two passes T=3 C=40 stochastic", "cols", (3, 120_000, 40), BF16, True),
+    ("ragged cols two passes C=196", "cols", (1, 120_000, 196), BF16, False),
 )
 # The case whose timing is Q1's record in the kernels line.
 INT8_QUANT_MAIN = "train x"
@@ -3325,6 +3367,13 @@ INT8_GEMM_CASES = (
     ("ragged Mixer token K=196", (197, 196, 384), BF16, 0, False),
     ("ragged TNT inner K=24", (37, 24, 100), F32, 0, True),
     ("ragged 130x100x77", (130, 100, 77), BF16, 0, False),
+    # Split-K edges: M = 1 over a batch's rows, K = 10,013 (not a
+    # multiple of S · 128; slices of 8 and 9 k-tiles), the scales the other
+    # way round; a QKV-style split of 100 that 128-wide tiles straddle.
+    ("ragged split M=1 K=50432", (1, INT8_TRAIN_ROWS, 8), F32, 0, False),
+    ("ragged split 130x10013x77", (130, 10_013, 77), BF16, 0, False),
+    ("ragged split b-first 200x20000x96", (200, 20_000, 96), F32, 0, True),
+    ("ragged straddling split 300x384x300", (300, 384, 300), BF16, 100, False),
 )
 INT8_GEMM_MAIN = "train fc1, dx fc2"
 
@@ -3351,7 +3400,10 @@ def _int8_quantize(case, a, u, reference: bool):
     return (q.quantize_cols_t_reference if reference else q.quantize_cols_t)(a, u)
 
 
-def _int8_gemm_inputs(shape, seed: int):
+def _int8_gemm_inputs(shape, seed: int, padded: bool = False):
+    """Seeded codes and scales; with ``padded`` the codes are views of rows
+    padded to 16 bytes, the layout Q1 writes (so no call pays
+    ``_gemm_operand``'s copy), else contiguous."""
     m, k, n = shape
     gen = torch.Generator(device="cuda").manual_seed(seed)
     qa = torch.randint(-127, 128, (m, k), generator=gen, device="cuda", dtype=torch.int8)
@@ -3359,6 +3411,10 @@ def _int8_gemm_inputs(shape, seed: int):
     # Full-scale rows somewhere: sums past 2^24, where the f32 conversion rounds.
     qa[0] = 127
     qb[0] = 127
+    if padded:
+        width = -(-k // 16) * 16
+        qa = torch.nn.functional.pad(qa, (0, width - k))[:, :k]
+        qb = torch.nn.functional.pad(qb, (0, width - k))[:, :k]
     sa = torch.rand(m, generator=gen, device="cuda") * 1e-2 + 1e-4
     sb = torch.rand(n, generator=gen, device="cuda") * 1e-2 + 1e-4
     return qa, qb, sa, sb
@@ -3373,8 +3429,22 @@ def phase_int8_kernels() -> dict:
     run twice with the same bits. Returns the largest differences."""
     from sav_tpu_torch.ops import quant as q
 
+    # The plans' constants against the libraries'.
+    gemm_lib, quant_lib = q._gemm_lib(), q._quant_lib()
+    tile = [gemm_lib.sav_int8_gemm_tile(i) for i in range(3)]
+    if tile != [q.GEMM_TILE_M, q.GEMM_TILE_N, q.GEMM_TILE_K]:
+        raise AssertionError(f"int8_gemm.cu's tile {tile} is not gemm_plan's")
+    cols = [quant_lib.sav_int8_quantize_cols_constant(i) for i in range(4)]
+    if cols != [q.QUANT_STRIP, q.QUANT_STRIP_BYTES_MAX, 1024, q.QUANT_CLUSTER_MAX]:
+        raise AssertionError(f"int8_quant.cu's column constants {cols} are not "
+                             "quant_cols_plan's")
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
     errs = {"quant": 0.0, "gemm": 0.0, "gemm_acc": 0.0}
+    paths = {}
     for i, case in enumerate(INT8_QUANT_CASES):
+        if case[1] == "cols":
+            plan = q.quant_cols_plan(*case[2], case[3].itemsize, sms)
+            paths[case[0]] = f"one read, cluster {plan[0]} x {plan[1]} rows" if plan else "two passes"
         a, u = _int8_quant_inputs(case, seed=100 + i)
         codes, scales = _int8_quantize(case, a, u, reference=False)
         again, _ = _int8_quantize(case, a, u, reference=False)
@@ -3393,10 +3463,15 @@ def phase_int8_kernels() -> dict:
         errs["quant"] = max(errs["quant"], code_diff, scale_diff)
     log(f"Q1 int8_quant.cu: {len(INT8_QUANT_CASES)} cases (rows and transposed columns, "
         "round to nearest and stochastic, DeiT-S's serve, QAT forward and backward operands, "
-        "ragged) bit-equal to the plain version, twice the same bits; all-zero rows scale 1")
+        "ragged) bit-equal to the plain version, twice the same bits; all-zero channels "
+        f"scale 1; the column paths {json.dumps(paths)}")
+    if not {"one read", "two passes"} <= {p.split(",")[0] for p in paths.values()}:
+        raise AssertionError(f"Q1's cases did not take both column paths: {paths}")
+    plans = {}
     for i, (name, shape, out_dtype, split, b_first) in enumerate(INT8_GEMM_CASES):
         qa, qb, sa, sb = _int8_gemm_inputs(shape, seed=200 + i)
         ones_a, ones_b = torch.ones_like(sa), torch.ones_like(sb)
+        before = dict(q.GEMM_SPLIT_LAUNCHES)
         acc = q.int8_gemm(qa, qb, ones_a, ones_b)
         ref_acc = q.int8_gemm_reference(qa, qb, ones_a, ones_b)
         out = q.int8_gemm(qa, qb, sa, sb, out_dtype, split=split, scale_b_first=b_first)
@@ -3409,6 +3484,14 @@ def phase_int8_kernels() -> dict:
         if acc_diff or diff or not torch.equal(out, again) or out.shape != ref.shape:
             raise AssertionError(f"Q2 {name} {shape}: accumulator differs by {acc_diff}, "
                                  f"output by {diff:.3e} from the plain version")
+        m, k, n = shape
+        splits = q.gemm_plan(m, n, k, sms)
+        took = {kind: q.GEMM_SPLIT_LAUNCHES[kind] - before[kind] for kind in before}
+        if took != {q.WHOLE_K: 0 if splits > 1 else 3, q.SPLIT_K: 3 if splits > 1 else 0}:
+            raise AssertionError(f"Q2 {name}: the plan's {splits} slices, launches {took}")
+        if name.startswith("dw ") and name != "dw head" and splits == 1:
+            raise AssertionError(f"Q2 {name}: a DeiT-S dw product with K whole")
+        plans[name] = splits
         errs["gemm"] = max(errs["gemm"], diff)
         errs["gemm_acc"] = max(errs["gemm_acc"], acc_diff)
     # The ragged K through Q1's padded codes too: the quantize's layout
@@ -3420,9 +3503,10 @@ def phase_int8_kernels() -> dict:
     if not torch.equal(q.int8_gemm(qx, qw, sx, sw), q.int8_gemm_reference(rx, rw, sx, sw)):
         raise AssertionError("Q2 on Q1's padded K=196 codes differs from the plain version")
     log(f"Q2 int8_gemm.cu: {len(INT8_GEMM_CASES)} cases (DeiT-S's serve, QAT forward, dx and "
-        "dw shapes; split QKV; the scales in both orders; ragged M, N, K) bit-equal to the "
-        "plain version in the int32 accumulator and the dequantized f32/bf16 output, twice "
-        "the same bits; K=196 on Q1's padded codes too")
+        "dw shapes; split QKV; the scales in both orders; ragged M, N, K; split-K edges) "
+        "bit-equal to the plain version in the int32 accumulator and the dequantized f32/bf16 "
+        "output, twice the same bits; K=196 on Q1's padded codes too; slices of K by case "
+        f"{json.dumps(plans)}")
     return errs
 
 
@@ -3445,7 +3529,9 @@ def _int8_quant_times(case) -> dict:
 
 
 def _int8_gemm_times(case) -> dict:
-    """Q2 at ``case``: the kernel, its plain version, the yardstick
+    """Q2 at ``case``, on codes laid out as Q1 writes them (rows padded to
+    16 bytes; ``_int_mm`` gets contiguous copies): the kernel, its plain
+    version, the yardstick
     ``torch._int_mm`` plus the dequantize (two PyTorch calls, cuBLAS; never
     on the path), bf16 ``torch.matmul`` at the same shape, and the bound
     (int8 operations at 1,979 TOPS, or the operands, scales and output
@@ -3453,11 +3539,11 @@ def _int8_gemm_times(case) -> dict:
     from sav_tpu_torch.ops import quant as q
 
     name, (m, k, n), out_dtype, split, b_first = case
-    qa, qb, sa, sb = _int8_gemm_inputs((m, k, n), seed=9)
-    qbt = qb.t()
+    qa, qb, sa, sb = _int8_gemm_inputs((m, k, n), seed=9, padded=True)
+    qa_dense, qbt = qa.contiguous(), qb.contiguous().t()
 
     def int_mm():
-        acc = torch._int_mm(qa, qbt)
+        acc = torch._int_mm(qa_dense, qbt)
         return ((acc.float() * sa[:, None]) * sb[None, :]).to(out_dtype)
 
     try:
@@ -3651,9 +3737,7 @@ def main_int8() -> None:
     built = _build.build_all(["fused_attention", "fused_attention_bwd", "int8_quant",
                               "int8_gemm"])
     log(f"built {json.dumps({k: round(v, 1) for k, v in built.items()})}")
-    for name in ("int8_quant", "int8_gemm"):
-        log(f"nvcc {name}: " + json.dumps(_ptxas_resources(_build.BUILD_LOGS.get(name, ""))))
-    log(f"sass int8_gemm: {json.dumps(_sass_mma_counts(str(_build.library_path('int8_gemm'))))}")
+    log_mma_builds(("int8_quant", "int8_gemm"))
     errs = phase_int8_kernels()
     times = phase_int8_timing()
     with tempfile.TemporaryDirectory() as directory:
@@ -4591,12 +4675,16 @@ def phase_fed_train(directory: str, smi: str) -> dict:
 
 # Kernel-name fragments → the group a device kernel is counted under.
 KERNEL_GROUPS = (
-    # First: "gemm" below would take Q2. A column quantize (one Q1 launch)
-    # is two kernels: its amax pass is timed in a group of its own, which
-    # the name checks do not count.
-    ("int8 quantize (int8_quant.cu)", ("quantize_rows_kernel", "cols_quant_kernel")),
-    ("int8 column amax pass, int8_quant.cu", ("cols_amax_kernel",)),
-    ("int8 GEMM (int8_gemm.cu)", ("int8_gemm_kernel",)),
+    # First: "gemm" below would take Q2. A quantize or a GEMM is one launch
+    # of Q1 or Q2, one kernel of the groups the name checks count; the
+    # column path's two-pass maxima and Q2's split-K pass are timed in
+    # groups of their own, which they do not count.
+    ("int8 quantize (int8_quant.cu)", ("quantize_rows_kernel", "cols_one_read_kernel",
+                                       "cols_quant_kernel")),
+    ("int8 column maxima, two passes, int8_quant.cu", ("cols_amax_kernel",
+                                                       "cols_scale_kernel")),
+    ("int8 GEMM (int8_gemm.cu)", ("int8_gemm_wgmma_kernel",)),
+    ("int8 GEMM split-K pass, int8_gemm.cu", ("int8_gemm_reduce_kernel",)),
     ("flash backward dq (flash_attention_bwd.cu)", ("flash_attention_bwd_dq_kernel",
                                                     "flash_attention_bwd_dq_mma_kernel")),
     ("flash backward dk/dv (flash_attention_bwd.cu)", ("flash_attention_bwd_dkv_kernel",
@@ -5473,7 +5561,8 @@ def main() -> None:
         "dropout_kept_share": dropout["kept_share"]}))
     int8_common = {"route": "cuda", "checked": True,
                    "variant": "one: Q1 on the CUDA cores, Q2 on the tensor cores "
-                              "(mma.sync.m16n8k32, s8 operands, s32 accumulators)"}
+                              "(wgmma m64n128k32, s8 operands, s32 accumulators; split-K "
+                              "where gemm_plan cuts K)"}
     quant_main = next(c for c in INT8_QUANT_CASES if c[0] == INT8_QUANT_MAIN)
     gemm_main = next(c for c in INT8_GEMM_CASES if c[0] == INT8_GEMM_MAIN)
     q1 = {

@@ -11,18 +11,23 @@ Two hand-written CUDA kernels (CUDA C++ for sm_90a, built by
 :mod:`sav_tpu_torch.ops._build`) replace what ``sav_tpu`` leaves to XLA;
 neither replaces a ``pallas_call``:
 
-- **Q1**, ``csrc/int8_quant.cu``: the quantize of one operand. Wrappers
-  :func:`quantize_rows` (one scale per row; the codes keep the layout) and
-  :func:`quantize_cols_t` (one scale per column of each ``[R, C]`` matrix of
-  a ``[T, R, C]`` tensor; the codes are written transposed, ``[T, C, R]``),
-  plain versions :func:`quantize_rows_reference` and
+- **Q1**, ``csrc/int8_quant.cu``: the quantize of one operand, reading it
+  once. Wrappers :func:`quantize_rows` (one scale per row; the codes keep
+  the layout) and :func:`quantize_cols_t` (one scale per column of each
+  ``[R, C]`` matrix of a ``[T, R, C]`` tensor; the codes are written
+  transposed, ``[T, C, R]``; one read through a cluster of blocks where
+  :func:`quant_cols_plan` finds the column strip fits on chip, else two
+  passes), plain versions :func:`quantize_rows_reference` and
   :func:`quantize_cols_t_reference`, launch counter :data:`QUANT_LAUNCHES`.
   Round to nearest even, or ``floor(a / scale + u)`` with the uniform draws
   ``u`` passed in (stochastic rounding of the gradient).
 - **Q2**, ``csrc/int8_gemm.cu``: ``(f32(Σ_k A[m,k]·B[n,k]) · sa[m]) · sb[n]``
-  on the tensor cores (``mma.sync.m16n8k32``), both operands K-contiguous.
+  on the tensor cores (``wgmma`` on s8, operands by TMA, persistent
+  blocks), both operands K-contiguous, K cut into the slices of
+  :func:`gemm_plan` where the output tiles alone leave SMs idle (split-K).
   Wrapper :func:`int8_gemm`, plain version :func:`int8_gemm_reference`,
-  launch counter :data:`GEMM_LAUNCHES`.
+  launch counter :data:`GEMM_LAUNCHES` (:data:`GEMM_SPLIT_LAUNCHES` by
+  plan).
 
 Both kernels are bit-equal to their plain versions: the quantize repeats the
 f32 operations of the reference, and the int32 sum is exact. The codes Q1
@@ -86,22 +91,25 @@ TENSOR_CORE = "tensor_core"
 CUDA_CORE = "cuda_core"
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
-# Kernel launches since the last reset: Q1 (each quantize call, one or two
-# CUDA kernels) and Q2.
+# Kernel launches since the last reset: Q1 (each quantize call, one to three
+# CUDA kernels) and Q2 (each GEMM call, one kernel, or two with split-K).
 QUANT_LAUNCHES = 0
 GEMM_LAUNCHES = 0
 # The same by variant: Q1 runs on the CUDA cores, Q2 on the tensor cores.
 QUANT_VARIANT_LAUNCHES = {TENSOR_CORE: 0, CUDA_CORE: 0}
 GEMM_VARIANT_LAUNCHES = {TENSOR_CORE: 0, CUDA_CORE: 0}
+# Q2's launches by plan: K whole, or cut into slices (split-K).
+WHOLE_K, SPLIT_K = "whole_k", "split_k"
+GEMM_SPLIT_LAUNCHES = {WHOLE_K: 0, SPLIT_K: 0}
 _LAUNCH_LOCK = threading.Lock()
 
 
 def reset_launches() -> None:
-    """Set both launch counters and their tallies by variant to 0."""
+    """Set both launch counters and their tallies to 0."""
     global QUANT_LAUNCHES, GEMM_LAUNCHES
     with _LAUNCH_LOCK:
         QUANT_LAUNCHES = GEMM_LAUNCHES = 0
-        for tally in (QUANT_VARIANT_LAUNCHES, GEMM_VARIANT_LAUNCHES):
+        for tally in (QUANT_VARIANT_LAUNCHES, GEMM_VARIANT_LAUNCHES, GEMM_SPLIT_LAUNCHES):
             tally.update(dict.fromkeys(tally, 0))
 
 
@@ -112,11 +120,12 @@ def _count_quant() -> None:
         QUANT_VARIANT_LAUNCHES[CUDA_CORE] += 1
 
 
-def _count_gemm() -> None:
+def _count_gemm(splits: int) -> None:
     global GEMM_LAUNCHES
     with _LAUNCH_LOCK:
         GEMM_LAUNCHES += 1
         GEMM_VARIANT_LAUNCHES[TENSOR_CORE] += 1
+        GEMM_SPLIT_LAUNCHES[SPLIT_K if splits > 1 else WHOLE_K] += 1
 
 
 def _round_up(n: int, k: int = CODE_ALIGN) -> int:
@@ -180,6 +189,94 @@ def int8_gemm_reference(qa, qb, sa, sb, out_dtype=torch.float32, *,
     return out
 
 
+# ---------------------------------------------------------------- plans
+
+# The H100 SXM's streaming multiprocessors; on the card the plans take the
+# device's own count.
+H100_SMS = 132
+# Q2's tile (csrc/int8_gemm.cu, `sav_int8_gemm_tile`): output rows and
+# columns, and bytes of K a k-tile holds.
+GEMM_TILE_M, GEMM_TILE_N, GEMM_TILE_K = 128, 128, 128
+# The fewest k-tiles a slice of K gets: shorter K is not split.
+GEMM_MIN_SLICE_KTILES = 8
+# Q1's column path (csrc/int8_quant.cu, `sav_int8_quantize_cols_constant`):
+# columns of a strip, bytes of a strip's rows one block may hold, the
+# largest cluster, and the row granule of a block; and the strip bytes at
+# which two blocks share an SM (its 233,472 bytes of shared memory, less 1 KB
+# a block for the system and the 9,344 bytes of a 512-thread block's own).
+QUANT_STRIP = 16
+QUANT_STRIP_BYTES_MAX = 232_448 - 9_344
+QUANT_CLUSTER_MAX = 16
+QUANT_TILE_ROWS = 32
+QUANT_STRIP_BYTES_PAIR = 233_472 // 2 - 1_024 - 9_344
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def gemm_plan(m: int, n: int, k: int, sms: int = H100_SMS) -> int:
+    """Q2's split of K: the number of slices S of whole k-tiles
+    (``GEMM_TILE_K`` bytes) an ``[M, K] · [N, K]ᵀ`` product is cut into.
+
+    1 where the output tiles fill the card or K is short (under two slices
+    of ``GEMM_MIN_SLICE_KTILES``); otherwise the S, at most two waves of
+    (tile, slice) units over the ``sms`` SMs, that minimises the k-tiles
+    the busiest SM walks, ``ceil(units / sms) · ceil(ktiles / S)`` (ties to
+    the smaller S, which writes fewer partial sums)."""
+    tiles = _cdiv(m, GEMM_TILE_M) * _cdiv(n, GEMM_TILE_N)
+    ktiles = _cdiv(k, GEMM_TILE_K)
+    most = min(ktiles // GEMM_MIN_SLICE_KTILES, (2 * sms) // tiles)
+    best, cost = 1, _cdiv(tiles, sms) * ktiles
+    for s in range(2, most + 1):
+        c = _cdiv(tiles * s, sms) * _cdiv(ktiles, s)
+        if c < cost:
+            best, cost = s, c
+    return best
+
+
+def gemm_slices(k: int, splits: int) -> list:
+    """The k-tile ranges ``[(kt0, kt1), ...]`` of the ``splits`` slices,
+    as the kernel cuts them: slice s takes ``[s·kt/S, (s+1)·kt/S)``."""
+    ktiles = _cdiv(k, GEMM_TILE_K)
+    return [(s * ktiles // splits, (s + 1) * ktiles // splits) for s in range(splits)]
+
+
+def quant_cols_plan(t: int, rows: int, cols: int, itemsize: int, sms: int = H100_SMS):
+    """Q1's column path for a ``[T, R, C]`` input: ``(cluster,
+    rows_per_block)`` of the one-read path, a cluster of blocks that holds
+    each strip of ``QUANT_STRIP`` columns on chip, or None for two passes.
+
+    A block holds ``ceil16(R) / cluster`` rows, rounded up to
+    ``QUANT_TILE_ROWS``, and every block of the cluster some. The smallest
+    cluster (1, 2, 4, 8, 16) that gives the card at least ``sms`` blocks,
+    each at most ``QUANT_STRIP_BYTES_PAIR`` (two blocks an SM, so one's
+    loads run under the other's quantize); failing that, the smallest with
+    ``sms`` blocks that fits ``QUANT_STRIP_BYTES_MAX``; failing that, the
+    largest that fits."""
+    ldc = _round_up(rows)
+    strips = _cdiv(cols, QUANT_STRIP)
+    options = []
+    cluster = 1
+    while cluster <= QUANT_CLUSTER_MAX:
+        per_block = _round_up(_cdiv(ldc, cluster), QUANT_TILE_ROWS)
+        if (cluster - 1) * per_block >= ldc:
+            break
+        nbytes = per_block * QUANT_STRIP * itemsize
+        if nbytes <= QUANT_STRIP_BYTES_MAX:
+            options.append((cluster, per_block, nbytes, t * strips * cluster >= sms))
+        cluster *= 2
+    paired = [o for o in options if o[3] and o[2] <= QUANT_STRIP_BYTES_PAIR]
+    enough = [o for o in options if o[3]]
+    chosen = paired or enough or options[-1:]
+    return chosen[0][:2] if chosen else None
+
+
+@functools.cache
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
 # --------------------------------------------------------------- kernels
 
 
@@ -201,11 +298,12 @@ def _quant_lib() -> ctypes.CDLL:
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,  # codes, scales, scratch
         ctypes.c_int, ctypes.c_int, ctypes.c_int,  # T, R, C
         ctypes.c_int64,  # ldc
+        ctypes.c_int, ctypes.c_int,  # cluster, rows per block
         ctypes.c_void_p,  # stream
     ]
     lib.sav_int8_quantize_cols_t.restype = ctypes.c_int
-    lib.sav_int8_quantize_cols_scratch.argtypes = [ctypes.c_int] * 3
-    lib.sav_int8_quantize_cols_scratch.restype = ctypes.c_size_t
+    lib.sav_int8_quantize_cols_constant.argtypes = [ctypes.c_int]
+    lib.sav_int8_quantize_cols_constant.restype = ctypes.c_int
     lib.sav_cuda_error_string.argtypes = [ctypes.c_int]
     lib.sav_cuda_error_string.restype = ctypes.c_char_p
     return lib
@@ -218,15 +316,17 @@ def _gemm_lib() -> ctypes.CDLL:
         ctypes.c_int,  # out dtype
         ctypes.c_void_p, ctypes.c_void_p,  # A, B
         ctypes.c_void_p, ctypes.c_void_p,  # sa, sb
-        ctypes.c_void_p,  # out
+        ctypes.c_void_p, ctypes.c_void_p,  # out, split-K scratch
         ctypes.c_int, ctypes.c_int, ctypes.c_int,  # M, N, K
         ctypes.c_int64, ctypes.c_int64,  # lda, ldb
-        ctypes.c_int, ctypes.c_int,  # scale_b_first, split
+        ctypes.c_int, ctypes.c_int, ctypes.c_int,  # scale_b_first, split, splits
         ctypes.c_void_p,  # stream
     ]
     lib.sav_int8_gemm.restype = ctypes.c_int
     lib.sav_int8_gemm_smem_bytes.argtypes = []
     lib.sav_int8_gemm_smem_bytes.restype = ctypes.c_size_t
+    lib.sav_int8_gemm_tile.argtypes = [ctypes.c_int]
+    lib.sav_int8_gemm_tile.restype = ctypes.c_int
     lib.sav_cuda_error_string.argtypes = [ctypes.c_int]
     lib.sav_cuda_error_string.restype = ctypes.c_char_p
     return lib
@@ -305,14 +405,18 @@ def quantize_cols_t(a: torch.Tensor, noise: Optional[torch.Tensor] = None):
         lib = _quant_lib()
         full = torch.empty((t, cols, ldc), dtype=torch.int8, device=a.device)
         scales = torch.empty((t, cols), dtype=torch.float32, device=a.device)
-        scratch = torch.empty((lib.sav_int8_quantize_cols_scratch(t, rows, cols),),
-                              dtype=torch.float32, device=a.device)
+        plan = quant_cols_plan(t, rows, cols, a.element_size(), _sm_count(a.device.index))
+        cluster, per_block = plan or (0, 0)
+        # Two passes keep each 1,024-row chunk's column maxima.
+        scratch = None if plan else torch.empty(
+            (t * _cdiv(rows, 1024) * cols,), dtype=torch.float32, device=a.device)
         with torch.cuda.device(a.device):
             rc = lib.sav_int8_quantize_cols_t(
                 _DTYPE_CODES[a.dtype], a.data_ptr(),
                 None if noise is None else noise.data_ptr(),
-                full.data_ptr(), scales.data_ptr(), scratch.data_ptr(),
-                t, rows, cols, ldc, _stream(a),
+                full.data_ptr(), scales.data_ptr(),
+                None if scratch is None else scratch.data_ptr(),
+                t, rows, cols, ldc, cluster, per_block, _stream(a),
             )
         _raise_on_error(lib, rc, "int8 quantize (columns)")
         _count_quant()
@@ -356,15 +460,20 @@ def int8_gemm(qa: torch.Tensor, qb: torch.Tensor, sa: torch.Tensor, sb: torch.Te
     sb = sb.to(torch.float32).contiguous()
     shape = (n // split, m, split) if split else (m, n)
     out = torch.empty(shape, dtype=out_dtype, device=qa.device)
+    splits = gemm_plan(m, n, k, _sm_count(qa.device.index))
+    # Each slice's int32 partial sums, rows padded to 16 bytes.
+    scratch = None if splits == 1 else torch.empty(
+        (splits, m, _round_up(n, 4)), dtype=torch.int32, device=qa.device)
     lib = _gemm_lib()
     with torch.cuda.device(qa.device):
         rc = lib.sav_int8_gemm(
             _DTYPE_CODES[out_dtype], qa.data_ptr(), qb.data_ptr(), sa.data_ptr(),
-            sb.data_ptr(), out.data_ptr(), m, n, k, qa.stride(0), qb.stride(0),
-            int(scale_b_first), split, _stream(qa),
+            sb.data_ptr(), out.data_ptr(), None if scratch is None else scratch.data_ptr(),
+            m, n, k, qa.stride(0), qb.stride(0), int(scale_b_first), split, splits,
+            _stream(qa),
         )
     _raise_on_error(lib, rc, "int8 GEMM")
-    _count_gemm()
+    _count_gemm(splits)
     return out
 
 
@@ -601,8 +710,46 @@ def declare_kernel(module: nn.Module, name: str, shape, n_contract: int,
         module.register_buffer(name, torch.zeros(tuple(shape), dtype=torch.int8))
         module.register_buffer(scale_name(name), torch.ones(tuple(shape[n_contract:])))
         module.F32_TENSORS = (*getattr(module, "F32_TENSORS", ()), scale_name(name))
+        if not hasattr(module, "_kmajor_codes"):
+            module._kmajor_codes = {}
+            module.register_load_state_dict_post_hook(_refresh_kmajor_codes)
     else:
         setattr(module, name, nn.Parameter(torch.empty(tuple(shape))))
+
+
+def _kmajor_key(codes: torch.Tensor):
+    # An inference tensor counts no versions (and takes no in-place write
+    # outside inference mode).
+    version = 0 if codes.is_inference() else codes._version
+    return codes.data_ptr(), version, codes.device, codes.shape
+
+
+def kmajor_codes(module: nn.Module, name: str, k: int) -> torch.Tensor:
+    """The serving codes of the raw projection ``module.<name>`` (``[in...,
+    out...]``, ``k`` contracted) as Q2 reads them, ``[out, k]`` K-major: a
+    copy made once, outside a captured replay, and made again when the codes
+    change (a new tensor, or an in-place write such as ``load_state_dict``,
+    whose hook refreshes it in place, so a captured graph reads the new
+    codes)."""
+    codes = getattr(module, name)
+    held = module._kmajor_codes.get(name)
+    if held is None or held[0] != _kmajor_key(codes):
+        fresh = codes.reshape(k, -1).t()
+        # A normal tensor even inside the engine's inference mode, so the
+        # hook may write it in place later.
+        with torch.inference_mode(False), torch.no_grad():
+            if (held is not None and held[1].shape == fresh.shape
+                    and held[1].device == fresh.device):
+                copy = held[1].copy_(fresh)
+            else:
+                copy = fresh.contiguous()
+        held = module._kmajor_codes[name] = (_kmajor_key(codes), copy)
+    return held[1]
+
+
+def _refresh_kmajor_codes(module: nn.Module, _incompatible) -> None:
+    for name, (_, copy) in list(module._kmajor_codes.items()):
+        kmajor_codes(module, name, copy.shape[1])
 
 
 def project(module: nn.Module, name: str, x: torch.Tensor, n_contract: int = 1) -> torch.Tensor:
@@ -615,9 +762,9 @@ def project(module: nn.Module, name: str, x: torch.Tensor, n_contract: int = 1) 
     k = math.prod(w.shape[:n_contract])
     x2 = x.reshape(-1, k)
     if module.quant == "int8_serve":
-        codes = w.reshape(k, -1).t().contiguous()
         qx, sx = quantize_rows(x2)
-        y = int8_gemm(qx, codes, sx, getattr(module, scale_name(name)).reshape(-1), dtype)
+        y = int8_gemm(qx, kmajor_codes(module, name, k), sx,
+                      getattr(module, scale_name(name)).reshape(-1), dtype)
     else:
         y = _Int8Linear.apply(x2, w.to(dtype).reshape(k, -1), True, module.quant_generator)
     return y.view(*x.shape[:x.dim() - n_contract], *w.shape[n_contract:])
@@ -630,10 +777,9 @@ def project_qkv(module: nn.Module, x2: torch.Tensor, name: str = "to_qkv") -> to
     k, _, h, d = w.shape
     dtype = x2.dtype
     if module.quant == "int8_serve":
-        codes = w.reshape(k, 3 * h * d).t().contiguous()
         qx, sx = quantize_rows(x2)
         scale = getattr(module, scale_name(name)).reshape(-1)
-        return int8_gemm(qx, codes, sx, scale, dtype, split=h * d)
+        return int8_gemm(qx, kmajor_codes(module, name, k), sx, scale, dtype, split=h * d)
     return _Int8QKV.apply(x2, w.to(dtype).reshape(k, 3 * h * d), h * d, module.quant_generator)
 
 
