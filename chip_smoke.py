@@ -11,7 +11,8 @@ trade's peak memories as one JSON line; ``--supervised-chain``,
 ``--fed-train`` and ``--int8`` run one phase each (13, 14 and 15 below);
 ``--serve-telemetry`` runs the fused kernels' build and DeiT-S's serve
 phase with its telemetry checks, the telemetry's cost and its serve bench
-(5 below).
+(5 below); ``--quality-fleet`` the fused and int8 kernels' build, DeiT-S's
+serve bench flood and 16 and 17 below.
 
 Phases, each of which exits non-zero on failure:
 
@@ -126,8 +127,8 @@ Phases, each of which exits non-zero on failure:
    grad norm must agree with the same step on the dense attention paths
    (f32 softmax, the same stochastic-depth masks). From the same start,
    fit runs again with the eager step (the same losses, bit for bit), and
-   3 captured steps must equal 3 eager ``_train_step_impl`` steps bit for
-   bit: metrics, every parameter, buffer, Adam moment, count and generator
+   2 captured steps must equal 2 eager ``_train_step_impl`` steps bit for
+   bit (EQUAL_STEPS): metrics, every parameter, buffer, Adam moment, count and generator
    state. One step of each fit under torch.profiler gives the device's busy
    time by kernel group, its idle share and the attention kernels by name.
 7. the run path on DeiT-S (bf16, batch 256, #1/#2): resume (uint8 batches
@@ -145,7 +146,7 @@ Phases, each of which exits non-zero on failure:
    the dense path, launching no attention kernel, and evaluates through
    #1), device preprocessing (uint8 HWCN host batches through the feeder,
    cutmix_mixup_randaugment_405 and an EMA: 6 captured steps with a
-   falling loss, 3 captured steps equal to 3 eager ones bit for bit, half
+   falling loss, 2 captured steps equal to 2 eager ones bit for bit, half
    the bytes of a bf16 batch) and the train bench (``python -m
    sav_tpu_torch.train.bench`` through its ``main`` for DeiT-S at 256,
    with bf16 batches and with ``--device-preprocess``: one JSON line each,
@@ -189,7 +190,7 @@ Phases, each of which exits non-zero on failure:
    attention, so every counter and every capture must read 0), and trained
    as in 6 from get_preset("tnt_s_imagenet") at 1024 in 4 micro-batches (4
    x (24 #1, 24 #2) launches per captured step) and from
-   get_preset("mixer_b_imagenet") at 4096 in 16 (none) at 4 of its 12
+   get_preset("mixer_b_imagenet") at 4096 in 16 (none) at 2 of its 12
    blocks (MIXER_TRAIN_LAYERS: for the run's time). Mixer has no
    attention path to hold the kernels against, so its first train step is
    held against the same step in f32 from the same weights, and its served
@@ -235,7 +236,7 @@ Phases, each of which exits non-zero on failure:
    batch's hash must be the one the uninterrupted stream trains at step 9;
    then the train bench's ``--feed savrec`` (a 2,048-image 224² SavRecord
    file) and ``--feed pipeline``, each with and without
-   ``--device-preprocess``, 2 windows of 10 steps after a warm-up that
+   ``--device-preprocess``, 2 windows of 6 steps after a warm-up that
    drains the batches in flight, each line with the sustained rate (every
    window's images over their time), the feed's own rate and the device's
    idle share. The native loader must build and load; the JPEG
@@ -270,6 +271,32 @@ Phases, each of which exits non-zero on failure:
    train bench's ``--quant int8`` line (2 windows of 10 steps, MFU against
    the int8 peak). ``python3 chip_smoke.py --int8`` runs only the fused and
    int8 kernels' build, the int8 checks and timing and this phase.
+16. prediction quality (after the int8 arm): DeiT-S (bf16, full depth, the
+   head drawn) saved as step 0 and served from that checkpoint through
+   ``ServeEngine`` at buckets 1…32: each bucket's replayed digests (top-1,
+   margin, entropy) bit-equal to ``output_digests`` run eagerly on the
+   replayed logits, the entropy within 1e-5 of a float64 twin; 96 requests
+   with the compute stream's synchronize counted and PyTorch's sync debug
+   mode warning on every synchronizing call: one a batch; the digests'
+   device cost at buckets 1, 8 and 32 beside bare graphs this phase
+   captures; the probe rows' logits at buckets 1, 4, 8 and 32. Then the
+   golden probe on engines at buckets 1…4 with a log dir: 3 runs that hold
+   (the first stores the reference), live requests, beats carrying
+   ``quality``, the manifest's ``notes.quality`` and
+   ``serve/probe_ok_frac``; a second engine holds against the first's
+   reference; an int8-weight engine stores its own ``:int8`` key; an engine
+   under ``SAV_CHAOS_NOISE_WEIGHTS`` mismatches with exactly one
+   ``quality-probe-mismatch`` episode. Every engine's captures and replays
+   are counted.
+17. the serve fleet: ``python -m sav_tpu_torch.serve.bench --replicas 3
+   --shadow-rank 2 --probe-every 2 --chaos-kill-rank 1`` on that
+   checkpoint (three replica processes on the card, a flood of 1,024
+   through the router, deadline 1 s): nothing lost, reroutes and transport
+   failures counted, rank 1 restarted once for the SIGKILL and routed to
+   again, its probe ok and no mismatch anywhere, every replica on ``gpu``,
+   #1's launches replays × captured from each replica's final manifest, the
+   parent without torch; the fleet's p50/p99/images/s beside DeiT-S's
+   serve bench flood and the shadow's agreement are printed.
 
 Before each agreement check the head is drawn at std 0.02, every
 LayerScale scale at 0.05-0.15 (CaiT's init of 1e-5 would hide a wrong trunk),
@@ -296,6 +323,8 @@ import sys
 import tempfile
 import threading
 import time
+import warnings
+from typing import Optional
 
 import numpy as np
 import torch
@@ -385,10 +414,11 @@ TNT_B_TRAIN_SHAPE = (256 * 196, 16, 16, 4, 10)
 MIXER_MODEL = "mixer_b_patch16"
 MIXER_PRESET = "mixer_b_imagenet"
 MIXER_ACCUM = 16
-# The train cell of Mixer-B/16 runs 4 of its 12 blocks (full width, its
+# The train cell of Mixer-B/16 runs 2 of its 12 blocks (full width, its
 # preset's batch; it serves at full depth): at 12 it took ~76 s of the run,
-# at 6 ~43 s; phase_fed_train and the serve telemetry's checks need the time.
-MIXER_TRAIN_LAYERS = 4
+# at 6 ~43 s, at 4 ~32 s; phase_fed_train, the serve telemetry's checks and
+# the fleet need the time.
+MIXER_TRAIN_LAYERS = 2
 # DeiT-S's trunk with RoPE, and with 8 routed experts in every other block:
 # #1/#2 at DeiT-S's shape (12 a forward, 12 a backward); trained at 256.
 ROPE_MODEL = "vit_s_patch16_rope"
@@ -2240,18 +2270,20 @@ def _serve_batch(bucket: int, size: int, seed: int):
 
 
 def _check_replay_equals_eager(engine, what: str) -> None:
-    """At every bucket, the replayed logits equal the engine's eager infer
-    function on the same batch, bit for bit."""
+    """At every bucket, the replayed logits and digests equal the engine's
+    eager infer function's on the same batch, bit for bit."""
     size = engine.config.image_size
     for bucket in engine.startup_report["buckets"]:
         images, valid = _serve_batch(bucket, size, seed=bucket)
-        eager = engine.infer_fn(images, valid).cpu()
-        replayed = engine.graphs.replay(bucket, images, valid).cpu()
-        if not torch.equal(eager, replayed):
-            raise AssertionError(f"{what} bucket {bucket}: replayed logits differ from eager "
-                                 f"ones by up to {(eager - replayed).abs().max().item():.3e}")
-    log(f"{what}: replayed logits equal the eager infer function's, bit for bit, at buckets "
-        f"{engine.startup_report['buckets']}")
+        eager = {k: v.cpu() for k, v in engine.infer_fn(images, valid).items()}
+        replayed = {k: v.cpu() for k, v in engine.graphs.replay(bucket, images, valid).items()}
+        for name, value in eager.items():
+            if not torch.equal(value, replayed[name]):
+                diff = (value.double() - replayed[name].double()).abs().max().item()
+                raise AssertionError(f"{what} bucket {bucket}: replayed {name} differs from "
+                                     f"the eager one by up to {diff:.3e}")
+    log(f"{what}: replayed logits and digests equal the eager infer function's, bit for bit, "
+        f"at buckets {engine.startup_report['buckets']}")
 
 
 # Host time between the two runs of a profiled session.
@@ -2364,10 +2396,10 @@ def _host_median_ms(fn, iters=30, warmup=3) -> float:
 
 
 def _serve_steps(engine, buckets) -> dict:
-    """At each bucket: the eager step (the infer function from Python) and
-    the replayed step (copy into the static buffers and one graph launch),
-    host time to a synchronise, median of 30; and the device time of one
-    replay (CUDA events, L2 flushed, median of 30)."""
+    """At each bucket: the eager step (the infer function from Python,
+    median of 15) and the replayed step (copy into the static buffers and
+    one graph launch, median of 30), host time to a synchronise; and the
+    device time of one replay (CUDA events, L2 flushed, median of 30)."""
     out = {}
     for bucket in buckets:
         images, valid = _serve_batch(bucket, engine.config.image_size, seed=bucket)
@@ -2376,7 +2408,7 @@ def _serve_steps(engine, buckets) -> dict:
             engine.graphs.replay(bucket, images, valid)
 
         out[str(bucket)] = {
-            "eager_ms": _host_median_ms(lambda: engine.infer_fn(images, valid)),
+            "eager_ms": _host_median_ms(lambda: engine.infer_fn(images, valid), iters=15),
             "replay_ms": _host_median_ms(replay),
             "replay_device_ms": _median_ms(replay),
         }
@@ -2708,7 +2740,7 @@ def phase_serve(device="cuda", model_name="deit_s_patch16", requests=SERVE_REQUE
 # TELEMETRY_PAIRS interleaved (on, off) pairs, and the layer's own accounting
 # per request (sav_tpu's gate, tests/test_serve_telemetry.py).
 TELEMETRY_FLOOD = 1024
-TELEMETRY_PAIRS = 3
+TELEMETRY_PAIRS = 2
 TELEMETRY_OVERHEAD_LIMIT_S = 100e-6
 
 
@@ -2783,6 +2815,9 @@ def phase_serve_telemetry_cost(per_batch: dict, device="cuda") -> dict:
 # The serve bench's runs: a flood, an open-loop arm at half the flood's
 # measured throughput, and for DeiT-S the no-batching arm.
 BENCH_REQUESTS = 2048
+# The other families' floods and open loops (DeiT-S's keep BENCH_REQUESTS):
+# a cut of depth, to make room in the run's time for the fleet.
+FAMILY_BENCH_REQUESTS = 1024
 BENCH_BATCH1_REQUESTS = 512
 # The open-loop arm's deadline: the engine's default. The flood's is long
 # enough that admission sheds nothing while 2,048 requests wait.
@@ -2846,16 +2881,17 @@ def _bench(argv: list, per_batch: dict, what: str) -> dict:
     return {"result": out, "launches": launches, "variants": variants}
 
 
-def phase_serve_bench(model_name: str, per_batch: dict, *, batch_1=False) -> dict:
+def phase_serve_bench(model_name: str, per_batch: dict, *, batch_1=False,
+                      requests=BENCH_REQUESTS) -> dict:
     """``sav_tpu_torch.serve.bench`` on the card at buckets 1…32: a flood of
-    BENCH_REQUESTS, then an open loop at half the flood's throughput; with
-    ``batch_1``, also the ladder [1] arm of BENCH_BATCH1_REQUESTS, which the
-    batched flood must beat in images/s."""
+    ``requests``, then an open loop of as many at half the flood's
+    throughput; with ``batch_1``, also the ladder [1] arm of
+    BENCH_BATCH1_REQUESTS, which the batched flood must beat in images/s."""
     common = ["--model", model_name, "--max-batch", "32", "--max-queue", "4096"]
     # DeiT-S's flood writes its telemetry (--log-dir): its line must carry
     # the telemetry block and slo_hit_frac.
     log_dir = tempfile.mkdtemp(prefix="serve-bench-") if batch_1 else None
-    flood = common + ["--requests", str(BENCH_REQUESTS), "--deadline-ms", str(FLOOD_DEADLINE_MS)]
+    flood = common + ["--requests", str(requests), "--deadline-ms", str(FLOOD_DEADLINE_MS)]
     if log_dir:
         flood += ["--log-dir", log_dir, "--heartbeat-secs", "0.5"]
     runs = {"flood": _bench(flood, per_batch, f"bench {model_name} flood")}
@@ -2871,7 +2907,7 @@ def phase_serve_bench(model_name: str, per_batch: dict, *, batch_1=False) -> dic
             f"slo_hit_frac {line['slo_hit_frac']}, burn_rate {line['burn_rate']}")
         shutil.rmtree(log_dir)
     rate = round(runs["flood"]["result"]["serve_throughput"] / 2, 1)
-    runs["open_loop"] = _bench(common + ["--requests", str(BENCH_REQUESTS), "--rate", str(rate),
+    runs["open_loop"] = _bench(common + ["--requests", str(requests), "--rate", str(rate),
                                          "--deadline-ms", str(BENCH_DEADLINE_MS)],
                                per_batch, f"bench {model_name} open loop at {rate} req/s")
     if batch_1:
@@ -2997,8 +3033,10 @@ def _train_batches(batch_size, image_size, num_classes, device, num_batches) -> 
     return batches
 
 
-# Steps of the captured-equals-eager check in each train cell.
-EQUAL_STEPS = 3
+# Steps of the captured-equals-eager check in each train cell (3 until the
+# fleet needed the run's time; the second step still starts from a state
+# the first one made).
+EQUAL_STEPS = 2
 # The metrics a train step returns, in the order they are compared.
 TRAIN_METRICS = ("loss", "top_1_acc", "top_5_acc", "learning_rate", "grad_norm", "aux_loss")
 
@@ -4373,11 +4411,12 @@ FED_TRAIN_SHARDS, FED_EVAL_SHARDS = 4, 2
 FED_STEPS, FED_EVERY, FED_RESUME_FROM = 12, 4, 8
 FED_SEED = 0
 FED_TIMEOUT_S = 300
-# The train bench's fed feeds, four runs: 2 windows of 10 steps a run, longer
-# than the batches in flight that the bench's warm-up drains (up to 8); the
+# The train bench's fed feeds, four runs: 2 windows of 6 steps a run, after
+# the batches in flight that the bench's warm-up drains (up to 8); the
 # feed's own rate over 10 batches. (20 steps until the serve telemetry's
-# checks needed the run's time: each pipeline step is ~0.46 s of host work.)
-FED_BENCH_STEPS, FED_BENCH_REPS = 10, 2
+# checks, 10 until the fleet needed the run's time: each pipeline step is
+# ~0.33 s of host work.)
+FED_BENCH_STEPS, FED_BENCH_REPS = 6, 2
 
 
 def _fed_image(seed: int, index: int) -> np.ndarray:
@@ -5132,6 +5171,440 @@ def profile_step(trainer, state, batch, per_step: dict, *, eager=False) -> dict:
             "idle_pct": 100 * (1 - busy / wall_ms)}
 
 
+# ---------------------------------------------------------------- quality
+
+# Prediction quality (phase_quality): DeiT-S at bf16 with its head drawn.
+QUALITY_MODEL = "deit_s_patch16"
+# The probe's engines: buckets 1…4, so the probe's 4 rows ship in bucket 4
+# at once (on a 1…32 ladder an idle engine holds them ~10 s for a fuller
+# batch, the probe's own deadline less a step).
+QUALITY_PROBE_MAX_BATCH = 4
+QUALITY_PROBE_RUNS = 3
+QUALITY_LIVE_REQUESTS = 8
+# Requests served while the synchronizes are counted, one client.
+QUALITY_SYNC_REQUESTS = 96
+# The chaos seam's scale for the planted-corruption engine.
+QUALITY_NOISE = "0.5"
+# The digests' entropy against a float64 twin on the replayed logits.
+ENTROPY_F64_TOL = 1e-5
+DIGEST_TIMED_BUCKETS = (1, 8, 32)
+
+
+def _quality_checkpoint(directory: str) -> None:
+    """DeiT-S/16's seed-0 weights, head drawn at std 0.02, saved as step 0
+    with the port's Checkpointer (phase_surgery's way): the checkpoint every
+    quality and fleet engine serves."""
+    from sav_tpu_torch import TrainConfig, Trainer, create_model
+    from sav_tpu_torch.train import Checkpointer
+
+    model = create_model(QUALITY_MODEL, seed=0)
+    _draw_for_agreement(model)
+    trainer = Trainer(TrainConfig(**_train_common(QUALITY_MODEL, TRAIN_BATCH, TRAIN_STEPS, 224,
+                                                  1000, {})), model=model)
+    checkpointer = Checkpointer(directory)
+    checkpointer.save(0, trainer.init_state())
+    checkpointer.close()
+    del trainer, model
+    _free_device_memory()
+
+
+def _digests_equal_eager(engine, what: str) -> float:
+    """At every bucket: the replayed digests bit-equal to ``output_digests``
+    run eagerly on the logits the replay returned, and the entropy within
+    ENTROPY_F64_TOL of a float64 twin on those logits. Returns the twin's
+    largest distance."""
+    from sav_tpu_torch.serve.quality import output_digests
+
+    worst = 0.0
+    for bucket in engine.startup_report["buckets"]:
+        images, valid = _serve_batch(bucket, engine.config.image_size, seed=100 + bucket)
+        out = {k: v.clone() for k, v in engine.graphs.replay(bucket, images, valid).items()}
+        eager = output_digests(out["logits"], valid)
+        for name, value in eager.items():
+            if not torch.equal(value, out[name]):
+                raise AssertionError(f"{what} bucket {bucket}: the replayed {name} differs "
+                                     "from output_digests on the replayed logits")
+        logp = torch.log_softmax(out["logits"].double(), dim=-1)
+        twin = -(logp.exp() * logp).sum(-1) * valid.double()
+        err = (out["entropy"].double() - twin).abs().max().item()
+        worst = max(worst, err)
+        if err > ENTROPY_F64_TOL:
+            raise AssertionError(f"{what} bucket {bucket}: entropy {err:.3e} from its float64 "
+                                 f"twin (limit {ENTROPY_F64_TOL})")
+    log(f"{what}: at buckets {engine.startup_report['buckets']} the replayed digests equal "
+        f"output_digests on the replayed logits bit for bit; entropy within {worst:.3e} of a "
+        f"float64 twin (limit {ENTROPY_F64_TOL})")
+    return worst
+
+
+def _count_syncs(engine, images, what: str) -> dict:
+    """Serve ``images`` from one client with the compute stream's
+    ``synchronize`` counted and PyTorch's sync debug mode on ("warn": every
+    synchronizing call, explicit or hidden in a copy or an ``.item()``,
+    warns): both counts must equal the batches served — the digests ride
+    the logits' one synchronize."""
+    stream = engine._compute_stream
+    calls = []
+    real = stream.synchronize
+
+    def counted():
+        calls.append(threading.get_ident())
+        return real()
+
+    before = engine.stats()["ledger"]["batches"]
+    stream.synchronize = counted
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            _serve(engine, images, 1)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+        del stream.synchronize
+    batches = engine.stats()["ledger"]["batches"] - before
+    syncs = [w for w in caught if "synchroniz" in str(w.message).lower()]
+    out = {"batches": batches, "stream_synchronize_calls": len(calls),
+           "sync_debug_warnings": len(syncs)}
+    log(f"{what}: {len(images)} requests in {batches} batches: the compute stream's synchronize "
+        f"called {len(calls)} times, the sync debug mode warned {len(syncs)} times "
+        f"({sorted({str(w.message)[:80] for w in syncs})})")
+    if not batches or len(calls) != batches or len(syncs) != batches:
+        raise AssertionError(f"{what}: not one synchronize a batch: {json.dumps(out)}")
+    return out
+
+
+def _digest_cost(engine, what: str) -> dict:
+    """The digests' device cost: one replay's device ms (L2 flushed,
+    median of 30) at DIGEST_TIMED_BUCKETS of the engine's graphs (logits and
+    digests) beside graphs of the bare infer function that this phase
+    captures itself, the same way. Reported, not gated."""
+    from sav_tpu_torch.serve.engine import build_infer_fn
+    from sav_tpu_torch.serve.graphs import BucketGraphs
+
+    bare = BucketGraphs(build_infer_fn(engine.model, engine.compute_dtype),
+                        DIGEST_TIMED_BUCKETS, engine.config.image_size, engine.device)
+    out = {}
+    for bucket in DIGEST_TIMED_BUCKETS:
+        images, valid = _serve_batch(bucket, engine.config.image_size, seed=bucket)
+        digested = _median_ms(lambda: engine.graphs.replay(bucket, images, valid))
+        plain = _median_ms(lambda: bare.replay(bucket, images, valid))
+        out[str(bucket)] = {"digested_ms": round(digested, 4), "bare_ms": round(plain, 4),
+                            "digest_ms": round(digested - plain, 4),
+                            "digest_share": round((digested - plain) / plain, 4)}
+    del bare
+    log(f"{what}: replay device ms with the digests vs the bare infer function, by bucket: "
+        f"{json.dumps(out)}")
+    return out
+
+
+def _probe_bits_by_bucket(engine, what: str) -> dict:
+    """The probe's 4 rows served alone (bucket 1, four replays), in bucket
+    4, and as the first rows of buckets 8 and 32 filled with other seeded
+    images: their logits' fingerprint at each, and the largest distance of
+    their logits from bucket 4's. Reported: a fleet replica's probe rows can
+    ride a batch that live requests filled."""
+    from sav_tpu_torch.serve.quality import fingerprint_logits, make_probe_batch
+
+    probe, _ = make_probe_batch(engine.config.image_size)
+    probe = torch.from_numpy(np.array(probe)).cuda()
+    rows = {}
+    for bucket in (1, 4, 8, 32):
+        if bucket == 1:
+            got = [engine.graphs.replay(1, probe[i:i + 1], torch.ones(1, device="cuda"))
+                   ["logits"].cpu()[0] for i in range(len(probe))]
+            rows[bucket] = torch.stack(got)
+            continue
+        filler, _ = _serve_batch(bucket, engine.config.image_size, seed=300 + bucket)
+        images = filler.clone()
+        images[:len(probe)] = probe
+        out = engine.graphs.replay(bucket, images, torch.ones(bucket, device="cuda"))
+        rows[bucket] = out["logits"].cpu()[:len(probe)]
+    out = {str(b): {"fingerprint": fingerprint_logits(r.numpy()),
+                    "max_abs_diff_vs_4": (r - rows[4]).abs().max().item(),
+                    "top1": r.argmax(-1).tolist()} for b, r in rows.items()}
+    log(f"{what}: the probe rows' logits by bucket: {json.dumps(out)}")
+    return out
+
+
+def _quality_engine(config, what: str, per_batch: dict, **kw):
+    """A ServeEngine built with the counters set to 0 just before, its
+    captures checked (phase_serve's way)."""
+    from sav_tpu_torch import ServeEngine
+
+    reset_launches()
+    engine = ServeEngine(config, **kw)
+    _check_capture(engine.startup_report, per_batch, what)
+    return engine
+
+
+def _probe_run(engine, log_dir: str) -> Optional[bool]:
+    from sav_tpu_torch.serve.quality import ProbeRunner
+
+    return ProbeRunner(engine, engine._probe_ledger, every_s=3600, log_dir=log_dir).observe_probe()
+
+
+def _wait_beats(engine, n: int, timeout_s: float = 10.0) -> None:
+    deadline = time.monotonic() + timeout_s
+    while engine.stats()["telemetry"]["heartbeats"] < n and time.monotonic() < deadline:
+        time.sleep(0.02)
+
+
+def phase_quality(directory: str, device="cuda") -> dict:
+    """Prediction quality on the card, DeiT-S/16 bf16 from the checkpoint
+    ``_quality_checkpoint`` wrote to ``directory``:
+
+    - an engine at buckets 1…32: each bucket's replayed digests bit-equal to
+      ``output_digests`` run eagerly on the replayed logits, the entropy
+      within ENTROPY_F64_TOL of a float64 twin; one synchronize a batch
+      (counted, and the sync debug mode's warnings); the digests' device
+      cost beside bare graphs; the probe rows' bits by bucket;
+    - the golden probe on engines at buckets 1…4 with a log dir: three runs
+      that hold (the first freezes the reference), live requests, a beat
+      carrying ``quality``, the manifest's ``notes.quality`` and
+      ``serve/probe_ok_frac``; a second engine from the same checkpoint
+      holds against the first's reference; an int8-weight engine writes its
+      own ``:int8`` key; a ``SAV_CHAOS_NOISE_WEIGHTS`` engine mismatches,
+      with exactly one ``quality-probe-mismatch`` episode.
+
+    Every engine's captures and replays are counted (replays × captured)."""
+    from sav_tpu_torch import ServeConfig, ServeEngine, create_model
+    from sav_tpu_torch.obs import alerts
+    from sav_tpu_torch.serve.quality import load_reference, make_probe_batch
+    from sav_tpu_torch.serve.telemetry import read_serve_beats
+
+    what = f"quality {QUALITY_MODEL}"
+    per_batch = attention_launches(create_model(QUALITY_MODEL), train=False, family="fused")
+
+    def config(**kw):
+        return ServeConfig(**{**dict(model_name=QUALITY_MODEL, compute_dtype="bfloat16",
+                                     deadline_ms=5000.0, checkpoint_dir=directory,
+                                     device=device, max_batch=QUALITY_PROBE_MAX_BATCH), **kw})
+
+    runs, out = [], {}
+    engine = _quality_engine(config(max_batch=32, telemetry=False), f"{what} buckets 1-32",
+                             per_batch)
+    report = engine.startup_report
+    out["entropy_f64_err"] = _digests_equal_eager(engine, f"{what} buckets 1-32")
+    images = np.random.default_rng(40).integers(0, 256, (QUALITY_SYNC_REQUESTS, 224, 224, 3),
+                                                dtype=np.uint8)
+    reset_launches()
+    with engine:
+        out["syncs"] = _count_syncs(engine, images, f"{what} buckets 1-32")
+    _check_served_eagerly_nowhere(what)
+    runs.append(_replayed(engine.stats(), report, per_batch, f"{what} buckets 1-32"))
+    out["digest_cost"] = _digest_cost(engine, what)
+    out["probe_bits"] = _probe_bits_by_bucket(engine, what)
+    del engine
+    _release_engines()
+
+    probe_id = make_probe_batch(224)[1]
+    dirs = {name: os.path.join(directory, f"log-{name}") for name in ("first", "second", "int8",
+                                                                        "noise")}
+    first = _quality_engine(config(log_dir=dirs["first"], heartbeat_secs=TELEMETRY_BEAT_S),
+                            f"{what} probe", per_batch)
+    live = np.random.default_rng(41).integers(0, 256, (QUALITY_LIVE_REQUESTS, 224, 224, 3),
+                                              dtype=np.uint8)
+    reset_launches()
+    with first:
+        verdicts = [_probe_run(first, dirs["first"]) for _ in range(QUALITY_PROBE_RUNS)]
+        _serve(first, live, 1)
+        _wait_beats(first, 1)
+    _check_served_eagerly_nowhere(f"{what} probe")
+    runs.append(_replayed(first.stats(), first.startup_report, per_batch, f"{what} probe"))
+    reference = load_reference(dirs["first"])
+    key = f"{probe_id}:bfloat16"
+    snap = first.stats()["quality"]
+    beats = [b for b in read_serve_beats(dirs["first"])[0] if isinstance(b.get("quality"), dict)]
+    with open(first.manifest.path) as f:
+        manifest = json.load(f)
+    out["probe"] = {"verdicts": verdicts, "reference": reference, "snapshot": snap,
+                    "beats_with_quality": len(beats),
+                    "manifest_quality": manifest["notes"].get("quality"),
+                    "probe_ok_frac": manifest["metrics"].get("serve/probe_ok_frac")}
+    log(f"{what} probe at buckets 1-{QUALITY_PROBE_MAX_BATCH}: {json.dumps(out['probe'])}")
+    if (verdicts != [True] * QUALITY_PROBE_RUNS or list(reference) != [key]
+            or snap["probe_ok"] != QUALITY_PROBE_RUNS or snap["n"] < QUALITY_LIVE_REQUESTS
+            or not beats or manifest["notes"]["quality"]["probe_mismatch"] != 0
+            or manifest["metrics"].get("serve/probe_ok_frac") != 1.0):
+        raise AssertionError(f"{what} probe: {json.dumps(out['probe'])}")
+    del first
+    _release_engines()
+
+    def seeded(name):
+        os.makedirs(os.path.join(dirs[name], "fleet"), exist_ok=True)
+        shutil.copy(os.path.join(dirs["first"], "fleet", "probe_reference.json"),
+                    os.path.join(dirs[name], "fleet", "probe_reference.json"))
+
+    seeded("second")
+    second = _quality_engine(config(log_dir=dirs["second"]), f"{what} second engine", per_batch)
+    reset_launches()
+    with second:
+        out["second_engine"] = _probe_run(second, dirs["second"])
+    runs.append(_replayed(second.stats(), second.startup_report, per_batch,
+                          f"{what} second engine"))
+    del second
+    _release_engines()
+
+    seeded("int8")
+    int8_what = f"{what} int8 weights"
+    reset_launches()
+    int8 = ServeEngine(config(log_dir=dirs["int8"], quant_weights=True))
+    int8_per_batch = attention_launches(int8.model, train=False, family="fused")
+    _check_capture(int8.startup_report, int8_per_batch, int8_what)
+    reset_launches()
+    with int8:
+        out["int8"] = [_probe_run(int8, dirs["int8"]) for _ in range(2)]
+    int8_launches = _replayed(int8.stats(), int8.startup_report, int8_per_batch, int8_what)
+    int8_reference = load_reference(dirs["int8"])
+    del int8
+    _release_engines()
+
+    seeded("noise")
+    os.environ["SAV_CHAOS_NOISE_WEIGHTS"] = QUALITY_NOISE
+    try:
+        noise = _quality_engine(config(log_dir=dirs["noise"], heartbeat_secs=TELEMETRY_BEAT_S),
+                                f"{what} noised weights", per_batch)
+    finally:
+        del os.environ["SAV_CHAOS_NOISE_WEIGHTS"]
+    reset_launches()
+    with noise:
+        out["noise"] = [_probe_run(noise, dirs["noise"]) for _ in range(2)]
+        _wait_beats(noise, 1)
+    runs.append(_replayed(noise.stats(), noise.startup_report, per_batch,
+                          f"{what} noised weights"))
+    noise_snap = noise.stats()["quality"]
+    episodes = alerts.episodes(alerts.read_alerts(dirs["noise"]))
+    del noise
+    _release_engines()
+    out["int8_reference"] = int8_reference
+    out["noise_episodes"] = episodes
+    out["noise_snapshot"] = {k: noise_snap.get(k) for k in ("probe_runs", "probe_mismatch",
+                                                            "probe_fingerprint",
+                                                            "probe_expected")}
+    log(f"{what}: second engine from the checkpoint {out['second_engine']}; int8 engine "
+        f"{out['int8']}, reference keys {sorted(int8_reference)}; noised engine "
+        f"({QUALITY_NOISE}) {out['noise']}, {json.dumps(out['noise_snapshot'])}, alert "
+        f"episodes {json.dumps(episodes)}")
+    mismatch = episodes.get("quality-probe-mismatch") or {}
+    if (out["second_engine"] is not True or out["int8"] != [True, True]
+            or sorted(int8_reference) != sorted([key, f"{probe_id}:int8"])
+            or int8_reference[key] != reference[key]
+            or out["noise"] != [False, False] or noise_snap["probe_mismatch"] < 1
+            or set(episodes) != {"quality-probe-mismatch"} or mismatch.get("fired") != 1
+            or mismatch.get("resolved") != 1):
+        raise AssertionError(f"{what}: {json.dumps({k: out[k] for k in ('second_engine', 'int8', 'noise', 'noise_episodes')})}")
+    fused = _add(launches for launches, _ in runs)
+    return {**_add([fused, int8_launches[0]]),
+            "variants": _add([*(v for _, v in runs), int8_launches[1]]), **out}
+
+
+FLEET_REPLICAS = 3
+FLEET_SHADOW_RANK = 2
+FLEET_KILL_RANK = 1
+FLEET_REQUESTS = 1024
+FLEET_PROBE_EVERY_S = 2.0
+FLEET_TIMEOUT_S = 420
+# The flood's deadline: long enough that the router sheds nothing while
+# 1,024 requests wait for its workers, short enough that the tail's partial
+# batches (the batcher holds a batch below the top bucket until its
+# earliest deadline less a step) wait at most about a second.
+FLEET_DEADLINE_MS = 1000.0
+# Router workers: two top buckets of requests in flight at each live
+# replica, so its batches fill while it runs the one before.
+FLEET_WORKERS = 128
+# After the victim's restart: a burst larger than the top bucket, so the
+# projected waits part and the router routes to the restarted replica.
+FLEET_PROBE_REQUESTS = 96
+
+
+def phase_fleet(directory: str, flood: Optional[dict] = None) -> dict:
+    """``python -m sav_tpu_torch.serve.bench --replicas 3 --shadow-rank 2
+    --probe-every 2 --chaos-kill-rank 1`` on DeiT-S bf16 from the quality
+    checkpoint in ``directory``, buckets 1…32, a flood of FLEET_REQUESTS
+    through the router, three replica processes on the one card (ranks 0
+    and 1 serve, rank 2 is the shadow). Checks: every admitted request
+    completed or shed honestly, none lost; the transport failures and
+    reroutes counted; rank 1 restarted once (``killed:SIGKILL``) and routed
+    to again after its restore; no probe mismatch anywhere, and a probe ok
+    on rank 1 after its restart (the new process reproduces its
+    predecessor's bits); every replica on ``gpu``; #1's launches replays ×
+    captured from each replica's final manifest. The shadow's agreement and
+    ``rel_diff_max`` and the fleet's p50/p99/images/s are reported beside
+    ``flood``, the single DeiT-S engine's flood of the same run."""
+    log_dir = os.path.join(directory, "fleet")
+    argv = [sys.executable, "-m", "sav_tpu_torch.serve.bench", "--replicas", str(FLEET_REPLICAS),
+            "--shadow-rank", str(FLEET_SHADOW_RANK), "--probe-every", str(FLEET_PROBE_EVERY_S),
+            "--chaos-kill-rank", str(FLEET_KILL_RANK), "--model", QUALITY_MODEL,
+            "--max-batch", "32", "--requests", str(FLEET_REQUESTS),
+            "--max-queue", str(2 * FLEET_REQUESTS), "--deadline-ms", str(FLEET_DEADLINE_MS),
+            "--fleet-workers", str(FLEET_WORKERS), "--probe-requests", str(FLEET_PROBE_REQUESTS),
+            "--checkpoint", directory, "--log-dir", log_dir, "--heartbeat-secs", "0.5",
+            "--chaos-recovery-timeout", "180", "--replica-startup-timeout", "300"]
+    t0 = time.perf_counter()
+    proc = subprocess.run(argv, cwd=ROOT, capture_output=True, text=True, timeout=FLEET_TIMEOUT_S)
+    wall = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise AssertionError(f"fleet bench exited {proc.returncode}:\n{proc.stdout[-4000:]}\n"
+                             f"{proc.stderr[-6000:]}")
+    line = json.loads(proc.stdout.strip().splitlines()[-1])
+    router = line["router"]
+    log(f"fleet router: " + json.dumps({
+        **{k: router.get(k) for k in ("completed", "rejected", "shed_admit", "shed_deadline",
+                                      "rerouted", "transport_failures", "errors", "down_flaps")},
+        "replicas": {r: {k: v.get(k) for k in ("state", "down_reason", "routed", "completed",
+                                               "failures", "est_step_s", "p99_ms", "beats")}
+                     for r, v in router["replicas"].items()}}))
+    accounting, chaos = line["accounting"], line.get("chaos") or {}
+    ranks = line["pool"]["ranks"]
+    per_rank, launches, variants = {}, dict.fromkeys(COUNTERS, 0), []
+    for rank, run in line["replica_runs"].items():
+        captured, replays = run.get("captured_launches") or {}, run.get("replays") or {}
+        tallies = run.get("captured_variants") or {}
+        fused = sum(replays.get(b, 0) * captured[b]["fused"] for b in captured)
+        variants.append({k: {v: sum(replays.get(b, 0) * tallies[b][k][v] for b in tallies)
+                             for v in next(iter(tallies.values()))[k]} for k in COUNTERS})
+        if any(captured[b]["fused"] != 12 for b in captured) or not fused:
+            raise AssertionError(f"fleet rank {rank}: captured {json.dumps(captured)}, replays "
+                                 f"{json.dumps(replays)}")
+        quality = run.get("quality") or {}
+        per_rank[rank] = {"batches": run.get("batches"), "replays": replays,
+                          "fused_launches": fused, "probe_runs": quality.get("probe_runs"),
+                          "probe_ok": quality.get("probe_ok"),
+                          "probe_mismatch": quality.get("probe_mismatch"),
+                          "device": run.get("device"), "outcome": run.get("outcome")}
+        launches["fused"] += fused
+    shadow = (line["router"].get("shadow") or {})
+    after = chaos.get("probe_after_restart") or {}
+    out = {"wall_s": round(wall, 1), "card": line.get("card"), "accounting": accounting,
+           "rerouted": line["rerouted"], "transport_failures": line["transport_failures"],
+           "restarts": line["restarts"], "restart_reasons": ranks[str(FLEET_KILL_RANK)].get(
+               "restart_reasons"), "outage_s": chaos.get("outage_s"),
+           "probe_routed": line.get("probe_routed"), "probe_after_restart": after,
+           "probe_ok_frac": line.get("probe_ok_frac"), "replicas": per_rank,
+           "platforms": line["replica_platforms"], "alerts": line.get("alerts"),
+           "shadow": {k: shadow.get(k) for k in ("scored", "breach", "shed", "agreement",
+                                                  "pairs")},
+           "fleet_p50_ms": line["fleet_p50_latency_ms"],
+           "fleet_p99_ms": line["fleet_p99_latency_ms"],
+           "fleet_images_per_sec": line["fleet_throughput"],
+           "single_engine_flood": flood}
+    log(f"fleet {QUALITY_MODEL} ({line.get('card')}): {json.dumps(out)}")
+    mismatches = [r for r, v in per_rank.items() if v["probe_mismatch"]]
+    if (line["outcome"] != "ok" or accounting["lost"] or accounting["errors"]
+            or accounting["completed"] + accounting["shed"] != FLEET_REQUESTS
+            or line["rerouted"] < 1 or line["transport_failures"] < 1 or line["restarts"] != 1
+            or out["restart_reasons"] != ["killed:SIGKILL"]
+            or not (line.get("probe_routed") or {}).get(str(FLEET_KILL_RANK))
+            or after.get("probe_ok", 0) < 1 or after.get("probe_mismatch") != 0 or mismatches
+            or set(line["replica_platforms"].values()) != {"gpu"}
+            or line["parent_imported_torch"] is not False
+            or "quality-probe-mismatch" in (line.get("alerts") or {})):
+        raise AssertionError(f"fleet: {json.dumps(out)}")
+    shutil.rmtree(log_dir)
+    return {**launches, "variants": _on_tensor_cores(_add(variants), launches, "fleet replays"),
+            **out}
+
+
 def _timed(entry: dict) -> dict:
     """A timing record, its yardstick kept as ``library_ms`` (None where no
     single PyTorch call computes the function)."""
@@ -5142,8 +5615,11 @@ def _timed(entry: dict) -> dict:
 def main() -> None:
     start = time.perf_counter()
 
+    clocks = {}
+
     def mark(what: str) -> None:
-        log(f"clock: {what} done at {time.perf_counter() - start:.1f} s")
+        clocks[what] = round(time.perf_counter() - start, 1)
+        log(f"clock: {what} done at {clocks[what]:.1f} s")
 
     smi = phase_device()
     phase_build()
@@ -5168,28 +5644,32 @@ def main() -> None:
              "mixer": phase_serve(model_name=MIXER_MODEL, reference="f32"),
              "rope": phase_serve(model_name=ROPE_MODEL),
              "moe": phase_serve(model_name=MOE_MODEL)}
+    mark("serve phases")
     telemetry_cost = phase_serve_telemetry_cost(serve["deit"]["per_batch"])
+    mark("serve telemetry cost")
     benches = {"deit": phase_serve_bench("deit_s_patch16", serve["deit"]["per_batch"],
                                          batch_1=True),
-               "cait": phase_serve_bench("cait_xxs_24", serve["cait"]["per_batch"]),
-               "botnet": phase_serve_bench(BOTNET_MODEL, serve["botnet"]["per_batch"]),
-               "cvt": phase_serve_bench(CVT_MODEL, serve["cvt"]["per_batch"]),
-               "ceit": phase_serve_bench(CEIT_MODEL, serve["ceit"]["per_batch"]),
-               "tnt": phase_serve_bench(TNT_MODEL, serve["tnt"]["per_batch"]),
-               "mixer": phase_serve_bench(MIXER_MODEL, serve["mixer"]["per_batch"]),
-               "moe": phase_serve_bench(MOE_MODEL, serve["moe"]["per_batch"])}
+               **{key: phase_serve_bench(name, serve[key]["per_batch"],
+                                         requests=FAMILY_BENCH_REQUESTS)
+                  for key, name in (("cait", "cait_xxs_24"), ("botnet", BOTNET_MODEL),
+                                    ("cvt", CVT_MODEL), ("ceit", CEIT_MODEL),
+                                    ("tnt", TNT_MODEL), ("mixer", MIXER_MODEL),
+                                    ("moe", MOE_MODEL))}}
     _release_engines()
     mark("serve and serve benches")
     train = {"deit": phase_train(), "cait": phase_train(model_name="cait_xxs_24")}
+    mark("DeiT-S and CaiT-XXS training")
     deit_source = _deit_source()
     with tempfile.TemporaryDirectory() as checkpoints:
         resume = phase_resume(deit_source, checkpoints)
         serve_ckpt = phase_serve_checkpoint(resume["directory"], serve["deit"]["per_batch"])
     _release_engines()
+    mark("resume and checkpoint serving")
     evaluation = phase_eval(deit_source)
     dropout = phase_dropout(deit_source)
     devpre = phase_device_preprocess(deit_source)
     del deit_source
+    mark("eval, dropout, device preprocess")
     train_bench = phase_train_bench()
     mark("DeiT-S and CaiT-XXS training, the run path and the train bench")
     with tempfile.TemporaryDirectory() as fed_dir:
@@ -5247,6 +5727,13 @@ def main() -> None:
         int8 = phase_int8(qat_dir)
     train["deit_int8"] = int8["train"]
     mark("the int8 arm (DeiT-S QAT, int8 serving, the benches)")
+    with tempfile.TemporaryDirectory() as quality_dir:
+        _quality_checkpoint(quality_dir)
+        quality = phase_quality(quality_dir)
+        mark("prediction quality (phase_quality)")
+        fleet = phase_fleet(quality_dir, flood={k: benches["deit"]["runs"]["flood"][k] for k in (
+            "serve_throughput", "p50_latency_ms", "p95_latency_ms", "p99_latency_ms")})
+    mark("the serve fleet (phase_fleet)")
 
     def by_path(kind):
         return {
@@ -5280,6 +5767,8 @@ def main() -> None:
             "serve_int8_deit": int8["serve"][kind],
             "serve_bench_int8_deit": int8["bench"][kind],
             "train_bench_int8_deit": int8["train_bench"][kind],
+            "serve_quality_deit": quality[kind],
+            "serve_fleet_deit": fleet[kind],
             **{f"train_bench_{name.replace(' ', '_')}_deit": run["launches"][kind]
                for name, run in fed["bench"].items()},
         }
@@ -5293,7 +5782,7 @@ def main() -> None:
                     evaluation,
                     dropout, serve_ckpt, devpre, *train_bench.values(), chain, fed["train"],
                     fed["eval"], fed["resumed"], *fed["bench"].values(), int8["serve"],
-                    int8["bench"], int8["train_bench"]):
+                    int8["bench"], int8["train_bench"], quality, fleet):
             for variant, n in run["variants"][kind].items():
                 out[variant] = out.get(variant, 0) + n
         return out
@@ -5606,6 +6095,14 @@ def main() -> None:
         "flood": int8["flood"],
         "train_bench": {k: int8["train_bench"]["line"][k] for k in (
             "value", "step_ms", "mfu", "peak_source", "int8_flops_share")}}))
+    log(f"quality and fleet summary ({smi}): " + json.dumps({
+        "syncs": quality["syncs"], "entropy_f64_err": quality["entropy_f64_err"],
+        "digest_cost": quality["digest_cost"], "probe_bits": quality["probe_bits"],
+        **{k: fleet[k] for k in ("fleet_p50_ms", "fleet_p99_ms", "fleet_images_per_sec",
+                                 "single_engine_flood", "shadow", "rerouted",
+                                 "transport_failures", "outage_s", "wall_s",
+                                 "accounting")}}))
+    log(f"clock summary ({smi}; seconds at the end of each group): {json.dumps(clocks)}")
     log(f"card: {smi}")
     log(json.dumps({"kernels": [fwd, bwd, th_fwd, *th_bwd, flash_fwd, flash_dq, flash_dkv,
                                 *rel_records, q1, q2]}))
@@ -5617,6 +6114,31 @@ def main() -> None:
             "count": torch.cuda.device_count(),
         },
     }))
+
+
+def main_quality_fleet() -> None:
+    """``--quality-fleet``: the fused and int8 kernels' build, the DeiT-S
+    serve bench's flood (the fleet's yardstick), phase_quality and
+    phase_fleet, as in the full run."""
+    from sav_tpu_torch import create_model
+    from sav_tpu_torch.ops import _build
+
+    smi = phase_device()
+    built = _build.build_all(["fused_attention", "fused_attention_bwd", "int8_quant", "int8_gemm"])
+    log(f"built {json.dumps({k: round(v, 1) for k, v in built.items()})}")
+    per_batch = attention_launches(create_model(QUALITY_MODEL), train=False, family="fused")
+    flood = _bench(["--model", QUALITY_MODEL, "--max-batch", "32", "--max-queue", "4096",
+                    "--requests", str(BENCH_REQUESTS), "--deadline-ms", str(FLOOD_DEADLINE_MS)],
+                   per_batch, f"bench {QUALITY_MODEL} flood")["result"]
+    with tempfile.TemporaryDirectory() as quality_dir:
+        _quality_checkpoint(quality_dir)
+        quality = phase_quality(quality_dir)
+        fleet = phase_fleet(quality_dir, flood={k: flood[k] for k in (
+            "serve_throughput", "p50_latency_ms", "p95_latency_ms", "p99_latency_ms")})
+    log(f"quality and fleet summary ({smi}): " + json.dumps({
+        "syncs": quality["syncs"], "digest_cost": quality["digest_cost"],
+        "probe_bits": quality["probe_bits"], "fused_launches": {
+            "quality": quality["fused"], "fleet": fleet["fused"]}}))
 
 
 def main_supervised_chain() -> None:
@@ -5665,9 +6187,11 @@ if __name__ == "__main__":
         main_int8()
     elif sys.argv[1:] == ["--serve-telemetry"]:
         main_serve_telemetry()
+    elif sys.argv[1:] == ["--quality-fleet"]:
+        main_quality_fleet()
     elif sys.argv[1:]:
         raise SystemExit(f"chip_smoke: unknown arguments {sys.argv[1:]}; it takes none, "
-                         "--remat-trade, --supervised-chain, --fed-train, --int8 or "
-                         "--serve-telemetry")
+                         "--remat-trade, --supervised-chain, --fed-train, --int8, "
+                         "--serve-telemetry or --quality-fleet")
     else:
         main()

@@ -200,9 +200,9 @@ def default_rules(slo_burn_threshold: float = 2.0) -> list:
 def quality_rules() -> list:
     """The prediction-quality rule set — a SEPARATE set from
     :func:`default_rules` on purpose: the default set is exactly the SLO
-    rule, and quality rules arm alongside it, not inside it. The port's
-    beats carry no quality fields yet (ROADMAP queue A5.6 (c)), so these
-    rules evaluate False on every beat until they do.
+    rule, and quality rules arm alongside it, not inside it. The serve
+    engine's beats carry ``quality`` (its digest gates and probe ledger),
+    the fleet router's beats ``shadow`` (the shadow's agreement).
 
     The two integrity rules gate on CUMULATIVE MONOTONIC counters
     (``quality.probe_mismatch``, ``shadow.breach``) with ``for_s=0``

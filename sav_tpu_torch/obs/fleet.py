@@ -27,9 +27,12 @@ The serving engine beats on the same substrate (:meth:`HeartbeatWriter.serve_bea
 ``kind=serve`` lines carrying a windowed snapshot instead of a step), read
 back by :mod:`sav_tpu_torch.serve.telemetry`.
 
-Not ported (ROADMAP queue A10, and A5.8 for the router): the router's
-stream reader, the backend probe's timeline and the autoprof capture
-readers.
+A fleet router beats on a named stream of its own (``HeartbeatWriter(...,
+stream="router")``: ``fleet/router.jsonl``, ``kind=router`` lines), read back
+by :func:`read_router_beats`.
+
+Not ported (ROADMAP queue A10): the backend probe's timeline and the
+autoprof capture readers.
 """
 
 from __future__ import annotations
@@ -117,11 +120,19 @@ class HeartbeatWriter:
         process_count: int = 1,
         clock: Callable[[], float] = time.time,
         perf: Callable[[], float] = time.perf_counter,
+        stream: Optional[str] = None,
     ):
         self.log_dir = log_dir
         self.process_index = int(process_index)
         self.process_count = int(process_count)
-        self.path = heartbeat_path(log_dir, self.process_index)
+        # ``stream`` writes a NON-process stream (``fleet/<stream>.jsonl``,
+        # e.g. the fleet router's ``router`` stream) instead of
+        # ``proc_<i>.jsonl``. read_heartbeats globs only proc_* so a named
+        # stream can never collide with the replica aggregation.
+        self.path = (
+            os.path.join(fleet_dir(log_dir), f"{stream}.jsonl")
+            if stream else heartbeat_path(log_dir, self.process_index)
+        )
         self._clock = clock
         self._perf = perf
         # Training thread (beat/close) vs watchdog-side events share the
@@ -382,6 +393,39 @@ def read_heartbeats(
             continue
         out[proc] = records
     return out
+
+
+def read_router_beats(
+    log_dir: str, *, tail_bytes: Optional[int] = None
+) -> list[dict]:
+    """Load the fleet router's ``fleet/router.jsonl`` heartbeat stream
+    (``kind=router`` lines) with the same torn-line and tail-bound
+    discipline as :func:`read_heartbeats`. The router is one process per
+    fleet, so this returns a flat list, newest last."""
+    path = os.path.join(fleet_dir(log_dir), "router.jsonl")
+    records: list[dict] = []
+    try:
+        with open(path, "rb") as f:
+            if tail_bytes is not None:
+                f.seek(0, os.SEEK_END)
+                size = f.tell()
+                start = max(size - int(tail_bytes), 0)
+                f.seek(start)
+                if start > 0:
+                    f.readline()  # drop the partial first line
+            for raw in f:
+                line = raw.decode("utf-8", "replace").strip()
+                if not line:
+                    continue
+                try:
+                    doc = json.loads(line)
+                except json.JSONDecodeError:
+                    continue  # torn tail of a killed router
+                if isinstance(doc, dict) and doc.get("kind") == "router":
+                    records.append(doc)
+    except OSError:
+        pass
+    return records
 
 
 def iter_manifests(log_dir: str):

@@ -52,10 +52,22 @@ the serve run manifest (``manifest-serve-<time>-<pid>.json``) is finalized
 at :meth:`ServeEngine.stop` with the ledger's metrics and ``slo_hit_frac``.
 A telemetry that fails to start raises; it is never switched off quietly.
 
+**Prediction quality** (:mod:`sav_tpu_torch.serve.quality`): the serving
+program returns per-row digests (top-1, margin, entropy) beside the logits,
+captured into the same graph and copied to the host with them before the
+batch's one sync; the device loop folds them into a
+:class:`~sav_tpu_torch.obs.quality.QualityTracker` (drift against a frozen
+reference window) that every ``kind=serve`` beat and the manifest's
+``notes.quality`` carry. With ``ServeConfig.probe_every_s`` a golden-probe
+thread fingerprints a fixed probe batch whenever the engine is idle and
+holds it against the reference stored under ``log_dir`` per ``probe_id`` and
+``startup_report["dtype"]`` (a :class:`~sav_tpu_torch.obs.quality.ProbeLedger`
+counts the outcomes). ``SAV_CHAOS_NOISE_WEIGHTS=<scale>`` perturbs the float
+parameters before any quantization (the planted-corruption seam).
+
 Not ported yet: the anomaly profiler (``ServeConfig.autoprof*``, ROADMAP
-queue A10), the prediction-quality digests and the golden probe
-(``probe_every_s``, A5.6 (c)), sharding layouts (A9) and the fleet router
-(A5.8).
+queue A10) and sharding layouts (A9). A fleet of engines behind a router is
+:mod:`sav_tpu_torch.serve.fleet` and :mod:`sav_tpu_torch.serve.router`.
 """
 
 from __future__ import annotations
@@ -77,6 +89,7 @@ from sav_tpu_torch.models.layers import cast_for_compute
 from sav_tpu_torch.obs.fleet import HeartbeatWriter, resolve_identity
 from sav_tpu_torch.obs.manifest import RunManifest, classify_exception
 from sav_tpu_torch.obs.memory import HbmWatermark
+from sav_tpu_torch.obs.quality import ProbeLedger, QualityTracker
 from sav_tpu_torch.ops import _build
 from sav_tpu_torch.ops.preprocess import normalize_images
 from sav_tpu_torch.ops.quant import is_quantized_template, quant_report, quantize_params
@@ -90,6 +103,7 @@ from sav_tpu_torch.serve.bucketing import BucketLadder, default_ladder
 from sav_tpu_torch.serve.graphs import BucketGraphs
 from sav_tpu_torch.serve.latency import LatencyLedger
 from sav_tpu_torch.serve.preprocess import preprocess_request
+from sav_tpu_torch.serve.quality import ProbeRunner, digested_infer_fn, noise_params
 from sav_tpu_torch.serve.telemetry import ServeTelemetry, stamp
 from sav_tpu_torch.train.checkpoint import Checkpointer
 from sav_tpu_torch.train.state import persistent_buffers
@@ -148,6 +162,11 @@ class ServeConfig:
     slo_fast_window_s: float = 60.0
     slo_slow_window_s: float = 600.0
     slo_burn_threshold: float = 2.0
+    # Golden-probe cadence: every probe_every_s seconds an idle engine runs
+    # the probe batch through admission and fingerprints the logits (0
+    # disables the thread). Probes shed themselves whenever live work is
+    # queued or in flight.
+    probe_every_s: float = 0.0
 
     def __post_init__(self):
         require_device(self.device)
@@ -251,6 +270,7 @@ class ServeEngine:
         params=None,
         place_hook: Optional[Callable[[FormedBatch], None]] = None,
         execute_hook: Optional[Callable[[FormedBatch], None]] = None,
+        manifest: Optional[RunManifest] = None,
     ):
         self.config = config
         self.device = require_device(config.device)
@@ -288,11 +308,19 @@ class ServeEngine:
                 )
             model.load_state_dict(state, strict=True)
             source = "flax"
+        noise_scale = os.environ.get("SAV_CHAOS_NOISE_WEIGHTS")
+        if noise_scale:
+            # Chaos seam: corrupt the FLOAT parameters before any
+            # quantization, so a planted-fault replica misbehaves alike on
+            # every arm (the probe-mismatch and shadow-agreement checks).
+            noise_params(model, float(noise_scale))
         self.quant_report: Optional[dict] = None
         if config.quant_weights:
             model, self.quant_report = self._quantized(model)
         self.model = cast_for_compute(model.to(self.device), self.compute_dtype).eval()
-        self.infer_fn = build_infer_fn(self.model, self.compute_dtype)
+        # The serving program: the logits and their digests, one program
+        # (one captured graph a bucket on the card).
+        self.infer_fn = digested_infer_fn(build_infer_fn(self.model, self.compute_dtype))
         param_bytes = sum(t.numel() * t.element_size() for t in self.model.state_dict().values())
         on_card = self.device.type == "cuda"
         # Batches are copied to the card on the feed stream and run on the
@@ -353,8 +381,10 @@ class ServeEngine:
         }
         if self.quant_report is not None:
             self.startup_report["quant"] = self.quant_report
-        self.manifest: Optional[RunManifest] = None
-        if config.log_dir:
+        # A manifest passed in (a fleet replica's, at the path its
+        # supervisor preserves) is used as it is; else one under log_dir.
+        self.manifest: Optional[RunManifest] = manifest
+        if self.manifest is None and config.log_dir:
             self.manifest = RunManifest(
                 os.path.join(config.log_dir, f"manifest-serve-{time.strftime('%Y%m%d-%H%M%S')}"
                                              f"-{os.getpid()}.json"),
@@ -362,9 +392,16 @@ class ServeEngine:
                 config=dataclasses.asdict(config),
             )
             self.manifest.begin()
+        if self.manifest is not None:
             self.manifest.note("serve_startup", self.startup_report)
             if self.quant_report is not None:
                 self.manifest.note("quant", dict(self.quant_report, weights="int8"))
+        # Quality: digest windows and the golden-probe ledger, always built
+        # (the digests ride every batch), even without telemetry; the probe
+        # thread starts in start() when probe_every_s > 0.
+        self._quality = QualityTracker()
+        self._probe_ledger = ProbeLedger()
+        self._probe: Optional[ProbeRunner] = None
         self._batcher: Optional[DynamicBatcher] = None
         self._telemetry: Optional[ServeTelemetry] = None
         self._watermark: Optional[HbmWatermark] = None
@@ -413,6 +450,8 @@ class ServeEngine:
             writer=writer,
             queue_stats_fn=lambda: self._batcher.stats() if self._batcher else {},
             hbm_fn=hbm,
+            # Quality fields on every kind=serve beat, folded at beat cadence.
+            quality_fn=self.quality_snapshot,
             # Measured capacity: the ladder's top rung over the windowed step.
             max_batch=self.ladder.max_batch,
         )
@@ -463,26 +502,31 @@ class ServeEngine:
         valid.record_stream(self._compute_stream)
         return Placed(images, valid, event)
 
-    def _execute(self, bucket: int, placed: Placed) -> np.ndarray:
+    def _execute(self, bucket: int, placed: Placed) -> dict:
         """Run one placed batch: on the card, replay the bucket's graph on
-        the compute stream after the batch's copy; return the
-        ``[bucket, num_classes]`` host logits (the one sync of a batch)."""
+        the compute stream after the batch's copy. Returns the host
+        ``logits`` (``[bucket, num_classes]``) and the digests ``top1``,
+        ``margin`` and ``entropy`` (``[bucket]``), all copied before the
+        batch's one sync."""
         if self.graphs is None:
-            return self.infer_fn(placed.images, placed.valid).numpy()
+            out = self.infer_fn(placed.images, placed.valid)
+            return {k: v.numpy() for k, v in out.items()}
         with torch.cuda.stream(self._compute_stream):
             self._compute_stream.wait_event(placed.event)
-            logits = self.graphs.replay(bucket, placed.images, placed.valid)
-            # Into pinned memory, then a wait on the stream: a copy to
+            out = self.graphs.replay(bucket, placed.images, placed.valid)
+            # Into pinned memory, then one wait on the stream: a copy to
             # pageable memory would hold the feeder's copy to the card
             # until the replay ended.
-            host = torch.empty(logits.shape, dtype=logits.dtype, pin_memory=True)
-            host.copy_(logits, non_blocking=True)
+            host = {}
+            for name, value in out.items():
+                host[name] = torch.empty(value.shape, dtype=value.dtype, pin_memory=True)
+                host[name].copy_(value, non_blocking=True)
             self._compute_stream.synchronize()
-        return host.numpy().copy()
+        return {name: value.numpy().copy() for name, value in host.items()}
 
     def _run(self, bucket: int, payloads: list) -> np.ndarray:
-        """Place and execute one batch on the calling thread."""
-        return self._execute(bucket, self._place(bucket, payloads))
+        """Place and execute one batch on the calling thread; its logits."""
+        return self._execute(bucket, self._place(bucket, payloads))["logits"]
 
     # ------------------------------------------------------------ serving
 
@@ -509,6 +553,10 @@ class ServeEngine:
         if self._telemetry is not None:
             self._telemetry.start()
         self._device_thread.start()
+        if self.config.probe_every_s > 0:
+            self._probe = ProbeRunner(self, self._probe_ledger,
+                                      every_s=self.config.probe_every_s,
+                                      log_dir=self.config.log_dir).start()
         return self
 
     def _formed_batches(self):
@@ -577,7 +625,7 @@ class ServeEngine:
             self._errors += 1
             self._batcher.close()
 
-    def _complete(self, formed: FormedBatch, host: np.ndarray, t0: float):
+    def _complete(self, formed: FormedBatch, host: dict, t0: float):
         self._batcher.mark_completed()
         step_s = time.perf_counter() - t0
         # EMA keeps the batcher's dispatch-by estimate tracking the device.
@@ -585,15 +633,25 @@ class ServeEngine:
         self._step_est[formed.bucket] = 0.8 * prev + 0.2 * step_s
         now = time.monotonic()
         telemetry = self._telemetry
+        logits = host["logits"]
         latencies, overruns = [], []
         for i, request in enumerate(formed.requests):
             if telemetry is not None:
                 stamp(request.trace, "depadded", telemetry.clock())
-            request.future.set_result(host[i])
+            request.future.set_result(logits[i])
             if telemetry is not None:
                 stamp(request.trace, "completed", telemetry.clock())
             latencies.append(now - request.enqueue_t)
             overruns.append(now - request.deadline_t)
+        n = len(formed.requests)
+        # The batch's digest rows into the quality window: host values,
+        # bounded appends only; the gate math waits for the beat thread.
+        self._quality.observe_digests(
+            host["top1"][:n].tolist(),
+            host["margin"][:n].tolist(),
+            host["entropy"][:n].tolist(),
+            num_classes=self.config.num_classes,
+        )
         self.ledger.observe_batch(
             bucket=formed.bucket,
             latencies_s=latencies,
@@ -668,6 +726,11 @@ class ServeEngine:
         exception's, not ``ok``."""
         if not self._stopped:
             self._stopped = True
+            if self._probe is not None:
+                # Before the batcher closes: the probe thread must not be
+                # mid-submit when admission shuts, and its ledger must be
+                # final before the telemetry's last beat.
+                self._probe.close()
             if self._batcher is not None:
                 self._batcher.close()
             if self._device_thread is not None:
@@ -699,6 +762,10 @@ class ServeEngine:
         metrics["serve/compiled_from_scratch"] = float(
             self.startup_report["compiled_from_scratch"])
         self.manifest.note("serve_summary", summary)
+        if self.graphs is not None:
+            # The kernels a served batch ran are replays x captured
+            # (serve_startup's captured_launches), counted per bucket here.
+            self.manifest.note("replays", {str(b): n for b, n in self._replays.items()})
         if tele_summary is not None:
             slo = tele_summary.get("slo") or {}
             # Absent on a run that served nothing: skipped, never 0.
@@ -718,13 +785,31 @@ class ServeEngine:
             })
             if tele_summary.get("alerts"):
                 self.manifest.note("alerts", tele_summary["alerts"])
+        qsnap = self.quality_snapshot()
+        if qsnap.get("n") or qsnap.get("probe_runs"):
+            # notes.quality and the probe metric; probe_ok_frac is absent
+            # when no probe ran — skipped, never zero-filled.
+            self.manifest.note("quality", qsnap)
+            if isinstance(qsnap.get("probe_ok_frac"), (int, float)):
+                metrics["serve/probe_ok_frac"] = float(qsnap["probe_ok_frac"])
         if self._watermark is not None and self._watermark.source is not None:
             metrics["serve/hbm_peak_bytes"] = float(self._watermark.peak_bytes)
         self.manifest.finalize(outcome, error=detail, metrics=metrics)
 
+    def quality_snapshot(self) -> dict:
+        """The quality fields one heartbeat (and the manifest's
+        ``notes.quality``) carries: the digest drift gates and the probe
+        ledger. Host bookkeeping only."""
+        out = self._quality.snapshot()
+        out.update(self._probe_ledger.snapshot())
+        return out
+
     def stats(self) -> dict:
         out = {"ledger": self.ledger.summary(), "errors": self._errors,
                "replays": {str(b): n for b, n in self._replays.items()}}
+        qsnap = self.quality_snapshot()
+        if qsnap.get("n") or qsnap.get("probe_runs"):
+            out["quality"] = qsnap
         if self.config.quant_weights:
             out["quant"] = "int8"
         if self._batcher is not None:

@@ -1,0 +1,578 @@
+"""Serve replica pool: N supervised engine replicas behind one log dir.
+
+Port of ``sav_tpu/serve/fleet.py``, the horizontal half of serving. A
+:class:`ReplicaPool` spawns (or adopts) N serve replicas — each one a real
+OS process running its own :class:`~sav_tpu_torch.serve.engine.ServeEngine`
+on the card — under a :class:`~sav_tpu_torch.train.supervisor.Supervisor`
+in serve mode, so a SIGKILLed replica restarts with bounded backoff; a
+restart captures its buckets again and loads the kernel libraries that
+``build/`` already holds (``compiled_from_scratch == 0``). All replicas share
+ONE log dir: heartbeats land in ``fleet/proc_<rank>.jsonl`` (identity via
+the ``SAV_FLEET_PROC`` override), manifests in
+``manifest-serve-r<rank>.json``, and each replica registers its wire
+endpoint in ``fleet/replica_<rank>.json`` so the router and the offline
+readers discover the fleet from artifacts alone.
+
+:class:`TcpTransport` is the wire between the
+:class:`~sav_tpu_torch.serve.router.Router` and the replica servers
+(``python -m sav_tpu_torch.serve.serve_fleet --replica-rank``): one request
+per localhost TCP connection, a JSON header line + raw uint8 payload out,
+one JSON reply line back. A connection-level failure surfaces as
+:class:`~sav_tpu_torch.serve.router.ReplicaTransportError` — the router's
+cue to mark the replica down and reroute — and a replica-side admission
+reject as :class:`~sav_tpu_torch.serve.router.ReplicaShedError`.
+
+Import contract: **stdlib-only at module scope** (no torch, no numpy) —
+the pool runs in the parent of on-card replicas, where importing the
+backend is exactly what the supervisor keeps out of the parent, and the
+transport runs inside the router's torch-free surface.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import signal
+import socket
+import threading
+import time
+from typing import Callable, Optional
+
+from sav_tpu_torch.serve.router import ReplicaShedError, ReplicaTransportError
+from sav_tpu_torch.train.supervisor import Supervisor
+
+FLEET_POOL_SCHEMA = 1
+
+#: Reply wait beyond the request deadline before the client socket
+#: gives up. The batcher's contract lets an ADMITTED request finish
+#: up to one bucket step PAST its deadline (the replica server holds
+#: its future for deadline + grace for exactly this), so a socket
+#: timeout pinned at the bare deadline would misread every legitimate
+#: overrun as a dead replica — down-flapping a healthy server and
+#: double-executing its work. Matches the server's RESULT_GRACE_S.
+REPLY_GRACE_S = 5.0
+
+
+# ------------------------------------------------------------- endpoints
+
+
+def endpoint_path(log_dir: str, rank: int) -> str:
+    """``fleet/replica_<rank>.json`` — the replica's wire registration
+    (host/port/pid/startup report), rewritten on every (re)start so the
+    transport always resolves the CURRENT process."""
+    return os.path.join(log_dir, "fleet", f"replica_{int(rank)}.json")
+
+
+def write_endpoint(
+    log_dir: str,
+    rank: int,
+    *,
+    host: str,
+    port: int,
+    pid: Optional[int] = None,
+    startup: Optional[dict] = None,
+    platform: Optional[str] = None,
+) -> Optional[str]:
+    """Atomically register one replica's endpoint (tmp + ``os.replace``,
+    the manifest discipline — a reader never sees a torn file). Returns
+    the path, or None on I/O failure (registration is telemetry-grade:
+    it must not take the replica down; the router just won't find it)."""
+    path = endpoint_path(log_dir, rank)
+    doc = {
+        "schema": FLEET_POOL_SCHEMA,
+        "rank": int(rank),
+        "host": host,
+        "port": int(port),
+        "pid": int(pid if pid is not None else os.getpid()),
+        "t": round(time.time(), 3),
+    }
+    if platform:
+        doc["platform"] = platform
+    if startup:
+        doc["startup"] = startup
+    try:
+        os.makedirs(os.path.dirname(path), exist_ok=True)
+        tmp = f"{path}.tmp.{os.getpid()}"
+        with open(tmp, "w") as f:
+            json.dump(doc, f, indent=2)
+        os.replace(tmp, path)
+        return path
+    except OSError:
+        return None
+
+
+def read_endpoint(log_dir: str, rank: int) -> Optional[dict]:
+    try:
+        with open(endpoint_path(log_dir, rank)) as f:
+            doc = json.load(f)
+    except (OSError, json.JSONDecodeError):
+        return None
+    return doc if isinstance(doc, dict) else None
+
+
+def read_endpoints(log_dir: str) -> dict:
+    """Every registered replica endpoint in a log dir, by rank."""
+    root = os.path.join(log_dir, "fleet")
+    out: dict = {}
+    if not os.path.isdir(root):
+        return out
+    for name in sorted(os.listdir(root)):
+        if not (name.startswith("replica_") and name.endswith(".json")):
+            continue
+        try:
+            rank = int(name[len("replica_"):-len(".json")])
+        except ValueError:
+            continue
+        doc = read_endpoint(log_dir, rank)
+        if doc is not None:
+            out[rank] = doc
+    return out
+
+
+def pid_alive(pid) -> bool:
+    """Is the process alive (signal-0 probe)? False on bad input."""
+    try:
+        os.kill(int(pid), 0)
+    except (OSError, OverflowError, TypeError, ValueError):
+        return False
+    return True
+
+
+# ------------------------------------------------------------- transport
+
+
+class TcpTransport:
+    """One-request-per-connection localhost wire to the replica servers.
+
+    Protocol (both sides stdlib-only):
+
+    - request: one JSON header line (``{"op": "infer", "deadline_ms":
+      D, "nbytes": N, ...meta}``) terminated by ``\\n``, then exactly
+      N raw payload bytes (the uint8 image row).
+    - reply: one JSON line — ``{"ok": true, "pred": k, ...}`` on
+      success, ``{"ok": false, "shed": true, ...}`` on a replica-side
+      admission reject (raised as :class:`ReplicaShedError`),
+      ``{"ok": false, ...}`` on an application error (raised as
+      ``RuntimeError``). Connection-level failures (refused, reset,
+      torn reply — the replica died) raise
+      :class:`ReplicaTransportError`, the router's reroute cue.
+
+    Endpoints resolve from the log dir's registration files, cached per
+    rank and invalidated on any failure — a supervisor-restarted
+    replica rewrites its file with the new port, and the next send
+    after its recovery re-reads it.
+    """
+
+    def __init__(
+        self,
+        log_dir: str,
+        *,
+        connect_timeout_s: float = 2.0,
+    ):
+        self.log_dir = log_dir
+        self.connect_timeout_s = float(connect_timeout_s)
+        self._lock = threading.Lock()
+        self._cache: dict = {}
+
+    def resolve(self, rank: int, *, refresh: bool = False) -> tuple:
+        with self._lock:
+            if not refresh and rank in self._cache:
+                return self._cache[rank]
+        doc = read_endpoint(self.log_dir, rank)
+        if doc is None:
+            raise ReplicaTransportError(
+                f"replica {rank} has no endpoint registration under "
+                f"{os.path.join(self.log_dir, 'fleet')}"
+            )
+        endpoint = (doc.get("host") or "127.0.0.1", int(doc["port"]))
+        with self._lock:
+            self._cache[rank] = endpoint
+        return endpoint
+
+    def invalidate(self, rank: int) -> None:
+        with self._lock:
+            self._cache.pop(rank, None)
+
+    #: Router trace seam: send() accepts ``stamp_fn`` and stamps
+    #: ``connect``/``sent`` at the real socket instants.
+    supports_stamps = True
+
+    def _exchange(
+        self,
+        rank: int,
+        header: dict,
+        payload: bytes,
+        timeout_s: float,
+        stamp_fn=None,
+    ) -> dict:
+        host, port = self.resolve(rank)
+        try:
+            with socket.create_connection(
+                (host, port),
+                timeout=min(self.connect_timeout_s, max(timeout_s, 0.05)),
+            ) as sock:
+                if stamp_fn is not None:
+                    stamp_fn("connect")
+                # Reply timeout = deadline remainder + grace: a dead
+                # process fails the CONNECT instantly (refused/reset);
+                # a reply is allowed the same past-deadline slack the
+                # engine contract grants, so an overrun completes late
+                # instead of down-flapping its replica.
+                sock.settimeout(max(timeout_s, 0.05) + REPLY_GRACE_S)
+                sock.sendall(
+                    json.dumps(header).encode("utf-8") + b"\n" + payload
+                )
+                if stamp_fn is not None:
+                    stamp_fn("sent")
+                chunks = []
+                while True:
+                    chunk = sock.recv(65536)
+                    if not chunk:
+                        break
+                    chunks.append(chunk)
+                    if b"\n" in chunk:
+                        break
+        except OSError as e:
+            self.invalidate(rank)
+            raise ReplicaTransportError(
+                f"replica {rank} at {host}:{port}: {e}"
+            ) from None
+        line = b"".join(chunks).split(b"\n", 1)[0]
+        if not line:
+            self.invalidate(rank)
+            raise ReplicaTransportError(
+                f"replica {rank} at {host}:{port} closed without a reply"
+            )
+        try:
+            reply = json.loads(line)
+        except json.JSONDecodeError:
+            self.invalidate(rank)
+            raise ReplicaTransportError(
+                f"replica {rank} sent a torn reply"
+            ) from None
+        if reply.get("shed"):
+            raise ReplicaShedError(
+                reply.get("error") or f"replica {rank} shed the request"
+            )
+        if not reply.get("ok"):
+            raise RuntimeError(
+                reply.get("error") or f"replica {rank} failed the request"
+            )
+        return reply
+
+    def send(
+        self,
+        rank: int,
+        payload: bytes,
+        meta: dict,
+        timeout_s: float,
+        stamp_fn=None,
+    ) -> dict:
+        """One inference exchange (the Router's dispatch wire).
+        ``stamp_fn`` (optional) is called with ``"connect"``
+        when the socket opens and ``"sent"`` when the request bytes are
+        handed off — the router's trace stamps at the real wire
+        instants. The trace id itself rides the header: the router puts
+        it in ``meta["trace"]`` and the replica server hands it to
+        ``engine.submit``."""
+        header = dict(meta or {})
+        header["op"] = "infer"
+        header["nbytes"] = len(payload)
+        header.setdefault("deadline_ms", round(timeout_s * 1e3, 3))
+        return self._exchange(
+            rank, header, bytes(payload), timeout_s, stamp_fn=stamp_fn
+        )
+
+    def ping(self, rank: int, timeout_s: float = 5.0) -> dict:
+        """Health probe: the replica answers with its rank/pid/platform
+        and current startup report (the restart's proof reads
+        ``startup.compiled_from_scratch`` from here)."""
+        return self._exchange(rank, {"op": "ping"}, b"", timeout_s)
+
+
+# ------------------------------------------------------------------ pool
+
+
+class _PoolEntry:
+    __slots__ = ("rank", "adopted", "supervisor", "thread", "exit_code")
+
+    def __init__(self, rank: int):
+        self.rank = rank
+        self.adopted = False
+        self.supervisor: Optional[Supervisor] = None
+        self.thread: Optional[threading.Thread] = None
+        self.exit_code: Optional[int] = None
+
+
+class ReplicaPool:
+    """Spawn/adopt N supervised serve replicas sharing one log dir.
+
+    Args:
+      replicas: fleet size.
+      child_argv_fn: ``rank -> argv`` for the replica server process
+        (:func:`sav_tpu_torch.serve.serve_fleet.replica_argv` builds the
+        standard one). The child
+        must register its endpoint and heartbeat into the shared
+        ``log_dir``.
+      log_dir: the shared artifact sink (heartbeats, endpoints,
+        manifests). Per-replica supervisor chains live under
+        ``<log_dir>/replicas/rank_<i>/``.
+      env_fn: optional ``rank -> extra env`` for the child (chaos
+        seams). The pool always sets the fleet identity override
+        (``SAV_FLEET_PROC``/``SAV_FLEET_PROCS``) so heartbeat streams
+        and endpoint files namespace by rank.
+      max_restarts / backoff_base_s / backoff_max_s: each replica's
+        supervisor budget (the supervisor's semantics; serving restarts want a
+        short backoff — a dead replica is lost capacity every second).
+      adopt: when True (default), a rank whose endpoint already names a
+        LIVE pid is adopted instead of spawned — a pool restart
+        attaches to surviving replicas rather than double-spawning.
+    """
+
+    def __init__(
+        self,
+        *,
+        replicas: int,
+        child_argv_fn: Callable[[int], list],
+        log_dir: str,
+        env_fn: Optional[Callable[[int], dict]] = None,
+        max_restarts: int = 4,
+        backoff_base_s: float = 0.5,
+        backoff_max_s: float = 10.0,
+        capture: bool = True,
+        adopt: bool = True,
+    ):
+        if replicas < 1:
+            raise ValueError(f"replicas must be >= 1, got {replicas}")
+        self.replicas = int(replicas)
+        self.child_argv_fn = child_argv_fn
+        self.log_dir = log_dir
+        self.env_fn = env_fn
+        self.max_restarts = int(max_restarts)
+        self.backoff_base_s = float(backoff_base_s)
+        self.backoff_max_s = float(backoff_max_s)
+        self.capture = capture
+        self.adopt = adopt
+        self._entries: dict[int, _PoolEntry] = {}
+        self._started = False
+        self._stopped = False
+
+    # ------------------------------------------------------------ lifecycle
+
+    def rank_dir(self, rank: int) -> str:
+        return os.path.join(self.log_dir, "replicas", f"rank_{int(rank)}")
+
+    def start(self) -> "ReplicaPool":
+        if self._started:
+            raise RuntimeError("pool already started")
+        self._started = True
+        os.makedirs(os.path.join(self.log_dir, "fleet"), exist_ok=True)
+        for rank in range(self.replicas):
+            entry = self._entries[rank] = _PoolEntry(rank)
+            existing = read_endpoint(self.log_dir, rank)
+            if (
+                self.adopt
+                and existing is not None
+                and pid_alive(existing.get("pid"))
+            ):
+                entry.adopted = True
+                continue
+            env = {
+                "SAV_FLEET_PROC": str(rank),
+                "SAV_FLEET_PROCS": str(self.replicas),
+            }
+            if self.env_fn is not None:
+                env.update(self.env_fn(rank) or {})
+            supervisor = Supervisor(
+                self.child_argv_fn(rank),
+                log_dir=self.rank_dir(rank),
+                checkpoint_dir=None,
+                max_restarts=self.max_restarts,
+                backoff_base_s=self.backoff_base_s,
+                backoff_max_s=self.backoff_max_s,
+                capture=self.capture,
+                env=env,
+                serve=True,
+                manifest_src=os.path.join(
+                    self.log_dir, f"manifest-serve-r{rank}.json"
+                ),
+            )
+            entry.supervisor = supervisor
+
+            def _run(entry=entry, supervisor=supervisor):
+                entry.exit_code = supervisor.run()
+
+            entry.thread = threading.Thread(
+                target=_run, name=f"replica-supervisor-{rank}", daemon=True
+            )
+            entry.thread.start()
+        return self
+
+    def wait_ready(
+        self,
+        timeout_s: float = 600.0,
+        *,
+        transport: Optional[TcpTransport] = None,
+        poll_s: float = 0.25,
+    ) -> dict:
+        """Block until every rank has a live endpoint (and answers a
+        ping, when a transport is given). Returns ``{rank: endpoint
+        doc}``; raises ``TimeoutError`` naming the ranks still missing
+        — a replica that never comes up is a failure, not a hang — and
+        fails FAST (``RuntimeError``) when a rank's supervisor chain
+        has already ended without an endpoint (budget exhausted on a
+        startup crash, usage error): sitting out the full timeout adds
+        nothing once the restart budget is spent."""
+        deadline = time.monotonic() + float(timeout_s)
+        ready: dict = {}
+        while True:
+            for rank in range(self.replicas):
+                if rank in ready:
+                    continue
+                entry = self._entries.get(rank)
+                if (
+                    entry is not None
+                    and entry.thread is not None
+                    and not entry.thread.is_alive()
+                    and entry.exit_code not in (None, 0)
+                ):
+                    raise RuntimeError(
+                        f"replica {rank}'s supervisor chain ended "
+                        f"(exit {entry.exit_code}) before the replica "
+                        f"came up — see {self.rank_dir(rank)}/attempts/ "
+                        "for its output"
+                    )
+                doc = read_endpoint(self.log_dir, rank)
+                if doc is None or not pid_alive(doc.get("pid")):
+                    continue
+                if transport is not None:
+                    try:
+                        transport.invalidate(rank)
+                        doc = dict(doc, ping=transport.ping(rank))
+                    except (ReplicaTransportError, RuntimeError):
+                        continue
+                ready[rank] = doc
+            if len(ready) == self.replicas:
+                return ready
+            if time.monotonic() >= deadline:
+                missing = sorted(
+                    set(range(self.replicas)) - set(ready)
+                )
+                raise TimeoutError(
+                    f"replicas {missing} not ready after {timeout_s}s "
+                    f"(see {self.log_dir}/replicas/rank_*/attempts/ for "
+                    "their output)"
+                )
+            time.sleep(poll_s)
+
+    def child_pid(self, rank: int) -> Optional[int]:
+        """The rank's CURRENT serving pid: the supervisor's live child,
+        or the adopted endpoint registration."""
+        entry = self._entries.get(rank)
+        if entry is not None and entry.supervisor is not None:
+            child = entry.supervisor.child
+            if child is not None and child.poll() is None:
+                return child.pid
+        doc = read_endpoint(self.log_dir, rank)
+        if doc is not None and pid_alive(doc.get("pid")):
+            return int(doc["pid"])
+        return None
+
+    def kill(self, rank: int, sig: int = signal.SIGKILL) -> Optional[int]:
+        """Send ``sig`` to the rank's current process (the chaos arm's
+        hook). Returns the pid signalled, or None when nothing is
+        alive. A SIGKILL here is exactly the fault the supervisor
+        exists to absorb: bounded-backoff restart, the kernel libraries
+        loaded from ``build/``, router reroute in the meantime."""
+        pid = self.child_pid(rank)
+        if pid is None:
+            return None
+        try:
+            os.kill(pid, sig)
+        except OSError:
+            return None
+        return pid
+
+    def stop(self, timeout_s: float = 60.0) -> dict:
+        """Graceful fleet shutdown: tell every supervisor the stop is
+        REQUESTED (so a terminating child ends the chain instead of
+        triggering a restart), SIGTERM the replicas (they drain +
+        finalize + exit 0), and join the supervisor threads —
+        escalating to SIGKILL past the timeout. Idempotent; returns
+        :meth:`status`."""
+        if self._stopped:
+            return self.status()
+        self._stopped = True
+        for entry in self._entries.values():
+            if entry.supervisor is not None:
+                entry.supervisor.request_stop()
+        for rank, entry in self._entries.items():
+            pid = self.child_pid(rank)
+            if pid is not None:
+                try:
+                    os.kill(pid, signal.SIGTERM)
+                except OSError:
+                    pass
+        deadline = time.monotonic() + float(timeout_s)
+        for entry in self._entries.values():
+            if entry.thread is None:
+                continue
+            entry.thread.join(max(deadline - time.monotonic(), 0.1))
+            if entry.thread.is_alive():
+                pid = self.child_pid(entry.rank)
+                if pid is not None:
+                    try:
+                        os.kill(pid, signal.SIGKILL)
+                    except OSError:
+                        pass
+                entry.thread.join(10.0)
+        return self.status()
+
+    def __enter__(self) -> "ReplicaPool":
+        return self if self._started else self.start()
+
+    def __exit__(self, exc_type, exc, tb):
+        self.stop()
+        return False
+
+    # -------------------------------------------------------------- reading
+
+    def status(self) -> dict:
+        """Pool view from the supervisors + endpoint registry: per-rank
+        chain attempts/restarts, live pid, and the newest startup
+        report (the restart's proof reads
+        ``startup.compiled_from_scratch`` of the restarted rank)."""
+        ranks = {}
+        for rank in range(self.replicas):
+            entry = self._entries.get(rank)
+            doc = read_endpoint(self.log_dir, rank) or {}
+            view = {
+                "adopted": bool(entry.adopted) if entry else False,
+                "pid": doc.get("pid"),
+                "alive": pid_alive(doc.get("pid")),
+                "endpoint": (
+                    {"host": doc.get("host"), "port": doc.get("port")}
+                    if doc else None
+                ),
+                "startup": doc.get("startup"),
+                "platform": doc.get("platform"),
+            }
+            if entry is not None and entry.supervisor is not None:
+                attempts = entry.supervisor.attempts
+                view["attempts"] = len(attempts)
+                view["restarts"] = max(len(attempts) - 1, 0)
+                view["restart_reasons"] = [
+                    a.get("restart_reason") for a in attempts
+                    if a.get("restart_reason")
+                ]
+                view["exit_code"] = entry.exit_code
+            ranks[str(rank)] = view
+        return {
+            "schema": FLEET_POOL_SCHEMA,
+            "log_dir": self.log_dir,
+            "replicas": self.replicas,
+            "restarts": sum(
+                v.get("restarts", 0) for v in ranks.values()
+            ),
+            "ranks": ranks,
+        }

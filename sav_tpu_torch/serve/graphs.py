@@ -8,9 +8,11 @@ hundred from Python.
 
 - **Static buffers.** Each bucket owns a uint8 ``[bucket, S, S, 3]`` image
   buffer and an f32 ``[bucket]`` validity buffer, which a replay reads, and
-  the f32 logits its graph writes. A batch is copied into the buffers
-  (device to device) before its replay; the logits are overwritten by the
-  next replay of the same bucket.
+  the outputs its graph writes: the engine's program returns the f32 logits
+  and their digests (``top1``, ``margin``, ``entropy``), all four captured in
+  the one graph. A batch is copied into the buffers (device to device)
+  before its replay; the outputs are overwritten by the next replay of the
+  same bucket.
 - **Warm-up before capture.** Every bucket runs eagerly
   :data:`WARMUP_RUNS` times on a side stream first: that builds and loads
   the kernel libraries (:mod:`sav_tpu_torch.ops._build` loads at first
@@ -64,7 +66,7 @@ class BucketGraphs:
 
     def __init__(
         self,
-        infer: Callable[[torch.Tensor, torch.Tensor], torch.Tensor],
+        infer: Callable[[torch.Tensor, torch.Tensor], object],
         buckets,
         image_size: int,
         device: torch.device,
@@ -112,11 +114,12 @@ class BucketGraphs:
         torch.cuda.synchronize(device)
         self.capture_s = time.perf_counter() - t0
 
-    def replay(self, bucket: int, images: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
+    def replay(self, bucket: int, images: torch.Tensor, valid: torch.Tensor):
         """Copy ``images`` and ``valid`` (device tensors of the bucket's
         shapes) into the bucket's static buffers and replay its graph, all
-        on the current stream. Returns the static logits, which the next
-        replay of this bucket overwrites."""
+        on the current stream. Returns the static outputs (what ``infer``
+        returned at the capture: the engine's logits and digests), which the
+        next replay of this bucket overwrites."""
         static_images, static_valid = self._static[bucket]
         static_images.copy_(images)
         static_valid.copy_(valid)

@@ -1,0 +1,396 @@
+"""Serve fleet CLI — run N supervised engine replicas behind the router.
+
+Port of ``sav_tpu``'s ``tools/serve_fleet.py``; run it as
+``python -m sav_tpu_torch.serve.serve_fleet``. Two faces:
+
+**Pool mode** (the operator entry point)::
+
+  python -m sav_tpu_torch.serve.serve_fleet --replicas 2 --model deit_s_patch16 \\
+      --max-batch 32 --log-dir runs/fleet
+
+spawns N replica processes (each under a
+:class:`~sav_tpu_torch.train.supervisor.Supervisor` in serve mode: a SIGKILL
+means a restart after a bounded backoff, which captures its buckets again
+and loads the kernel libraries ``build/`` holds), waits for every endpoint
+to register and answer a ping, prints one JSON status line (endpoints,
+per-replica startup reports), then serves until SIGINT/SIGTERM or
+``--duration`` expires — ending with a graceful drain (replicas finish what
+they accepted, then exit). Load goes through the router:
+``python -m sav_tpu_torch.serve.bench --replicas N`` drives it end to end.
+The pool's parent imports no torch: the replicas own the card.
+
+**Replica mode** (internal; the pool spawns it)::
+
+  python -m sav_tpu_torch.serve.serve_fleet --replica-rank 0 --log-dir ... <model args>
+
+builds one :class:`~sav_tpu_torch.serve.engine.ServeEngine` (every bucket
+captured, telemetry and ``kind=serve`` heartbeats into the SHARED log dir —
+fleet identity from the ``SAV_FLEET_PROC`` override the pool sets), serves
+a one-request-per-connection TCP protocol on an ephemeral localhost port,
+and registers ``fleet/replica_<rank>.json``. ``--device cuda`` (the
+default) needs a card and fails without one; it never serves on the CPU.
+SIGTERM = graceful leave: close the listener (no new requests), drain
+accepted work, finalize the manifest, exit 0 — so a *requested* stop never
+books as a crash, while a SIGKILL leaves a stale endpoint and silent
+heartbeats, which is what the router's dead-replica suspicion and the
+supervisor's restart exist to absorb.
+
+Chaos seams (env, set per rank by the pool's ``env_fn``):
+``SAV_CHAOS_SERVE_DELAY_S`` sleeps that long in the engine's execute hook —
+the batch occupies the device loop, so the replica is *honestly slower*,
+the shape the straggler attribution must flag; ``SAV_CHAOS_NOISE_WEIGHTS``
+perturbs the replica's float weights at load (the engine's seam).
+
+Flags of ``sav_tpu``'s tool that the port does not carry are accepted by
+the parser (one flag vocabulary across the serving tools) and refused when
+set, with the ROADMAP item that would carry them.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import signal
+import sys
+import threading
+import time
+from typing import Optional
+
+#: Reply grace beyond the request deadline before the server gives up on a
+#: future and sheds honestly (the engine may complete a request slightly
+#: past its deadline — one bucket step).
+RESULT_GRACE_S = 5.0
+
+#: The replica server's listen backlog (``listen(2)``): above any router's
+#: worker count (the bench's ``--fleet-workers``).
+LISTEN_BACKLOG = 1024
+
+#: sav_tpu's flags the port refuses, with the ROADMAP item that would carry
+#: each.
+NOT_CARRIED = {
+    "layout_preset": "queue A9 (parallelism)",
+    "compilation_cache_dir": "queue A10 (infra; a captured CUDA graph cannot be cached on disk)",
+    "attn_tune_cache": "queue B follow-up 4 (auto's crossovers, measured on the card)",
+}
+
+
+def add_model_args(parser: argparse.ArgumentParser) -> None:
+    """The model/engine argument set shared by pool mode, replica mode and
+    ``python -m sav_tpu_torch.serve.bench --replicas`` (one flag vocabulary
+    across the serving tools, ``sav_tpu``'s plus ``--device``)."""
+    parser.add_argument("--model", default="deit_s_patch16")
+    parser.add_argument("--num-classes", type=int, default=1000)
+    parser.add_argument("--image-size", type=int, default=224)
+    parser.add_argument("--backend", default="auto", choices=["auto", "xla", "fused", "pallas"])
+    parser.add_argument("--model-overrides", default=None, metavar="JSON")
+    parser.add_argument("--buckets", default=None)
+    parser.add_argument("--max-batch", type=int, default=8)
+    parser.add_argument("--max-queue", type=int, default=256)
+    parser.add_argument("--deadline-ms", type=float, default=100.0)
+    parser.add_argument("--checkpoint", default=None)
+    parser.add_argument("--layout-preset", default=None, help="not ported: " + NOT_CARRIED["layout_preset"])
+    parser.add_argument("--compilation-cache-dir", default=None,
+                        help="not ported: " + NOT_CARRIED["compilation_cache_dir"])
+    parser.add_argument("--attn-tune-cache", default=None,
+                        help="not ported: " + NOT_CARRIED["attn_tune_cache"])
+    parser.add_argument("--heartbeat-secs", type=float, default=1.0)
+    parser.add_argument("--slo-target", type=float, default=0.99)
+    # Golden-probe cadence: every N seconds an IDLE replica fingerprints the
+    # probe batch; 0 (the default) disables the probe thread.
+    parser.add_argument("--probe-every", type=float, default=0.0)
+    parser.add_argument("--seed", type=int, default=0, help="weights of a fresh init")
+    parser.add_argument("--device", default="cuda", help="'cuda' (default) or 'cpu'")
+
+
+def not_carried(args) -> Optional[str]:
+    """The refusal of the first flag set that the port does not carry,
+    naming its ROADMAP item; None when there is none."""
+    for name, item in NOT_CARRIED.items():
+        if getattr(args, name, None):
+            return f"--{name.replace('_', '-')} is not ported yet: ROADMAP {item}"
+    return None
+
+
+def replica_argv(args, rank: int, log_dir: str) -> list:
+    """The replica child command for one rank (the pool's
+    ``child_argv_fn``): this module in replica mode, carrying the shared
+    model/engine flags plus the per-rank manifest path the supervisor
+    preserves across restarts."""
+    argv = [
+        sys.executable, "-m", "sav_tpu_torch.serve.serve_fleet",
+        "--replica-rank", str(rank),
+        "--log-dir", log_dir,
+        "--model", args.model,
+        "--num-classes", str(args.num_classes),
+        "--image-size", str(args.image_size),
+        "--backend", args.backend,
+        "--max-batch", str(args.max_batch),
+        "--max-queue", str(args.max_queue),
+        "--deadline-ms", str(args.deadline_ms),
+        "--heartbeat-secs", str(args.heartbeat_secs),
+        "--slo-target", str(args.slo_target),
+        "--probe-every", str(args.probe_every),
+        "--seed", str(args.seed),
+        "--device", args.device,
+        "--manifest", os.path.join(log_dir, f"manifest-serve-r{rank}.json"),
+    ]
+    for flag, value in (
+        ("--model-overrides", args.model_overrides),
+        ("--buckets", args.buckets),
+        ("--checkpoint", args.checkpoint),
+        ("--layout-preset", args.layout_preset),
+        ("--compilation-cache-dir", args.compilation_cache_dir),
+        ("--attn-tune-cache", args.attn_tune_cache),
+    ):
+        if value:
+            argv += [flag, str(value)]
+    return argv
+
+
+def build_pool(args, log_dir: str, *, env_fn=None):
+    """A ReplicaPool over this module's replica mode (shared with the
+    bench's ``--replicas``)."""
+    from sav_tpu_torch.serve.fleet import ReplicaPool
+
+    # The replicas import this package from the checkout it runs from,
+    # wherever the parent's working directory is.
+    root = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+    path = os.environ.get("PYTHONPATH")
+
+    def child_env(rank: int) -> dict:
+        env = {"PYTHONPATH": root + (os.pathsep + path if path else "")}
+        env.update((env_fn(rank) if env_fn is not None else None) or {})
+        return env
+
+    return ReplicaPool(
+        replicas=args.replicas,
+        child_argv_fn=lambda rank: replica_argv(args, rank, log_dir),
+        log_dir=log_dir,
+        env_fn=child_env,
+        max_restarts=args.max_restarts,
+        backoff_base_s=args.restart_backoff,
+        capture=True,
+    )
+
+
+# ------------------------------------------------------------ replica mode
+
+
+def run_replica(args) -> int:
+    """One replica: engine + TCP server + endpoint registration. The heavy
+    imports happen HERE (the pool's parent stays stdlib-only)."""
+    import socketserver
+
+    import numpy as np
+
+    from sav_tpu_torch.obs.manifest import RunManifest, classify_exception
+    from sav_tpu_torch.serve.batcher import QueueFullError, ServeClosedError
+    from sav_tpu_torch.serve.engine import ServeConfig, ServeEngine
+    from sav_tpu_torch.serve.fleet import write_endpoint
+
+    rank = args.replica_rank
+    log_dir = args.log_dir
+    buckets = [int(b) for b in args.buckets.split(",") if b.strip()] if args.buckets else None
+    manifest = RunManifest(args.manifest, kind="serve", argv=sys.argv[1:])
+    manifest.begin()
+    # Chaos seam: an injected per-batch delay occupies the device loop
+    # (books as device time) — the replica is honestly slower, the shape
+    # the router's straggler attribution must flag.
+    delay_s = float(os.environ.get("SAV_CHAOS_SERVE_DELAY_S", 0) or 0)
+    execute_hook = (lambda formed: time.sleep(delay_s)) if delay_s > 0 else None
+    try:
+        config = ServeConfig(
+            model_name=args.model,
+            num_classes=args.num_classes,
+            image_size=args.image_size,
+            attention_backend=None if args.backend == "auto" else args.backend,
+            model_overrides=json.loads(args.model_overrides) if args.model_overrides else None,
+            buckets=buckets,
+            max_batch=args.max_batch,
+            max_queue=args.max_queue,
+            deadline_ms=args.deadline_ms,
+            checkpoint_dir=args.checkpoint,
+            log_dir=log_dir,
+            heartbeat_secs=args.heartbeat_secs,
+            slo_target=args.slo_target,
+            probe_every_s=args.probe_every,
+            seed=args.seed,
+            device=args.device,
+        )
+        engine = ServeEngine(config, manifest=manifest, execute_hook=execute_hook)
+    except BaseException as e:
+        manifest.finalize(classify_exception(e), error=repr(e), exit_code=1)
+        raise
+    platform = "gpu" if engine.device.type == "cuda" else "cpu"
+    s = args.image_size
+    nbytes_expected = s * s * 3
+    stop_event = threading.Event()
+
+    class _Handler(socketserver.StreamRequestHandler):
+        def handle(self):
+            try:
+                header = json.loads(self.rfile.readline())
+            except (OSError, json.JSONDecodeError, UnicodeDecodeError):
+                return
+            op = header.get("op")
+            if op == "ping":
+                self._reply({"ok": True, "pong": True, "rank": rank, "pid": os.getpid(),
+                             "platform": platform, "startup": engine.startup_report})
+                return
+            if op != "infer":
+                self._reply({"ok": False, "error": f"unknown op {op!r}"})
+                return
+            nbytes = int(header.get("nbytes", 0))
+            if nbytes != nbytes_expected:
+                self._reply({"ok": False, "error": f"expected {nbytes_expected} payload bytes "
+                                                   f"([{s}, {s}, 3] uint8), got {nbytes}"})
+                return
+            payload = self.rfile.read(nbytes)
+            if len(payload) != nbytes:
+                return  # torn request: the client is gone
+            image = np.frombuffer(payload, np.uint8).reshape(s, s, 3)
+            deadline_ms = header.get("deadline_ms")
+            # The router's trace id rides the header; the engine's
+            # begin_trace ADOPTS it so this replica's spans join the
+            # fleet-wide trace by id.
+            trace_id = header.get("trace")
+            try:
+                future = engine.submit(image, deadline_ms=deadline_ms, trace_id=trace_id)
+                deadline_s = (float(deadline_ms) / 1e3 if deadline_ms is not None
+                              else config.deadline_ms / 1e3)
+                logits = future.result(timeout=deadline_s + RESULT_GRACE_S)
+            except (QueueFullError, ServeClosedError, TimeoutError) as e:
+                # Admission shed (queue full, deadline infeasible), closing
+                # mid-request or a blown grace window: an honest shed the
+                # router retries or passes on.
+                self._reply({"ok": False, "shed": True, "error": str(e)[:300]})
+                return
+            except Exception as e:  # noqa: BLE001 — app error, reply honestly
+                self._reply({"ok": False, "error": repr(e)[:300]})
+                return
+            reply = {"ok": True, "pred": int(np.argmax(logits)), "rank": rank}
+            if header.get("want_logits"):
+                # The router's sampled exchanges ask for the full logit row
+                # so the shadow scorer can judge drift, not just top-1;
+                # float32 -> JSON float round-trips exactly.
+                reply["logits"] = [float(x) for x in logits]
+            self._reply(reply)
+
+        def _reply(self, doc: dict) -> None:
+            try:
+                self.wfile.write(json.dumps(doc).encode("utf-8") + b"\n")
+            except OSError:
+                pass  # client gone; its router already rerouted
+
+    class _Server(socketserver.ThreadingTCPServer):
+        allow_reuse_address = True
+        daemon_threads = False  # in-flight replies finish on shutdown
+        # The listen backlog: a router holds up to its worker count of
+        # connections open at a replica; socketserver's default of 5 drops
+        # the rest of a burst's SYNs, and their connects time out (the
+        # router then marks a healthy replica down).
+        request_queue_size = LISTEN_BACKLOG
+
+    server = _Server(("127.0.0.1", args.port), _Handler)
+    port = server.server_address[1]
+    signal.signal(signal.SIGTERM, lambda signum, frame: stop_event.set())
+    signal.signal(signal.SIGINT, lambda signum, frame: stop_event.set())
+    engine.start()
+    server_thread = threading.Thread(target=server.serve_forever, name="replica-server",
+                                     daemon=True)
+    server_thread.start()
+    write_endpoint(log_dir, rank, host="127.0.0.1", port=port, pid=os.getpid(),
+                   startup=engine.startup_report, platform=platform)
+    print(f"replica {rank}: serving {args.model} on 127.0.0.1:{port} (pid {os.getpid()}, "
+          f"{platform}, compiled_from_scratch={engine.startup_report.get('compiled_from_scratch')})",
+          flush=True)
+    stop_event.wait()
+    # Graceful leave: stop admitting (listener first), drain what was
+    # accepted, then finalize — a requested stop is outcome ok.
+    server.shutdown()
+    server.server_close()
+    engine.drain(timeout_s=30.0)
+    engine.stop()
+    print(f"replica {rank}: stopped (graceful)", flush=True)
+    return 0
+
+
+# --------------------------------------------------------------- pool mode
+
+
+def run_pool(args) -> int:
+    from sav_tpu_torch.serve.fleet import TcpTransport
+
+    log_dir = args.log_dir or os.path.join("runs", "serve_fleet")
+    os.makedirs(log_dir, exist_ok=True)
+    pool = build_pool(args, log_dir)
+    transport = TcpTransport(log_dir)
+    stop_event = threading.Event()
+    signal.signal(signal.SIGTERM, lambda s, f: stop_event.set())
+    signal.signal(signal.SIGINT, lambda s, f: stop_event.set())
+    with pool:
+        try:
+            ready = pool.wait_ready(args.startup_timeout, transport=transport)
+        except (TimeoutError, RuntimeError) as e:
+            print(f"serve_fleet: {e}", file=sys.stderr)
+            return 1
+        print(json.dumps({
+            "fleet": "ready",
+            "log_dir": log_dir,
+            "replicas": {
+                str(rank): {
+                    "endpoint": f"{doc.get('host')}:{doc.get('port')}",
+                    "pid": doc.get("pid"),
+                    "platform": doc.get("platform"),
+                    "compiled_from_scratch": (doc.get("startup") or {}).get("compiled_from_scratch"),
+                }
+                for rank, doc in sorted(ready.items())
+            },
+        }), flush=True)
+        if args.duration > 0:
+            stop_event.wait(args.duration)
+        else:
+            stop_event.wait()
+    status = pool.status()
+    print(json.dumps({"fleet": "stopped", "restarts": status["restarts"]}))
+    return 0
+
+
+def main(argv=None) -> int:
+    parser = argparse.ArgumentParser(description=__doc__,
+                                     formatter_class=argparse.RawDescriptionHelpFormatter)
+    add_model_args(parser)
+    parser.add_argument("--replicas", type=int, default=2, help="fleet size (pool mode)")
+    parser.add_argument("--log-dir", default=None,
+                        help="shared fleet artifact sink (heartbeats, endpoints, manifests; "
+                             "default runs/serve_fleet)")
+    parser.add_argument("--duration", type=float, default=0.0,
+                        help="pool mode: serve this many seconds then stop gracefully "
+                             "(0 = until SIGINT/SIGTERM)")
+    parser.add_argument("--startup-timeout", type=float, default=600.0,
+                        help="seconds to wait for every replica endpoint + ping")
+    parser.add_argument("--max-restarts", type=int, default=4)
+    parser.add_argument("--restart-backoff", type=float, default=0.5,
+                        help="supervisor backoff base (serving wants it short: a dead replica "
+                             "is lost capacity every second)")
+    # Internal: replica mode.
+    parser.add_argument("--replica-rank", type=int, default=None, help=argparse.SUPPRESS)
+    parser.add_argument("--port", type=int, default=0, help=argparse.SUPPRESS)
+    parser.add_argument("--manifest", default=None, help=argparse.SUPPRESS)
+    args = parser.parse_args(argv)
+    refusal = not_carried(args)
+    if refusal:
+        parser.error(refusal)
+    if args.replica_rank is not None:
+        if not args.log_dir:
+            print("serve_fleet: replica mode needs --log-dir", file=sys.stderr)
+            return 2
+        if args.manifest is None:
+            args.manifest = os.path.join(args.log_dir, f"manifest-serve-r{args.replica_rank}.json")
+        return run_replica(args)
+    return run_pool(args)
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -47,7 +47,8 @@ pillars:
 
 The anomaly-profiler seam (``autoprof``) and the quality seam
 (``quality_fn``) are kept with ``sav_tpu``'s behaviour; the port's engine
-passes neither yet (ROADMAP queue A10, and A5.6 (c)).
+passes its quality snapshot (digest drift gates and the probe ledger) and
+no profiler yet (ROADMAP queue A10).
 
 Deliberately **stdlib only** (no torch, no numpy): the offline readers
 work on copied logs on any machine, and keeping torch unimportable here is
@@ -104,8 +105,8 @@ INTERVALS = (
     ("deliver", "depadded", "completed"),
 )
 
-#: The fleet router's span vocabulary, in lifecycle order (kept for the
-#: router, ROADMAP queue A5.8). The router stamps with
+#: The fleet router's span vocabulary, in lifecycle order
+#: (:mod:`sav_tpu_torch.serve.router`). The router stamps with
 #: its OWN monotonic clock — replica stamps live in the replica's clock
 #: domain and only meet these in the offline merge, which estimates
 #: the per-replica offset from the (sent, submit)/(completed, reply)
@@ -761,8 +762,7 @@ class ServeTelemetry:
         self._hbm_fn = hbm_fn
         # Quality snapshot seam: digest drift gates + probe state folded
         # at beat cadence — rides every kind=serve beat under
-        # ``quality`` (readers are forward-compatible). The port's
-        # engine passes none yet (ROADMAP queue A5.6 (c)).
+        # ``quality`` (readers are forward-compatible).
         self._quality_fn = quality_fn
         self._lock = threading.Lock()
         self._rid = itertools.count(1)

@@ -245,11 +245,14 @@ def run(args: argparse.Namespace) -> dict:
         "metric": f"{args.model} train img/s (bs={args.batch_size}, {arm}, {args.backend} "
                   f"attention, {feed} feed, 1 card, {over} of {args.reps}x{args.steps}-step "
                   "windows)",
-        "value": round(args.batch_size / step_s, 1),
+        # Rounded as finely as step_ms (a microsecond): at 0.1 images/s a
+        # slow CPU step (~100 ms) would move value by more than 1e-3 of itself
+        # away from batch / step_ms.
+        "value": round(args.batch_size / step_s, 3),
         "unit": "img/s",
         "quant": args.quant,
         "feed": args.feed,
-        "median_img_per_sec": round(args.batch_size / statistics.median(windows), 1),
+        "median_img_per_sec": round(args.batch_size / statistics.median(windows), 3),
         "step_ms": round(step_s * 1e3, 3),
         "window_step_ms": [round(w * 1e3, 3) for w in windows],
         "host_feed_img_per_sec": None if host_rate is None else round(host_rate, 1),
@@ -257,7 +260,9 @@ def run(args: argparse.Namespace) -> dict:
         "device_timing_replays": 0 if device_ms is None else DEVICE_TIMING_ITERS + 1,
         "device_idle_share": (None if device_ms is None
                               else round(1.0 - device_ms / (step_s * 1e3), 4)),
-        "mfu": round(cost.flops / step_s / peak, 4) if peak else None,
+        # Four significant figures, not four decimals: a toy step on a
+        # loaded CPU against the fake peak is below 5e-5 and would read 0.
+        "mfu": float(f"{cost.flops / step_s / peak:.4g}") if peak else None,
         "step_flops": cost.flops,
         "cost_source": cost.source,
         "flops_attribution": {k: round(v, 4) for k, v in cost.attribution.items()},

@@ -449,8 +449,8 @@ class Supervisor:
       on_spawn: callback ``(attempt, popen)`` — the chaos harness's kill
         hook.
       env: extra child environment (merged over ``os.environ``).
-      serve: serve-mode chain (``sav_tpu``'s replica fleet; the port's is
-        ROADMAP queue A5.8): a serving child never exits 0 on its
+      serve: serve-mode chain (the replica fleet,
+        :mod:`sav_tpu_torch.serve.fleet`): a serving child never exits 0 on its
         own — it serves until told to stop — so the chain's success
         path is :meth:`request_stop` (the pool calls it, then SIGTERMs
         the child): once a stop is requested, the NEXT child exit ends

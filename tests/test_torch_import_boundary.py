@@ -54,7 +54,9 @@ def test_importing_the_port_loads_no_jax():
                  "sav_tpu_torch.data.records", "sav_tpu_torch.data.tfrecord",
                  "sav_tpu_torch.data.native_loader", "sav_tpu_torch.obs.alerts",
                  "sav_tpu_torch.obs.rollup", "sav_tpu_torch.obs.memory",
-                 "sav_tpu_torch.serve.telemetry"):
+                 "sav_tpu_torch.serve.telemetry", "sav_tpu_torch.serve.quality",
+                 "sav_tpu_torch.serve.router", "sav_tpu_torch.serve.fleet",
+                 "sav_tpu_torch.serve.serve_fleet", "sav_tpu_torch.obs.quality"):
         assert name in report["modules"]
     leaked = {m for m in report["loaded"] if m.split(".")[0] in FORBIDDEN}
     assert not leaked, f"the port pulled in {sorted(leaked)}"

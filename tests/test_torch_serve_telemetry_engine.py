@@ -142,16 +142,16 @@ def test_engine_telemetry_end_to_end_and_against_sav_tpus_engine(tmp_path):
     _serve(jax_engine, JaxQueueFullError)
     jax_engine.stop()
     jax_beats = read_serve_beats(jax_dir)[0]
-    # Beat keys: sav_tpu's carry the quality fields of ROADMAP queue A5.6 (c)
-    # besides, and beats are compared without them.
+    # Beat keys, the quality fields included on both sides.
     keys = set().union(*(b.keys() for b in beats))
-    jax_keys = set().union(*(b.keys() for b in jax_beats)) - {"quality"}
-    assert keys == jax_keys
+    jax_keys = set().union(*(b.keys() for b in jax_beats))
+    assert "quality" in keys and keys == jax_keys
     assert set(telemetry.summary()) == set(jax_engine._telemetry.summary())
     for key in ("requests", "traced", "shed"):
         assert telemetry.summary()[key] == jax_engine._telemetry.summary()[key], key
     jax_doc = _manifest(jax_dir)
-    assert set(doc["notes"]) >= set(jax_doc["notes"]) - {"layout", "quality"}
+    assert "quality" in doc["notes"]
+    assert set(doc["notes"]) >= set(jax_doc["notes"]) - {"layout"}
     assert doc["metrics"]["serve/slo_hit_frac"] == jax_doc["metrics"]["serve/slo_hit_frac"]
     assert doc["notes"]["alerts"]["episodes"] == jax_doc["notes"]["alerts"]["episodes"]
 
